@@ -1,0 +1,506 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (one NVIDIA Hopper GPU).
+
+    python3 chip_smoke.py        # from the root of a checkout
+
+Drives ``torch_automatic_distributed_neural_network_tpu_torch`` on the
+card, in phases, one JSON line each; any failure exits non-zero:
+
+1. environment: the card's name and power limit (``nvidia-smi``), its
+   compute capability (sm_90 required);
+2. build: compiles every CUDA kernel of the serving path from ``csrc/``
+   with ``nvcc`` for sm_90a, all sources at once;
+3. kernel vs plain version: the paged-attention kernel against
+   ``paged_attention_reference`` on the same inputs, at the GPT-2 small,
+   Llama 1b and Llama 8b attention geometries, block sizes 8 and 16,
+   fp32/bf16/int8 pools, with and without a sliding window, fp32 and
+   bf16 queries; bounds 1e-4 (fp32 q) and 2e-2 (bf16 q);
+4. timing at the GPT-2 small decode shape (8 slots at ctx 1023, bf16
+   pool): median of many launches with the L2 cache flushed before
+   each, beside the plain version and the least time the card could
+   take (bytes over the HBM rate, flops over the fp32 rate);
+5. the main path: GPT-2 small at full width and depth (random weights
+   from a seed) serves 16 requests of 256 prompt tokens and 64 new
+   tokens on 8 slots with chunked prefill and the paged kernel; every
+   request must finish, with the kernel's launch count read around this
+   run alone; then a teacher-forced check (one decode step, paged vs
+   dense, on one pool state: logits within 1e-3), a dense run whose
+   greedy tokens must all agree, and where a decode step's time goes
+   (host-clock step time beside device time by kernel from
+   ``torch.profiler``);
+6. a short int8 / GQA serve: Llama 1b width at 2 layers, int8 KV, 4
+   requests, with its own launch count, teacher-forced check and dense
+   agreement.
+
+Then, on lines of their own: the per-kernel JSON record, the
+``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
+result when no CUDA device is visible or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
+PAGED_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
+                "csrc/paged_attention.cu")
+PAGED_REPLACES = ("torch_automatic_distributed_neural_network_tpu/ops/"
+                  "paged_attention.py:72")
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# -- phase 1 ----------------------------------------------------------------
+
+
+def phase_environment(torch) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    cap = torch.cuda.get_device_capability(0)
+    emit({"phase": "environment", "nvidia_smi": card,
+          "device": torch.cuda.get_device_name(0),
+          "capability": f"sm_{cap[0]}{cap[1]}",
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+    require(cap == (9, 0), f"needs an sm_90 card, found sm_{cap[0]}{cap[1]}")
+    return card
+
+
+# -- phase 2 ----------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import build
+
+    t0 = time.monotonic()
+    logs = build.build(["paged_attention"], ptxas_verbose=True)
+    seconds = time.monotonic() - t0
+    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "kernels": sorted(logs), "seconds": seconds,
+          "ptxas": ptxas[:12]})
+
+
+# -- phases 3 and 4 ---------------------------------------------------------
+
+
+def _pool_case(torch, *, S, Hq, kvH, hd, bs, ctx_lens, pool_dtype, q_dtype,
+               null_slot, seed):
+    """Random pool and block tables with the engine's layout: block 0 is
+    the null block, slot s owns ctx_s // bs + 1 blocks, rows null-padded;
+    ``null_slot`` gets an all-null table (an inactive slot)."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference.quant \
+        import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    max_len = 1024
+    MB = max_len // bs
+    n_owned = [c // bs + 1 for c in ctx_lens]
+    NB = 1 + sum(n_owned)
+    dev = "cuda"
+    k = torch.randn(NB, bs, kvH, hd, generator=g, device=dev)
+    v = torch.randn(NB, bs, kvH, hd, generator=g, device=dev)
+    if pool_dtype == torch.int8:
+        k, v = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(pool_dtype), v.to(pool_dtype)
+    tables = torch.zeros(S, MB, dtype=torch.int32)
+    nxt = 1
+    for s, n in enumerate(n_owned):
+        if s == null_slot:
+            continue
+        tables[s, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+    q = torch.randn(S, Hq, hd, generator=g, device=dev).to(q_dtype)
+    ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=dev)
+    return q, k, v, tables.to(dev), ctx
+
+
+def phase_kernel_cases(torch) -> dict:
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention, paged_attention_reference
+
+    geoms = {"gpt2-small": (12, 12, 64), "llama-1b": (32, 8, 64),
+             "llama-8b": (32, 8, 128)}
+    ctx_lens = [0, 1, 17, 100, 255, 511, 777, 1023]
+    bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst = {}
+    n = 0
+    for gname, (Hq, kvH, hd) in geoms.items():
+        for bs in (8, 16):
+            for pool_dtype in (torch.float32, torch.bfloat16, torch.int8):
+                for window in (None, 256):
+                    for q_dtype in (torch.float32, torch.bfloat16):
+                        n += 1
+                        q, k, v, tables, ctx = _pool_case(
+                            torch, S=8, Hq=Hq, kvH=kvH, hd=hd, bs=bs,
+                            ctx_lens=ctx_lens, pool_dtype=pool_dtype,
+                            q_dtype=q_dtype, null_slot=0, seed=n)
+                        got = paged_attention(q, k, v, tables, ctx,
+                                              window=window)
+                        want = paged_attention_reference(
+                            q, k, v, tables, ctx, window=window)
+                        torch.cuda.synchronize()
+                        finite = bool(torch.isfinite(got).all())
+                        err = float((got.float() - want.float()).abs().max())
+                        bound = bounds[q_dtype]
+                        emit({"phase": "kernel_case", "kernel":
+                              "paged_attention", "geometry": gname,
+                              "block_size": bs,
+                              "pool": str(pool_dtype).replace("torch.", ""),
+                              "window": window,
+                              "q": str(q_dtype).replace("torch.", ""),
+                              "max_abs_err": err, "bound": bound,
+                              "finite": finite})
+                        require(finite, f"non-finite kernel output in case "
+                                        f"{n}")
+                        require(err <= bound,
+                                f"paged_attention case {n} ({gname} bs={bs}"
+                                f" {pool_dtype} w={window} {q_dtype}): "
+                                f"max_abs_err {err} > {bound}")
+                        key = str(q_dtype)
+                        worst[key] = max(worst.get(key, 0.0), err)
+    emit({"phase": "kernel_cases", "kernel": "paged_attention", "cases": n,
+          "worst_abs_err": worst})
+    return worst
+
+
+def _time_ms(torch, fn, n: int, flush) -> float:
+    """Median device time of ``fn`` over ``n`` launches, the L2 cache
+    flushed before each (the decode step finds each layer's pages cold:
+    the other layers' pages pass through L2 in between)."""
+    fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for i in range(n):
+        flush.zero_()
+        starts[i].record()
+        fn()
+        ends[i].record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def phase_timing(torch) -> dict:
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention, paged_attention_reference
+
+    S, Hq, kvH, hd, bs = 8, 12, 12, 64, 16
+    ctx_lens = [1023] * S
+    q, k, v, tables, ctx = _pool_case(
+        torch, S=S, Hq=Hq, kvH=kvH, hd=hd, bs=bs, ctx_lens=ctx_lens,
+        pool_dtype=torch.bfloat16, q_dtype=torch.float32, null_slot=-1,
+        seed=1234)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    err = float((paged_attention(q, k, v, tables, ctx)
+                 - paged_attention_reference(q, k, v, tables, ctx))
+                .abs().max())
+    ms = _time_ms(torch, lambda: paged_attention(q, k, v, tables, ctx),
+                  100, flush)
+    plain_ms = _time_ms(
+        torch, lambda: paged_attention_reference(q, k, v, tables, ctx),
+        50, flush)
+    keys = sum(c + 1 for c in ctx_lens)
+    kv_bytes = keys * kvH * hd * 2 * k.element_size()
+    io_bytes = (2 * q.numel() * q.element_size() + tables.numel() * 4
+                + ctx.numel() * 4)
+    flops = 4 * keys * Hq * hd
+    bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    rec = {"ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "max_abs_err": err}
+    emit({"phase": "timing", "kernel": "paged_attention",
+          "shape": {"slots": S, "ctx": 1023, "Hq": Hq, "kvH": kvH, "hd": hd,
+                    "block_size": bs, "pool": "bfloat16", "q": "float32"},
+          "bytes": kv_bytes + io_bytes, "flops": flops,
+          "kv_floor_ms": kv_bytes / HBM_BYTES_PER_S * 1e3, **rec,
+          "roofline_share": rec["bound_ms"] / ms})
+    require(err <= 1e-4, f"timing-shape kernel error {err} > 1e-4")
+    return rec
+
+
+# -- phases 5 and 6 ---------------------------------------------------------
+
+
+def _serve(torch, model, prompts, *, max_new, impl, journal, **kw):
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+
+    eng = ServeEngine(model, attention_impl=impl, journal=journal,
+                      device="cuda", **kw)
+    reqs = [eng.submit(p, max_new_tokens=max_new, eos_id=None)
+            for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    return eng, reqs, done, wall
+
+
+def _teacher_forced(torch, model, prompts, **kw) -> float:
+    """One identical pool state: admit and prefill every slot, then run
+    one decode step with the paged kernel and, on the restored pool, one
+    with the dense path; returns the max abs logit difference."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve.engine import _decode_logits
+
+    eng = ServeEngine(model, prefill_chunks_per_step=len(prompts),
+                      device="cuda", **kw)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=8, eos_id=None)
+    while eng.scheduler.n_decoding < len(prompts):
+        eng.step()
+    tables, ctx, tok, _ = eng._decode_inputs()
+    leaves = list(eng.pool._leaves())
+    saved = [t.clone() for t in leaves]
+    paged = _decode_logits(model, eng.pool, tables, ctx, tok,
+                           attention_impl="paged")
+    for t, s in zip(leaves, saved):
+        t.copy_(s)
+    dense = _decode_logits(model, eng.pool, tables, ctx, tok,
+                           attention_impl="dense")
+    torch.cuda.synchronize()
+    return float((paged - dense).abs().max())
+
+
+def _agreement(a, b) -> float:
+    same = total = 0
+    for x, y in zip(a, b):
+        total += max(len(x), len(y))
+        same += sum(int(i == j) for i, j in zip(x, y))
+    return same / max(total, 1)
+
+
+def _pct(vals, q):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, max(0, math.ceil(q * len(vals)) - 1))]
+
+
+def phase_serve(torch, *, name, model, n_requests, prompt_len, max_new,
+                n_slots, max_len, block_size, quant_kv, seed) -> int:
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    rs = np.random.RandomState(seed)
+    vocab = model.cfg.vocab_size
+    prompts = [[int(t) for t in rs.randint(1, vocab, size=(prompt_len,))]
+               for _ in range(n_requests)]
+    kw = dict(n_slots=n_slots, max_len=max_len, block_size=block_size,
+              quant_kv=quant_kv, prefill_chunk=32)
+    # warm-up: first-call costs (library loads, allocator) stay out
+    _serve(torch, model, prompts[:1], max_new=2, impl="paged", journal=None,
+           **kw)
+
+    jnl = Journal(None, host0_only=False, meta={"tool": "chip_smoke"})
+    paged_attention.launches = 0
+    eng, reqs, done, wall = _serve(torch, model, prompts, max_new=max_new,
+                                   impl="paged", journal=jnl, **kw)
+    launches = paged_attention.launches
+    require(len(done) == n_requests and all(
+        r.n_generated == max_new for r in reqs),
+        f"{name}: {len(done)}/{n_requests} requests finished")
+    require(launches > 0, f"{name}: the paged kernel never launched")
+    steps = [r for r in jnl.records if r.get("name") == "serve.step"]
+    decode_ms = [1e3 * r["decode_s"] for r in steps if r["decode_s"] > 0]
+    totals = [(r.t_done or 0.0) - r.t_submit for r in done]
+    ttfts = [r.t_first_token - r.t_submit for r in done]
+    new_tokens = sum(r.n_generated for r in done)
+    vocab_ok = all(0 <= t < vocab for r in reqs for t in r.out_tokens)
+    require(vocab_ok, f"{name}: token id out of range")
+
+    _, dense_reqs, _, _ = _serve(torch, model, prompts, max_new=max_new,
+                                 impl="dense", journal=None, **kw)
+    agree = _agreement([r.out_tokens for r in reqs],
+                       [r.out_tokens for r in dense_reqs])
+    tf_err = _teacher_forced(torch, model, prompts[:n_slots], **kw)
+    emit({"phase": "serve", "name": name,
+          "model": {"layers": model.cfg.n_layers,
+                    "d_model": model.cfg.d_model,
+                    "heads": model.cfg.n_heads,
+                    "kv_heads": model.cfg.kv_heads, "vocab": vocab,
+                    "max_len": max_len},
+          "requests": n_requests, "finished": len(done),
+          "prompt_len": prompt_len, "max_new": max_new, "slots": n_slots,
+          "block_size": block_size, "quant_kv": quant_kv,
+          "attention_impl": "paged", "prefill_chunk": eng.prefill_chunk,
+          "new_tokens": new_tokens, "wall_s": wall,
+          "tokens_per_s": new_tokens / wall,
+          "p50_latency_s": _pct(totals, 0.50),
+          "p99_latency_s": _pct(totals, 0.99),
+          "ttft_p50_s": _pct(ttfts, 0.50), "ttft_p99_s": _pct(ttfts, 0.99),
+          "decode_steps": len(decode_ms),
+          "mean_decode_step_ms": statistics.fmean(decode_ms),
+          "paged_kernel_launches": launches,
+          "launches_per_decode_step": launches / max(len(decode_ms), 1),
+          "greedy_agreement_vs_dense": agree,
+          "teacher_forced_max_abs_logit_diff": tf_err})
+    require(tf_err <= 1e-3,
+            f"{name}: paged vs dense logits differ by {tf_err} > 1e-3")
+    # the teacher-forced check sees one step at the prompt's length; this
+    # one sees every decode step up to prompt + max_new.  Fixed seeds and
+    # logit gaps ~1e-6 between the two paths leave no room for a tie, so
+    # any diverging token is a fault
+    require(agree == 1.0,
+            f"{name}: greedy tokens agree with the dense path on only "
+            f"{agree:.4f} of positions")
+    return launches
+
+
+def phase_profile(torch, *, name, model, n_slots, prompt_len, max_len,
+                  block_size, seed, steps=16) -> None:
+    """Where a decode step's time goes: the host-clock step time of
+    ``steps`` pure decode steps (every slot decoding, nothing queued),
+    then the same number of steps under ``torch.profiler`` for the device
+    time by kernel.  Device busy share = kernel time per step (the union
+    of kernel intervals) over the unprofiled step time."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+
+    rs = np.random.RandomState(seed)
+    eng = ServeEngine(model, n_slots=n_slots, max_len=max_len,
+                      block_size=block_size, prefill_chunks_per_step=n_slots,
+                      device="cuda")
+    for _ in range(n_slots):
+        eng.submit([int(t) for t in rs.randint(
+            1, model.cfg.vocab_size, size=(prompt_len,))],
+            max_new_tokens=3 * steps, eos_id=None)
+    while eng.scheduler.n_decoding < n_slots:
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    rec = {"phase": "profile", "name": name, "decode_step_ms": step_ms,
+           "steps": steps}
+    if not kernels:
+        emit({**rec, "device_busy_ms_per_step": "not measured"})
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    busy_ms = busy_us / steps / 1e3
+    emit({**rec, "device_busy_ms_per_step": busy_ms,
+          "device_busy_share": busy_ms / step_ms,
+          "kernels_per_step": len(kernels) / steps,
+          "top_kernels": [{"name": k[:80], "ms_per_step": t / steps / 1e3,
+                           "launches_per_step": n / steps}
+                          for k, (t, n) in top]})
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not importable", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 1
+    try:
+        import torch_automatic_distributed_neural_network_tpu_torch  # noqa
+    except ImportError as e:
+        print(f"chip_smoke: run it from the root of a checkout ({e})",
+              file=sys.stderr)
+        return 1
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        gpt2_config, llama_config)
+    from torch_automatic_distributed_neural_network_tpu_torch.models \
+        .transformer_core import DecoderLM
+
+    # fp32 parity checks: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.monotonic()
+
+    card = phase_environment(torch)
+    phase_build()
+    phase_kernel_cases(torch)
+    timing = phase_timing(torch)
+
+    def model_of(cfg, seed):
+        with torch.device("cuda"):
+            m = DecoderLM(cfg)
+        return m.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+
+    gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
+                                dtype=torch.float32), 1)
+    launches = phase_serve(
+        torch, name="gpt2-small", model=gpt2, n_requests=16, prompt_len=256,
+        max_new=64, n_slots=8, max_len=1024, block_size=16, quant_kv=False,
+        seed=0)
+    phase_profile(torch, name="gpt2-small", model=gpt2, n_slots=8,
+                  prompt_len=256, max_len=1024, block_size=16, seed=2)
+    del gpt2
+    llama = model_of(llama_config("1b", n_layers=2, dtype=torch.float32), 2)
+    phase_serve(
+        torch, name="llama-1b-2layer-int8", model=llama, n_requests=4,
+        prompt_len=128, max_new=32, n_slots=4, max_len=512, block_size=16,
+        quant_kv=True, seed=1)
+    del llama
+
+    emit({"kernels": [{
+        "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
+        "replaces": PAGED_REPLACES, "launches": launches,
+        "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"], "library_ms": None}]})
+    emit({"phase": "done", "seconds": time.monotonic() - t_start})
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

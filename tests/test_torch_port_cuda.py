@@ -1,0 +1,134 @@
+"""On-card tests of the PyTorch port's CUDA kernels (marker ``cuda``).
+
+They need an NVIDIA Hopper GPU and ``nvcc``, and skip elsewhere.  They
+import neither jax nor the JAX package, and the repository's
+``conftest.py`` imports jax, so on the card they run without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
+
+The paged-attention kernel is held against its plain version
+(``paged_attention_reference``) on the same inputs, over the sweep of
+``test_torch_port_paged_attention.py``; the engine's paged decode path
+against its dense one, token for token.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_automatic_distributed_neural_network_tpu_torch.inference.quant import (
+    quantize_kv,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode; its "
+                    "plain version is tested on the CPU)")
+    return torch.device("cuda")
+
+
+def _pool(rs, *, S, MB, bs, kvH, hd, NB, ctx_lens, pool_dtype, device):
+    k = torch.from_numpy(rs.randn(NB, bs, kvH, hd).astype(np.float32))
+    v = torch.from_numpy(rs.randn(NB, bs, kvH, hd).astype(np.float32))
+    k, v = k.to(device), v.to(device)
+    if pool_dtype == torch.int8:
+        k, v = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(pool_dtype), v.to(pool_dtype)
+    tables = np.zeros((S, MB), np.int32)
+    nxt = 1
+    for s, ctx in enumerate(ctx_lens):
+        n = ctx // bs + 1
+        tables[s, :n] = np.arange(nxt, nxt + n)
+        nxt += n
+    return (k, v, torch.from_numpy(tables).to(device),
+            torch.tensor(ctx_lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("block_size", [8, 16])
+@pytest.mark.parametrize("pool_dtype",
+                         [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("window", [None, 5])
+def test_kernel_matches_plain_version(cuda, block_size, pool_dtype, window):
+    """GQA 8q/4kv, ragged ctx, a null-table slot; fp32 q: atol 1e-5."""
+    rs = np.random.RandomState(0)
+    S, Hq, kvH, hd = 5, 8, 4, 32
+    ctx_lens = [0, 5, 17, 41, 0]
+    k, v, tables, ctx = _pool(
+        rs, S=S, MB=48 // block_size, bs=block_size, kvH=kvH, hd=hd, NB=32,
+        ctx_lens=ctx_lens, pool_dtype=pool_dtype, device=cuda)
+    tables[4] = 0  # inactive slot: all-null table
+    q = torch.from_numpy(rs.randn(S, Hq, hd).astype(np.float32)).to(cuda)
+    before = paged_attention.launches
+    got = paged_attention(q, k, v, tables, ctx, window=window)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_reference(q, k, v, tables, ctx, window=window)
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_kernel_bf16_query(cuda, hd):
+    """bf16 q (and output) against the plain version: atol 2e-2."""
+    rs = np.random.RandomState(1)
+    S, Hq, kvH, bs = 4, 16, 4, 16
+    k, v, tables, ctx = _pool(
+        rs, S=S, MB=8, bs=bs, kvH=kvH, hd=hd, NB=40,
+        ctx_lens=[3, 40, 77, 127], pool_dtype=torch.bfloat16, device=cuda)
+    q = torch.from_numpy(rs.randn(S, Hq, hd).astype(np.float32))
+    q = q.to(cuda, torch.bfloat16)
+    got = paged_attention(q, k, v, tables, ctx)
+    want = paged_attention_reference(q, k, v, tables, ctx)
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 4, 32, device=cuda, dtype=torch.float16)
+    k = torch.zeros(4, 8, 2, 32, device=cuda)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    ctx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        paged_attention(q, k, k, tables, ctx)
+    with pytest.raises(TypeError):
+        paged_attention(q.float(), k, k, tables.long(), ctx)
+
+
+def test_engine_paged_matches_dense_on_card(cuda):
+    from torch_automatic_distributed_neural_network_tpu_torch.inference.serve import (
+        ServeEngine,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.models import GPT2
+
+    with torch.device(cuda):
+        model = GPT2("test", vocab_size=128, max_seq_len=64,
+                     dtype=torch.float32)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(1))
+    rs = np.random.RandomState(3)
+    prompts = [[int(t) for t in rs.randint(1, 128, size=(n,))]
+               for n in (5, 11, 9)]
+    outs = {}
+    for impl in ("paged", "dense"):
+        for quant_kv in (False, True):
+            before = paged_attention.launches
+            eng = ServeEngine(model, n_slots=2, max_len=64, block_size=8,
+                              attention_impl=impl, quant_kv=quant_kv,
+                              device=cuda)
+            reqs = [eng.submit(p, max_new_tokens=6, eos_id=None)
+                    for p in prompts]
+            eng.run()
+            launched = paged_attention.launches - before
+            assert (launched > 0) == (impl == "paged")
+            outs[impl, quant_kv] = [r.out_tokens for r in reqs]
+    assert outs["paged", False] == outs["dense", False]
+    assert outs["paged", True] == outs["dense", True]

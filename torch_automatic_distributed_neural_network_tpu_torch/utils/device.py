@@ -1,0 +1,24 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU: a
+``device`` of None means ``cuda``, and asking for CUDA on a machine
+without it is an error, never a quiet move to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` (None -> ``cuda``) as a ``torch.device``; raises when
+    CUDA is asked for and ``torch.cuda.is_available()`` is False."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA was asked for (the default) but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch path on "
+            "the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
+    return dev
