@@ -30,12 +30,40 @@ card, in phases, one JSON line each; any failure exits non-zero:
    ``torch.profiler``);
 6. a short int8 / GQA serve: Llama 1b width at 2 layers, int8 KV, 4
    requests, with its own launch count, teacher-forced check and dense
-   agreement.
+   agreement;
+7. flash-attention kernels vs plain versions: K1 (forward: o and lse)
+   against ``flash_forward_reference``, K2 (dk, dv) and K3 (dq) against
+   ``flash_dkv_reference`` / ``flash_dq_reference`` on the same inputs,
+   at the GPT-2 small (12 heads, hd 64), Llama 1b (32 / 8 heads, GQA
+   repeated by the wrapper) and hd-128 geometries, S in {1, 100, 512,
+   1000, 1024}, causal or not, window None or 256, fp32 and bf16; bounds
+   1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at |x| in
+   [2, 4)); then the ``autograd.Function`` on the card against autograd
+   of ``xla_attention`` in fp32 (1e-4);
+8. flash timing at the training shape (B 8, S 1024, 12 heads, hd 64,
+   causal, bf16), L2 flushed before each launch: K1, K2 and K3 beside
+   their plain versions, their bounds and PyTorch's
+   ``scaled_dot_product_attention`` (forward for K1, its backward for K2
+   and K3 together), then flash against ``xla`` attention at S 128 to
+   1024 (the evidence for the dispatcher's 512 floor);
+9. the training main path: ``AutoDistribute`` on GPT-2 small at full
+   width and depth (random weights from a seed, the JAX defaults: bf16
+   compute, fp32 params, remat "dots", attention "auto"),
+   ``next_token_loss`` and ``adamw(1e-3)`` on one ``SyntheticLM`` batch
+   of 8 x 1025 tokens, 12 steps: finite and falling loss, and the K1-K3
+   launches per step that remat implies; then a one-step parity,
+   ``attention_impl="flash"`` against ``"xla"`` on one set of weights
+   and one batch (loss within 1e-2, relative grad-norm difference
+   within 2e-2: bf16 compute, and the xla path rounds its scores to
+   bf16 while the kernels keep them fp32), and where a step's time goes
+   (``torch.profiler``).
 
 Then, on lines of their own: the per-kernel JSON record, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is visible or the package is missing.
+``--phases a,b,...`` runs only the named phases (for a short first
+check of a new kernel) and prints no result.
 """
 
 from __future__ import annotations
@@ -49,10 +77,17 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 PAGED_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
                 "csrc/paged_attention.cu")
 PAGED_REPLACES = ("torch_automatic_distributed_neural_network_tpu/ops/"
                   "paged_attention.py:72")
+FLASH_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
+                "csrc/flash_attention.cu")
+_JAX_FLASH = "torch_automatic_distributed_neural_network_tpu/ops/flash_attention.py"
+FLASH_REPLACES = {"flash_forward": f"{_JAX_FLASH}:99",   # _fwd_kernel
+                  "flash_dkv": f"{_JAX_FLASH}:214",      # _dkv_kernel
+                  "flash_dq": f"{_JAX_FLASH}:254"}       # _dq_kernel
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
@@ -93,12 +128,13 @@ def phase_build() -> None:
     from torch_automatic_distributed_neural_network_tpu_torch.ops import build
 
     t0 = time.monotonic()
-    logs = build.build(["paged_attention"], ptxas_verbose=True)
+    logs = build.build(["paged_attention", "flash_attention"],
+                       ptxas_verbose=True)
     seconds = time.monotonic() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "kernels": sorted(logs), "seconds": seconds,
-          "ptxas": ptxas[:12]})
+          "ptxas": ptxas[:40]})
 
 
 # -- phases 3 and 4 ---------------------------------------------------------
@@ -375,6 +411,33 @@ def phase_serve(torch, *, name, model, n_requests, prompt_len, max_new,
     return launches
 
 
+def _device_time(prof, steps: int, top_n: int) -> dict | None:
+    """Device time per step from a ``torch.profiler`` run over ``steps``
+    steps: the union of kernel intervals, the kernel count and the
+    ``top_n`` kernels by time; None when the trace holds no kernel."""
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"device_busy_ms_per_step": busy_us / steps / 1e3,
+            "kernels_per_step": len(kernels) / steps,
+            "top_kernels": [{"name": k[:80], "ms_per_step": t / steps / 1e3,
+                             "launches_per_step": n / steps}
+                            for k, (t, n) in top]}
+
+
 def phase_profile(torch, *, name, model, n_slots, prompt_len, max_len,
                   block_size, seed, steps=16) -> None:
     """Where a decode step's time goes: the host-clock step time of
@@ -383,7 +446,6 @@ def phase_profile(torch, *, name, model, n_slots, prompt_len, max_len,
     time by kernel.  Device busy share = kernel time per step (the union
     of kernel intervals) over the unprofiled step time."""
     import numpy as np
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from torch_automatic_distributed_neural_network_tpu_torch.inference \
@@ -410,33 +472,389 @@ def phase_profile(torch, *, name, model, n_slots, prompt_len, max_len,
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     rec = {"phase": "profile", "name": name, "decode_step_ms": step_ms,
            "steps": steps}
-    if not kernels:
+    dev = _device_time(prof, steps, 8)
+    if dev is None:
         emit({**rec, "device_busy_ms_per_step": "not measured"})
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name = {}
-    for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    busy_ms = busy_us / steps / 1e3
-    emit({**rec, "device_busy_ms_per_step": busy_ms,
-          "device_busy_share": busy_ms / step_ms,
-          "kernels_per_step": len(kernels) / steps,
-          "top_kernels": [{"name": k[:80], "ms_per_step": t / steps / 1e3,
-                           "launches_per_step": n / steps}
-                          for k, (t, n) in top]})
+    emit({**rec, **dev, "device_busy_share":
+          dev["device_busy_ms_per_step"] / step_ms})
 
 
-def main() -> int:
+# -- phases 7 and 8: the flash-attention kernels ----------------------------
+
+
+def _flash_inputs(torch, *, B, S, H, kvH, hd, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(h):
+        return torch.randn(B, S, h, hd, generator=g, device="cuda").to(dtype)
+
+    return rand(H), rand(kvH), rand(kvH), rand(H)
+
+
+def _max_err(got, want) -> float:
+    return float((got.detach().float() - want.detach().float()).abs().max())
+
+
+FLASH_CASE_SEQS = (1, 100, 512, 1000, 1024)
+
+
+def phase_flash_kernel_cases(torch) -> dict:
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    geoms = {"gpt2-small": (12, 12, 64), "llama-1b": (32, 8, 64),
+             "hd128": (16, 16, 128)}
+    # fp32: the same fp32 products summed in another order; bf16: the
+    # outputs are rounded to bf16 on both sides, one ulp at |x| in [2, 4)
+    bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    masks = ((False, None), (True, None), (True, 256))
+    worst, n = {}, 0
+    for gname, (H, kvH, hd) in geoms.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = {}
+            for S in FLASH_CASE_SEQS:
+                for causal, window in masks:
+                    n += 1
+                    q, k, v, do = _flash_inputs(torch, B=2, S=S, H=H,
+                                                kvH=kvH, hd=hd, dtype=dtype,
+                                                seed=n)
+                    # the GQA repeat of the public entry point
+                    q, k, v = fa._prep_bshd(q, k, v, causal, window)
+                    kw = dict(causal=causal, window=window)
+                    o, lse = fa.flash_forward(q, k, v, **kw)
+                    o_ref, lse_ref = fa.flash_forward_reference(
+                        q, k, v, causal, window)
+                    delta = fa._delta(o_ref, do)
+                    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+                    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
+                    dk_ref, dv_ref = fa.flash_dkv_reference(
+                        q, k, v, do, lse_ref, delta, causal, window)
+                    dq_ref = fa.flash_dq_reference(q, k, v, do, lse_ref,
+                                                   delta, causal, window)
+                    torch.cuda.synchronize()
+                    got = {"o": (o, o_ref), "lse": (lse, lse_ref),
+                           "dk": (dk, dk_ref), "dv": (dv, dv_ref),
+                           "dq": (dq, dq_ref)}
+                    for name, (a, b) in got.items():
+                        require(bool(torch.isfinite(a).all()),
+                                f"flash case {n}: non-finite {name}")
+                        require(a.dtype == b.dtype,
+                                f"flash case {n}: {name} dtype {a.dtype}")
+                        err = _max_err(a, b)
+                        require(err <= bounds[dtype],
+                                f"flash case {n} ({gname} {dtype} S={S} "
+                                f"causal={causal} window={window}): {name} "
+                                f"max_abs_err {err} > {bounds[dtype]}")
+                        errs[name] = max(errs.get(name, 0.0), err)
+            emit({"phase": "flash_kernel_cases", "geometry": gname,
+                  "heads": H, "kv_heads": kvH, "hd": hd,
+                  "dtype": str(dtype).replace("torch.", ""),
+                  "S": list(FLASH_CASE_SEQS),
+                  "masks": ["full", "causal", "causal+window256"],
+                  "max_abs_err": errs, "bound": bounds[dtype]})
+            key = str(dtype).replace("torch.", "")
+            worst[key] = max(worst.get(key, 0.0), *errs.values())
+    emit({"phase": "flash_kernel_cases_done", "cases": n, "worst_abs_err": worst})
+    return worst
+
+
+def phase_flash_autograd(torch) -> float:
+    """The ``autograd.Function`` (K1 forward, K2 and K3 backward) against
+    autograd of ``xla_attention``, fp32: o and dq, dk, dv within 1e-4."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops.attention \
+        import xla_attention
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .flash_attention import flash_attention
+
+    cases = [dict(H=12, kvH=12, hd=64, S=512, causal=True, window=None),
+             dict(H=32, kvH=8, hd=64, S=600, causal=True, window=256),
+             dict(H=4, kvH=4, hd=128, S=300, causal=False, window=None)]
+    worst = 0.0
+    for i, c in enumerate(cases):
+        q, k, v, do = _flash_inputs(torch, B=2, S=c["S"], H=c["H"],
+                                    kvH=c["kvH"], hd=c["hd"],
+                                    dtype=torch.float32, seed=500 + i)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        kw = dict(causal=c["causal"], window=c["window"])
+        outs = []
+        for fn in (flash_attention, xla_attention):
+            o = fn(q, k, v, **kw)
+            outs.append((o, *torch.autograd.grad(o, (q, k, v), do)))
+        torch.cuda.synchronize()
+        errs = [_max_err(a, b) for a, b in zip(*outs)]
+        emit({"phase": "flash_autograd", **c,
+              "max_abs_err": dict(zip(("o", "dq", "dk", "dv"), errs)),
+              "bound": 1e-4})
+        require(max(errs) <= 1e-4,
+                f"flash autograd case {c}: max_abs_err {max(errs)} > 1e-4")
+        worst = max(worst, *errs)
+    return worst
+
+
+def _flash_bound_ms(*, pairs, hd, n_products, bytes_moved):
+    """The least time for the work: bytes over the HBM rate or the
+    products' flops (2 per multiply-add) over the dense bf16 rate."""
+    flops = 2 * n_products * pairs * hd
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    return {"flops": flops, "bytes": bytes_moved,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_flash_timing(torch) -> dict:
+    import torch.nn.functional as F
+
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.ops.attention \
+        import attention
+
+    B, S, H, hd = 8, 1024, 12, 64
+    q, k, v, do = _flash_inputs(torch, B=B, S=S, H=H, kvH=H, hd=hd,
+                                dtype=torch.bfloat16, seed=1001)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    kw = dict(causal=True)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, True)
+    delta = fa._delta(o_ref, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, True)
+    dq_ref = fa.flash_dq_reference(q, k, v, do, lse_ref, delta, True)
+    errs = {"flash_forward": max(_max_err(o, o_ref), _max_err(lse, lse_ref)),
+            "flash_dkv": max(_max_err(dk, dk_ref), _max_err(dv, dv_ref)),
+            "flash_dq": _max_err(dq, dq_ref)}
+    for name, err in errs.items():
+        require(err <= 2e-2, f"timing-shape {name} error {err} > 2e-2")
+
+    # the library yardstick: one PyTorch call for the same function
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))  # BHSD
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    runs = {
+        "flash_forward": (
+            lambda: fa.flash_forward(q, k, v, **kw),
+            lambda: fa.flash_forward_reference(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True)),
+        "flash_dkv": (
+            lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw),
+            lambda: fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, True),
+            None),
+        "flash_dq": (
+            lambda: fa.flash_dq(q, k, v, do, lse_ref, delta, **kw),
+            lambda: fa.flash_dq_reference(q, k, v, do, lse_ref, delta, True),
+            None),
+    }
+    sdpa_bwd_ms = _time_ms(
+        torch, lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dot,
+                                           retain_graph=True), 20, flush)
+    # causal: the pairs with q >= k, what the function needs
+    pairs = B * H * S * (S + 1) // 2
+    t_bytes = B * S * H * hd * q.element_size()  # one [B, S, H, hd] tensor
+    row_bytes = B * H * S * 4                    # lse or delta, fp32
+    work = {"flash_forward": dict(n_products=2,
+                                  bytes_moved=4 * t_bytes + row_bytes),
+            "flash_dkv": dict(n_products=4,
+                              bytes_moved=6 * t_bytes + 2 * row_bytes),
+            "flash_dq": dict(n_products=3,
+                             bytes_moved=5 * t_bytes + 2 * row_bytes)}
+    out = {}
+    for name, (kernel, plain, library) in runs.items():
+        ms = _time_ms(torch, kernel, 20, flush)
+        plain_ms = _time_ms(torch, plain, 10, flush)
+        library_ms = (_time_ms(torch, library, 20, flush) if library
+                      else sdpa_bwd_ms)
+        rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "max_abs_err": errs[name],
+               **_flash_bound_ms(pairs=pairs, hd=hd, **work[name])}
+        rec["roofline_share"] = rec["bound_ms"] / ms
+        emit({"phase": "flash_timing", "kernel": name,
+              "shape": {"B": B, "S": S, "H": H, "hd": hd, "causal": True,
+                        "dtype": "bfloat16"},
+              "library": ("scaled_dot_product_attention" if library else
+                          "scaled_dot_product_attention backward (dq, dk "
+                          "and dv together)"), **rec})
+        out[name] = rec
+
+    # flash against the einsum path through the dispatcher, forward and
+    # forward + backward, from below the floor (512) to the training length
+    for seq in (128, 256, 512, 1024):
+        q, k, v, do = _flash_inputs(torch, B=B, S=seq, H=H, kvH=H, hd=hd,
+                                    dtype=torch.bfloat16, seed=seq)
+        qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+        rec = {}
+        for impl in ("flash", "xla"):
+            with torch.no_grad():
+                rec[f"{impl}_fwd_ms"] = _time_ms(
+                    torch, lambda: attention(q, k, v, causal=True,
+                                             impl=impl), 10, flush)
+
+            def fwd_bwd():
+                o = attention(qg, kg, vg, causal=True, impl=impl)
+                return torch.autograd.grad(o, (qg, kg, vg), do)
+
+            rec[f"{impl}_fwd_bwd_ms"] = _time_ms(torch, fwd_bwd, 10, flush)
+        emit({"phase": "flash_vs_xla", "S": seq, "B": B, "H": H, "hd": hd,
+              "causal": True, "dtype": "bfloat16", **rec})
+    return out
+
+
+# -- phase 9: the training main path ---------------------------------------
+
+
+def _train_setup(torch, *, seed, **model_kw):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, adamw, next_token_loss)
+
+    # GPT2()'s defaults are the JAX package's: bf16 compute, fp32 params,
+    # remat with policy "dots", attention_impl "auto"
+    ad = AutoDistribute(GPT2("small", **model_kw), optimizer=adamw(1e-3),
+                        loss_fn=next_token_loss)
+    state = ad.init(torch.Generator(device="cuda").manual_seed(seed))
+    return ad, state
+
+
+def phase_train(torch, data, *, steps=12) -> dict[str, int]:
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    ad, state = _train_setup(torch, seed=0)
+    cfg = ad.model.cfg
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    # one batch for every step: at vocab 50257 a dozen fresh batches teach
+    # the copy task nothing (each token id turns up ~0.16 times a batch;
+    # the JAX package's loss stays flat the same way), while one batch
+    # seen again must be learnt, so a falling loss shows the steps train
+    batch = data.batch(0)
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = ad.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches = {w.__name__: w.launches for w in wrappers}
+    # remat "dots" recomputes each layer's attention in the backward: K1
+    # runs twice per layer (forward and recompute), K2 and K3 once
+    per_layer = {"flash_forward": 2 if cfg.remat else 1, "flash_dkv": 1,
+                 "flash_dq": 1}
+    expected = {n: steps * cfg.n_layers * c for n, c in per_layer.items()}
+    median_ms = statistics.median(step_ms[1:])  # after one warm-up step
+    seq = data.seq_len - 1  # inputs and shifted targets of seq_len tokens
+    tokens = data.batch_size * seq
+    n_params = sum(p.numel() for p in ad.model.parameters())
+    emit({"phase": "train", "model": {
+              "family": "gpt2", "layers": cfg.n_layers,
+              "d_model": cfg.d_model, "heads": cfg.n_heads,
+              "vocab": cfg.vocab_size, "seq": seq, "params": n_params,
+              "compute_dtype": str(cfg.dtype).replace("torch.", ""),
+              "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+              "attention_impl": cfg.attention_impl},
+          "batch": data.batch_size, "steps": steps,
+          "optimizer": "adamw(1e-3)",
+          "precision": ad.precision.name, "loss_level_remat": ad.remat,
+          "step_ms": step_ms, "median_step_ms": median_ms,
+          "tokens_per_s": tokens / (median_ms / 1e3),
+          "model_flop_share_of_bf16_dense_peak":
+              6 * n_params * tokens / (median_ms / 1e3) / BF16_FLOPS_PER_S,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "losses": losses,
+          "launches": launches,
+          "launches_per_step": {n: c / steps for n, c in launches.items()},
+          "expected_launches": expected})
+    require(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    for name, count in launches.items():
+        require(count > 0, f"{name} never launched on the training path")
+        require(count == expected[name],
+                f"{name}: {count} launches, remat implies {expected[name]}")
+    del ad, state
+    return launches
+
+
+def phase_train_parity(torch, data) -> dict:
+    """One step on one set of weights and one batch, flash against xla
+    attention: the step's loss, and the gradient it applies."""
+    batch = data.batch(100)
+    res = {}
+    for impl in ("flash", "xla"):
+        ad, state = _train_setup(torch, seed=5, attention_impl=impl)
+        _, _, grads = ad._value_and_grad(ad._to_device(batch), None)
+        flat = torch.cat([g.float().flatten() for g in grads.values()])
+        state, metrics = ad.step(state, batch)
+        res[impl] = (float(metrics["loss"]), flat)
+        del ad, state, grads
+    (lf, gf), (lx, gx) = res["flash"], res["xla"]
+    norm_f, norm_x = float(gf.norm()), float(gx.norm())
+    rec = {"loss_flash": lf, "loss_xla": lx, "loss_diff": abs(lf - lx),
+           "grad_norm_flash": norm_f, "grad_norm_xla": norm_x,
+           "grad_norm_rel_diff": abs(norm_f - norm_x) / norm_x,
+           "grad_diff_rel_norm": float((gf - gx).norm()) / norm_x,
+           "bounds": {"loss_diff": 1e-2, "grad_norm_rel_diff": 2e-2}}
+    emit({"phase": "train_parity", **rec})
+    require(math.isfinite(lf) and math.isfinite(lx), "non-finite loss")
+    require(rec["loss_diff"] <= 1e-2,
+            f"flash vs xla loss differs by {rec['loss_diff']} > 1e-2")
+    require(rec["grad_norm_rel_diff"] <= 2e-2,
+            f"flash vs xla grad norm differs by {rec['grad_norm_rel_diff']}"
+            f" > 2e-2 (relative)")
+    return rec
+
+
+def phase_train_profile(torch, data, *, steps=5) -> None:
+    """Where a training step's time goes: the host-clock time of
+    ``steps`` steps, then the same number of steps under
+    ``torch.profiler`` for the device time by kernel.  Device busy share
+    = kernel time per step (the union of kernel intervals) over the
+    unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ad, state = _train_setup(torch, seed=0)
+    batch = data.batch(0)
+    state, _ = ad.step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        state, _ = ad.step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = ad.step(state, batch)
+        torch.cuda.synchronize()
+    del ad, state
+    rec = {"phase": "train_profile", "steps": steps, "step_ms": step_ms}
+    dev = _device_time(prof, steps, 12)
+    if dev is None:
+        emit({**rec, "device_busy_ms_per_step": "not measured"})
+        return
+    emit({**rec, **dev, "device_busy_share":
+          dev["device_busy_ms_per_step"] / step_ms})
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone: "
+                         + ", ".join(PHASES) + " (prints no result)")
+    args = ap.parse_args(argv)
+    only = None if args.phases is None else set(args.phases.split(","))
+    if only is not None and not only <= set(PHASES):
+        print(f"chip_smoke: unknown phases {sorted(only - set(PHASES))}",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -462,44 +880,81 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
 
+    def run(name) -> bool:
+        return only is None or name in only
+
     card = phase_environment(torch)
-    phase_build()
-    phase_kernel_cases(torch)
-    timing = phase_timing(torch)
+    if run("build"):
+        phase_build()
+    if run("kernel_cases"):
+        phase_kernel_cases(torch)
+    if run("timing"):
+        timing = phase_timing(torch)
+    if run("flash_kernel_cases"):
+        phase_flash_kernel_cases(torch)
+        phase_flash_autograd(torch)
+    if run("flash_timing"):
+        flash = phase_flash_timing(torch)
 
     def model_of(cfg, seed):
         with torch.device("cuda"):
             m = DecoderLM(cfg)
         return m.init_weights(torch.Generator(device="cuda").manual_seed(seed))
 
-    gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
-                                dtype=torch.float32), 1)
-    launches = phase_serve(
-        torch, name="gpt2-small", model=gpt2, n_requests=16, prompt_len=256,
-        max_new=64, n_slots=8, max_len=1024, block_size=16, quant_kv=False,
-        seed=0)
-    phase_profile(torch, name="gpt2-small", model=gpt2, n_slots=8,
-                  prompt_len=256, max_len=1024, block_size=16, seed=2)
-    del gpt2
-    llama = model_of(llama_config("1b", n_layers=2, dtype=torch.float32), 2)
-    phase_serve(
-        torch, name="llama-1b-2layer-int8", model=llama, n_requests=4,
-        prompt_len=128, max_new=32, n_slots=4, max_len=512, block_size=16,
-        quant_kv=True, seed=1)
-    del llama
+    if run("serve"):
+        gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
+                                    dtype=torch.float32), 1)
+        paged_launches = phase_serve(
+            torch, name="gpt2-small", model=gpt2, n_requests=16,
+            prompt_len=256, max_new=64, n_slots=8, max_len=1024,
+            block_size=16, quant_kv=False, seed=0)
+        phase_profile(torch, name="gpt2-small", model=gpt2, n_slots=8,
+                      prompt_len=256, max_len=1024, block_size=16, seed=2)
+        del gpt2
+        llama = model_of(llama_config("1b", n_layers=2, dtype=torch.float32),
+                         2)
+        phase_serve(
+            torch, name="llama-1b-2layer-int8", model=llama, n_requests=4,
+            prompt_len=128, max_new=32, n_slots=4, max_len=512,
+            block_size=16, quant_kv=True, seed=1)
+        del llama
+        torch.cuda.empty_cache()
+    if run("train"):
+        from torch_automatic_distributed_neural_network_tpu_torch import \
+            SyntheticLM
 
-    emit({"kernels": [{
+        data = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8)
+        train_launches = phase_train(torch, data)
+        phase_train_parity(torch, data)
+        phase_train_profile(torch, data)
+    emit({"phase": "done", "seconds": time.monotonic() - t_start})
+    if only is not None:
+        return 0
+
+    kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
-        "replaces": PAGED_REPLACES, "launches": launches,
+        "replaces": PAGED_REPLACES, "launches": paged_launches,
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": None}]})
-    emit({"phase": "done", "seconds": time.monotonic() - t_start})
+        "bound_by": timing["bound_by"], "library_ms": None}]
+    for name, rec in flash.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name],
+            "launches": train_launches[name],
+            **{key: rec[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}})
+    emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+PHASES = ("build", "kernel_cases", "timing", "flash_kernel_cases",
+          "flash_timing", "serve", "train")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ import neither jax nor the JAX package, and the repository's
 The paged-attention kernel is held against its plain version
 (``paged_attention_reference``) on the same inputs, over the sweep of
 ``test_torch_port_paged_attention.py``; the engine's paged decode path
-against its dense one, token for token.
+against its dense one, token for token.  The flash-attention kernels
+(K1 forward, K2 dk/dv, K3 dq) are held against their plain versions at
+two geometries, each wrapper refuses what its kernel does not take, and
+one training step of GPT-2 ``test`` through the kernels agrees with the
+same step through ``xla`` attention.
 """
 
 import numpy as np
@@ -18,6 +22,9 @@ import torch
 
 from torch_automatic_distributed_neural_network_tpu_torch.inference.quant import (
     quantize_kv,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.ops import (
+    flash_attention as fa,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -132,3 +139,98 @@ def test_engine_paged_matches_dense_on_card(cuda):
             outs[impl, quant_kv] = [r.out_tokens for r in reqs]
     assert outs["paged", False] == outs["dense", False]
     assert outs["paged", True] == outs["dense", True]
+
+
+# -- flash attention (K1-K3) ----------------------------------------------------
+
+# fp32: the same products summed in another order; bf16: outputs rounded
+# to bf16 on both sides, one ulp at |x| in [2, 4)
+_FLASH_BOUND = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_operands(rs, B, S, H, hd, dtype, device):
+    return [torch.from_numpy(rs.randn(B, S, H, hd).astype(np.float32))
+            .to(device, dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [
+    dict(B=2, S=200, H=4, hd=64, causal=True, window=37),  # ragged, banded
+    dict(B=1, S=130, H=2, hd=128, causal=False, window=None)])
+def test_flash_kernels_match_plain_versions(cuda, dtype, geom):
+    g = dict(geom)
+    causal, window = g.pop("causal"), g.pop("window")
+    q, k, v, do = _flash_operands(np.random.RandomState(7), **g, dtype=dtype,
+                                  device=cuda)
+    kw = dict(causal=causal, window=window)
+    before = [w.launches for w in (fa.flash_forward, fa.flash_dkv,
+                                   fa.flash_dq)]
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal, window)
+    delta = fa._delta(o_ref, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
+    want = (o_ref, lse_ref,
+            *fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, causal,
+                                    window),
+            fa.flash_dq_reference(q, k, v, do, lse_ref, delta, causal,
+                                  window))
+    torch.cuda.synchronize()
+    assert [w.launches for w in (fa.flash_forward, fa.flash_dkv,
+                                 fa.flash_dq)] == [n + 1 for n in before]
+    for got, ref in zip((o, lse, dk, dv, dq), want):
+        assert got.dtype == ref.dtype and bool(torch.isfinite(got).all())
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= _FLASH_BOUND[dtype], err
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rs = np.random.RandomState(8)
+    q, k, v, do = _flash_operands(rs, 1, 64, 2, 64, torch.float32, cuda)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(TypeError):  # fp16 is not taken
+        fa.flash_forward(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_forward(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                         v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_forward(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2))
+    with pytest.raises(ValueError, match="lse / delta"):
+        fa.flash_dkv(q, k, v, do, lse[..., :32], lse)
+    with pytest.raises(NotImplementedError, match="seq_q == seq_k"):
+        fa.flash_dq(q, k[:, :32].contiguous(), v[:, :32].contiguous(), do,
+                    lse, lse, causal=True)
+
+
+def test_training_step_flash_matches_xla_on_card(cuda):
+    """GPT-2 ``test`` (bf16 compute, remat "dots"), one ``AutoDistribute``
+    step on one batch: flash against xla attention.  Loss within 1e-2 and
+    the gradient norm within 2e-2 relative (bf16 compute; the xla path
+    rounds its scores to bf16, the kernels keep them fp32)."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2,
+        AutoDistribute,
+        SyntheticLM,
+        adamw,
+        next_token_loss,
+    )
+
+    batch = SyntheticLM(vocab_size=128, seq_len=129, batch_size=4).batch(0)
+    out = {}
+    for impl in ("flash", "xla"):
+        ad = AutoDistribute(GPT2("test", vocab_size=128, max_seq_len=128,
+                                 attention_impl=impl),
+                            optimizer=adamw(1e-3), loss_fn=next_token_loss,
+                            device=cuda)
+        state = ad.init(torch.Generator(device=cuda).manual_seed(3))
+        before = fa.flash_dkv.launches
+        _, _, grads = ad._value_and_grad(ad._to_device(batch), None)
+        assert (fa.flash_dkv.launches > before) == (impl == "flash")
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum()
+                                    for g in grads.values())))
+        state, metrics = ad.step(state, batch)
+        out[impl] = (float(metrics["loss"]), norm)
+    (lf, nf), (lx, nx) = out["flash"], out["xla"]
+    assert abs(lf - lx) <= 1e-2
+    assert abs(nf - nx) / nx <= 2e-2

@@ -128,6 +128,42 @@ def test_kernel_wrapper_launches_or_raises_off_cpu():
     assert paged_attention.launches == before
 
 
+def test_flash_wrappers_launch_or_raise_off_cpu():
+    """K1-K3 as K4: a tensor off the CPU goes to the kernel or raises,
+    and a refused call counts no launch."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    q = torch.zeros(1, 64, 2, 32, device="meta")
+    lse = torch.zeros(1, 2, 64, device="meta")
+    calls = {fa.flash_forward: (q, q, q),
+             fa.flash_dkv: (q, q, q, q, lse, lse),
+             fa.flash_dq: (q, q, q, q, lse, lse)}
+    for wrapper, args in calls.items():
+        before = wrapper.launches
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(*args, causal=True)
+        assert wrapper.launches == before
+    # the autograd path reaches the same wrappers
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(q, q, q, causal=True)
+
+
+def test_training_entry_points_default_to_cuda(no_cuda):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        GPT2,
+        next_token_loss,
+    )
+
+    model = GPT2("test", vocab_size=32, max_seq_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AutoDistribute(model, loss_fn=next_token_loss)
+    ad = AutoDistribute(model, loss_fn=next_token_loss, device="cpu")
+    assert ad.device == torch.device("cpu")
+
+
 def test_kernel_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
     from torch_automatic_distributed_neural_network_tpu_torch.ops import build
 
@@ -136,5 +172,5 @@ def test_kernel_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build._nvcc()
     # the library name follows the source and the flags
-    assert build.library_path("paged_attention").name.startswith(
-        "libpaged_attention_")
+    for name in ("paged_attention", "flash_attention"):
+        assert build.library_path(name).name.startswith(f"lib{name}_")

@@ -6,13 +6,19 @@ array (``jax.tree.map(np.asarray, params)`` on the JAX side; this module
 never imports jax) — and returns the port's :class:`DecoderLM` on a
 device.  Layouts mapped:
 
-- the scanned ``layers`` stack ``[L, ...]``, sliced per layer;
+- the scanned ``layers`` stack ``[L, ...]`` sliced per layer, or the
+  unscanned ``layers_0`` ... ``layers_{L-1}`` (``scan_layers=False``);
 - ``DenseGeneral`` q/k/v kernels ``[d, H, hd]`` with bias ``[H, hd]``,
   and ``o_proj`` ``[H, hd, d]``, flattened and transposed onto
   ``nn.Linear``'s ``[out, in]``;
 - ``nn.Dense`` MLP kernels ``[in, out]``, transposed the same way;
 - a tied ``embed.embedding`` ``[V, d]`` or an untied ``lm_head.kernel``
-  ``[d, V]`` (kept ``[d, V]``), and ``pos_embed``.
+  ``[d, V]`` (kept ``[d, V]``), ``pos_embed``, and the ``embed_norm`` and
+  ``final_norm`` the config has.
+
+The same mapping carries trained JAX parameters, so a port's
+``state_dict`` after training steps compares with
+``decoder_from_jax_params(jax_params_after, cfg).state_dict()``.
 """
 
 from __future__ import annotations
@@ -28,48 +34,61 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _layer_params(params: dict, n_layers: int) -> list[dict]:
+    """One numpy tree per layer, from either layer layout."""
+    if "layers" in params:
+        stack = params["layers"]
+
+        def at(tree, i):
+            if isinstance(tree, dict):
+                return {k: at(v, i) for k, v in tree.items()}
+            return np.asarray(tree)[i]
+
+        return [at(stack, i) for i in range(n_layers)]
+    if "layers_0" in params:
+        return [params[f"layers_{i}"] for i in range(n_layers)]
+    raise ValueError("expected a 'layers' stack or 'layers_0' ... entries")
+
+
 def decoder_from_jax_params(params: dict, cfg: TransformerConfig, *,
                             device=None) -> DecoderLM:
     """The port's ``DecoderLM`` holding the weights of a JAX decoder's
     numpy ``params`` tree, on ``device`` (default ``cuda``, raising
     without it; pass ``"cpu"`` for the CPU)."""
-    if "layers" not in params:
-        raise ValueError("expected the scanned parameter layout (a stacked "
-                         "'layers' entry)")
     model = DecoderLM(cfg)
     state = {"embed": _t(params["embed"]["embedding"])}
     if cfg.pos == "learned":
         state["pos_embed"] = _t(params["pos_embed"])
     if not cfg.tie_embeddings:
         state["lm_head"] = _t(params["lm_head"]["kernel"])
-    for name in ("scale", "bias"):
-        if name in params["final_norm"]:
-            state[f"final_norm.{name}"] = _t(params["final_norm"][name])
+    for norm in ("embed_norm", "final_norm"):
+        if getattr(cfg, norm):
+            for name, leaf in params[norm].items():
+                state[f"{norm}.{name}"] = _t(leaf)
 
-    stack = params["layers"]
-    for i in range(cfg.n_layers):
+    for i, layer in enumerate(_layer_params(params, cfg.n_layers)):
         pre = f"layers.{i}."
         for norm in ("attn_norm", "mlp_norm"):
-            for name, leaf in stack[norm].items():
-                state[f"{pre}{norm}.{name}"] = _t(leaf[i])
+            for name, leaf in layer[norm].items():
+                state[f"{pre}{norm}.{name}"] = _t(leaf)
         for proj in ("q_proj", "k_proj", "v_proj"):
-            p = stack["attn"][proj]
-            kernel = np.asarray(p["kernel"][i])  # [d, H, hd]
+            p = layer["attn"][proj]
+            kernel = np.asarray(p["kernel"])  # [d, H, hd]
             state[f"{pre}attn.{proj}.weight"] = _t(
                 kernel.reshape(kernel.shape[0], -1).T)
             if "bias" in p:
                 state[f"{pre}attn.{proj}.bias"] = _t(
-                    np.asarray(p["bias"][i]).reshape(-1))
-        p = stack["attn"]["o_proj"]
-        kernel = np.asarray(p["kernel"][i])  # [H, hd, d]
+                    np.asarray(p["bias"]).reshape(-1))
+        p = layer["attn"]["o_proj"]
+        kernel = np.asarray(p["kernel"])  # [H, hd, d]
         state[f"{pre}attn.o_proj.weight"] = _t(
             kernel.reshape(-1, kernel.shape[-1]).T)
         if "bias" in p:
-            state[f"{pre}attn.o_proj.bias"] = _t(p["bias"][i])
-        for proj, p in stack["mlp"].items():
-            state[f"{pre}mlp.{proj}.weight"] = _t(np.asarray(p["kernel"][i]).T)
+            state[f"{pre}attn.o_proj.bias"] = _t(p["bias"])
+        for proj, p in layer["mlp"].items():
+            state[f"{pre}mlp.{proj}.weight"] = _t(np.asarray(p["kernel"]).T)
             if "bias" in p:
-                state[f"{pre}mlp.{proj}.bias"] = _t(p["bias"][i])
+                state[f"{pre}mlp.{proj}.bias"] = _t(p["bias"])
 
     model.load_state_dict(state, strict=True)
     return model.to(resolve_device(device))
