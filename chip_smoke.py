@@ -8,8 +8,10 @@ card, in phases, one JSON line each; any failure exits non-zero:
 
 1. environment: the card's name and power limit (``nvidia-smi``), its
    compute capability (sm_90 required);
-2. build: compiles every CUDA kernel of the serving path from ``csrc/``
-   with ``nvcc`` for sm_90a, all sources at once;
+2. build: compiles every CUDA kernel from ``csrc/`` with ``nvcc`` for
+   sm_90a, all three sources at once, and counts the tensor-core
+   (HGMMA) and TMA (UTMALDG) instructions in the tensor-core flash
+   library's SASS (``cuobjdump``), which must hold HGMMA;
 3. kernel vs plain version: the paged-attention kernel against
    ``paged_attention_reference`` on the same inputs, at the GPT-2 small,
    Llama 1b and Llama 8b attention geometries, block sizes 8 and 16,
@@ -31,21 +33,31 @@ card, in phases, one JSON line each; any failure exits non-zero:
 6. a short int8 / GQA serve: Llama 1b width at 2 layers, int8 KV, 4
    requests, with its own launch count, teacher-forced check and dense
    agreement;
-7. flash-attention kernels vs plain versions: K1 (forward: o and lse)
+7. the tile check: one 64-row tile through the bf16 flash kernels'
+   TMA loads, wgmma descriptors and register fragments against
+   ``torch.matmul`` at hd 32, 64 and 128 (relative 1e-5); then the
+   flash-attention kernels vs plain versions: K1 (forward: o and lse)
    against ``flash_forward_reference``, K2 (dk, dv) and K3 (dq) against
    ``flash_dkv_reference`` / ``flash_dq_reference`` on the same inputs,
    at the GPT-2 small (12 heads, hd 64), Llama 1b (32 / 8 heads, GQA
-   repeated by the wrapper) and hd-128 geometries, S in {1, 100, 512,
-   1000, 1024}, causal or not, window None or 256, fp32 and bf16; bounds
-   1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at |x| in
-   [2, 4)); then the ``autograd.Function`` on the card against autograd
-   of ``xla_attention`` in fp32 (1e-4);
+   repeated by the wrapper) and hd-128 geometries, S in {1, 100, 129,
+   512, 1000, 1024}, causal or not, window None or 256, fp32 and bf16;
+   bounds 1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at
+   |x| in [2, 4)), and bf16 dv differing from its plain version in at
+   most 2 % of its elements (K2 keeps p in fp32 for dv; rounding p to
+   bf16 once would move far more, shown beside it on the same inputs);
+   bf16 K1 and K2 launched twice on the same inputs,
+   bitwise equal; then the ``autograd.Function`` on the card against
+   autograd of ``xla_attention`` in fp32 (1e-4);
 8. flash timing at the training shape (B 8, S 1024, 12 heads, hd 64,
    causal, bf16), L2 flushed before each launch: K1, K2 and K3 beside
-   their plain versions, their bounds and PyTorch's
+   their plain versions, their bounds, their achieved TFLOP/s and PyTorch's
    ``scaled_dot_product_attention`` (forward for K1, its backward for K2
-   and K3 together), then flash against ``xla`` attention at S 128 to
-   1024 (the evidence for the dispatcher's 512 floor);
+   and K3 together; beside it the kernel time ``torch.profiler`` sees);
+   every time here is device time, the host's enqueue kept off the
+   clock; then flash
+   against ``xla`` attention at S 128 to 1024 (the evidence for the
+   dispatcher's 512 floor);
 9. the training main path: ``AutoDistribute`` on GPT-2 small at full
    width and depth (random weights from a seed, the JAX defaults: bf16
    compute, fp32 params, remat "dots", attention "auto"),
@@ -56,7 +68,7 @@ card, in phases, one JSON line each; any failure exits non-zero:
    and one batch (loss within 1e-2, relative grad-norm difference
    within 2e-2: bf16 compute, and the xla path rounds its scores to
    bf16 while the kernels keep them fp32), and where a step's time goes
-   (``torch.profiler``).
+   (``torch.profiler``, with K1-K3's device ms per step).
 
 Then, on lines of their own: the per-kernel JSON record, the
 ``nvidia-smi`` name/power line, and last
@@ -82,8 +94,10 @@ PAGED_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
                 "csrc/paged_attention.cu")
 PAGED_REPLACES = ("torch_automatic_distributed_neural_network_tpu/ops/"
                   "paged_attention.py:72")
-FLASH_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
-                "csrc/flash_attention.cu")
+_CSRC = "torch_automatic_distributed_neural_network_tpu_torch/csrc"
+FLASH_SOURCES = {"flash_forward": f"{_CSRC}/flash_attention_sm90.cu",  # bf16
+                 "flash_dkv": f"{_CSRC}/flash_attention_sm90.cu",
+                 "flash_dq": f"{_CSRC}/flash_attention.cu"}
 _JAX_FLASH = "torch_automatic_distributed_neural_network_tpu/ops/flash_attention.py"
 FLASH_REPLACES = {"flash_forward": f"{_JAX_FLASH}:99",   # _fwd_kernel
                   "flash_dkv": f"{_JAX_FLASH}:214",      # _dkv_kernel
@@ -124,17 +138,57 @@ def phase_environment(torch) -> str:
 # -- phase 2 ----------------------------------------------------------------
 
 
+def _sass_counts(lib) -> dict:
+    """Tensor-core (HGMMA) and TMA (UTMALDG) instructions in a built
+    library's SASS, from ``cuobjdump``, which ships with ``nvcc``."""
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    require(os.path.exists(tool), "cuobjdump not found beside nvcc: the "
+                                  "tensor-core check cannot count HGMMA")
+    dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    require(dump.returncode == 0, f"cuobjdump -sass failed: {dump.stderr}")
+    return {op: sum(op in ln for ln in dump.stdout.splitlines())
+            for op in ("HGMMA", "UTMALDG")}
+
+
+def _demangle(symbol: str) -> str:
+    """A kernel's name and template arguments, ``flash_fwd_sm90<64>``
+    (the mangled symbol where ``c++filt`` is missing)."""
+    try:
+        name = subprocess.run(["c++filt", symbol], capture_output=True,
+                              text=True, timeout=30).stdout.strip()
+    except OSError:
+        return symbol
+    return name.split("::", 1)[-1].split("(")[0] if "::" in name else symbol
+
+
 def phase_build() -> None:
     from torch_automatic_distributed_neural_network_tpu_torch.ops import build
 
+    names = ["paged_attention", "flash_attention", "flash_attention_sm90"]
     t0 = time.monotonic()
-    logs = build.build(["paged_attention", "flash_attention"],
-                       ptxas_verbose=True)
+    logs = build.build(names, ptxas_verbose=True)
     seconds = time.monotonic() - t0
-    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    # registers and spill bytes of each kernel, from ptxas -v
+    ptxas, entry = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                entry = _demangle(ln.split("'")[1])
+            elif entry and ("registers" in ln or "spill stores" in ln):
+                ptxas[entry] = (ptxas.get(entry, "") + " " + ln.split(
+                    ":", 1)[-1].strip()).strip()
+    warnings = [ln.strip() for log in logs.values()
+                for ln in log.splitlines() if "arning" in ln]
+    sass = _sass_counts(build.library_path("flash_attention_sm90"))
     emit({"phase": "build", "kernels": sorted(logs), "seconds": seconds,
-          "ptxas": ptxas[:40]})
+          "sm90_sass": sass, "ptxas": ptxas, "warnings": warnings[:20]})
+    require(sass["HGMMA"] > 0,
+            "flash_attention_sm90: no HGMMA in the built SASS")
 
 
 # -- phases 3 and 4 ---------------------------------------------------------
@@ -224,12 +278,17 @@ def phase_kernel_cases(torch) -> dict:
 def _time_ms(torch, fn, n: int, flush) -> float:
     """Median device time of ``fn`` over ``n`` launches, the L2 cache
     flushed before each (the decode step finds each layer's pages cold:
-    the other layers' pages pass through L2 in between)."""
+    the other layers' pages pass through L2 in between).  The card spins
+    ~5 ms before each start event, so a call whose host side takes longer
+    than its kernels (a wrapper's checks, autograd's backward) has queued
+    all of them by the time the clock starts: device time alone, however
+    slow the host."""
     fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for i in range(n):
         flush.zero_()
+        torch.cuda._sleep(10_000_000)  # clock cycles
         starts[i].record()
         fn()
         ends[i].record()
@@ -498,7 +557,60 @@ def _max_err(got, want) -> float:
     return float((got.detach().float() - want.detach().float()).abs().max())
 
 
-FLASH_CASE_SEQS = (1, 100, 512, 1000, 1024)
+FLASH_CASE_SEQS = (1, 100, 129, 512, 1000, 1024)
+# bf16 dv: the share of elements that differ from the plain version's.
+# K2 keeps p in fp32 for dv += p^T . do (hi + lo bf16 terms), so only sums
+# in another order can move a value across a rounding boundary; rounding
+# p to bf16 once moves ~40 % of them (CPU: tests/test_torch_port_flash_bf16.py)
+DV_DIFF_SHARE_BOUND = 0.02
+
+
+def _diff_share(got, want) -> float:
+    return float((got != want).float().mean())
+
+
+def _dv_single_rounding(torch, fa, q, k, v, do, lse, delta, causal, window):
+    """dv as a kernel that rounds p to bf16 once would give it: what the
+    share bound must tell apart from K2."""
+    p, _ = fa._backward_terms(q, k, v, do, lse, delta, causal, window)
+    return torch.einsum("bhqk,bqhd->bkhd", p.to(torch.bfloat16).float(),
+                        do.float()).to(torch.bfloat16)
+
+
+def phase_tile_check(torch) -> None:
+    """One 64-row tile through the bf16 kernels' TMA loads, wgmma
+    descriptors and register fragments, against ``torch.matmul``: s = q
+    k^T (SS, K-major) and o = bf16(s) v (RS, v MN-major), at hd 32, 64 and
+    128, at a tile that runs past the end of the sequence (zero fill)."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    for hd in (32, 64, 128):
+        q, k, v, _ = _flash_inputs(torch, B=2, S=100, H=3, kvH=3, hd=hd,
+                                   dtype=torch.bfloat16, seed=hd)
+        errs = {}
+        for s0, h, b in ((0, 0, 0), (64, 2, 1)):
+            s, o = fa.sm90_tile_check(q, k, v, s0=s0, h=h, b=b)
+            torch.cuda.synchronize()
+
+            def tile(x):
+                t = torch.zeros(64, hd, device="cuda")
+                rows = x[b, s0:s0 + 64, h].float()
+                t[:rows.shape[0]] = rows
+                return t
+
+            s_ref = tile(q) @ tile(k).T
+            # the kernel's own s, rounded as it rounds it, so a tie in the
+            # rounding cannot flip between the two sides
+            o_ref = s.to(torch.bfloat16).float() @ tile(v)
+            for name, got, ref in (("s", s, s_ref), ("o", o, o_ref)):
+                rel = _max_err(got, ref) / max(float(ref.abs().max()), 1e-30)
+                errs[f"{name}@{s0},{h},{b}"] = rel
+                require(rel <= 1e-5, f"tile check hd {hd} {name} at "
+                                     f"(s0={s0}, h={h}, b={b}): relative "
+                                     f"error {rel} > 1e-5")
+        emit({"phase": "tile_check", "hd": hd, "rel_err": errs,
+              "bound": 1e-5})
 
 
 def phase_flash_kernel_cases(torch) -> dict:
@@ -511,10 +623,10 @@ def phase_flash_kernel_cases(torch) -> dict:
     # outputs are rounded to bf16 on both sides, one ulp at |x| in [2, 4)
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     masks = ((False, None), (True, None), (True, 256))
-    worst, n = {}, 0
+    worst, n, dv_shares = {}, 0, []
     for gname, (H, kvH, hd) in geoms.items():
         for dtype in (torch.float32, torch.bfloat16):
-            errs = {}
+            errs, shares = {}, {"kernel": 0.0, "single_rounding": 0.0}
             for S in FLASH_CASE_SEQS:
                 for causal, window in masks:
                     n += 1
@@ -549,15 +661,35 @@ def phase_flash_kernel_cases(torch) -> dict:
                                 f"causal={causal} window={window}): {name} "
                                 f"max_abs_err {err} > {bounds[dtype]}")
                         errs[name] = max(errs.get(name, 0.0), err)
+                    if dtype == torch.bfloat16:
+                        single = _dv_single_rounding(
+                            torch, fa, q, k, v, do, lse_ref, delta, causal,
+                            window)
+                        share = _diff_share(dv, dv_ref)
+                        dv_shares.append((share, n, gname, S, causal,
+                                          window))
+                        shares["kernel"] = max(shares["kernel"], share)
+                        shares["single_rounding"] = max(
+                            shares["single_rounding"],
+                            _diff_share(single, dv_ref))
             emit({"phase": "flash_kernel_cases", "geometry": gname,
                   "heads": H, "kv_heads": kvH, "hd": hd,
                   "dtype": str(dtype).replace("torch.", ""),
                   "S": list(FLASH_CASE_SEQS),
                   "masks": ["full", "causal", "causal+window256"],
-                  "max_abs_err": errs, "bound": bounds[dtype]})
+                  "max_abs_err": errs, "bound": bounds[dtype],
+                  **({"dv_diff_share": shares}
+                     if dtype == torch.bfloat16 else {})})
             key = str(dtype).replace("torch.", "")
             worst[key] = max(worst.get(key, 0.0), *errs.values())
-    emit({"phase": "flash_kernel_cases_done", "cases": n, "worst_abs_err": worst})
+    share, *case = max(dv_shares)
+    emit({"phase": "flash_kernel_cases_done", "cases": n,
+          "worst_abs_err": worst, "worst_dv_diff_share": share,
+          "dv_diff_share_bound": DV_DIFF_SHARE_BOUND})
+    require(share <= DV_DIFF_SHARE_BOUND,
+            f"bf16 dv differs from the plain version in {share:.4f} of its "
+            f"elements > {DV_DIFF_SHARE_BOUND} (case, geometry, S, causal, "
+            f"window: {case}): is p rounded to bf16 before p^T . do?")
     return worst
 
 
@@ -592,6 +724,49 @@ def phase_flash_autograd(torch) -> float:
                 f"flash autograd case {c}: max_abs_err {max(errs)} > 1e-4")
         worst = max(worst, *errs)
     return worst
+
+
+def phase_flash_determinism(torch) -> None:
+    """bf16 K1 and K2 launched twice on the same inputs give bitwise-equal
+    outputs (no atomics; a fixed order of sums)."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    cases = [dict(H=12, hd=64, S=1024, causal=True, window=None),
+             dict(H=16, hd=128, S=1000, causal=True, window=256),
+             dict(H=4, hd=32, S=129, causal=False, window=None)]
+    for i, c in enumerate(cases):
+        q, k, v, do = _flash_inputs(torch, B=2, S=c["S"], H=c["H"],
+                                    kvH=c["H"], hd=c["hd"],
+                                    dtype=torch.bfloat16, seed=700 + i)
+        kw = dict(causal=c["causal"], window=c["window"])
+        runs = []
+        for _ in range(2):
+            o, lse = fa.flash_forward(q, k, v, **kw)
+            delta = fa._delta(o, do)
+            runs.append((o, lse, *fa.flash_dkv(q, k, v, do, lse, delta,
+                                                **kw)))
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+        emit({"phase": "flash_determinism", **c,
+              "bitwise_equal": dict(zip(("o", "lse", "dk", "dv"), same))})
+        require(all(same), f"bf16 K1/K2 differ between two launches: {c}")
+
+
+def _profiled_ms(torch, fn, n: int) -> float | None:
+    """Device time of one call of ``fn`` from ``torch.profiler``: the
+    union of its kernels' intervals over ``n`` calls in a row (L2 warm),
+    per call; None when the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev = _device_time(prof, n, 1)
+    return None if dev is None else dev["device_busy_ms_per_step"]
 
 
 def _flash_bound_ms(*, pairs, hd, n_products, bytes_moved):
@@ -635,6 +810,11 @@ def phase_flash_timing(torch) -> dict:
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))  # BHSD
     qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), dot,
+                                   retain_graph=True)
+
     runs = {
         "flash_forward": (
             lambda: fa.flash_forward(q, k, v, **kw),
@@ -644,15 +824,17 @@ def phase_flash_timing(torch) -> dict:
         "flash_dkv": (
             lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw),
             lambda: fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, True),
-            None),
+            sdpa_bwd),
         "flash_dq": (
             lambda: fa.flash_dq(q, k, v, do, lse_ref, delta, **kw),
             lambda: fa.flash_dq_reference(q, k, v, do, lse_ref, delta, True),
-            None),
+            sdpa_bwd),
     }
-    sdpa_bwd_ms = _time_ms(
-        torch, lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dot,
-                                           retain_graph=True), 20, flush)
+    # the library calls' device time, timed once each: the cold-L2 median,
+    # and beside it the kernel time that torch.profiler sees with a warm L2
+    library_ms = {fn: (_time_ms(torch, fn, 20, flush),
+                       _profiled_ms(torch, fn, 10))
+                  for fn in dict.fromkeys(r[2] for r in runs.values())}
     # causal: the pairs with q >= k, what the function needs
     pairs = B * H * S * (S + 1) // 2
     t_bytes = B * S * H * hd * q.element_size()  # one [B, S, H, hd] tensor
@@ -667,18 +849,19 @@ def phase_flash_timing(torch) -> dict:
     for name, (kernel, plain, library) in runs.items():
         ms = _time_ms(torch, kernel, 20, flush)
         plain_ms = _time_ms(torch, plain, 10, flush)
-        library_ms = (_time_ms(torch, library, 20, flush) if library
-                      else sdpa_bwd_ms)
-        rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        rec = {"ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms[library][0],
+               "library_profiler_ms": library_ms[library][1],
                "max_abs_err": errs[name],
                **_flash_bound_ms(pairs=pairs, hd=hd, **work[name])}
         rec["roofline_share"] = rec["bound_ms"] / ms
+        rec["tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
         emit({"phase": "flash_timing", "kernel": name,
               "shape": {"B": B, "S": S, "H": H, "hd": hd, "causal": True,
                         "dtype": "bfloat16"},
-              "library": ("scaled_dot_product_attention" if library else
-                          "scaled_dot_product_attention backward (dq, dk "
-                          "and dv together)"), **rec})
+              "library": ("scaled_dot_product_attention backward (dq, dk "
+                          "and dv together)" if library is sdpa_bwd else
+                          "scaled_dot_product_attention"), **rec})
         out[name] = rec
 
     # flash against the einsum path through the dispatcher, forward and
@@ -838,8 +1021,20 @@ def phase_train_profile(torch, data, *, steps=5) -> None:
     if dev is None:
         emit({**rec, "device_busy_ms_per_step": "not measured"})
         return
+    # the flash kernels' device time per step, by kernel symbol
+    from torch.autograd import DeviceType
+    symbols = {"flash_forward": "flash_fwd_sm90",
+               "flash_dkv": "flash_dkv_sm90", "flash_dq": "flash_dq_kernel"}
+    flash_us = dict.fromkeys(symbols, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for name, symbol in symbols.items():
+                if symbol in e.name:
+                    flash_us[name] += e.time_range.elapsed_us()
     emit({**rec, **dev, "device_busy_share":
-          dev["device_busy_ms_per_step"] / step_ms})
+          dev["device_busy_ms_per_step"] / step_ms,
+          "flash_ms_per_step": {n: us / steps / 1e3
+                                for n, us in flash_us.items()}})
 
 
 def main(argv=None) -> int:
@@ -890,8 +1085,11 @@ def main(argv=None) -> int:
         phase_kernel_cases(torch)
     if run("timing"):
         timing = phase_timing(torch)
+    if run("tile_check"):
+        phase_tile_check(torch)
     if run("flash_kernel_cases"):
         phase_flash_kernel_cases(torch)
+        phase_flash_determinism(torch)
         phase_flash_autograd(torch)
     if run("flash_timing"):
         flash = phase_flash_timing(torch)
@@ -939,7 +1137,7 @@ def main(argv=None) -> int:
         "bound_by": timing["bound_by"], "library_ms": None}]
     for name, rec in flash.items():
         kernels.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name],
             "launches": train_launches[name],
             **{key: rec[key] for key in (
@@ -953,8 +1151,8 @@ def main(argv=None) -> int:
     return 0
 
 
-PHASES = ("build", "kernel_cases", "timing", "flash_kernel_cases",
-          "flash_timing", "serve", "train")
+PHASES = ("build", "kernel_cases", "timing", "tile_check",
+          "flash_kernel_cases", "flash_timing", "serve", "train")
 
 
 if __name__ == "__main__":

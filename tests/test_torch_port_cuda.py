@@ -11,9 +11,12 @@ The paged-attention kernel is held against its plain version
 ``test_torch_port_paged_attention.py``; the engine's paged decode path
 against its dense one, token for token.  The flash-attention kernels
 (K1 forward, K2 dk/dv, K3 dq) are held against their plain versions at
-two geometries, each wrapper refuses what its kernel does not take, and
-one training step of GPT-2 ``test`` through the kernels agrees with the
-same step through ``xla`` attention.
+two geometries; the bf16 K1 and K2 on the tensor cores also at hd 32, 64
+and 128 over ragged lengths, causal and windowed, bitwise equal from one
+launch to the next, with their tile products checked against
+``torch.matmul``; each wrapper refuses what its kernel does not take,
+and one training step of GPT-2 ``test`` through the kernels agrees with
+the same step through ``xla`` attention.
 """
 
 import numpy as np
@@ -182,6 +185,68 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, geom):
         assert got.dtype == ref.dtype and bool(torch.isfinite(got).all())
         err = float((got.float() - ref.float()).abs().max())
         assert err <= _FLASH_BOUND[dtype], err
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_sm90_tile_products_match_matmul(cuda, hd):
+    """One 64-row tile through the bf16 kernels' TMA loads, wgmma
+    descriptors and register fragments (rows 64.. of a 100-row sequence:
+    the end is zero-filled) against ``torch.matmul``: relative 1e-5."""
+    rs = np.random.RandomState(hd)
+    q, k, v, _ = _flash_operands(rs, 2, 100, 3, hd, torch.bfloat16, cuda)
+    s, o = fa.sm90_tile_check(q, k, v, s0=64, h=2, b=1)
+
+    def tile(x):
+        t = torch.zeros(64, hd, device=cuda)
+        t[:36] = x[1, 64:, 2].float()
+        return t
+
+    s_ref = tile(q) @ tile(k).T
+    o_ref = s.to(torch.bfloat16).float() @ tile(v)
+    for got, ref in ((s, s_ref), (o, o_ref)):
+        err = float((got - ref).abs().max()) / float(ref.abs().max())
+        assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", [1, 64, 65, 129, 1000])
+@pytest.mark.parametrize("causal,window", [(False, None), (True, None),
+                                           (True, 256)])
+def test_flash_bf16_tensor_core_kernels_match_plain_versions(cuda, hd, S,
+                                                             causal, window):
+    """bf16 K1 (o, lse) and K2 (dk, dv) on the tensor cores against their
+    plain versions: atol 2e-2, one bf16 ulp at |x| in [2, 4); and dv equal
+    to its plain version in all but 2 % of its elements, which K2 meets
+    only by keeping p in fp32 for dv += p^T . do (one bf16 rounding of p
+    moves ~40 % of them: test_torch_port_flash_bf16.py)."""
+    q, k, v, do = _flash_operands(np.random.RandomState(S + hd), 2, S, 3, hd,
+                                  torch.bfloat16, cuda)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal, window)
+    delta = fa._delta(o_ref, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+    want = (o_ref, lse_ref, *fa.flash_dkv_reference(q, k, v, do, lse_ref,
+                                                    delta, causal, window))
+    torch.cuda.synchronize()
+    for got, ref in zip((o, lse, dk, dv), want):
+        assert got.dtype == ref.dtype and bool(torch.isfinite(got).all())
+        assert float((got.float() - ref.float()).abs().max()) <= 2e-2
+    assert float((dv != want[3]).float().mean()) <= 0.02
+
+
+def test_flash_bf16_tensor_core_kernels_are_deterministic(cuda):
+    """Two launches on the same inputs give bitwise-equal outputs."""
+    q, k, v, do = _flash_operands(np.random.RandomState(9), 2, 300, 4, 64,
+                                  torch.bfloat16, cuda)
+    runs = []
+    for _ in range(2):
+        o, lse = fa.flash_forward(q, k, v, causal=True)
+        delta = fa._delta(o, do)
+        runs.append((o, lse, *fa.flash_dkv(q, k, v, do, lse, delta,
+                                           causal=True)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):

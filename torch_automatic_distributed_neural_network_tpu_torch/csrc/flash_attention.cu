@@ -1,5 +1,7 @@
-// Flash attention for Hopper (sm_90a): the forward kernel (K1) and the two
-// backward kernels (K2: dK and dV, K3: dQ).
+// Flash attention for Hopper (sm_90a) on the CUDA cores: the forward
+// kernel (K1) and the dK/dV kernel (K2) for fp32 operands, the dQ kernel
+// (K3) for fp32 and bf16.  bf16 K1 and K2 run on the tensor cores, in
+// csrc/flash_attention_sm90.cu.
 //
 // Replace the Pallas TPU kernels in
 //   torch_automatic_distributed_neural_network_tpu/ops/flash_attention.py:
@@ -28,8 +30,9 @@
 // the CUDA cores (67 TFLOP/s), not the tensor cores; its floor is the fp32
 // rate, its bound (chip_smoke.py) the bf16 tensor-core rate.
 //
-// Design (simple and right first; wgmma, TMA, warp specialisation, native
-// GQA and a fused backward are later work):
+// Design (simple and right first; the tensor-core design of
+// flash_attention_sm90.cu for K3, native GQA and a fused backward are
+// later work):
 // - the TPU kernels carry (m, l, acc) or the dk/dv/dq accumulators across a
 //   sequential grid axis in VMEM; here that axis is a loop inside one
 //   thread block: K1 and K3 one block per (b*h, 64-row q tile) looping over
@@ -57,6 +60,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -80,11 +84,6 @@ struct Geom {
   static constexpr int kLd = HD + 1;         // smem row stride of a [64][hd] tile
   static constexpr int kLdS = kTile + 1;     // smem row stride of a [64][64] tile
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // x rounded to T and back: the TPU kernels' `.astype(dtype)` before a product
 __device__ __forceinline__ float round_to(float x, float) { return x; }
@@ -590,24 +589,28 @@ cudaError_t launch(int kernel, const Args& a) {
   const int nq = (a.Sq + kTile - 1) / kTile, nk = (a.Sk + kTile - 1) / kTile;
   const dim3 threads(G::kThreads);
   cudaError_t err;
+  // K1 and K2 here are fp32 only: bf16 runs in flash_attention_sm90.cu
+  if (kernel != 2 && !std::is_same<T, float>::value)
+    return cudaErrorInvalidValue;
   switch (kernel) {
     case 0: {
-      auto fn = flash_fwd_kernel<T, HD>;
+      auto fn = flash_fwd_kernel<float, HD>;
       if ((err = prepare(fn, smem)) != cudaSuccess) return err;
       fn<<<dim3(a.B * a.H, nq), threads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse_out, a.H,
-          a.Sq, a.Sk, a.causal, a.window, a.scale);
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<float*>(a.o),
+          a.lse_out, a.H, a.Sq, a.Sk, a.causal, a.window, a.scale);
       break;
     }
     case 1: {
-      auto fn = flash_dkv_kernel<T, HD>;
+      auto fn = flash_dkv_kernel<float, HD>;
       if ((err = prepare(fn, smem)) != cudaSuccess) return err;
       fn<<<dim3(a.B * a.H, nk), threads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-          a.lse_in, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-          a.H, a.Sq, a.Sk, a.causal, a.window, a.scale);
+          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+          static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+          a.lse_in, a.delta, static_cast<float*>(a.dk),
+          static_cast<float*>(a.dv), a.H, a.Sq, a.Sk, a.causal, a.window,
+          a.scale);
       break;
     }
     default: {
@@ -664,7 +667,8 @@ extern "C" {
 
 // Each launches one kernel on `stream` and returns the launch's cudaError_t
 // (0 on success).  dtype: 0 fp32, 1 bf16 (q, k, v, do and the outputs all
-// of it).  window <= 0: no window.  scale: 1 / sqrt(hd).
+// of it; tadnn_flash_forward and tadnn_flash_dkv take fp32 only).  window
+// <= 0: no window.  scale: 1 / sqrt(hd).
 
 int tadnn_flash_forward(const void* q, const void* k, const void* v, void* o,
                         float* lse, int dtype, int B, int H, int Sq, int Sk,

@@ -3,11 +3,14 @@
 Block-streaming attention that never materializes the [S, S] score
 matrix in either direction: an online softmax over key tiles in the
 forward, and in the backward a recompute of ``p = exp(s - lse)`` from the
-saved per-row logsumexp.  The kernels (``csrc/flash_attention.cu``, CUDA
-C++ for Hopper) replace the JAX package's Pallas kernels
-``ops/flash_attention.py::_fwd_kernel``, ``::_dkv_kernel`` and
-``::_dq_kernel``; two ``torch.autograd.Function``\\ s take the place of
-its ``_flash_core`` / ``_flash_core_stats`` ``custom_vjp``\\ s.
+saved per-row logsumexp.  The kernels, CUDA C++ for Hopper, replace the
+JAX package's Pallas kernels ``ops/flash_attention.py::_fwd_kernel``,
+``::_dkv_kernel`` and ``::_dq_kernel``: bf16 K1 and K2 run on the tensor
+cores (``csrc/flash_attention_sm90.cu``: TMA loads, ``wgmma``), fp32 K1
+and K2 and K3 of both types on the CUDA cores
+(``csrc/flash_attention.cu``).  Two ``torch.autograd.Function``\\ s take
+the place of its ``_flash_core`` / ``_flash_core_stats``
+``custom_vjp``\\ s.
 
 Layout is BSHD ``[batch, seq, heads, head_dim]``; the kernels read it in
 place (no fold to ``[B*H, S, D]``) and keep the row statistics ``lse``
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -40,27 +44,40 @@ from .build import load
 _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
-_TILE = 64  # rows of a q tile and keys of a k tile in every kernel
+_TILE = 64  # the smallest tile of any kernel: bounds the grid's rows
 
-_lib = None
+_libs = None
 
 
-def _library():
-    """The built kernel library, its C signatures declared once."""
-    global _lib
-    if _lib is None:
-        lib = load("flash_attention")
+class _Libraries(NamedTuple):
+    simt: ctypes.CDLL  # csrc/flash_attention.cu: fp32 K1/K2, K3
+    sm90: ctypes.CDLL  # csrc/flash_attention_sm90.cu: bf16 K1/K2
+
+
+def _library() -> _Libraries:
+    """The two built kernel libraries, their C signatures declared once."""
+    global _libs
+    if _libs is None:
+        lib, lib90 = load("flash_attention"), load("flash_attention_sm90")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tadnn_flash_forward.argtypes = [ptr] * 5 + [i32] * 8 + [f32, ptr]
         lib.tadnn_flash_dkv.argtypes = [ptr] * 8 + [i32] * 8 + [f32, ptr]
         lib.tadnn_flash_dq.argtypes = [ptr] * 7 + [i32] * 8 + [f32, ptr]
+        lib90.tadnn_flash_forward_sm90.argtypes = (
+            [ptr] * 5 + [i32] * 7 + [f32, ptr])
+        lib90.tadnn_flash_dkv_sm90.argtypes = (
+            [ptr] * 8 + [i32] * 7 + [f32, ptr])
+        lib90.tadnn_flash_sm90_tile_check.argtypes = (
+            [ptr] * 5 + [i32] * 7 + [ptr])
         for fn in (lib.tadnn_flash_forward, lib.tadnn_flash_dkv,
-                   lib.tadnn_flash_dq):
+                   lib.tadnn_flash_dq, lib90.tadnn_flash_forward_sm90,
+                   lib90.tadnn_flash_dkv_sm90,
+                   lib90.tadnn_flash_sm90_tile_check):
             fn.restype = i32
         lib.tadnn_flash_error_string.argtypes = [i32]
         lib.tadnn_flash_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs = _Libraries(lib, lib90)
+    return _libs
 
 
 # -- the plain versions -------------------------------------------------------
@@ -194,7 +211,7 @@ def _raise_on(err, name):
     if err:
         raise RuntimeError(
             f"{name} kernel launch failed: "
-            f"{_library().tadnn_flash_error_string(err).decode()} "
+            f"{_library().simt.tadnn_flash_error_string(err).decode()} "
             f"(cudaError {err})")
 
 
@@ -214,11 +231,16 @@ def flash_forward(q, k, v, *, causal=False, window=None):
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr())
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        err = _library().tadnn_flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), _DTYPES[q.dtype], B, H, Sq, Sk, hd, int(causal),
-            window or 0, 1.0 / math.sqrt(hd), stream)
+        if q.dtype == torch.bfloat16:
+            err = _library().sm90.tadnn_flash_forward_sm90(
+                *ptrs, *shape, stream)
+        else:
+            err = _library().simt.tadnn_flash_forward(
+                *ptrs, _DTYPES[q.dtype], *shape, stream)
     _raise_on(err, "flash_forward")
     flash_forward.launches += 1
     return o, lse
@@ -236,12 +258,15 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None):
                                        causal=causal, window=window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        err = _library().tadnn_flash_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], B, H, Sq, Sk, hd, int(causal), window or 0,
-            1.0 / math.sqrt(hd), stream)
+        if q.dtype == torch.bfloat16:
+            err = _library().sm90.tadnn_flash_dkv_sm90(*ptrs, *shape, stream)
+        else:
+            err = _library().simt.tadnn_flash_dkv(
+                *ptrs, _DTYPES[q.dtype], *shape, stream)
     _raise_on(err, "flash_dkv")
     flash_dkv.launches += 1
     return dk, dv
@@ -260,7 +285,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None):
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = _library().tadnn_flash_dq(
+        err = _library().simt.tadnn_flash_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _DTYPES[q.dtype], B, H, Sq, Sk, hd, int(causal), window or 0,
@@ -271,6 +296,29 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None):
 
 
 flash_dq.launches = 0
+
+
+def sm90_tile_check(q, k, v, *, s0=0, h=0, b=0):
+    """One 64-row tile through the bf16 kernels' loads, descriptors and
+    fragment maps, on the card: ``(s, o)`` with ``s = q_t . k_t^T`` fp32
+    [64, 64] and ``o = bf16(s) . v_t`` fp32 [64, hd], where ``x_t`` is
+    rows ``s0 .. s0 + 63`` of head ``h``, batch ``b`` of a BSHD bf16
+    tensor (rows past the end read as zeros).  A diagnostic: held against
+    ``torch.matmul``, a fault in the swizzle, the descriptors or the
+    register layouts shows as a wrong product."""
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("sm90_tile_check takes bf16 CUDA tensors")
+    B, S, H, hd = q.shape
+    _check_operands(q, k, v, causal=False, window=None)
+    s = torch.empty(64, 64, dtype=torch.float32, device=q.device)
+    o = torch.empty(64, hd, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _library().sm90.tadnn_flash_sm90_tile_check(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), B, S, H, hd, s0, h, b, stream)
+    _raise_on(err, "sm90_tile_check")
+    return s, o
 
 
 # -- autograd ------------------------------------------------------------------
