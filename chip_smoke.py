@@ -11,21 +11,31 @@ card, in phases, one JSON line each; any failure exits non-zero:
 2. build: compiles every CUDA kernel from ``csrc/`` with ``nvcc`` for
    sm_90a, all three sources at once, and counts the tensor-core
    (HGMMA) and TMA (UTMALDG) instructions in the tensor-core flash
-   library's SASS (``cuobjdump``), which must hold HGMMA;
+   library's SASS (``cuobjdump``), in all and in each of K1-K3's
+   kernels, every one of which must hold HGMMA;
 3. kernel vs plain version: the paged-attention kernel against
    ``paged_attention_reference`` on the same inputs, at the GPT-2 small,
    Llama 1b and Llama 8b attention geometries, block sizes 8 and 16,
    fp32/bf16/int8 pools, with and without a sliding window, fp32 and
-   bf16 queries; bounds 1e-4 (fp32 q) and 2e-2 (bf16 q);
+   bf16 queries; bounds 1e-4 (fp32 q) and 2e-2 (bf16 q); then its split
+   context where the splits outnumber the attended pages (ctx 0, short
+   contexts, windows that empty whole splits) at the wrapper's split
+   count and at 2, 7 and 16, each launched twice and bitwise equal, and
+   a slot with no attended key giving zeros;
 4. timing at the GPT-2 small decode shape (8 slots at ctx 1023, bf16
    pool): median of many launches with the L2 cache flushed before
    each, beside the plain version and the least time the card could
-   take (bytes over the HBM rate, flops over the fp32 rate);
+   take (bytes over the HBM rate, flops over the fp32 rate), the split
+   count, the achieved GB/s and a sweep of split counts 2 to 16; beside
+   them the same launches after an L2 flush that leaves no dirty line,
+   the floor of this way of timing (a one-element add) and PyTorch's sum
+   over as many bytes, timed the same way;
 5. the main path: GPT-2 small at full width and depth (random weights
    from a seed) serves 16 requests of 256 prompt tokens and 64 new
    tokens on 8 slots with chunked prefill and the paged kernel; every
    request must finish, with the kernel's launch count read around this
-   run alone; then a teacher-forced check (one decode step, paged vs
+   run alone (one launch a layer a decode step: the splits merge inside
+   the launch); then a teacher-forced check (one decode step, paged vs
    dense, on one pool state: logits within 1e-3), a dense run whose
    greedy tokens must all agree, and where a decode step's time goes
    (host-clock step time beside device time by kernel from
@@ -46,9 +56,9 @@ card, in phases, one JSON line each; any failure exits non-zero:
    |x| in [2, 4)), and bf16 dv differing from its plain version in at
    most 2 % of its elements (K2 keeps p in fp32 for dv; rounding p to
    bf16 once would move far more, shown beside it on the same inputs);
-   bf16 K1 and K2 launched twice on the same inputs,
-   bitwise equal; then the ``autograd.Function`` on the card against
-   autograd of ``xla_attention`` in fp32 (1e-4);
+   bf16 K1, K2 and K3 launched twice on the same inputs, bitwise equal;
+   then the ``autograd.Function`` on the card against autograd of
+   ``xla_attention`` in fp32 (1e-4);
 8. flash timing at the training shape (B 8, S 1024, 12 heads, hd 64,
    causal, bf16), L2 flushed before each launch: K1, K2 and K3 beside
    their plain versions, their bounds, their achieved TFLOP/s and PyTorch's
@@ -97,7 +107,7 @@ PAGED_REPLACES = ("torch_automatic_distributed_neural_network_tpu/ops/"
 _CSRC = "torch_automatic_distributed_neural_network_tpu_torch/csrc"
 FLASH_SOURCES = {"flash_forward": f"{_CSRC}/flash_attention_sm90.cu",  # bf16
                  "flash_dkv": f"{_CSRC}/flash_attention_sm90.cu",
-                 "flash_dq": f"{_CSRC}/flash_attention.cu"}
+                 "flash_dq": f"{_CSRC}/flash_attention_sm90.cu"}
 _JAX_FLASH = "torch_automatic_distributed_neural_network_tpu/ops/flash_attention.py"
 FLASH_REPLACES = {"flash_forward": f"{_JAX_FLASH}:99",   # _fwd_kernel
                   "flash_dkv": f"{_JAX_FLASH}:214",      # _dkv_kernel
@@ -140,7 +150,9 @@ def phase_environment(torch) -> str:
 
 def _sass_counts(lib) -> dict:
     """Tensor-core (HGMMA) and TMA (UTMALDG) instructions in a built
-    library's SASS, from ``cuobjdump``, which ships with ``nvcc``."""
+    library's SASS, from ``cuobjdump``, which ships with ``nvcc``: in
+    all, and in each kernel whose demangled name starts with one of
+    ``_SASS_KERNELS``."""
     import os
     import shutil
 
@@ -151,8 +163,25 @@ def _sass_counts(lib) -> dict:
     dump = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300)
     require(dump.returncode == 0, f"cuobjdump -sass failed: {dump.stderr}")
-    return {op: sum(op in ln for ln in dump.stdout.splitlines())
-            for op in ("HGMMA", "UTMALDG")}
+    ops = ("HGMMA", "UTMALDG")
+    counts = {op: 0 for op in ops}
+    counts.update({k: {op: 0 for op in ops} for k in _SASS_KERNELS})
+    kernel = None
+    for ln in dump.stdout.splitlines():
+        if "Function :" in ln:
+            name = _demangle(ln.split("Function :", 1)[1].strip())
+            kernel = next((k for k in _SASS_KERNELS if name.startswith(k)),
+                          None)
+        for op in ops:
+            if op in ln:
+                counts[op] += 1
+                if kernel:
+                    counts[kernel][op] += 1
+    return counts
+
+
+# kernels whose tensor-core and TMA instructions the build counts apart
+_SASS_KERNELS = ("flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90")
 
 
 def _demangle(symbol: str) -> str:
@@ -187,8 +216,10 @@ def phase_build() -> None:
     sass = _sass_counts(build.library_path("flash_attention_sm90"))
     emit({"phase": "build", "kernels": sorted(logs), "seconds": seconds,
           "sm90_sass": sass, "ptxas": ptxas, "warnings": warnings[:20]})
-    require(sass["HGMMA"] > 0,
-            "flash_attention_sm90: no HGMMA in the built SASS")
+    for kernel in (None, *_SASS_KERNELS):
+        n = (sass if kernel is None else sass[kernel])["HGMMA"]
+        require(n > 0, f"flash_attention_sm90: no HGMMA in the built SASS"
+                       f"{'' if kernel is None else ' of ' + kernel}")
 
 
 # -- phases 3 and 4 ---------------------------------------------------------
@@ -270,24 +301,89 @@ def phase_kernel_cases(torch) -> dict:
                                 f"max_abs_err {err} > {bound}")
                         key = str(q_dtype)
                         worst[key] = max(worst.get(key, 0.0), err)
+    n += _split_cases(torch, bounds, worst)
     emit({"phase": "kernel_cases", "kernel": "paged_attention", "cases": n,
           "worst_abs_err": worst})
     return worst
 
 
-def _time_ms(torch, fn, n: int, flush) -> float:
+def _split_cases(torch, bounds, worst) -> int:
+    """K4's split context where the splits outnumber the attended pages:
+    ctx 0, contexts shorter than one chunk, windows that leave chunks
+    empty, at the wrapper's split count and at 2, 7 and 16; a slot with no
+    attended key (ctx -1) gives zeros; two launches are bitwise equal."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        paged_attention as pa
+
+    ctx_lens = [0, 5, 15, 16, 17, 40, 63, 1023]
+    n = 0
+    for gname, (Hq, kvH, hd) in {"gpt2-small": (12, 12, 64),
+                                 "llama-1b": (32, 8, 64)}.items():
+        for bs in (8, 16):
+            for pool_dtype in (torch.bfloat16, torch.int8):
+                n += 1
+                q, k, v, tables, ctx = _pool_case(
+                    torch, S=8, Hq=Hq, kvH=kvH, hd=hd, bs=bs,
+                    ctx_lens=ctx_lens, pool_dtype=pool_dtype,
+                    q_dtype=torch.float32, null_slot=-1, seed=100 + n)
+                errs = {}
+                for window in (None, 8, 20):
+                    want = pa.paged_attention_reference(q, k, v, tables, ctx,
+                                                        window=window)
+                    for splits in (None, 2, 7, 16):
+                        got = pa._paged_attention_cuda(
+                            q, k, v, tables, ctx, window=window,
+                            splits=splits)
+                        again = pa._paged_attention_cuda(
+                            q, k, v, tables, ctx, window=window,
+                            splits=splits)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max())
+                        errs[f"w{window}/s{splits}"] = err
+                        require(bool(torch.isfinite(got).all()) and
+                                err <= bounds[torch.float32],
+                                f"split case {gname} bs={bs} {pool_dtype} "
+                                f"w={window} splits={splits}: max_abs_err "
+                                f"{err} > {bounds[torch.float32]}")
+                        require(torch.equal(got, again),
+                                f"split case {gname} bs={bs} {pool_dtype} "
+                                f"w={window} splits={splits}: two launches "
+                                f"differ")
+                empty = ctx.clone()
+                empty[3] = -1  # no attended key at all
+                got = pa.paged_attention(q, k, v, tables, empty)
+                torch.cuda.synchronize()
+                require(bool((got[3] == 0).all()),
+                        f"split case {gname} bs={bs}: a slot with no key "
+                        f"gives {got[3].abs().max()} not zeros")
+                worst["split"] = max(worst.get("split", 0.0), *errs.values())
+                emit({"phase": "kernel_split_cases", "geometry": gname,
+                      "block_size": bs,
+                      "pool": str(pool_dtype).replace("torch.", ""),
+                      "ctx": ctx_lens, "max_abs_err": errs,
+                      "bound": bounds[torch.float32], "bitwise_repeat": True,
+                      "empty_slot_zeros": True})
+    return n
+
+
+def _time_ms(torch, fn, n: int, flush, *, clean_l2=False) -> float:
     """Median device time of ``fn`` over ``n`` launches, the L2 cache
     flushed before each (the decode step finds each layer's pages cold:
-    the other layers' pages pass through L2 in between).  The card spins
-    ~5 ms before each start event, so a call whose host side takes longer
-    than its kernels (a wrapper's checks, autograd's backward) has queued
-    all of them by the time the clock starts: device time alone, however
-    slow the host."""
+    the other layers' pages pass through L2 in between): by writing the
+    256 MB ``flush``, which leaves L2 full of dirty lines that the timed
+    kernel's reads must first write back, or with ``clean_l2`` by reading
+    it.  The card spins ~5 ms before each start event, so a call whose
+    host side takes longer than its kernels (a wrapper's checks,
+    autograd's backward) has queued all of them by the time the clock
+    starts: device time alone, however slow the host."""
     fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
     for i in range(n):
-        flush.zero_()
+        if clean_l2:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(10_000_000)  # clock cycles
         starts[i].record()
         fn()
@@ -297,8 +393,8 @@ def _time_ms(torch, fn, n: int, flush) -> float:
 
 
 def phase_timing(torch) -> dict:
-    from torch_automatic_distributed_neural_network_tpu_torch.ops \
-        .paged_attention import paged_attention, paged_attention_reference
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        paged_attention as pa
 
     S, Hq, kvH, hd, bs = 8, 12, 12, 64, 16
     ctx_lens = [1023] * S
@@ -307,18 +403,39 @@ def phase_timing(torch) -> dict:
         pool_dtype=torch.bfloat16, q_dtype=torch.float32, null_slot=-1,
         seed=1234)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    err = float((paged_attention(q, k, v, tables, ctx)
-                 - paged_attention_reference(q, k, v, tables, ctx))
+    err = float((pa.paged_attention(q, k, v, tables, ctx)
+                 - pa.paged_attention_reference(q, k, v, tables, ctx))
                 .abs().max())
-    ms = _time_ms(torch, lambda: paged_attention(q, k, v, tables, ctx),
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = pa.split_count(S * kvH, tables.shape[1], bs, n_sm)
+    ms = _time_ms(torch, lambda: pa.paged_attention(q, k, v, tables, ctx),
                   100, flush)
     plain_ms = _time_ms(
-        torch, lambda: paged_attention_reference(q, k, v, tables, ctx),
+        torch, lambda: pa.paged_attention_reference(q, k, v, tables, ctx),
         50, flush)
+    # the same launches after an L2 flush that leaves no dirty line, and
+    # the floor of this way of timing: one launch of a one-element add
+    clean_ms = _time_ms(torch, lambda: pa.paged_attention(q, k, v, tables,
+                                                          ctx),
+                        100, flush, clean_l2=True)
+    one = torch.zeros(1, device="cuda")
+    floor_ms = _time_ms(torch, lambda: one.add_(1), 100, flush)
+    # the split count at this shape, each in turn, there and back
+    sweep = {}
+    for n in (2, 3, 4, 6, 8, 16, 16, 8, 6, 4, 3, 2):
+        sweep.setdefault(n, []).append(_time_ms(
+            torch, lambda: pa._paged_attention_cuda(
+                q, k, v, tables, ctx, window=None, splits=n), 100, flush))
     keys = sum(c + 1 for c in ctx_lens)
     kv_bytes = keys * kvH * hd * 2 * k.element_size()
     io_bytes = (2 * q.numel() * q.element_size() + tables.numel() * 4
                 + ctx.numel() * 4)
+    # a yardstick of the same bytes read the same way: PyTorch's sum over
+    # a bf16 tensor of that size (it computes nothing of K4's function)
+    same = torch.ones((kv_bytes + io_bytes) // 2, dtype=torch.bfloat16,
+                      device="cuda")
+    same_bytes_ms = _time_ms(torch, same.sum, 100, flush)
+    del same
     flops = 4 * keys * Hq * hd
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS_PER_S * 1e3
@@ -329,9 +446,14 @@ def phase_timing(torch) -> dict:
     emit({"phase": "timing", "kernel": "paged_attention",
           "shape": {"slots": S, "ctx": 1023, "Hq": Hq, "kvH": kvH, "hd": hd,
                     "block_size": bs, "pool": "bfloat16", "q": "float32"},
+          "splits": splits, "blocks": S * kvH * splits,
           "bytes": kv_bytes + io_bytes, "flops": flops,
           "kv_floor_ms": kv_bytes / HBM_BYTES_PER_S * 1e3, **rec,
-          "roofline_share": rec["bound_ms"] / ms})
+          "achieved_gb_per_s": (kv_bytes + io_bytes) / (ms * 1e-3) / 1e9,
+          "roofline_share": rec["bound_ms"] / ms,
+          "ms_clean_l2": clean_ms, "timing_floor_ms": floor_ms,
+          "same_bytes_sum_ms": same_bytes_ms,
+          "split_sweep_ms": {str(n): t for n, t in sorted(sweep.items())}})
     require(err <= 1e-4, f"timing-shape kernel error {err} > 1e-4")
     return rec
 
@@ -426,6 +548,10 @@ def phase_serve(torch, *, name, model, n_requests, prompt_len, max_new,
     require(launches > 0, f"{name}: the paged kernel never launched")
     steps = [r for r in jnl.records if r.get("name") == "serve.step"]
     decode_ms = [1e3 * r["decode_s"] for r in steps if r["decode_s"] > 0]
+    # one launch a layer a decode step: the splits merge inside the launch
+    require(launches == model.cfg.n_layers * len(decode_ms),
+            f"{name}: {launches} paged launches over {len(decode_ms)} "
+            f"decode steps of {model.cfg.n_layers} layers")
     totals = [(r.t_done or 0.0) - r.t_submit for r in done]
     ttfts = [r.t_first_token - r.t_submit for r in done]
     new_tokens = sum(r.n_generated for r in done)
@@ -727,8 +853,8 @@ def phase_flash_autograd(torch) -> float:
 
 
 def phase_flash_determinism(torch) -> None:
-    """bf16 K1 and K2 launched twice on the same inputs give bitwise-equal
-    outputs (no atomics; a fixed order of sums)."""
+    """bf16 K1, K2 and K3 launched twice on the same inputs give
+    bitwise-equal outputs (no atomics; a fixed order of sums)."""
     from torch_automatic_distributed_neural_network_tpu_torch.ops import \
         flash_attention as fa
 
@@ -745,12 +871,13 @@ def phase_flash_determinism(torch) -> None:
             o, lse = fa.flash_forward(q, k, v, **kw)
             delta = fa._delta(o, do)
             runs.append((o, lse, *fa.flash_dkv(q, k, v, do, lse, delta,
-                                                **kw)))
+                                                **kw),
+                         fa.flash_dq(q, k, v, do, lse, delta, **kw)))
         torch.cuda.synchronize()
         same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
-        emit({"phase": "flash_determinism", **c,
-              "bitwise_equal": dict(zip(("o", "lse", "dk", "dv"), same))})
-        require(all(same), f"bf16 K1/K2 differ between two launches: {c}")
+        emit({"phase": "flash_determinism", **c, "bitwise_equal":
+              dict(zip(("o", "lse", "dk", "dv", "dq"), same))})
+        require(all(same), f"bf16 K1-K3 differ between two launches: {c}")
 
 
 def _profiled_ms(torch, fn, n: int) -> float | None:
@@ -1024,7 +1151,7 @@ def phase_train_profile(torch, data, *, steps=5) -> None:
     # the flash kernels' device time per step, by kernel symbol
     from torch.autograd import DeviceType
     symbols = {"flash_forward": "flash_fwd_sm90",
-               "flash_dkv": "flash_dkv_sm90", "flash_dq": "flash_dq_kernel"}
+               "flash_dkv": "flash_dkv_sm90", "flash_dq": "flash_dq_sm90"}
     flash_us = dict.fromkeys(symbols, 0.0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:

@@ -8,15 +8,18 @@ import neither jax nor the JAX package, and the repository's
 
 The paged-attention kernel is held against its plain version
 (``paged_attention_reference``) on the same inputs, over the sweep of
-``test_torch_port_paged_attention.py``; the engine's paged decode path
-against its dense one, token for token.  The flash-attention kernels
-(K1 forward, K2 dk/dv, K3 dq) are held against their plain versions at
-two geometries; the bf16 K1 and K2 on the tensor cores also at hd 32, 64
-and 128 over ragged lengths, causal and windowed, bitwise equal from one
-launch to the next, with their tile products checked against
-``torch.matmul``; each wrapper refuses what its kernel does not take,
-and one training step of GPT-2 ``test`` through the kernels agrees with
-the same step through ``xla`` attention.
+``test_torch_port_paged_attention.py``, and with its context split over
+more blocks than there are attended pages (ctx 0, short contexts,
+windows that empty whole splits), bitwise equal from one launch to the
+next and across many launches of changing shapes (its merge counters
+reset); the engine's paged decode path against its dense one, token for
+token.  The flash-attention kernels (K1 forward, K2 dk/dv, K3 dq) are
+held against their plain versions at two geometries; the bf16 K1-K3 on
+the tensor cores also at hd 32, 64 and 128 over ragged lengths, causal
+and windowed, bitwise equal from one launch to the next, with their tile
+products checked against ``torch.matmul``; each wrapper refuses what its
+kernel does not take, and one training step of GPT-2 ``test`` through
+the kernels agrees with the same step through ``xla`` attention.
 """
 
 import numpy as np
@@ -28,6 +31,9 @@ from torch_automatic_distributed_neural_network_tpu_torch.inference.quant import
 )
 from torch_automatic_distributed_neural_network_tpu_torch.ops import (
     flash_attention as fa,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.ops import (
+    paged_attention as pa,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -101,6 +107,61 @@ def test_kernel_bf16_query(cuda, hd):
     want = paged_attention_reference(q, k, v, tables, ctx)
     assert got.dtype == torch.bfloat16
     assert float((got.float() - want.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("window", [None, 4, 20])
+@pytest.mark.parametrize("splits", [None, 2, 7, 16])
+def test_kernel_split_context(cuda, pool_dtype, window, splits):
+    """More splits than attended pages: ctx 0, contexts inside one chunk,
+    windows that leave whole splits empty; fp32 q, atol 1e-5.  Two
+    launches are bitwise equal (the splits merge in a fixed order), and a
+    slot with no attended key (ctx -1) gives zeros."""
+    rs = np.random.RandomState(4)
+    S, Hq, kvH, hd, bs = 6, 8, 4, 32, 8
+    ctx_lens = [0, 5, 7, 8, 30, 47]
+    k, v, tables, ctx = _pool(
+        rs, S=S, MB=6, bs=bs, kvH=kvH, hd=hd, NB=40, ctx_lens=ctx_lens,
+        pool_dtype=pool_dtype, device=cuda)
+    q = torch.from_numpy(rs.randn(S, Hq, hd).astype(np.float32)).to(cuda)
+    got = pa._paged_attention_cuda(q, k, v, tables, ctx, window=window,
+                                   splits=splits)
+    again = pa._paged_attention_cuda(q, k, v, tables, ctx, window=window,
+                                     splits=splits)
+    want = paged_attention_reference(q, k, v, tables, ctx, window=window)
+    model = pa.paged_attention_split_reference(
+        q.cpu(), *(x.cpu() if torch.is_tensor(x) else
+                   {n: t.cpu() for n, t in x.items()} for x in (k, v)),
+        tables.cpu(), ctx.cpu(), window=window, n_split=splits or 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) < 1e-5
+    assert float((got.cpu() - model).abs().max()) < 1e-5
+    ctx[2] = -1
+    empty = pa._paged_attention_cuda(q, k, v, tables, ctx, window=window,
+                                     splits=splits)
+    assert not empty[2].any() and bool(torch.isfinite(empty).all())
+
+
+def test_kernel_many_launches_reset_the_merge_counters(cuda):
+    """Launches of changing shapes and split counts, one after another
+    (the counters of the in-launch merge must come back to zero each
+    time): every launch matches its plain version."""
+    rs = np.random.RandomState(5)
+    for i in range(24):
+        S = 1 + i % 5
+        kvH, G, bs = (4, 2, 8) if i % 2 else (2, 4, 16)
+        ctx_lens = [int(c) for c in rs.randint(0, 6 * bs, size=S)]
+        k, v, tables, ctx = _pool(
+            rs, S=S, MB=6, bs=bs, kvH=kvH, hd=64, NB=1 + 6 * S,
+            ctx_lens=ctx_lens, pool_dtype=torch.bfloat16, device=cuda)
+        q = torch.from_numpy(rs.randn(S, kvH * G, 64).astype(np.float32))
+        q = q.to(cuda)
+        got = pa._paged_attention_cuda(q, k, v, tables, ctx, window=None,
+                                       splits=None if i % 3 else 1 + i % 7)
+        want = paged_attention_reference(q, k, v, tables, ctx)
+        assert float((got - want).abs().max()) < 1e-5, i
+    assert not pa._counters[got.device].any()
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -214,11 +275,12 @@ def test_sm90_tile_products_match_matmul(cuda, hd):
                                            (True, 256)])
 def test_flash_bf16_tensor_core_kernels_match_plain_versions(cuda, hd, S,
                                                              causal, window):
-    """bf16 K1 (o, lse) and K2 (dk, dv) on the tensor cores against their
-    plain versions: atol 2e-2, one bf16 ulp at |x| in [2, 4); and dv equal
-    to its plain version in all but 2 % of its elements, which K2 meets
-    only by keeping p in fp32 for dv += p^T . do (one bf16 rounding of p
-    moves ~40 % of them: test_torch_port_flash_bf16.py)."""
+    """bf16 K1 (o, lse), K2 (dk, dv) and K3 (dq) on the tensor cores
+    against their plain versions: atol 2e-2, one bf16 ulp at |x| in
+    [2, 4); and dv equal to its plain version in all but 2 % of its
+    elements, which K2 meets only by keeping p in fp32 for dv += p^T . do
+    (one bf16 rounding of p moves ~40 % of them:
+    test_torch_port_flash_bf16.py)."""
     q, k, v, do = _flash_operands(np.random.RandomState(S + hd), 2, S, 3, hd,
                                   torch.bfloat16, cuda)
     kw = dict(causal=causal, window=window)
@@ -226,10 +288,13 @@ def test_flash_bf16_tensor_core_kernels_match_plain_versions(cuda, hd, S,
     o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal, window)
     delta = fa._delta(o_ref, do)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
     want = (o_ref, lse_ref, *fa.flash_dkv_reference(q, k, v, do, lse_ref,
-                                                    delta, causal, window))
+                                                    delta, causal, window),
+            fa.flash_dq_reference(q, k, v, do, lse_ref, delta, causal,
+                                  window))
     torch.cuda.synchronize()
-    for got, ref in zip((o, lse, dk, dv), want):
+    for got, ref in zip((o, lse, dk, dv, dq), want):
         assert got.dtype == ref.dtype and bool(torch.isfinite(got).all())
         assert float((got.float() - ref.float()).abs().max()) <= 2e-2
     assert float((dv != want[3]).float().mean()) <= 0.02
@@ -244,7 +309,8 @@ def test_flash_bf16_tensor_core_kernels_are_deterministic(cuda):
         o, lse = fa.flash_forward(q, k, v, causal=True)
         delta = fa._delta(o, do)
         runs.append((o, lse, *fa.flash_dkv(q, k, v, do, lse, delta,
-                                           causal=True)))
+                                           causal=True),
+                     fa.flash_dq(q, k, v, do, lse, delta, causal=True)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 

@@ -174,3 +174,27 @@ def test_kernel_build_without_nvcc_is_an_error(monkeypatch, tmp_path):
     # the library name follows the source and the flags
     for name in ("paged_attention", "flash_attention"):
         assert build.library_path(name).name.startswith(f"lib{name}_")
+
+
+def test_library_path_follows_the_included_headers(monkeypatch, tmp_path):
+    """A kernel's library is keyed by its source and by every ``csrc/``
+    header the source includes: editing a shared header gives each
+    library that includes it a new name, so no stale build is loaded."""
+    import shutil
+
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, csrc)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    names = ("paged_attention", "flash_attention_sm90", "flash_attention")
+    before = {n: build.library_path(n) for n in names}
+    for n in ("paged_attention", "flash_attention_sm90"):
+        assert (csrc / "sm90_common.cuh") in build._sources(
+            csrc / f"{n}.cu", {})
+    with open(csrc / "sm90_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert after["paged_attention"] != before["paged_attention"]
+    assert after["flash_attention_sm90"] != before["flash_attention_sm90"]
+    assert after["flash_attention"] == before["flash_attention"]

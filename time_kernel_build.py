@@ -41,11 +41,12 @@ BINDING = r"""
 extern "C" int tadnn_paged_attention_decode(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* ctx_lens, void* out, int q_dtype, int kv_dtype, int S,
-    int kvH, int G, int hd, int bs, int MB, int window, float scale,
-    void* stream);
+    const void* ctx_lens, void* out, void* partial, void* counters,
+    int q_dtype, int kv_dtype, int S, int NB, int kvH, int G, int hd, int bs,
+    int MB, int window, int n_split, float scale, void* stream);
 
-// fp32 queries over a bf16 pool, no window: the case this script runs
+// fp32 queries over a bf16 pool, no window, one block a (slot, kv head)
+// (no split, so no workspace): the case this script runs
 torch::Tensor decode(torch::Tensor q, torch::Tensor k, torch::Tensor v,
                      torch::Tensor tables, torch::Tensor ctx) {
   TORCH_CHECK(q.is_cuda() && q.scalar_type() == torch::kFloat32 &&
@@ -54,9 +55,9 @@ torch::Tensor decode(torch::Tensor q, torch::Tensor k, torch::Tensor v,
   const int hd = q.size(2), kvH = k.size(2);
   const int err = tadnn_paged_attention_decode(
       q.data_ptr(), k.data_ptr(), v.data_ptr(), nullptr, nullptr,
-      tables.data_ptr(), ctx.data_ptr(), out.data_ptr(), 0, 1, q.size(0),
-      kvH, q.size(1) / kvH, hd, k.size(1), tables.size(1), 0,
-      1.0f / std::sqrt(static_cast<float>(hd)),
+      tables.data_ptr(), ctx.data_ptr(), out.data_ptr(), nullptr, nullptr,
+      0, 1, q.size(0), k.size(0), kvH, q.size(1) / kvH, hd, k.size(1),
+      tables.size(1), 0, 1, 1.0f / std::sqrt(static_cast<float>(hd)),
       c10::cuda::getCurrentCUDAStream().stream());
   TORCH_CHECK(err == 0, "kernel launch failed: ", err);
   return out;

@@ -1,38 +1,34 @@
-// Flash attention for Hopper (sm_90a) on the CUDA cores: the forward
-// kernel (K1) and the dK/dV kernel (K2) for fp32 operands, the dQ kernel
-// (K3) for fp32 and bf16.  bf16 K1 and K2 run on the tensor cores, in
-// csrc/flash_attention_sm90.cu.
+// Flash attention for Hopper (sm_90a) on the CUDA cores, fp32: the forward
+// kernel (K1), the dK/dV kernel (K2) and the dQ kernel (K3).  bf16 K1-K3
+// run on the tensor cores, in csrc/flash_attention_sm90.cu.
 //
 // Replace the Pallas TPU kernels in
 //   torch_automatic_distributed_neural_network_tpu/ops/flash_attention.py:
 //   K1 ::_fwd_kernel (driven by _fwd), K2 ::_dkv_kernel and K3 ::_dq_kernel
-//   (both driven by _bwd_impl).
+//   (both driven by _bwd_impl), for fp32 operands.
 //
-// Shapes (C-contiguous, heads already broadcast for GQA):
-//   q, o, do, dq       [B, Sq, H, hd]  fp32 or bf16, read in place (BSHD)
-//   k, v, dk, dv       [B, Sk, H, hd]  q's type
-//   lse, delta         [B, H, Sq]      fp32
+// Shapes (C-contiguous fp32, heads already broadcast for GQA):
+//   q, o, do, dq       [B, Sq, H, hd]  read in place (BSHD)
+//   k, v, dk, dv       [B, Sk, H, hd]
+//   lse, delta         [B, H, Sq]
 //   hd is 32, 64 or 128; causal needs Sq == Sk; window > 0 needs causal.
 //
-// Arithmetic, with the TPU kernels' rounding points:
-//   s = (q . k) * scale in fp32, masked to -0.7 * FLT_MAX where the pair may
-//   not attend (key padding, causality, the window band: _pair_mask);
+// Arithmetic, as the TPU kernels do it in fp32:
+//   s = (q . k) * scale, masked to -0.7 * FLT_MAX where the pair may not
+//   attend (key padding, causality, the window band: _pair_mask);
 //   K1: online softmax over k tiles, running max clamped at half the mask
-//       value, p rounded to v's type before p . v, fp32 accumulation,
-//       o = acc / max(l, 1e-30) in q's type, lse = m + log(max(l, 1e-30));
-//   K2: p = exp(s - lse), dv += p^T . do (fp32: do is upcast),
-//       dp = do . v^T, ds = p * (dp - delta) * scale, dk += round(ds)^T . q;
-//   K3: the same p and ds, dq += round(ds) . k.
+//       value, o = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30));
+//   K2: p = exp(s - lse), dv += p^T . do, dp = do . v^T,
+//       ds = p * (dp - delta) * scale, dk += ds^T . q;
+//   K3: the same p and ds, dq += ds . k.
 //
 // What bounds them on this card: operations.  At the GPT-2 small training
 // shape (S 1024, hd 64, causal) each kernel does ~128-256 flops per byte it
-// must move, and this first version computes its products with fp32 FMA on
-// the CUDA cores (67 TFLOP/s), not the tensor cores; its floor is the fp32
-// rate, its bound (chip_smoke.py) the bf16 tensor-core rate.
+// must move, and computes its products with fp32 FMA on the CUDA cores (67
+// TFLOP/s): TF32 on the tensor cores would keep ~3 decimal digits, too few
+// for the fp32 kernels' 1e-4 bound against their plain versions.
 //
-// Design (simple and right first; the tensor-core design of
-// flash_attention_sm90.cu for K3, native GQA and a fused backward are
-// later work):
+// Design:
 // - the TPU kernels carry (m, l, acc) or the dk/dv/dq accumulators across a
 //   sequential grid axis in VMEM; here that axis is a loop inside one
 //   thread block: K1 and K3 one block per (b*h, 64-row q tile) looping over
@@ -40,9 +36,9 @@
 // - each loop starts and stops at the first and last tile with a pair that
 //   may attend (_block_relevant turned into loop bounds), so causal work is
 //   the lower triangle and windowed work the band;
-// - tiles are staged in shared memory as fp32, rows padded by one float so
-//   column reads are free of bank conflicts; the next tile's 16-byte loads
-//   are issued into registers before the current tile is computed;
+// - tiles are staged in shared memory, rows padded by one float so column
+//   reads are free of bank conflicts; the next tile's 16-byte loads into
+//   registers start before the current tile is computed;
 // - each thread owns 4 rows of a 64 x 64 score tile (16 row groups of
 //   threads, the threads of a row group reduce a row with warp shuffles)
 //   and the same 4 rows of the output accumulator, in registers;
@@ -54,13 +50,11 @@
 // Every accumulator is private to one block, so results do not depend on
 // the run (no atomics).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
 #include <initializer_list>
-#include <type_traits>
 
 namespace {
 
@@ -85,34 +79,6 @@ struct Geom {
   static constexpr int kLdS = kTile + 1;     // smem row stride of a [64][64] tile
 };
 
-// x rounded to T and back: the TPU kernels' `.astype(dtype)` before a product
-__device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// The 16 / sizeof(T) elements of one 16-byte chunk, as floats.
-__device__ __forceinline__ void unpack(const uint4& c, float* out, float) {
-  out[0] = __uint_as_float(c.x);
-  out[1] = __uint_as_float(c.y);
-  out[2] = __uint_as_float(c.z);
-  out[3] = __uint_as_float(c.w);
-}
-__device__ __forceinline__ void unpack(const uint4& c, float* out,
-                                       __nv_bfloat16) {
-  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 is the high half of an fp32
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // Reductions over the kCG threads of a row group (neighbouring lanes).
 template <int CG>
 __device__ __forceinline__ float group_max(float x) {
@@ -130,11 +96,11 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // One [64][hd] tile of a BSHD tensor, staged in registers between its
-// 16-byte loads from device memory and its fp32 store to shared memory.
-template <typename T, int HD>
+// 16-byte loads from device memory and its store to shared memory.
+template <int HD>
 struct TileRegs {
   using G = Geom<HD>;
-  static constexpr int kEl = 16 / sizeof(T);          // elements per chunk
+  static constexpr int kEl = 4;                        // floats per chunk
   static constexpr int kCpr = HD / kEl;                // chunks per row
   static constexpr int kPer = kTile * kCpr / G::kThreads;  // chunks per thread
   static_assert(kTile * kCpr % G::kThreads == 0, "tile must split evenly");
@@ -143,7 +109,7 @@ struct TileRegs {
 
   // rows t0 .. t0 + 63 of `base` (row r at base + r * row_stride); rows at
   // or past `n_rows` load as zeros
-  __device__ __forceinline__ void load(const T* __restrict__ base,
+  __device__ __forceinline__ void load(const float* __restrict__ base,
                                        size_t row_stride, int t0, int n_rows,
                                        int tid) {
 #pragma unroll
@@ -163,10 +129,11 @@ struct TileRegs {
       const int chunk = tid + j * G::kThreads;
       const int r = chunk / kCpr;
       const int d0 = (chunk % kCpr) * kEl;
-      float x[kEl];
-      unpack(c[j], x, T());
-#pragma unroll
-      for (int e = 0; e < kEl; ++e) dst[r * G::kLd + d0 + e] = x[e];
+      float* d = dst + r * G::kLd + d0;
+      d[0] = __uint_as_float(c[j].x);
+      d[1] = __uint_as_float(c[j].y);
+      d[2] = __uint_as_float(c[j].z);
+      d[3] = __uint_as_float(c[j].w);
     }
   }
 };
@@ -271,10 +238,10 @@ size_t smem_floats(int kernel) {
 // streamed with the next pair's loads in flight, (m, l, acc) in
 // registers for the whole k loop, one write of o and lse at the end.
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Geom<HD>::kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int H, int Sq, int Sk,
                      int causal, int window, float scale) {
   using G = Geom<HD>;
@@ -288,14 +255,14 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest rows first
   const int tid = threadIdx.x, rg = tid / G::kCG, cg = tid % G::kCG;
   const size_t rs = (size_t)H * HD;
-  const T* qb = q + ((size_t)b * Sq * H + h) * HD;
-  const T* kb = k + ((size_t)b * Sk * H + h) * HD;
-  const T* vb = v + ((size_t)b * Sk * H + h) * HD;
+  const float* qb = q + ((size_t)b * Sq * H + h) * HD;
+  const float* kb = k + ((size_t)b * Sk * H + h) * HD;
+  const float* vb = v + ((size_t)b * Sk * H + h) * HD;
 
   int k_lo, k_hi;
   k_range(q0, (Sk + kTile - 1) / kTile, causal, window, &k_lo, &k_hi);
 
-  TileRegs<T, HD> qr, kr, vr;
+  TileRegs<HD> qr, kr, vr;
   qr.load(qb, rs, q0, Sq, tid);
   kr.load(kb, rs, k_lo * kTile, Sk, tid);
   vr.load(vb, rs, k_lo * kTile, Sk, tid);
@@ -339,7 +306,7 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
       for (int j = 0; j < G::kSC; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        p_s[row * G::kLdS + cg + G::kCG * j] = round_to(p, T());
+        p_s[row * G::kLdS + cg + G::kCG * j] = p;
       }
       sum = group_sum<G::kCG>(sum);
       const float alpha = expf(m[i] - m_new);
@@ -358,10 +325,9 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
     const int qp = q0 + rg * kRows + i;
     if (qp >= Sq) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((size_t)b * Sq + qp) * H + h) * HD;
+    float* orow = o + (((size_t)b * Sq + qp) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < G::kOC; ++j)
-      store(orow + cg + G::kCG * j, acc[i][j] / l_safe);
+    for (int j = 0; j < G::kOC; ++j) orow[cg + G::kCG * j] = acc[i][j] / l_safe;
     if (cg == 0) lse[((size_t)b * H + h) * Sq + qp] = m[i] + logf(l_safe);
   }
 }
@@ -373,13 +339,13 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
 // do tiles stream past; dk and dv accumulate in registers and are
 // written once, so no atomics and no second pass.
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Geom<HD>::kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Sq, int Sk, int causal,
                      int window, float scale) {
   using G = Geom<HD>;
   extern __shared__ float smem[];
@@ -396,15 +362,15 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
   const int k0 = blockIdx.y * kTile;  // causal: the first keys are the longest
   const int tid = threadIdx.x, rg = tid / G::kCG, cg = tid % G::kCG;
   const size_t rs = (size_t)H * HD;
-  const T* qb = q + ((size_t)b * Sq * H + h) * HD;
-  const T* dob = dout + ((size_t)b * Sq * H + h) * HD;
+  const float* qb = q + ((size_t)b * Sq * H + h) * HD;
+  const float* dob = dout + ((size_t)b * Sq * H + h) * HD;
   const float* lse_b = lse + ((size_t)b * H + h) * Sq;
   const float* delta_b = delta + ((size_t)b * H + h) * Sq;
 
   int q_lo, q_hi;
   q_range(k0, (Sq + kTile - 1) / kTile, causal, window, &q_lo, &q_hi);
 
-  TileRegs<T, HD> ar, br;  // k and v, then q and do
+  TileRegs<HD> ar, br;  // k and v, then q and do
   ar.load(k + ((size_t)b * Sk * H + h) * HD, rs, k0, Sk, tid);
   br.load(v + ((size_t)b * Sk * H + h) * HD, rs, k0, Sk, tid);
   ar.store(k_s, tid);
@@ -446,8 +412,7 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
                             ? expf(s[i][j] * scale - lse_s[row])
                             : 0.f;
         p_s[row * G::kLdS + col] = p;
-        ds_s[row * G::kLdS + col] =
-            round_to(p * (dp[i][j] - delta_s[row]) * scale, T());
+        ds_s[row * G::kLdS + col] = p * (dp[i][j] - delta_s[row]) * scale;
       }
     }
     __syncthreads();
@@ -464,8 +429,8 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
     const size_t off = (((size_t)b * Sk + kp) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < G::kOC; ++j) {
-      store(dk + off + cg + G::kCG * j, dk_acc[i][j]);
-      store(dv + off + cg + G::kCG * j, dv_acc[i][j]);
+      dk[off + cg + G::kCG * j] = dk_acc[i][j];
+      dv[off + cg + G::kCG * j] = dv_acc[i][j];
     }
   }
 }
@@ -477,12 +442,12 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
 // registers; it recomputes p rather than share it with K2 (two kernels,
 // results independent of the run).
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Geom<HD>::kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Sq, int Sk, int causal, int window,
                     float scale) {
   using G = Geom<HD>;
@@ -497,13 +462,13 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;  // longest rows first
   const int tid = threadIdx.x, rg = tid / G::kCG, cg = tid % G::kCG;
   const size_t rs = (size_t)H * HD;
-  const T* kb = k + ((size_t)b * Sk * H + h) * HD;
-  const T* vb = v + ((size_t)b * Sk * H + h) * HD;
+  const float* kb = k + ((size_t)b * Sk * H + h) * HD;
+  const float* vb = v + ((size_t)b * Sk * H + h) * HD;
 
   int k_lo, k_hi;
   k_range(q0, (Sk + kTile - 1) / kTile, causal, window, &k_lo, &k_hi);
 
-  TileRegs<T, HD> ar, br;  // q and do, then k and v
+  TileRegs<HD> ar, br;  // q and do, then k and v
   ar.load(q + ((size_t)b * Sq * H + h) * HD, rs, q0, Sq, tid);
   br.load(dout + ((size_t)b * Sq * H + h) * HD, rs, q0, Sq, tid);
   ar.store(q_s, tid);
@@ -543,8 +508,7 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
             pair_ok(q0 + row, kt * kTile + col, Sq, Sk, causal, window)
                 ? expf(s[i][j] * scale - lse_r[i])
                 : 0.f;
-        ds_s[row * G::kLdS + col] =
-            round_to(p * (dp[i][j] - delta_r[i]) * scale, T());
+        ds_s[row * G::kLdS + col] = p * (dp[i][j] - delta_r[i]) * scale;
       }
     }
     __syncthreads();
@@ -556,9 +520,9 @@ __global__ void __launch_bounds__(Geom<HD>::kThreads)
   for (int i = 0; i < kRows; ++i) {
     const int qp = q0 + rg * kRows + i;
     if (qp >= Sq) continue;
-    T* row = dq + (((size_t)b * Sq + qp) * H + h) * HD;
+    float* row = dq + (((size_t)b * Sq + qp) * H + h) * HD;
 #pragma unroll
-    for (int j = 0; j < G::kOC; ++j) store(row + cg + G::kCG * j, dq_acc[i][j]);
+    for (int j = 0; j < G::kOC; ++j) row[cg + G::kCG * j] = dq_acc[i][j];
   }
 }
 
@@ -582,66 +546,48 @@ cudaError_t prepare(KernelFn kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(int kernel, const Args& a) {
   using G = Geom<HD>;
   const size_t smem = smem_floats<HD>(kernel) * sizeof(float);
   const int nq = (a.Sq + kTile - 1) / kTile, nk = (a.Sk + kTile - 1) / kTile;
   const dim3 threads(G::kThreads);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   cudaError_t err;
-  // K1 and K2 here are fp32 only: bf16 runs in flash_attention_sm90.cu
-  if (kernel != 2 && !std::is_same<T, float>::value)
-    return cudaErrorInvalidValue;
   switch (kernel) {
     case 0: {
-      auto fn = flash_fwd_kernel<float, HD>;
+      auto fn = flash_fwd_kernel<HD>;
       if ((err = prepare(fn, smem)) != cudaSuccess) return err;
       fn<<<dim3(a.B * a.H, nq), threads, smem, a.stream>>>(
-          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-          static_cast<const float*>(a.v), static_cast<float*>(a.o),
-          a.lse_out, a.H, a.Sq, a.Sk, a.causal, a.window, a.scale);
+          q, k, v, static_cast<float*>(a.o), a.lse_out, a.H, a.Sq, a.Sk,
+          a.causal, a.window, a.scale);
       break;
     }
     case 1: {
-      auto fn = flash_dkv_kernel<float, HD>;
+      auto fn = flash_dkv_kernel<HD>;
       if ((err = prepare(fn, smem)) != cudaSuccess) return err;
       fn<<<dim3(a.B * a.H, nk), threads, smem, a.stream>>>(
-          static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-          static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-          a.lse_in, a.delta, static_cast<float*>(a.dk),
+          q, k, v, dout, a.lse_in, a.delta, static_cast<float*>(a.dk),
           static_cast<float*>(a.dv), a.H, a.Sq, a.Sk, a.causal, a.window,
           a.scale);
       break;
     }
     default: {
-      auto fn = flash_dq_kernel<T, HD>;
+      auto fn = flash_dq_kernel<HD>;
       if ((err = prepare(fn, smem)) != cudaSuccess) return err;
       fn<<<dim3(a.B * a.H, nq), threads, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-          static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-          a.lse_in, a.delta, static_cast<T*>(a.dq), a.H, a.Sq, a.Sk,
-          a.causal, a.window, a.scale);
+          q, k, v, dout, a.lse_in, a.delta, static_cast<float*>(a.dq), a.H,
+          a.Sq, a.Sk, a.causal, a.window, a.scale);
       break;
     }
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int kernel, int hd, const Args& a) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(kernel, a);
-    case 64:
-      return launch<T, 64>(kernel, a);
-    case 128:
-      return launch<T, 128>(kernel, a);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t run(int kernel, int dtype, int hd, const Args& a) {
+cudaError_t run(int kernel, int hd, const Args& a) {
   if (a.B <= 0 || a.H <= 0 || a.Sq <= 0 || a.Sk <= 0)
     return cudaErrorInvalidValue;
   if (a.causal && a.Sq != a.Sk) return cudaErrorInvalidValue;
@@ -651,11 +597,13 @@ cudaError_t run(int kernel, int dtype, int hd, const Args& a) {
     return cudaErrorInvalidConfiguration;
   for (const void* p : {a.q, a.k, a.v, a.dout})
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-  switch (dtype) {
-    case 0:
-      return dispatch_hd<float>(kernel, hd, a);
-    case 1:
-      return dispatch_hd<__nv_bfloat16>(kernel, hd, a);
+  switch (hd) {
+    case 32:
+      return launch<32>(kernel, a);
+    case 64:
+      return launch<64>(kernel, a);
+    case 128:
+      return launch<128>(kernel, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -666,40 +614,39 @@ cudaError_t run(int kernel, int dtype, int hd, const Args& a) {
 extern "C" {
 
 // Each launches one kernel on `stream` and returns the launch's cudaError_t
-// (0 on success).  dtype: 0 fp32, 1 bf16 (q, k, v, do and the outputs all
-// of it; tadnn_flash_forward and tadnn_flash_dkv take fp32 only).  window
-// <= 0: no window.  scale: 1 / sqrt(hd).
+// (0 on success).  fp32 operands only.  window <= 0: no window.  scale:
+// 1 / sqrt(hd).
 
 int tadnn_flash_forward(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int dtype, int B, int H, int Sq, int Sk,
+                        float* lse, int B, int H, int Sq, int Sk,
                         int hd, int causal, int window, float scale,
                         void* stream) {
   Args a{q,  k,  v, nullptr, nullptr, nullptr, o,      nullptr, nullptr,
          nullptr, lse, B, H, Sq, Sk, causal, window, scale,
          static_cast<cudaStream_t>(stream)};
   a.dout = q;  // nothing to read; keeps the alignment check uniform
-  return run(0, dtype, hd, a);
+  return run(0, hd, a);
 }
 
 int tadnn_flash_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const float* lse, const float* delta,
-                    void* dk, void* dv, int dtype, int B, int H, int Sq,
-                    int Sk, int hd, int causal, int window, float scale,
+                    void* dk, void* dv, int B, int H, int Sq, int Sk,
+                    int hd, int causal, int window, float scale,
                     void* stream) {
   Args a{q,   k,  v,  dout,   lse, delta, nullptr, nullptr, dk,
          dv, nullptr, B, H, Sq, Sk, causal, window, scale,
          static_cast<cudaStream_t>(stream)};
-  return run(1, dtype, hd, a);
+  return run(1, hd, a);
 }
 
 int tadnn_flash_dq(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   void* dq, int dtype, int B, int H, int Sq, int Sk, int hd,
+                   void* dq, int B, int H, int Sq, int Sk, int hd,
                    int causal, int window, float scale, void* stream) {
   Args a{q,  k,  v,  dout,   lse, delta, nullptr, dq, nullptr,
          nullptr, nullptr, B, H, Sq, Sk, causal, window, scale,
          static_cast<cudaStream_t>(stream)};
-  return run(2, dtype, hd, a);
+  return run(2, hd, a);
 }
 
 const char* tadnn_flash_error_string(int err) {

@@ -1,14 +1,14 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16: the forward
-// kernel (K1) and the dK/dV kernel (K2).
+// kernel (K1), the dK/dV kernel (K2) and the dQ kernel (K3).
 //
 // Replace the Pallas TPU kernels in
 //   torch_automatic_distributed_neural_network_tpu/ops/flash_attention.py:
-//   K1 ::_fwd_kernel (driven by _fwd) and K2 ::_dkv_kernel (driven by
-//   _bwd_impl), for bf16 operands.  fp32 operands and the dQ kernel (K3)
-//   stay in csrc/flash_attention.cu.
+//   K1 ::_fwd_kernel (driven by _fwd), K2 ::_dkv_kernel and K3 ::_dq_kernel
+//   (both driven by _bwd_impl), for bf16 operands.  fp32 operands stay on
+//   the CUDA cores in csrc/flash_attention.cu.
 //
 // Shapes (C-contiguous bf16, heads already broadcast for GQA):
-//   q, o, do        [B, Sq, H, hd]   (BSHD, read and written in place)
+//   q, o, do, dq    [B, Sq, H, hd]   (BSHD, read and written in place)
 //   k, v, dk, dv    [B, Sk, H, hd]
 //   lse, delta      [B, H, Sq] fp32
 //   hd is 32, 64 or 128; causal needs Sq == Sk; window > 0 needs causal.
@@ -25,12 +25,15 @@
 //       do, so its product is fp32): p = hi + lo, hi = bf16(p),
 //       lo = bf16(p - hi), two bf16 products, an error ~2^-17 of p;
 //       dp = do . v^T (bf16 products are exact); ds = p * (dp - delta) *
-//       scale rounded to bf16 (ds.astype(q.dtype)); dk += ds^T . q.
+//       scale rounded to bf16 (ds.astype(q.dtype)); dk += ds^T . q;
+//   K3: the same p and ds, ds rounded to bf16 (ds.astype(k.dtype)),
+//       dq += ds . k in fp32, written once as bf16.
 //
 // What bounds them on this card: at the GPT-2 small training shape (S 1024,
 // hd 64, causal) K1 must move ~51 MB for 13 GFLOP (bytes and operations
-// within 1.2x of each other) and K2 ~76 MB for 26 GFLOP (operations); both
-// near the bf16 tensor-core rate, which is what this design aims at.
+// within 1.2x of each other), K2 ~76 MB for 26 GFLOP and K3 ~64 MB for 19
+// GFLOP (operations); all three near the bf16 tensor-core rate, which is
+// what this design aims at.
 //
 // Design:
 // - every product is one warpgroup's `wgmma.mma_async` (m64nNk16, fp32
@@ -38,30 +41,33 @@
 //   (SS, K-major), the value-side products with the bf16 scores or score
 //   gradients as the register A operand (RS) and the [rows][hd] tile read
 //   MN-major through the descriptor's transpose bit;
-// - one thread block per (b*h, tile): K1 a 128-row q tile (two consumer
-//   warpgroups of 64 rows) walking k tiles of 64 keys (two blocks share
-//   an SM at hd <= 64), K2 a 128-key
-//   tile at hd <= 64 (two consumer warpgroups of 64 keys; 64 keys, one
-//   warpgroup at hd 128 to keep dk, dv and the two score tiles in
+// - one thread block per (b*h, tile): K1 and K3 a 128-row q tile (two
+//   consumer warpgroups of 64 rows; one of 64 rows for K3 at hd 128, to
+//   keep dq and the two score tiles in registers) walking k tiles of 64
+//   keys (two blocks share an SM at hd <= 64), K2 a
+//   128-key tile at hd <= 64 (two consumer warpgroups of 64 keys; 64 keys,
+//   one warpgroup at hd 128 to keep dk, dv and the two score tiles in
 //   registers) walking q tiles of 64 rows; _block_relevant becomes the
-//   loops' bounds, per block and per warpgroup;
+//   loops' bounds, per block and per warpgroup; causal K1 and K3 start the
+//   longest q tiles first;
 // - one producer warp issues TMA loads (4-D tensor maps over BSHD with
 //   128-byte swizzle, 64-byte at hd 32, zero fill past the ragged edge)
 //   into a two-stage ring guarded by full / empty mbarriers, so the next
 //   tile lands while this one is computed; in K2 it also stages lse and
-//   delta for the q tile;
+//   delta for the q tile, in K3 each thread reads its two rows' lse and
+//   delta into registers once;
 // - the mask is computed only on tiles that cross the diagonal, the
 //   window edge or the end of the sequence;
 // - outputs are written once from the accumulators; no atomics, so the
-//   results do not depend on the run.
+//   results do not depend on the run (dq is its own kernel, as in JAX: a
+//   dq fused into K2 would sum across k-tile blocks with atomics).
 
-#include <cuda.h>  // CUtensorMap and its enums (no driver call is linked)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <float.h>
-#include <stdint.h>
 
 #include <initializer_list>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -88,10 +94,6 @@ struct Tile {
     return rows * HD * 2;
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // wgmma shared-memory matrix descriptor: start, leading and stride byte
 // offsets (16-byte units) and the swizzle mode.
@@ -125,47 +127,6 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk) {
                    L::kAtom, L::kLayout);
 }
 
-// --- mbarriers and TMA ------------------------------------------------------
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.b32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 // Rows s0 .. s0 + rows - 1 of head h, batch b of a BSHD tensor into a
 // [rows][hd] tile, one box per column block; completion on `bar`.
 template <int HD>
@@ -175,13 +136,8 @@ __device__ __forceinline__ void load_tile(const CUtensorMap* map,
   using L = Tile<HD>;
 #pragma unroll
   for (int c = 0; c < L::kBoxes; ++c)
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-        "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
-            smem_u32(dst + c * rows * L::kRowBytes)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-        "r"(c * L::kBoxCols), "r"(h), "r"(s0), "r"(b)
-        : "memory");
+    tma_load_4d(map, bar, dst + c * rows * L::kRowBytes, c * L::kBoxCols, h,
+                s0, b);
 }
 
 // --- wgmma ------------------------------------------------------------------
@@ -785,12 +741,189 @@ __global__ void __launch_bounds__(DkvCfg<HD>::kThreads, 1)
   }
 }
 
+// --- K3 ---------------------------------------------------------------------
+// Replaces _dq_kernel (JAX ops/flash_attention.py:254) for bf16: K1's loop
+// shape (q rows resident, k tiles streamed) with K2's arithmetic.
+
+template <int HD>
+struct DqCfg {
+  static constexpr int kConsumers = HD >= 128 ? 1 : 2;
+  static constexpr int kBN = 64;                    // keys of a k tile
+  static constexpr int kBM = kRowsWG * kConsumers;  // q rows of a block
+  static constexpr int kThreads = kConsumers * kWG + 32;
+  // two blocks an SM at hd <= 64, one block's p / ds arithmetic
+  // overlapping the other's products: s, dp and dq (32 + 32 + 32 fp32
+  // registers at hd 64) spill ~256 bytes under the 90-register cap, and
+  // on the H100 that still beats one block an SM with no spill
+  static constexpr int kMinBlocks = HD <= 64 ? 2 : 1;
+  static constexpr int kQBytes = Tile<HD>::bytes(kBM);
+  static constexpr int kKVBytes = Tile<HD>::bytes(kBN);
+  static constexpr int kBarOffset = 2 * kQBytes + 2 * kStages * kKVBytes;
+  // q | do | k ring | v ring | barriers (q_full, full, empty) | alignment
+  // slack
+  static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(DqCfg<HD>::kThreads, DqCfg<HD>::kMinBlocks)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap do_map,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk,
+                  int causal, int window, float scale) {
+  using C = DqCfg<HD>;
+  constexpr int BN = C::kBN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align_1024(smem_raw);
+  uint8_t* do_s = q_s + C::kQBytes;
+  uint8_t* k_s = do_s + C::kQBytes;
+  uint8_t* v_s = k_s + kStages * C::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(q_s + C::kBarOffset);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kBM;  // longest rows first
+  int k_lo = 0, k_hi = (Sk + BN - 1) / BN - 1;
+  if (causal) {
+    k_hi = min(k_hi, (q0 + C::kBM - 1) / BN);
+    if (window > 0) k_lo = max(0, q0 - window + 1) / BN;
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], C::kConsumers * 4);  // one arrival a consumer warp
+    }
+    bar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == C::kConsumers * 4) {  // the producer warp
+    if (lane == 0) {
+      bar_arrive_tx(q_full, 2 * C::kQBytes);
+      load_tile<HD>(&q_map, q_full, q_s, C::kBM, q0, h, b);
+      load_tile<HD>(&do_map, q_full, do_s, C::kBM, q0, h, b);
+      for (int kt = k_lo, i = 0; kt <= k_hi; ++kt, ++i) {
+        const int st = i % kStages;
+        bar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        bar_arrive_tx(&full[st], 2 * C::kKVBytes);
+        load_tile<HD>(&k_map, &full[st], k_s + st * C::kKVBytes, BN, kt * BN,
+                      h, b);
+        load_tile<HD>(&v_map, &full[st], v_s + st * C::kKVBytes, BN, kt * BN,
+                      h, b);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: q rows q0 + 64 wg .. + 63
+  const int wg = warp / 4, w = warp % 4;
+  const int qa = q0 + wg * kRowsWG;
+  const int row = qa + 16 * w + lane / 4;  // and row + 8
+  const int col = 2 * (lane % 4);          // and + 1, within each 8 columns
+  int my_lo = k_lo, my_hi = k_hi;          // this warpgroup's k tiles
+  if (causal) {
+    my_hi = min(my_hi, (qa + kRowsWG - 1) / BN);
+    if (window > 0) my_lo = max(k_lo, max(0, qa - window + 1) / BN);
+  }
+  const float scale2 = scale * kLog2e;
+  // this thread's two rows' lse (times log2(e)) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row + 8 * r;
+    const size_t at = (static_cast<size_t>(b) * H + h) * Sq + qp;
+    lse2[r] = qp < Sq ? lse[at] * kLog2e : 0.f;
+    dl[r] = qp < Sq ? delta[at] : 0.f;
+  }
+  float dq_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  bar_wait(q_full, 0);
+
+  for (int kt = k_lo, i = 0; kt <= k_hi; ++kt, ++i) {
+    const int st = i % kStages;
+    bar_wait(&full[st], (i / kStages) & 1);
+    if (kt >= my_lo && kt <= my_hi) {
+      const uint32_t k_addr = smem_u32(k_s + st * C::kKVBytes);
+      const uint32_t v_addr = smem_u32(v_s + st * C::kKVBytes);
+      // s = q . k^T and dp = do . v^T: rows queries, columns keys
+      float s[BN / 2], dp[BN / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < Tile<HD>::kKSteps; ++kk)
+        Mma<BN>::ss(s, desc_k<HD>(q_addr, C::kBM, wg * kRowsWG, kk),
+                    desc_k<HD>(k_addr, BN, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < Tile<HD>::kKSteps; ++kk)
+        Mma<BN>::ss(dp, desc_k<HD>(do_addr, C::kBM, wg * kRowsWG, kk),
+                    desc_k<HD>(v_addr, BN, 0, kk), kk > 0);
+      wg_commit();
+      wg_wait_all();
+      hold(s);
+      hold(dp);
+
+      // p = exp(s scale - lse) and ds = p (dp - delta) scale, in place
+      const bool masked =
+          needs_mask(qa, kRowsWG, kt * BN, BN, Sq, Sk, causal, window);
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int idx = 4 * n + 2 * r + j;
+            const float p =
+                !masked || pair_ok(row + 8 * r, kt * BN + 8 * n + col + j, Sq,
+                                   Sk, causal, window)
+                    ? exp2f(s[idx] * scale2 - lse2[r])
+                    : 0.f;
+            dp[idx] = p * (dp[idx] - dl[r]) * scale;
+          }
+
+      // dq += bf16(ds) . k: ds from registers, k's tile MN-major
+      uint32_t ds_a[BN / 16][4];
+      to_a(dp, ds_a);
+      hold(dq_acc);
+      hold(ds_a);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        Mma<HD>::rs(dq_acc, ds_a[kk], desc_mn<HD>(k_addr, BN, kk), 1);
+      wg_commit();
+      wg_wait_all();
+      hold(dq_acc);
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row + 8 * r;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* drow =
+        dq + ((static_cast<size_t>(b) * Sq + qp) * H + h) * HD;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(drow + 8 * n + col) =
+          pack_bf16(dq_acc[4 * n + 2 * r], dq_acc[4 * n + 2 * r + 1]);
+  }
+}
+
 // --- the tile check ---------------------------------------------------------
 // One warpgroup, one 64-row tile of q, k and v (rows s0 .. s0 + 63 of head
 // h, batch b): s = q . k^T (SS, K-major) and o = bf16(s) . v (RS, v
 // MN-major), written as fp32 [64][64] and [64][hd].  It runs the loads,
-// descriptors and fragment maps of K1 and K2 on one tile, so that a fault
-// in them shows as a wrong product against torch.matmul.
+// descriptors and fragment maps of K1-K3 on one tile, so that a fault in
+// them shows as a wrong product against torch.matmul.
 
 template <int HD>
 __global__ void __launch_bounds__(kWG)
@@ -857,33 +990,6 @@ __global__ void __launch_bounds__(kWG)
 
 // --- launch -----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 4-D map over a BSHD bf16 tensor, dims (hd, H, S, B), box (one column
 // block, 1, rows, 1), the tile's swizzle, zero fill out of bounds.
 template <int HD>
@@ -919,7 +1025,7 @@ cudaError_t allow_smem(KernelFn kernel, int bytes) {
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse_in, *delta;
-  void *o, *dk, *dv;
+  void *o, *dk, *dv, *dq;
   float* lse_out;
   int B, H, Sq, Sk, causal, window;
   float scale;
@@ -960,6 +1066,26 @@ cudaError_t launch_dkv(const Args& a) {
        a.stream>>>(qm, km, vm, dom, a.lse_in, a.delta,
                    static_cast<__nv_bfloat16*>(a.dk),
                    static_cast<__nv_bfloat16*>(a.dv), a.H, a.Sq, a.Sk,
+                   a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dq(const Args& a) {
+  using C = DqCfg<HD>;
+  CUtensorMap qm, km, vm, dom;
+  cudaError_t err;
+  if ((err = make_map<HD>(&qm, a.q, a.B, a.Sq, a.H, C::kBM)) != cudaSuccess ||
+      (err = make_map<HD>(&dom, a.dout, a.B, a.Sq, a.H, C::kBM)) !=
+          cudaSuccess ||
+      (err = make_map<HD>(&km, a.k, a.B, a.Sk, a.H, C::kBN)) != cudaSuccess ||
+      (err = make_map<HD>(&vm, a.v, a.B, a.Sk, a.H, C::kBN)) != cudaSuccess)
+    return err;
+  auto fn = flash_dq_sm90<HD>;
+  if ((err = allow_smem(fn, C::kSmem)) != cudaSuccess) return err;
+  fn<<<dim3(a.B * a.H, (a.Sq + C::kBM - 1) / C::kBM), C::kThreads, C::kSmem,
+       a.stream>>>(qm, km, vm, dom, a.lse_in, a.delta,
+                   static_cast<__nv_bfloat16*>(a.dq), a.H, a.Sq, a.Sk,
                    a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
@@ -1006,9 +1132,9 @@ int tadnn_flash_forward_sm90(const void* q, const void* k, const void* v,
                              void* o, float* lse, int B, int H, int Sq,
                              int Sk, int hd, int causal, int window,
                              float scale, void* stream) {
-  Args a{q,  k,       v,  q,      nullptr, nullptr, o,      nullptr,
-         nullptr, lse, B, H, Sq, Sk,      causal,  window, scale,
-         static_cast<cudaStream_t>(stream)};
+  Args a{q,       k,       v,       q,   nullptr, nullptr, o,
+         nullptr, nullptr, nullptr, lse, B,       H,       Sq,
+         Sk,      causal,  window,  scale, static_cast<cudaStream_t>(stream)};
   cudaError_t err = check(a, hd);
   if (err != cudaSuccess) return err;
   switch (hd) {
@@ -1026,9 +1152,9 @@ int tadnn_flash_dkv_sm90(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int B, int H,
                          int Sq, int Sk, int hd, int causal, int window,
                          float scale, void* stream) {
-  Args a{q,  k,  v,  dout, lse, delta, nullptr, dk,     dv,
-         nullptr, B, H, Sq, Sk, causal, window, scale,
-         static_cast<cudaStream_t>(stream)};
+  Args a{q,  k,  v,      dout,   lse,   delta, nullptr,
+         dk, dv, nullptr, nullptr, B,     H,     Sq,
+         Sk, causal, window, scale, static_cast<cudaStream_t>(stream)};
   cudaError_t err = check(a, hd);
   if (err != cudaSuccess) return err;
   switch (hd) {
@@ -1041,15 +1167,35 @@ int tadnn_flash_dkv_sm90(const void* q, const void* k, const void* v,
   }
 }
 
+int tadnn_flash_dq_sm90(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* delta,
+                        void* dq, int B, int H, int Sq, int Sk, int hd,
+                        int causal, int window, float scale, void* stream) {
+  Args a{q,       k,  v,      dout,   lse,   delta, nullptr,
+         nullptr, nullptr, dq, nullptr, B,     H,     Sq,
+         Sk,      causal,  window, scale, static_cast<cudaStream_t>(stream)};
+  cudaError_t err = check(a, hd);
+  if (err != cudaSuccess) return err;
+  switch (hd) {
+    case 32:
+      return launch_dq<32>(a);
+    case 64:
+      return launch_dq<64>(a);
+    default:
+      return launch_dq<128>(a);
+  }
+}
+
 // The tile check (see tile_check_sm90): q, k, v BSHD bf16 [B, S, H, hd];
 // s_out fp32 [64][64], o_out fp32 [64][hd].
 int tadnn_flash_sm90_tile_check(const void* q, const void* k, const void* v,
                                 float* s_out, float* o_out, int B, int S,
                                 int H, int hd, int s0, int h, int b,
                                 void* stream) {
-  const Args a{q,       k,       v, nullptr, nullptr, nullptr, nullptr,
-               nullptr, nullptr, nullptr, B, H,       S,       S,
-               0,       0,       0.f, static_cast<cudaStream_t>(stream)};
+  const Args a{q,       k,       v,       nullptr, nullptr, nullptr,
+               nullptr, nullptr, nullptr, nullptr, nullptr, B,
+               H,       S,       S,       0,       0,       0.f,
+               static_cast<cudaStream_t>(stream)};
   switch (hd) {
     case 32:
       return launch_tile_check<32>(a, s_out, o_out, s0, h, b);

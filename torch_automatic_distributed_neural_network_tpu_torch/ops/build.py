@@ -1,14 +1,16 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface.  It
-is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
-at first use, and loaded with ``ctypes``.  In a checkout the libraries
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it
+may include headers of ``csrc/``, such as ``sm90_common.cuh``).  It is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library at
+first use, and loaded with ``ctypes``.  In a checkout the libraries
 go to ``build/torch_kernels/`` at its root; an installed copy (no
 ``pyproject.toml`` beside the package) uses PyTorch's extensions cache
 instead (``$TORCH_EXTENSIONS_DIR``, else ``~/.cache/torch_extensions``),
 since its own directory may not be writable.  The library's file name
-carries a digest of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  Several sources build in
+carries a digest of the source, the ``csrc/`` headers it includes and
+the flags, so an edited source or header is rebuilt and a stale library
+is never loaded.  Several sources build in
 parallel, one ``nvcc`` each (:func:`build`).
 
 ``torch.utils.cpp_extension.load`` would compile PyTorch's headers into
@@ -26,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -55,11 +58,25 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every ``csrc/`` header it includes, at any depth."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _LOCAL_INCLUDE.findall(seen[path]):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to, keyed by source, included
+    headers and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path, text in _sources(CSRC_DIR / f"{name}.cu", {}).items():
+        h.update(path.name.encode() + b"\0" + text)
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: list[str], *, ptxas_verbose: bool = False) -> dict[str, str]:

@@ -5,12 +5,11 @@ matrix in either direction: an online softmax over key tiles in the
 forward, and in the backward a recompute of ``p = exp(s - lse)`` from the
 saved per-row logsumexp.  The kernels, CUDA C++ for Hopper, replace the
 JAX package's Pallas kernels ``ops/flash_attention.py::_fwd_kernel``,
-``::_dkv_kernel`` and ``::_dq_kernel``: bf16 K1 and K2 run on the tensor
-cores (``csrc/flash_attention_sm90.cu``: TMA loads, ``wgmma``), fp32 K1
-and K2 and K3 of both types on the CUDA cores
-(``csrc/flash_attention.cu``).  Two ``torch.autograd.Function``\\ s take
-the place of its ``_flash_core`` / ``_flash_core_stats``
-``custom_vjp``\\ s.
+``::_dkv_kernel`` and ``::_dq_kernel``: bf16 K1-K3 run on the tensor
+cores (``csrc/flash_attention_sm90.cu``: TMA loads, ``wgmma``), fp32
+K1-K3 on the CUDA cores (``csrc/flash_attention.cu``: TF32 would break
+their 1e-4 bound).  Two ``torch.autograd.Function``\\ s take the place
+of its ``_flash_core`` / ``_flash_core_stats`` ``custom_vjp``\\ s.
 
 Layout is BSHD ``[batch, seq, heads, head_dim]``; the kernels read it in
 place (no fold to ``[B*H, S, D]``) and keep the row statistics ``lse``
@@ -42,7 +41,7 @@ from .attention import _check_window
 from .build import load
 
 _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (32, 64, 128)
 _TILE = 64  # the smallest tile of any kernel: bounds the grid's rows
 
@@ -50,8 +49,8 @@ _libs = None
 
 
 class _Libraries(NamedTuple):
-    simt: ctypes.CDLL  # csrc/flash_attention.cu: fp32 K1/K2, K3
-    sm90: ctypes.CDLL  # csrc/flash_attention_sm90.cu: bf16 K1/K2
+    simt: ctypes.CDLL  # csrc/flash_attention.cu: fp32 K1-K3
+    sm90: ctypes.CDLL  # csrc/flash_attention_sm90.cu: bf16 K1-K3
 
 
 def _library() -> _Libraries:
@@ -60,20 +59,16 @@ def _library() -> _Libraries:
     if _libs is None:
         lib, lib90 = load("flash_attention"), load("flash_attention_sm90")
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tadnn_flash_forward.argtypes = [ptr] * 5 + [i32] * 8 + [f32, ptr]
-        lib.tadnn_flash_dkv.argtypes = [ptr] * 8 + [i32] * 8 + [f32, ptr]
-        lib.tadnn_flash_dq.argtypes = [ptr] * 7 + [i32] * 8 + [f32, ptr]
-        lib90.tadnn_flash_forward_sm90.argtypes = (
-            [ptr] * 5 + [i32] * 7 + [f32, ptr])
-        lib90.tadnn_flash_dkv_sm90.argtypes = (
-            [ptr] * 8 + [i32] * 7 + [f32, ptr])
+        # each kernel's pointers, then (B, H, Sq, Sk, hd, causal, window),
+        # scale and the stream, in both libraries
+        for name, n_ptrs in (("forward", 5), ("dkv", 8), ("dq", 7)):
+            for fn in (getattr(lib, f"tadnn_flash_{name}"),
+                       getattr(lib90, f"tadnn_flash_{name}_sm90")):
+                fn.argtypes = [ptr] * n_ptrs + [i32] * 7 + [f32, ptr]
+                fn.restype = i32
         lib90.tadnn_flash_sm90_tile_check.argtypes = (
             [ptr] * 5 + [i32] * 7 + [ptr])
-        for fn in (lib.tadnn_flash_forward, lib.tadnn_flash_dkv,
-                   lib.tadnn_flash_dq, lib90.tadnn_flash_forward_sm90,
-                   lib90.tadnn_flash_dkv_sm90,
-                   lib90.tadnn_flash_sm90_tile_check):
-            fn.restype = i32
+        lib90.tadnn_flash_sm90_tile_check.restype = i32
         lib.tadnn_flash_error_string.argtypes = [i32]
         lib.tadnn_flash_error_string.restype = ctypes.c_char_p
         _libs = _Libraries(lib, lib90)
@@ -215,6 +210,14 @@ def _raise_on(err, name):
             f"(cudaError {err})")
 
 
+def _kernel(q, name):
+    """The C entry point of kernel ``name`` for q's type: bf16 on the
+    tensor cores, fp32 on the CUDA cores."""
+    if q.dtype == torch.bfloat16:
+        return getattr(_library().sm90, f"tadnn_flash_{name}_sm90")
+    return getattr(_library().simt, f"tadnn_flash_{name}")
+
+
 def _device_kind(q, name):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -235,12 +238,7 @@ def flash_forward(q, k, v, *, causal=False, window=None):
             lse.data_ptr())
     shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            err = _library().sm90.tadnn_flash_forward_sm90(
-                *ptrs, *shape, stream)
-        else:
-            err = _library().simt.tadnn_flash_forward(
-                *ptrs, _DTYPES[q.dtype], *shape, stream)
+        err = _kernel(q, "forward")(*ptrs, *shape, stream)
     _raise_on(err, "flash_forward")
     flash_forward.launches += 1
     return o, lse
@@ -262,11 +260,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None):
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            err = _library().sm90.tadnn_flash_dkv_sm90(*ptrs, *shape, stream)
-        else:
-            err = _library().simt.tadnn_flash_dkv(
-                *ptrs, _DTYPES[q.dtype], *shape, stream)
+        err = _kernel(q, "dkv")(*ptrs, *shape, stream)
     _raise_on(err, "flash_dkv")
     flash_dkv.launches += 1
     return dk, dv
@@ -284,12 +278,11 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None):
                                        causal=causal, window=window)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        err = _library().simt.tadnn_flash_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _DTYPES[q.dtype], B, H, Sq, Sk, hd, int(causal), window or 0,
-            1.0 / math.sqrt(hd), stream)
+        err = _kernel(q, "dq")(*ptrs, *shape, stream)
     _raise_on(err, "flash_dq")
     flash_dq.launches += 1
     return dq
