@@ -78,7 +78,20 @@ card, in phases, one JSON line each; any failure exits non-zero:
    and one batch (loss within 1e-2, relative grad-norm difference
    within 2e-2: bf16 compute, and the xla path rounds its scores to
    bf16 while the kernels keep them fp32), and where a step's time goes
-   (``torch.profiler``, with K1-K3's device ms per step).
+   (``torch.profiler``, with K1-K3's device ms per step);
+10. the trainer stack: the port's ``examples/train_gpt2.py`` ``main`` at
+   the same width and depth through ``Trainer.fit``, on a seeded
+   2048-token sequence tiled to 2**20 tokens (a TADN file read by the
+   native C++ loader), checkpoints every 10 steps: run 1 takes 30 steps;
+   step 30 is torn; run 2 (to step 40, two restarts allowed, a
+   ``FaultInjector`` at step 33) must print "resumed from step 20",
+   quarantine ``30.corrupt``, give steps 21-30 the losses of run 1 within
+   1e-4 relative, restart once from the step 30 it saved again and end at
+   40; then ``doctor`` must exit 0.  It prints the median step ms,
+   tokens/s, the MFU ``MetricsLogger`` took against the card's peak, the
+   goodput buckets, the checkpoint bytes, save-dispatch, write and
+   restore ms, and K1-K3's launches over both runs, which must be the
+   steps run times 12 layers times 2, 1 and 1.
 
 Then, on lines of their own: the per-kernel JSON record, the
 ``nvidia-smi`` name/power line, and last
@@ -1164,6 +1177,184 @@ def phase_train_profile(torch, data, *, steps=5) -> None:
                                 for n, us in flash_us.items()}})
 
 
+# -- phase 10: the trainer stack --------------------------------------------
+
+
+def _run_example(argv, callbacks):
+    """The port's ``examples/train_gpt2.py`` ``main`` on ``argv``, its
+    printout captured (and returned beside its result)."""
+    import contextlib
+    import io
+
+    from torch_automatic_distributed_neural_network_tpu_torch.examples import \
+        train_gpt2
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = train_gpt2.main(argv, callbacks=callbacks)
+    return out, buf.getvalue()
+
+
+def _recorder(into: list):
+    """A Trainer callback keeping each step's number and loss tensor
+    (read after the run, so it adds no host sync)."""
+    def record(step, state, metrics):
+        into.append((step, metrics["loss"]))
+    return record
+
+
+def phase_trainer(torch) -> dict[str, int]:
+    """The train_gpt2 example at full width through Trainer.fit: two runs
+    over one checkpoint directory, a torn step between them, a fault
+    inside the second, and the doctor on what is left."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch import cli
+    from torch_automatic_distributed_neural_network_tpu_torch.data import (
+        loader, write_token_file)
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        Journal, as_default)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        FaultInjector, tear_checkpoint)
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="tadnn_trainer_")
+    try:
+        # a seeded 2048-token sequence tiled to 2**20 tokens: the 1024-token
+        # windows repeat, so the loss must fall within a few dozen steps
+        corpus = os.path.join(tmp, "corpus.bin")
+        base = np.random.RandomState(0).randint(0, 50257, size=2048)
+        write_token_file(corpus, np.tile(base, 2**20 // 2048))
+        require(loader._native_lib() is not None,
+                "the native loader did not build with g++")
+        ckpt = os.path.join(tmp, "ckpt")
+        common = ["model.size=small", "model.seq_len=1024",
+                  "run.batch_size=8", "run.log_every=1", "run.ckpt_every=10",
+                  f"run.ckpt_dir={ckpt}", f"data.path={corpus}"]
+        wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+        for w in wrappers:
+            w.launches = 0
+        journal = Journal()
+        run1, run2 = [], []
+        with as_default(journal):
+            out1, text1 = _run_example(
+                common + ["run.steps=30",
+                          f"run.metrics_path={tmp}/metrics1.jsonl"],
+                [_recorder(run1)])
+            backend = out1["data"].backend
+            trainer1 = out1["trainer"]
+            del out1
+            torch.cuda.empty_cache()
+            torn = tear_checkpoint(ckpt, 30)
+            out2, text2 = _run_example(
+                common + ["run.steps=40", "run.max_restarts=2",
+                          f"run.metrics_path={tmp}/metrics2.jsonl"],
+                [_recorder(run2), FaultInjector(33)])
+        launches = {w.__name__: w.launches for w in wrappers}
+        final_step = out2["state"].step
+        goodput = {"run1": trainer1.goodput, "run2": out2["trainer"].goodput}
+        del out2, trainer1
+        torch.cuda.empty_cache()
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            doctor_rc = cli.main(["doctor", ckpt])
+        doctor = buf.getvalue().splitlines()
+        listing = sorted(os.listdir(ckpt))
+
+        losses1 = {s: float(x) for s, x in run1}
+        losses2 = [(s, float(x)) for s, x in run2]
+        first_pass = dict(losses2[:13])  # steps 21-33, before the fault
+        replay = {s: losses1[s] for s in range(21, 31)}
+        rel = [abs(first_pass[s] - v) / abs(v) for s, v in replay.items()]
+        with open(f"{tmp}/metrics1.jsonl") as fh:
+            recs = [json.loads(ln) for ln in fh]
+        steady = [r for r in recs if r["step"] >= 1]
+        step_ms = statistics.median(r["step_time_s"] for r in steady) * 1e3
+        names = [r["name"] for r in journal.records]
+        saves = [r for r in journal.records if r["name"] == "ckpt.save"]
+        writes = [r for r in journal.records
+                  if r["name"] == "ckpt.async_save"]
+        restores = [r for r in journal.records
+                    if r["name"] == "ckpt.restore"]
+        starts = [r["start_step"] for r in journal.records
+                  if r["name"] == "run_start"]
+        corrupt = [r for r in journal.records if r["name"] == "ckpt.corrupt"]
+        restarts_used = names.count("elastic.restart")
+        steps_run = len(run1) + len(run2)
+        per_layer = {"flash_forward": 2, "flash_dkv": 1, "flash_dq": 1}
+        expected = {n: steps_run * 12 * c for n, c in per_layer.items()}
+        rec = {
+            "phase": "trainer", "model": "gpt2-small", "seq": 1024,
+            "batch": 8, "loader_backend": backend,
+            "steps_run": {"run1": len(run1), "run2": len(run2)},
+            "median_step_ms": step_ms,
+            "tokens_per_s": 8 * 1024 / (step_ms / 1e3),
+            "mfu": statistics.median(r["mfu"] for r in steady)
+            if all("mfu" in r for r in steady) else None,
+            "losses_run1": [losses1[s] for s in sorted(losses1)],
+            "losses_run2": losses2,
+            "replay_max_rel_diff": max(rel),
+            "replay_bitwise_equal": all(first_pass[s] == v
+                                        for s, v in replay.items()),
+            "resumed_from_20": "resumed from step 20" in text2,
+            "torn_files": torn, "corrupt_events": [
+                {k: r[k] for k in ("step", "reason", "quarantined")}
+                for r in corrupt],
+            "run_starts": starts, "restarts_used": restarts_used,
+            "final_step": final_step,
+            "goodput": {run: {"seconds": g["seconds"],
+                              "fractions": g["fractions"],
+                              "goodput": g["goodput"]}
+                        for run, g in goodput.items()},
+            "checkpoint_bytes": saves[0].get("bytes") if saves else None,
+            "save_dispatch_ms": [r["dur_s"] * 1e3 for r in saves],
+            "write_to_durable_ms": [r["off_thread_s"] * 1e3 for r in writes],
+            "restore_ms": [r["dur_s"] * 1e3 for r in restores
+                           if "error" not in r],
+            "failed_restore_ms": [r["dur_s"] * 1e3 for r in restores
+                                  if "error" in r],
+            "doctor_rc": doctor_rc, "doctor": doctor, "ckpt_dir": listing,
+            "launches": launches, "expected_launches": expected,
+            "seconds": time.monotonic() - t_phase,
+        }
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(backend == "native", f"loader backend {backend}, not native")
+    require(len(run1) == 30 and len(run2) == 23,
+            f"steps run {len(run1)} + {len(run2)}, expected 30 + 23")
+    require(all(math.isfinite(x) for x in losses1.values()),
+            "non-finite loss in run 1")
+    require(rec["losses_run1"][-1] < rec["losses_run1"][0],
+            f"loss did not fall: {rec['losses_run1']}")
+    require(rec["resumed_from_20"], "run 2 did not print 'resumed from "
+                                    "step 20'")
+    require("30.corrupt" in listing and any(r["step"] == 30 for r in corrupt),
+            f"step 30 not quarantined: {listing}, {corrupt}")
+    require(rec["replay_max_rel_diff"] <= 1e-4,
+            f"replayed losses differ by {rec['replay_max_rel_diff']} > 1e-4 "
+            "relative")
+    require(restarts_used == 1, f"{restarts_used} restarts, expected 1")
+    require(starts == [0, 20, 30], f"run starts {starts}, expected "
+                                   "[0, 20, 30]")
+    require(final_step == 40, f"final step {final_step}, expected 40")
+    require(doctor_rc == 0, f"doctor exited {doctor_rc}")
+    for name, count in launches.items():
+        require(count == expected[name],
+                f"{name}: {count} launches in the trainer runs, expected "
+                f"{expected[name]}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1252,6 +1443,10 @@ def main(argv=None) -> int:
         train_launches = phase_train(torch, data)
         phase_train_parity(torch, data)
         phase_train_profile(torch, data)
+        del data
+        torch.cuda.empty_cache()
+    if run("trainer"):
+        phase_trainer(torch)
     emit({"phase": "done", "seconds": time.monotonic() - t_start})
     if only is not None:
         return 0
@@ -1279,7 +1474,7 @@ def main(argv=None) -> int:
 
 
 PHASES = ("build", "kernel_cases", "timing", "tile_check",
-          "flash_kernel_cases", "flash_timing", "serve", "train")
+          "flash_kernel_cases", "flash_timing", "serve", "train", "trainer")
 
 
 if __name__ == "__main__":

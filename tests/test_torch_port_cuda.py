@@ -19,7 +19,10 @@ the tensor cores also at hd 32, 64 and 128 over ragged lengths, causal
 and windowed, bitwise equal from one launch to the next, with their tile
 products checked against ``torch.matmul``; each wrapper refuses what its
 kernel does not take, and one training step of GPT-2 ``test`` through
-the kernels agrees with the same step through ``xla`` attention.
+the kernels agrees with the same step through ``xla`` attention.  The
+checkpoint layer round-trips a train state of CUDA tensors bitwise, and
+holds the state as it was at ``save`` while the next steps write the
+same tensors.
 """
 
 import numpy as np
@@ -365,3 +368,80 @@ def test_training_step_flash_matches_xla_on_card(cuda):
     (lf, nf), (lx, nx) = out["flash"], out["xla"]
     assert abs(lf - lx) <= 1e-2
     assert abs(nf - nx) / nx <= 2e-2
+
+
+def _cuda_train_state(cuda, steps):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2,
+        AutoDistribute,
+        SyntheticLM,
+        adamw,
+        next_token_loss,
+    )
+
+    data = SyntheticLM(vocab_size=128, seq_len=33, batch_size=2)
+    ad = AutoDistribute(GPT2("test", vocab_size=128, max_seq_len=32),
+                        optimizer=adamw(1e-3), loss_fn=next_token_loss,
+                        device=cuda)
+    state = ad.init(torch.Generator(device=cuda).manual_seed(0))
+    for i in range(steps):
+        state, _ = ad.step(state, data.batch(i))
+    return ad, state, data
+
+
+def _leaf_copies(state):
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        resilience,
+    )
+
+    return {k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in resilience.flatten_state(state).items()}
+
+
+def test_checkpoint_round_trip_of_cuda_tensors(cuda, tmp_path):
+    """A train state on the card saves (through pinned host memory) and
+    restores into CUDA tensors bitwise, verified against its manifest."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        CheckpointManager,
+        resilience,
+    )
+
+    ad, state, data = _cuda_train_state(cuda, 2)
+    want = _leaf_copies(state)
+    mgr = CheckpointManager(str(tmp_path), device=cuda)
+    mgr.save(2, state)
+    mgr.wait()
+    state, _ = ad.step(state, data.batch(5))
+    restored = mgr.restore(state)
+    got = resilience.flatten_state(restored)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert got[k].device.type == "cuda" and torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+    assert resilience.verify_directory(str(tmp_path))["steps"][0]["verified"]
+    mgr.close()
+
+
+def test_checkpoint_snapshot_survives_in_place_steps_on_card(cuda, tmp_path):
+    """The steps right after ``save`` returns write the same CUDA tensors
+    while the writer thread runs; the checkpoint holds the state as it
+    was at ``save``."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        CheckpointManager,
+    )
+
+    ad, state, data = _cuda_train_state(cuda, 1)
+    want = _leaf_copies(state)
+    mgr = CheckpointManager(str(tmp_path), device=cuda)
+    mgr.save(1, state)
+    for i in range(1, 4):
+        state, _ = ad.step(state, data.batch(i))
+    mgr.wait()
+    got = _leaf_copies(mgr.restore(state))
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+    mgr.close()

@@ -198,3 +198,69 @@ def test_library_path_follows_the_included_headers(monkeypatch, tmp_path):
     assert after["paged_attention"] != before["paged_attention"]
     assert after["flash_attention_sm90"] != before["flash_attention_sm90"]
     assert after["flash_attention"] == before["flash_attention"]
+
+
+# the trainer stack's modules: each imports with torch and numpy alone
+_TRAINER_STACK = (
+    "utils.config", "obs.journal", "obs.goodput", "training.metrics",
+    "training.resilience", "training.checkpoint", "training.elastic",
+    "training.trainer", "data.loader", "examples.train_gpt2", "cli",
+    "interop", "core",
+)
+
+
+@pytest.mark.parametrize("module", _TRAINER_STACK)
+def test_trainer_stack_module_imports_with_torch_and_numpy_alone(module):
+    code = f"""
+import sys
+import {PORT}.{module}
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "tadnn",
+                                    "torch_automatic_distributed_neural_network_tpu"))
+print("BAD", bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_trainer_stack_entry_points_default_to_cuda(no_cuda, tmp_path):
+    """``CheckpointManager``, ``TokenFileDataset``, ``MetricsLogger``, the
+    ``Trainer`` (through ``AutoDistribute``) and the ``train_gpt2``
+    example run on the card unless asked for the CPU, and raise without
+    one."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2,
+        AutoDistribute,
+        next_token_loss,
+        write_token_file,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.data import (
+        TokenFileDataset,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.examples import (
+        train_gpt2,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        CheckpointManager,
+        MetricsLogger,
+        Trainer,
+    )
+
+    path = str(tmp_path / "c.bin")
+    write_token_file(path, list(range(100)))
+    for make in (lambda: CheckpointManager(str(tmp_path / "ck")),
+                 lambda: TokenFileDataset(path, 8, 2),
+                 lambda: MetricsLogger(None),
+                 lambda: Trainer(AutoDistribute(
+                     GPT2("test", vocab_size=32, max_seq_len=16),
+                     loss_fn=next_token_loss)),
+                 lambda: train_gpt2.main(["model.size=test"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert CheckpointManager(str(tmp_path / "ck"),
+                             device="cpu").device.type == "cpu"
+    assert TokenFileDataset(path, 8, 2, device="cpu").device.type == "cpu"

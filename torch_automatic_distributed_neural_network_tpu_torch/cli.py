@@ -1,14 +1,17 @@
-"""Command line for the PyTorch port: the ``serve`` subcommand.
+"""Command line for the PyTorch port: the ``serve`` and ``doctor``
+subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
+    python -m torch_automatic_distributed_neural_network_tpu_torch doctor CKPT_DIR
 
 Mirrors the JAX package's ``tadnn serve``: the same flags and the same
 JSON summary line, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 plain PyTorch path).  Weights are random, made from ``--seed``.  Flags
 whose features the port does not have yet (adapters, speculative
 decoding, disaggregation, prefix caching, tensor parallelism) are
-accepted and refused with exit code 2 when set.
+accepted and refused with exit code 2 when set.  ``doctor`` is the
+checkpoint part of the JAX package's ``tadnn doctor``.
 """
 
 from __future__ import annotations
@@ -151,6 +154,31 @@ def cmd_serve(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_doctor(args: argparse.Namespace) -> int:
+    """Verify a checkpoint directory's integrity and print the fallback
+    chain restore_or_init would walk.  Exit 0 when at least one step is
+    restorable, 1 otherwise (corrupt-only or empty directory)."""
+    if args.launch_dir:
+        raise NotImplementedError(
+            "doctor --launch-dir: the launcher is not ported to the "
+            "PyTorch package yet (ROADMAP Queue 1 item 3)")
+    if args.gateway_dir:
+        raise NotImplementedError(
+            "doctor --gateway-dir: the gateway is not ported to the "
+            "PyTorch package yet (ROADMAP Queue 1 item 7)")
+    if not args.directory:
+        print("doctor: a checkpoint directory is required", file=sys.stderr)
+        return 2
+    from .training import resilience
+
+    report = resilience.verify_directory(args.directory)
+    if args.json:
+        print(json.dumps(report))
+    else:
+        print(resilience.format_doctor(report))
+    return 0 if report["healthy"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m torch_automatic_distributed_neural_network_tpu_torch",
@@ -218,6 +246,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the plain PyTorch path)")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "doctor",
+        help="verify a checkpoint directory (per-leaf integrity "
+             "manifests, resilience.py) and print the fallback chain; "
+             "exits nonzero when no step is restorable")
+    p.add_argument("directory", nargs="?", default=None,
+                   help="CheckpointManager directory")
+    p.add_argument("--launch-dir", default=None,
+                   help="launch supervision health (not ported yet)")
+    p.add_argument("--gateway-dir", default=None,
+                   help="fleet post-mortem of a gateway (not ported yet)")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_doctor)
     return ap
 
 

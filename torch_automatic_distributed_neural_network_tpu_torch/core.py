@@ -10,9 +10,10 @@ single card.
 
 ``loss_fn(model, batch, generator) -> (loss, aux_dict)``
 (``training/losses.py``).  On one device the JAX planner's plan is the
-identity: data parallelism of degree 1, with the loss-level activation
-checkpoint on only when the train state would take half the card's
-memory (``planner.make_plan``'s single-device rule).  Every other
+identity (:class:`ShardPlan`): data parallelism of degree 1 on the mesh
+``{"data": 1}``, with the loss-level activation checkpoint on only when
+the train state would take half the card's memory
+(``planner.make_plan``'s single-device rule).  Every other
 strategy, a mesh, several devices, sequence or pipeline parallelism,
 ZeRO-1 and the export cache raise ``NotImplementedError`` (ROADMAP
 Queue 1 items 3-5).
@@ -41,6 +42,23 @@ LossFn = Callable[[nn.Module, dict, "torch.Generator | None"],
 
 # the JAX planner's memory for a device kind it does not know
 _DEFAULT_DEVICE_BYTES = 16 * 2**30
+
+
+@dataclasses.dataclass
+class ShardPlan:
+    """The planner's output on one device: ``strategy`` ``"dp"`` over
+    the mesh ``{"data": 1}`` (axis name -> degree), and whether the loss
+    is wrapped in an activation checkpoint (``remat``)."""
+
+    mesh: dict[str, int]
+    strategy: str
+    remat: bool = False
+
+
+def mesh_degrees(mesh) -> dict[str, int]:
+    """Axis name -> degree of a plan's mesh (a degrees mapping on one
+    device)."""
+    return {ax: int(n) for ax, n in dict(mesh).items()}
 
 
 @dataclasses.dataclass
@@ -113,7 +131,8 @@ class AutoDistribute:
             optimizer or adamw(1e-3), self.precision)
         self._loss_fn = loss_fn
         self._remat_arg = remat
-        self.remat: bool | None = None  # decided by init
+        self.remat: bool | None = None  # decided by build_plan
+        self.plan: ShardPlan | None = None
         self._grad_accum = grad_accum
         self._masters_apart = False
 
@@ -124,6 +143,27 @@ class AutoDistribute:
             return torch.cuda.get_device_properties(self.device).total_memory
         return _DEFAULT_DEVICE_BYTES
 
+    def build_plan(self, rng: torch.Generator | None = None,
+                   sample_batch: dict | None = None) -> ShardPlan:
+        """The one-device plan: ``dp`` on ``{"data": 1}``, and ``remat``
+        as given, else the planner's rule (params, grads and two moments,
+        as ``state_factor`` times the bytes of the parameters as built,
+        above half the device's memory).  ``rng`` is accepted for the
+        JAX signature; the module's shapes need no trace."""
+        if sample_batch is not None:
+            self._check_batch(sample_batch)
+        if self._remat_arg is not None:
+            remat = self._remat_arg
+        else:
+            prec = self.precision
+            state_bytes = (prec.bytes_per_param / prec.param_dtype.itemsize
+                           * sum(p.numel() * p.element_size()
+                                 for p in self.model.parameters()))
+            remat = state_bytes > 0.5 * self._device_bytes()
+        self.remat = remat
+        self.plan = ShardPlan(mesh={"data": 1}, strategy="dp", remat=remat)
+        return self.plan
+
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None,
              sample_batch: dict | None = None) -> TrainState:
@@ -131,17 +171,14 @@ class AutoDistribute:
         device) the weights are drawn anew (``DecoderLM.init_weights``);
         without one the model keeps the weights it holds, e.g. weights
         carried from JAX (``interop.decoder_from_jax_params``)."""
+        if self.plan is None:
+            self.build_plan(generator, sample_batch)
+        elif sample_batch is not None:
+            self._check_batch(sample_batch)
         model = self.model.to(self.device)
         if generator is not None:
             model.init_weights(generator)
-        if sample_batch is not None:
-            self._check_batch(sample_batch)
         prec = self.precision
-        # the planner's memory model: params, grads and two moments, as
-        # state_factor times the bytes of the parameters as built
-        state_bytes = (prec.bytes_per_param / prec.param_dtype.itemsize
-                       * sum(p.numel() * p.element_size()
-                             for p in model.parameters()))
         # the module holds the compute-dtype copy the loss differentiates;
         # under 'mixed' the fp32 masters live apart in the state
         self._masters_apart = prec.compute_dtype != prec.param_dtype
@@ -153,16 +190,22 @@ class AutoDistribute:
             else:
                 p.data = p.data.to(prec.param_dtype)
                 params[name] = p
-        if self._remat_arg is not None:
-            self.remat = self._remat_arg
-        else:
-            self.remat = state_bytes > 0.5 * self._device_bytes()
         seed = 0
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device))
         return TrainState(step=0, params=params,
                           opt_state=self.optimizer.init(params), seed=seed)
+
+    @torch.no_grad()
+    def adopt_state(self, state: TrainState) -> None:
+        """Make the module compute with ``state``'s parameters after
+        something wrote into them (a checkpoint restore): under
+        ``mixed`` the module holds a compute-dtype copy of the fp32
+        masters; otherwise the state's parameters are the module's."""
+        if self._masters_apart:
+            for name, p in self.model.named_parameters():
+                p.copy_(state.params[name])
 
     def _check_batch(self, batch) -> None:
         k = self._grad_accum

@@ -18,16 +18,25 @@ device.  Layouts mapped:
 
 The same mapping carries trained JAX parameters, so a port's
 ``state_dict`` after training steps compares with
-``decoder_from_jax_params(jax_params_after, cfg).state_dict()``.
+``decoder_from_jax_params(jax_params_after, cfg).state_dict()``, and
+:func:`train_state_from_jax` carries a whole JAX train state (step,
+parameters and the AdamW moments, which have the parameters' tree) into
+the port's ``TrainState``, so a JAX run continues in the port.
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
 
 from .models.transformer_core import DecoderLM, TransformerConfig
 from .utils.device import resolve_device
+
+if TYPE_CHECKING:
+    from .core import AutoDistribute, TrainState
 
 
 def _t(x) -> torch.Tensor:
@@ -92,3 +101,63 @@ def decoder_from_jax_params(params: dict, cfg: TransformerConfig, *,
 
     model.load_state_dict(state, strict=True)
     return model.to(resolve_device(device))
+
+
+def _field(obj: Any, name: str) -> Any:
+    """``obj.name`` or ``obj[name]``: a JAX struct, NamedTuple or dict."""
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def _with_count(tree: Any, count: int) -> Any:
+    """``tree`` with every ``"count"`` entry set to ``count``."""
+    if isinstance(tree, dict):
+        return {k: count if k == "count" else _with_count(v, count)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_count(v, count) for v in tree)
+    return tree
+
+
+def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
+                         seed: int = 0) -> "TrainState":
+    """The port's ``TrainState`` continuing a JAX ``TrainState``.
+
+    ``jax_state``: the JAX package's state with numpy leaves
+    (``jax.tree.map(np.asarray, ...)`` on the JAX side, the rng left out
+    or as key data): its ``step``, ``params`` and ``opt_state``, whose
+    first element is optax's AdamW state (``count``, ``mu``, ``nu``).
+    ``ad``: a port ``AutoDistribute`` not yet initialized, over a
+    ``DecoderLM`` of the JAX model's config, with ``adamw``.  The
+    parameters go into ``ad.model`` and the moments into the state
+    through :func:`decoder_from_jax_params`'s mapping; every optimizer
+    count becomes AdamW's.  ``seed`` takes the place of the JAX rng (the
+    port draws dropout masks from its own generators)."""
+    cfg = ad.model.cfg
+
+    def port_named(tree) -> dict[str, torch.Tensor]:
+        return decoder_from_jax_params(tree, cfg, device="cpu").state_dict()
+
+    ad.model.load_state_dict(port_named(_field(jax_state, "params")))
+    state = ad.init(None)
+    adam = _field(jax_state, "opt_state")[0]
+    moments = {"mu": port_named(_field(adam, "mu")),
+               "nu": port_named(_field(adam, "nu"))}
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            if "mu" in tree and "nu" in tree:
+                with torch.no_grad():
+                    for key, named in moments.items():
+                        for name, t in tree[key].items():
+                            t.copy_(named[name])
+            for v in tree.values():
+                fill(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                fill(v)
+
+    fill(state.opt_state)
+    count = int(np.asarray(_field(adam, "count")))
+    return dataclasses.replace(
+        state, step=int(np.asarray(_field(jax_state, "step"))),
+        opt_state=_with_count(state.opt_state, count), seed=seed)

@@ -1,10 +1,13 @@
 """Span/event journal — the writer side of the JAX package's journal.
 
 The port writes the same JSON lines as the JAX package's
-``obs/journal.py``, so its ``serve.*`` records stay readable by that
-package's ``tadnn report``.  Only the writer is here; reading,
-following and size-capped rotation stay in the JAX package until the
-port needs them.
+``obs/journal.py``, so its records stay readable by that package's
+``tadnn report``.  Here: the writer, live taps (``subscribe``),
+size-capped rotation, the in-memory filter ``named``, the torn-line
+tolerant reader ``Journal.read``, and the process-default helpers
+(``as_default`` and the module-level ``event`` / ``span``, which library
+code logs through).  Following a live file and the schema registry stay
+in the JAX package (ROADMAP Queue 1 item 7).
 
 Every record carries BOTH clocks:
 
@@ -19,10 +22,12 @@ rank-0 gating)::
     j.event("serve.preempt", rid=3)              # point event
     with j.span("serve.prefill", rid=3):         # timed span
         ...
-    set_default(j)                               # process-global sink
+    set_default(j)                               # process-global sink:
+    event("ckpt.corrupt", step=30)               # library code logs here
 
-With no default installed, :func:`get_default` returns a no-op journal,
-so instrumented code costs nothing in un-observed runs.
+With no default installed, module-level ``span``/``event`` are cheap
+no-ops (a null journal), so instrumented code costs nothing in
+un-observed runs.
 ``TADNN_JOURNAL=<path>`` in the environment installs a default sink
 automatically on first use.
 """
@@ -33,6 +38,7 @@ import contextlib
 import json
 import os
 import time
+import warnings
 from typing import Any, IO, Iterator
 
 
@@ -56,6 +62,11 @@ class Journal:
     test/tooling mode.  ``host0_only=True`` (default) makes non-zero
     ranks' journals silent no-ops so multi-process runs produce one file.
 
+    ``max_bytes`` (or ``TADNN_JOURNAL_MAX_BYTES`` in the environment)
+    caps the file: when a write crosses the cap the file rotates to
+    ``<path>.1`` (one generation, overwritten) and the journal keeps
+    appending to a fresh file, led by a ``journal.rotated`` record.
+
     ``validate=True`` (or ``TADNN_JOURNAL_VALIDATE=1``) asks for
     emit-time checks against the event schema registry, which the port
     does not have yet: it raises at construction.  Audit a journal the
@@ -65,6 +76,7 @@ class Journal:
 
     def __init__(self, path: str | None = None, *,
                  host0_only: bool = True, meta: dict | None = None,
+                 max_bytes: int | None = None,
                  validate: bool | None = None):
         self.path = path
         if validate is None:
@@ -82,6 +94,17 @@ class Journal:
         self._file: IO | None = None
         self.records: list[dict] = []  # in-memory sink when path is None
         self.counts: dict[str, int] = {}
+        # live taps: called with each record as it is written
+        self._subscribers: list = []
+        if max_bytes is None:
+            try:
+                max_bytes = int(
+                    os.environ.get("TADNN_JOURNAL_MAX_BYTES", "0")) or None
+            except ValueError:
+                max_bytes = None
+        self._max_bytes = max_bytes
+        self._rotating = False
+        self.rotations = 0
         if self.enabled and path:
             d = os.path.dirname(os.path.abspath(path))
             os.makedirs(d, exist_ok=True)
@@ -97,8 +120,41 @@ class Journal:
         if self._file is not None:
             self._file.write(json.dumps(rec, default=str) + "\n")
             self._file.flush()
+            if (self._max_bytes and not self._rotating
+                    and self._file.tell() >= self._max_bytes):
+                self._rotate()
         else:
             self.records.append(rec)
+        for fn in self._subscribers:
+            fn(rec)
+
+    def subscribe(self, fn) -> None:
+        """Register a live tap: ``fn(rec)`` runs for every record this
+        journal writes, file-backed or in-memory."""
+        self._subscribers.append(fn)
+
+    def _rotate(self) -> None:
+        """Move the full file to ``<path>.1`` (replacing any previous
+        generation) and reopen fresh.  The rotated event lands first in
+        the new file so a reader knows records were shed."""
+        self._file.close()
+        try:
+            os.replace(self.path, self.path + ".1")
+        except OSError:
+            # best-effort (read-only fs mid-run): keep appending rather
+            # than lose the sink
+            self._file = open(self.path, "a")
+            return
+        self._file = open(self.path, "a")
+        self.rotations += 1
+        # guards the rotated event's own write: with a cap smaller than
+        # one record it would otherwise recurse forever
+        self._rotating = True
+        try:
+            self.event("journal.rotated", rotations=self.rotations,
+                       max_bytes=self._max_bytes)
+        finally:
+            self._rotating = False
 
     def event(self, name: str, **fields: Any) -> dict | None:
         """One point-in-time record: ``{"kind": "event", "name": ...}``."""
@@ -134,6 +190,16 @@ class Journal:
             rec["dur_s"] = time.monotonic() - t_start
             self._write(rec)
 
+    def named(self, prefix: str) -> list[dict]:
+        """In-memory records (``path=None`` mode) whose name is
+        ``prefix`` or lives under it as a dotted namespace — ``'ckpt'``
+        matches ``ckpt.save`` and ``ckpt.corrupt``."""
+        return [
+            rec for rec in self.records
+            if rec.get("name", "") == prefix
+            or rec.get("name", "").startswith(prefix + ".")
+        ]
+
     def close(self) -> None:
         if self._file is not None:
             self._file.close()
@@ -145,6 +211,38 @@ class Journal:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    @staticmethod
+    def read(path: str) -> list[dict]:
+        """Parse a journal file, skipping torn/partial JSONL lines (a
+        crashed writer leaves a torn final line) and non-dict lines, with
+        one warning per file."""
+        out: list[dict] = []
+        bad = 0
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    bad += 1
+                    continue
+                if isinstance(rec, dict):
+                    out.append(rec)
+                else:
+                    bad += 1
+        if bad and path not in _warned_corrupt:
+            _warned_corrupt.add(path)
+            warnings.warn(
+                f"journal {path}: skipped {bad} torn/corrupt line(s) "
+                f"({len(out)} readable records kept)", stacklevel=2)
+        return out
+
+
+# paths already warned about corrupt lines (once-per-file, process-wide)
+_warned_corrupt: set[str] = set()
+
 
 class _NullJournal(Journal):
     """Sink of last resort: every call is a no-op."""
@@ -155,6 +253,7 @@ class _NullJournal(Journal):
         self._file = None
         self.records = []
         self.counts = {}
+        self._subscribers = []
         self._depth = 0
         self._t0 = time.monotonic()
 
@@ -179,3 +278,29 @@ def get_default() -> Journal:
         if env:
             _default = Journal(env)
     return _default if _default is not None else _NULL
+
+
+@contextlib.contextmanager
+def as_default(journal: Journal | None) -> Iterator[Journal]:
+    """Temporarily install ``journal`` as the process default (restores
+    the previous default on exit).  ``None`` is a pass-through."""
+    global _default
+    if journal is None:
+        yield get_default()
+        return
+    prev = _default
+    _default = journal
+    try:
+        yield journal
+    finally:
+        _default = prev
+
+
+def event(name: str, **fields: Any) -> dict | None:
+    """Module-level event on the default journal (no-op when unset)."""
+    return get_default().event(name, **fields)
+
+
+def span(name: str, **fields: Any):
+    """Module-level span on the default journal (no-op when unset)."""
+    return get_default().span(name, **fields)

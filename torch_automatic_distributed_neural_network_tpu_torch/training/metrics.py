@@ -1,0 +1,198 @@
+"""Metrics: structured JSONL records with throughput and MFU
+accounting (the JAX package's ``training/metrics.py``, same record
+keys).
+
+MFU honesty rule: record both the raw throughput and the model-flops
+assumptions used for the MFU conversion.
+
+One difference from the JAX package: its ``PEAK_TFLOPS`` is a table of
+TPU generations and guesses 100 TFLOP/s for a kind it does not know.
+Here the table holds NVIDIA's published dense bf16 peaks, looked up by
+the card's name (``torch.cuda.get_device_name``), and an unknown card
+has no peak: :func:`peak_flops_per_chip` returns None and the records
+carry no ``mfu`` field rather than a guessed one.  ``cpu`` keeps the
+JAX package's nominal 0.5 TFLOP/s, so CPU-run MFU numbers are obviously
+synthetic.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+import warnings
+from typing import Any, IO
+
+import torch
+
+from ..utils.device import process_count, process_index, resolve_device
+
+# Peak dense bf16 tensor-core TFLOP/s by lower-cased device-name
+# substring (NVIDIA's data sheets, without sparsity).
+PEAK_TFLOPS = {
+    "h100 80gb hbm3": 989.4,  # H100 SXM
+    "h100 pcie": 756.0,
+    "cpu": 0.5,  # nominal, so CPU-run MFU numbers are obviously synthetic
+}
+
+
+def device_name(device=None) -> str:
+    """The name the peak table is keyed by: the card's name for a CUDA
+    ``device`` (default ``cuda``, raising without it), ``cpu`` for the
+    CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    return torch.cuda.get_device_name(dev)
+
+
+def peak_flops_per_chip(device_kind: str | None = None) -> float | None:
+    """Peak dense bf16 FLOP/s of ``device_kind`` (default: the card's
+    name), or None for a kind the table does not know."""
+    dk = (device_kind if device_kind is not None
+          else device_name()).lower()
+    for k, v in PEAK_TFLOPS.items():
+        if k in dk:
+            return v * 1e12
+    return None
+
+
+def transformer_step_flops(n_params: int, tokens_per_batch: int) -> float:
+    """Standard 6ND approximation: fwd+bwd FLOPs per step for a dense
+    decoder with N params on D tokens.  With remat add ~1 extra forward
+    (8ND) — callers pass the multiplier they actually run with."""
+    return 6.0 * n_params * tokens_per_batch
+
+
+@dataclasses.dataclass
+class Throughput:
+    items_per_sec: float
+    items_per_sec_per_chip: float
+    step_time_s: float
+    mfu: float | None = None
+
+
+class MetricsLogger:
+    """JSONL metrics sink + rolling throughput meter.
+
+    Writes one JSON object per log call: step, loss/aux, step_time,
+    items/sec/chip, MFU when flops-per-step is known.  Host-0 only under
+    multi-process.  ``device``: the device the run trains on (default
+    ``cuda``, raising without it), whose peak the MFU is taken against.
+    """
+
+    def __init__(
+        self,
+        path: str | None = None,
+        *,
+        items_name: str = "items",
+        flops_per_step: float | None = None,
+        console: bool = True,
+        console_every: int = 10,
+        device=None,
+    ):
+        self.path = path
+        self._file: IO | None = open(path, "a") if path else None
+        self.items_name = items_name
+        self.flops_per_step = flops_per_step
+        self.console = console and process_index() == 0
+        self.console_every = console_every
+        self._t_last: float | None = None
+        self._peak = peak_flops_per_chip(device_name(device))
+        self._n_chips = process_count()
+        self._dropped_warned: set[str] = set()
+
+    def start_step(self) -> None:
+        self._t_last = time.perf_counter()
+
+    def log_step(self, step: int, metrics: dict, items_per_step: int) -> dict:
+        now = time.perf_counter()
+        dt = (now - self._t_last) if self._t_last is not None else float("nan")
+        self._t_last = now
+        record: dict[str, Any] = {
+            "step": step,
+            "time": time.time(),
+            "step_time_s": dt,
+            f"{self.items_name}_per_sec": items_per_step / dt if dt else None,
+            f"{self.items_name}_per_sec_per_chip": (
+                items_per_step / dt / self._n_chips if dt else None
+            ),
+        }
+        if self.flops_per_step and self._peak and dt and dt == dt:
+            record["mfu"] = self.flops_per_step / dt / (
+                self._peak * self._n_chips
+            )
+            record["flops_per_step"] = self.flops_per_step
+        for k, v in metrics.items():
+            if k == "model_state":
+                continue
+            try:
+                record[k] = float(v)
+            except (TypeError, ValueError):
+                self._warn_dropped(k, v)
+        parts = [f"step {step:5d}"]
+        if "loss" in record:
+            parts.append(f"loss {record['loss']:.4f}")
+        ips = record.get(f"{self.items_name}_per_sec_per_chip")
+        if ips:
+            parts.append(f"{ips:,.0f} {self.items_name}/s/chip")
+        if "mfu" in record:
+            parts.append(f"MFU {record['mfu']:.1%}")
+        self._emit(record, parts,
+                   console=self.console and step % self.console_every == 0)
+        return record
+
+    def _emit(self, record: dict, console_parts: list[str],
+              *, console: bool) -> None:
+        """Shared sink: JSONL write + optional host-0 console line."""
+        if self._file:
+            self._file.write(json.dumps(record) + "\n")
+            self._file.flush()
+        if console:
+            print("  ".join(console_parts), file=sys.stderr)
+
+    def log_eval(self, step: int, metrics: dict) -> dict:
+        """Write an evaluation record: plain fields only — no step-time /
+        throughput / MFU math (those are meaningless for an eval pass and
+        would corrupt consumers averaging the training records)."""
+        record: dict[str, Any] = {"step": step, "time": time.time()}
+        for k, v in metrics.items():
+            try:
+                record[k] = float(v)
+            except (TypeError, ValueError):
+                self._warn_dropped(k, v)
+        parts = [f"step {step:5d}"] + [
+            f"{k} {v:.4f}" for k, v in record.items()
+            if k not in ("step", "time")
+        ]
+        self._emit(record, parts, console=self.console)
+        return record
+
+    def _warn_dropped(self, key: str, value: Any) -> None:
+        """Warn ONCE per metric key that is silently unloggable — a step
+        fn returning arrays/strings otherwise loses those series with no
+        trace, and the gap is only noticed at analysis time."""
+        if key in self._dropped_warned:
+            return
+        self._dropped_warned.add(key)
+        warnings.warn(
+            f"MetricsLogger: dropping non-scalar metric {key!r} "
+            f"(type {type(value).__name__}) — log_step/log_eval record "
+            "only float()-able scalars; reduce it in the step fn "
+            "(warned once per key)",
+            stacklevel=3,
+        )
+
+    def close(self) -> None:
+        """Close the JSONL file (idempotent; later log calls fall back to
+        console-only instead of crashing on a closed handle)."""
+        if self._file:
+            self._file.close()
+            self._file = None
+
+    def __enter__(self) -> "MetricsLogger":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.close()

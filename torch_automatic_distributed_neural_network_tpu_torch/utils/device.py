@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the process's
+place in a ``torch.distributed`` group.
 
 Entry points run on the card unless the caller asks for the CPU: a
 ``device`` of None means ``cuda``, and asking for CUDA on a machine
@@ -22,3 +23,21 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev} (expected cuda or cpu)")
     return dev
+
+
+def process_index() -> int:
+    """This process's ``torch.distributed`` rank when a process group is
+    initialized, else 0."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def process_count() -> int:
+    """The process group's size when one is initialized, else 1 (the
+    port runs one device per process)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
