@@ -15,13 +15,17 @@ card, in phases, one JSON line each; any failure exits non-zero:
    kernels, every one of which must hold HGMMA;
 3. kernel vs plain version: the paged-attention kernel against
    ``paged_attention_reference`` on the same inputs, at the GPT-2 small,
-   Llama 1b and Llama 8b attention geometries, block sizes 8 and 16,
+   Llama 1b and Llama 8b attention geometries and GPT-2 small's width in
+   8 heads (head dim 96), block sizes 8 and 16,
    fp32/bf16/int8 pools, with and without a sliding window, fp32 and
    bf16 queries; bounds 1e-4 (fp32 q) and 2e-2 (bf16 q); then its split
    context where the splits outnumber the attended pages (ctx 0, short
    contexts, windows that empty whole splits) at the wrapper's split
    count and at 2, 7 and 16, each launched twice and bitwise equal, and
-   a slot with no attended key giving zeros;
+   a slot with no attended key giving zeros; then aliased block tables,
+   as prefix-cache hits make them (8 slots sharing 12 blocks at
+   refcount 8, two of them 2 more, bf16 and int8 pools), under the same
+   bounds;
 4. timing at the GPT-2 small decode shape (8 slots at ctx 1023, bf16
    pool): median of many launches with the L2 cache flushed before
    each, beside the plain version and the least time the card could
@@ -50,7 +54,8 @@ card, in phases, one JSON line each; any failure exits non-zero:
    against ``flash_forward_reference``, K2 (dk, dv) and K3 (dq) against
    ``flash_dkv_reference`` / ``flash_dq_reference`` on the same inputs,
    at the GPT-2 small (12 heads, hd 64), Llama 1b (32 / 8 heads, GQA
-   repeated by the wrapper) and hd-128 geometries, S in {1, 100, 129,
+   repeated by the wrapper), hd-128 and hd-96 (zero-padded to 128 by the
+   wrapper) geometries, S in {1, 100, 129,
    512, 1000, 1024}, causal or not, window None or 256, fp32 and bf16;
    bounds 1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at
    |x| in [2, 4)), and bf16 dv differing from its plain version in at
@@ -91,9 +96,35 @@ card, in phases, one JSON line each; any failure exits non-zero:
    tokens/s, the MFU ``MetricsLogger`` took against the card's peak, the
    goodput buckets, the checkpoint bytes, save-dispatch, write and
    restore ms, and K1-K3's launches over both runs, which must be the
-   steps run times 12 layers times 2, 1 and 1.
+   steps run times 12 layers times 2, 1 and 1;
+11. generation: ``AutoDistribute.generate`` at GPT-2 small (B 4 x 128
+   prompt + 64 new, greedy), bf16 weights and ``quant="int8"``: tokens/s,
+   int8/bf16 token agreement, weight bytes; each one's tokens (each
+   prompt alone, 128 new) equal to those of a one-slot
+   ``ServeEngine(attention_impl="dense")`` on the same weights (the same
+   shapes and rounding points on both sides), the paged engine's
+   agreement reported beside them; then ``speculative_generate``
+   with a 2-layer draft in fp32, equal to plain greedy decoding, and the
+   port's ``examples/generate_text.py`` with ``run.speculative=1`` at its
+   bf16 defaults, its agreement with plain greedy reported;
+12. the prefix cache: GPT-2 small, 16 requests of a shared 192-token
+   prefix and 64 tokens of their own, 64 new, 8 slots, block 16, chunk
+   32, paged, with and without ``prefix_cache``, on a bf16 and an int8 KV
+   pool: identical tokens, hits, one K4 launch a layer a decode step;
+   hit rate, saved chunks, copy-on-write forks, TTFT p50/p99;
+13. speculative serving: phase 5's request set with ``speculative=4``
+   against ``speculative=0``: identical tokens; accept rate, decode
+   steps of each, and the steps by route (K4 for one-token steps, the
+   dense gather for every T = 5 verify step, as in the JAX engine);
+14. head dim 96 (GPT-2 small width, 8 heads): one training step, whose
+   ``attention(impl="auto")`` takes the flash kernels on operands
+   zero-padded to head dim 128 (K1-K3's launches counted, no plain
+   attention), and a few tokens from ``ServeEngine()`` with its
+   defaults, on K4's head-dim-96 instance once a layer a decode step,
+   equal to the dense path's.
 
-Then, on lines of their own: the per-kernel JSON record, the
+Then, on lines of their own: a summary (the number of kernels, K4's
+launches per decode step, the prefix hit rates), the per-kernel JSON record, the
 ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is visible or the package is missing.
@@ -274,8 +305,9 @@ def phase_kernel_cases(torch) -> dict:
     from torch_automatic_distributed_neural_network_tpu_torch.ops \
         .paged_attention import paged_attention, paged_attention_reference
 
+    # gpt2-small-h8: GPT-2 small's width in 8 heads, head dim 96
     geoms = {"gpt2-small": (12, 12, 64), "llama-1b": (32, 8, 64),
-             "llama-8b": (32, 8, 128)}
+             "llama-8b": (32, 8, 128), "gpt2-small-h8": (8, 8, 96)}
     ctx_lens = [0, 1, 17, 100, 255, 511, 777, 1023]
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     worst = {}
@@ -315,9 +347,83 @@ def phase_kernel_cases(torch) -> dict:
                         key = str(q_dtype)
                         worst[key] = max(worst.get(key, 0.0), err)
     n += _split_cases(torch, bounds, worst)
+    n += _aliased_cases(torch, bounds, worst)
     emit({"phase": "kernel_cases", "kernel": "paged_attention", "cases": n,
           "worst_abs_err": worst})
     return worst
+
+
+def _aliased_cases(torch, bounds, worst) -> int:
+    """K4 over block tables that share physical blocks, as prefix-cache
+    hits make them: 8 slots at the GPT-2 small geometry whose tables all
+    start with the same 12 blocks (a 192-token prefix, refcount 8 in the
+    port's ``BlockAllocator``), slots 6 and 7 sharing two more, each slot
+    then going on in blocks of its own; bf16 and int8 pools, fp32 and
+    bf16 queries, with and without a window; against the plain version
+    on the same inputs, under the bounds of the other cases."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference.quant \
+        import quantize_kv
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import BlockAllocator
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention, paged_attention_reference
+
+    S, Hq, kvH, hd, bs, MB = 8, 12, 12, 64, 16, 64
+    ctx_lens = [192, 200, 255, 256, 300, 319, 230, 240]
+    alloc = BlockAllocator(1 + 12 + 2 + 8 * 8)
+    shared = alloc.acquire(12)
+    pair = alloc.acquire(2)
+    tables = torch.zeros(S, MB, dtype=torch.int32)
+    for s, c in enumerate(ctx_lens):
+        if s:  # every slot after the first is one more holder
+            for b in shared:
+                alloc.ref(b)
+        row = list(shared)
+        if s >= 6:
+            if s == 7:
+                for b in pair:
+                    alloc.ref(b)
+            row += pair
+        row += alloc.acquire(c // bs + 1 - len(row))
+        tables[s, :len(row)] = torch.tensor(row, dtype=torch.int32)
+    require(alloc.refcount(shared[0]) == S and alloc.refcount(pair[0]) == 2,
+            "aliased case: the shared blocks' refcounts are not 8 and 2")
+    NB = alloc.num_blocks
+    n = 0
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        for q_dtype in (torch.float32, torch.bfloat16):
+            for window in (None, 256):
+                n += 1
+                g = torch.Generator(device="cuda").manual_seed(300 + n)
+                k = torch.randn(NB, bs, kvH, hd, generator=g, device="cuda")
+                v = torch.randn(NB, bs, kvH, hd, generator=g, device="cuda")
+                if pool_dtype == torch.int8:
+                    k, v = quantize_kv(k), quantize_kv(v)
+                else:
+                    k, v = k.to(pool_dtype), v.to(pool_dtype)
+                q = torch.randn(S, Hq, hd, generator=g,
+                                device="cuda").to(q_dtype)
+                tab = tables.cuda()
+                ctx = torch.tensor(ctx_lens, dtype=torch.int32, device="cuda")
+                got = paged_attention(q, k, v, tab, ctx, window=window)
+                want = paged_attention_reference(q, k, v, tab, ctx,
+                                                 window=window)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                bound = bounds[q_dtype]
+                emit({"phase": "kernel_aliased_case",
+                      "kernel": "paged_attention", "geometry": "gpt2-small",
+                      "block_size": bs, "shared_blocks": len(shared),
+                      "refcount": alloc.refcount(shared[0]),
+                      "pool": str(pool_dtype).replace("torch.", ""),
+                      "window": window,
+                      "q": str(q_dtype).replace("torch.", ""),
+                      "max_abs_err": err, "bound": bound})
+                require(bool(torch.isfinite(got).all()) and err <= bound,
+                        f"aliased case {n} ({pool_dtype} {q_dtype} "
+                        f"w={window}): max_abs_err {err} > {bound}")
+                worst["aliased"] = max(worst.get("aliased", 0.0), err)
+    return n
 
 
 def _split_cases(torch, bounds, worst) -> int:
@@ -331,7 +437,8 @@ def _split_cases(torch, bounds, worst) -> int:
     ctx_lens = [0, 5, 15, 16, 17, 40, 63, 1023]
     n = 0
     for gname, (Hq, kvH, hd) in {"gpt2-small": (12, 12, 64),
-                                 "llama-1b": (32, 8, 64)}.items():
+                                 "llama-1b": (32, 8, 64),
+                                 "gpt2-small-h8": (8, 8, 96)}.items():
         for bs in (8, 16):
             for pool_dtype in (torch.bfloat16, torch.int8):
                 n += 1
@@ -532,7 +639,8 @@ def _pct(vals, q):
 
 
 def phase_serve(torch, *, name, model, n_requests, prompt_len, max_new,
-                n_slots, max_len, block_size, quant_kv, seed) -> int:
+                n_slots, max_len, block_size, quant_kv,
+                seed) -> tuple[int, int]:
     import numpy as np
 
     from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
@@ -606,7 +714,7 @@ def phase_serve(torch, *, name, model, n_requests, prompt_len, max_new,
     require(agree == 1.0,
             f"{name}: greedy tokens agree with the dense path on only "
             f"{agree:.4f} of positions")
-    return launches
+    return launches, len(decode_ms)
 
 
 def _device_time(prof, steps: int, top_n: int) -> dict | None:
@@ -708,10 +816,12 @@ def _diff_share(got, want) -> float:
     return float((got != want).float().mean())
 
 
-def _dv_single_rounding(torch, fa, q, k, v, do, lse, delta, causal, window):
+def _dv_single_rounding(torch, fa, q, k, v, do, lse, delta, causal, window,
+                        scale):
     """dv as a kernel that rounds p to bf16 once would give it: what the
     share bound must tell apart from K2."""
-    p, _ = fa._backward_terms(q, k, v, do, lse, delta, causal, window)
+    p, _ = fa._backward_terms(q, k, v, do, lse, delta, causal, window,
+                              scale)
     return torch.einsum("bhqk,bqhd->bkhd", p.to(torch.bfloat16).float(),
                         do.float()).to(torch.bfloat16)
 
@@ -756,8 +866,10 @@ def phase_flash_kernel_cases(torch) -> dict:
     from torch_automatic_distributed_neural_network_tpu_torch.ops import \
         flash_attention as fa
 
+    # hd96: the kernels take it zero-padded to 128 (``_prep_bshd``), the
+    # scores scaled by 1/sqrt(96)
     geoms = {"gpt2-small": (12, 12, 64), "llama-1b": (32, 8, 64),
-             "hd128": (16, 16, 128)}
+             "hd128": (16, 16, 128), "hd96": (8, 8, 96)}
     # fp32: the same fp32 products summed in another order; bf16: the
     # outputs are rounded to bf16 on both sides, one ulp at |x| in [2, 4)
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -772,19 +884,24 @@ def phase_flash_kernel_cases(torch) -> dict:
                     q, k, v, do = _flash_inputs(torch, B=2, S=S, H=H,
                                                 kvH=kvH, hd=hd, dtype=dtype,
                                                 seed=n)
-                    # the GQA repeat of the public entry point
-                    q, k, v = fa._prep_bshd(q, k, v, causal, window)
-                    kw = dict(causal=causal, window=window)
+                    # the GQA repeat and head-dim padding of the public
+                    # entry point
+                    q, k, v, _, scale = fa._prep_bshd(q, k, v, causal,
+                                                      window)
+                    do = torch.nn.functional.pad(
+                        do, (0, q.shape[-1] - do.shape[-1]))
+                    kw = dict(causal=causal, window=window, scale=scale)
                     o, lse = fa.flash_forward(q, k, v, **kw)
                     o_ref, lse_ref = fa.flash_forward_reference(
-                        q, k, v, causal, window)
+                        q, k, v, causal, window, scale)
                     delta = fa._delta(o_ref, do)
                     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
                     dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
                     dk_ref, dv_ref = fa.flash_dkv_reference(
-                        q, k, v, do, lse_ref, delta, causal, window)
+                        q, k, v, do, lse_ref, delta, causal, window, scale)
                     dq_ref = fa.flash_dq_reference(q, k, v, do, lse_ref,
-                                                   delta, causal, window)
+                                                   delta, causal, window,
+                                                   scale)
                     torch.cuda.synchronize()
                     got = {"o": (o, o_ref), "lse": (lse, lse_ref),
                            "dk": (dk, dk_ref), "dv": (dv, dv_ref),
@@ -803,7 +920,7 @@ def phase_flash_kernel_cases(torch) -> dict:
                     if dtype == torch.bfloat16:
                         single = _dv_single_rounding(
                             torch, fa, q, k, v, do, lse_ref, delta, causal,
-                            window)
+                            window, scale)
                         share = _diff_share(dv, dv_ref)
                         dv_shares.append((share, n, gname, S, causal,
                                           window))
@@ -842,7 +959,8 @@ def phase_flash_autograd(torch) -> float:
 
     cases = [dict(H=12, kvH=12, hd=64, S=512, causal=True, window=None),
              dict(H=32, kvH=8, hd=64, S=600, causal=True, window=256),
-             dict(H=4, kvH=4, hd=128, S=300, causal=False, window=None)]
+             dict(H=4, kvH=4, hd=128, S=300, causal=False, window=None),
+             dict(H=8, kvH=8, hd=96, S=512, causal=True, window=None)]
     worst = 0.0
     for i, c in enumerate(cases):
         q, k, v, do = _flash_inputs(torch, B=2, S=c["S"], H=c["H"],
@@ -1355,6 +1473,426 @@ def phase_trainer(torch) -> dict[str, int]:
     return launches
 
 
+# -- phases 11 to 14: generation and the serving features -------------------
+
+
+def _weight_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (*model.parameters(), *model.buffers()))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def _engine_tokens(torch, model, prompts, *, max_new, **kw):
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+
+    eng = ServeEngine(model, device="cuda", **kw)
+    reqs = [eng.submit([int(t) for t in p], max_new_tokens=max_new,
+                       eos_id=None) for p in prompts]
+    eng.run()
+    return [r.out_tokens for r in reqs]
+
+
+def _divergences(torch, model, prompts, a_rows, b_rows) -> list[dict]:
+    """Where two greedy decodes of one model first differ, row by row:
+    the logit gap between the two tokens chosen there (fp32 cache over
+    the common prefix), so a failed gate shows whether it fell on a near
+    tie."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import KVCache, forward_cached
+
+    out = []
+    for row, (p, a, b) in enumerate(zip(prompts, a_rows, b_rows)):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        toks = torch.tensor([list(p) + list(a[:j])], device="cuda")
+        cache = KVCache.init(model.cfg, 1, toks.shape[1],
+                             dtype=torch.float32, device="cuda")
+        lg = forward_cached(model, toks, cache)[0][0]
+        out.append({"row": row, "position": j, "tokens": [a[j], b[j]],
+                    "gap": float((lg[a[j]] - lg[b[j]]).abs())})
+    return out
+
+
+def phase_generate(torch) -> None:
+    """``AutoDistribute.generate`` at GPT-2 small, B 4 x prompt 128 + 64
+    new, greedy, bf16 weights and then ``quant="int8"``, as users run
+    them: (1) tokens/s, the int8 / bf16 token agreement and the weight
+    bytes of each; (2) each one's greedy tokens, 128 new a prompt, equal
+    token for token to ``ServeEngine(attention_impl="dense")``'s on the
+    same weights and prompts, like with like (see below), and, reported
+    beside them, the agreement with the paged-kernel engine, whose
+    decode keeps the probabilities fp32 (phase 5 holds K4 to the dense
+    path); (3) ``speculative_generate`` with a 2-layer draft, fp32
+    compute and cache, equal to plain greedy ``generate`` of its model;
+    (4) the port's ``examples/generate_text.py`` with ``run.speculative=1``
+    at its defaults (bf16, the JAX example's 1-layer draft): tokens/s and
+    its agreement with plain greedy decoding, reported, not gated (bf16
+    rounding that differs between a verify chunk and a one-token step
+    flips argmax near-ties of a random model)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.examples import \
+        generate_text
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import generate
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .quant import quantize_for_decode
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .speculative import speculative_generate
+
+    B, P, N = 4, 128, 64
+    f32 = torch.float32
+    rs = np.random.RandomState(3)
+    prompt = torch.from_numpy(rs.randint(1, 50257, size=(B, P))).cuda()
+
+    def gpt2(dtype, seed, **kw):
+        with torch.device("cuda"):
+            m = GPT2("small", max_seq_len=1024, dtype=dtype, **kw)
+        return m.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+
+    m16 = gpt2(torch.bfloat16, 5).to(torch.bfloat16)
+    ad = AutoDistribute(m16, loss_fn=next_token_loss, precision="bf16",
+                        device="cuda")
+    state = ad.init(None)
+    q16 = quantize_for_decode(m16)
+    modes = {
+        "bf16": lambda: ad.generate(state, prompt, max_new_tokens=N),
+        # quantized anew on each call, as the JAX package's jitted program
+        "int8": lambda: ad.generate(state, prompt, max_new_tokens=N,
+                                    quant="int8"),
+        "int8_prequantized": lambda: generate(q16, prompt, max_new_tokens=N)}
+    for fn in modes.values():
+        fn()  # warm-up
+    # three rounds in turn: host-clock times vary between calls and hosts
+    secs = {name: [] for name in modes}
+    runs = {}
+    for _ in range(3):
+        for name, fn in modes.items():
+            out, sec = _timed(torch, fn)
+            secs[name].append(sec)
+            runs[name] = {"tokens": out[:, P:].tolist()}
+    for name, r in runs.items():
+        r.update(seconds=statistics.median(secs[name]),
+                 seconds_all=secs[name],
+                 tokens_per_s=B * N / statistics.median(secs[name]))
+    # where a generate's time goes: device time per token step (prefill
+    # included, spread over the N steps) against the host-clock step
+    from torch.profiler import ProfilerActivity, profile
+
+    device = {}
+    for name in ("bf16", "int8_prequantized"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            modes[name]()
+            torch.cuda.synchronize()
+        dev = _device_time(prof, N, 5)
+        host_ms = runs[name]["seconds"] / N * 1e3
+        device[name] = ("not measured" if dev is None else
+                        {**dev, "host_ms_per_step": host_ms,
+                         "device_busy_share":
+                             dev["device_busy_ms_per_step"] / host_ms})
+    # generate against the engine, like with like: each prompt alone
+    # (generate at B 1) through an engine of one slot, so that every
+    # product has the same shape on both sides (one 128-row prefill
+    # against a [1, 256] cache, then one-token steps over 256 keys); on
+    # the dense path xla_attention rounds the probabilities to bf16 as
+    # generate's does, and the paged engine, whose kernel keeps them
+    # fp32, is reported beside it.  Batched generate's agreement with
+    # the per-prompt runs is reported too (a [4, 128] prefill rounds its
+    # bf16 products apart from [1, 128] ones).
+    NG = 128
+    vs_engine, diverged = {}, {}
+    for name, model in (("bf16", m16), ("int8", q16)):
+        alone = [generate(model, prompt[i:i + 1], max_new_tokens=NG)[
+            0, P:].tolist() for i in range(B)]
+        vs_engine[f"{name}_batched_vs_alone"] = _agreement(
+            runs[name]["tokens"], [row[:N] for row in alone])
+        for impl in ("dense", "paged"):
+            eng = _engine_tokens(torch, model, prompt.tolist(), max_new=NG,
+                                 n_slots=1, max_len=P + NG, block_size=16,
+                                 prefill_chunk=P, attention_impl=impl)
+            vs_engine[f"{name}_vs_{impl}"] = _agreement(alone, eng)
+            diverged[f"{name}_vs_{impl}"] = _divergences(
+                torch, model, prompt.tolist(), alone, eng)
+    int8_agree = _agreement(runs["bf16"]["tokens"], runs["int8"]["tokens"])
+    prequant_same = runs["int8"]["tokens"] == \
+        runs["int8_prequantized"]["tokens"]
+    vocab_ok = all(0 <= t < 50257 for r in runs.values()
+                   for row in r["tokens"] for t in row)
+    weight_bytes = {"bf16": _weight_bytes(m16), "int8": _weight_bytes(q16)}
+    del ad, state, m16, q16
+
+    # speculative decoding, fp32 throughout: equal to plain greedy
+    m32 = gpt2(f32, 4)
+    draft = gpt2(f32, 8, n_layers=2)
+    sp_prompt = prompt[:1, :32]
+    spec, spec_s = _timed(torch, lambda: speculative_generate(
+        m32, draft, sp_prompt, max_new_tokens=N, k=4, cache_dtype=f32))
+    greedy, greedy_s = _timed(torch, lambda: generate(
+        m32, sp_prompt, max_new_tokens=N, cache_dtype=f32))
+    spec_same = torch.equal(spec, greedy)
+    del m32, draft
+
+    buf = io.StringIO()
+    argv = ["model.size=small", "run.speculative=1", "run.new_tokens=64",
+            "run.device=cuda"]
+    with contextlib.redirect_stdout(buf):
+        res = generate_text.main(argv)
+    plain, plain_s = _timed(torch, lambda: generate(
+        res["model"], res["prompt"], max_new_tokens=64))
+    ex_rows = res["tokens"][:, 32:].tolist()
+    ex_agree = _agreement(ex_rows, plain[:, 32:].tolist())
+    emit({"phase": "generate", "model": "gpt2-small", "batch": B,
+          "prompt_len": P, "max_new": N,
+          "generate_vs_engine_agreement": vs_engine,
+          "generate_vs_engine_divergences": diverged,
+          **{f"{k}_tokens_per_s": r["tokens_per_s"] for k, r in runs.items()},
+          **{f"{k}_seconds": r["seconds_all"] for k, r in runs.items()},
+          "int8_vs_bf16_token_agreement": int8_agree,
+          "device_per_token_step": device,
+          "weight_bytes": weight_bytes,
+          "speculative_fp32_2layer_draft": {
+              "prompt_len": 32, "max_new": N, "k": 4,
+              "tokens_per_s": N / spec_s,
+              "plain_greedy_tokens_per_s": N / greedy_s,
+              "equals_plain_greedy": spec_same},
+          "example_speculative": {
+              "argv": argv, "tokens_per_s": res["tokens_per_s"],
+              "plain_greedy_tokens_per_s": 64 / plain_s,
+              "agreement_with_plain_greedy": ex_agree}})
+    require(vs_engine["bf16_vs_dense"] == vs_engine["int8_vs_dense"] == 1.0,
+            f"generate vs ServeEngine(dense) tokens agree on only "
+            f"{vs_engine} (first divergences: {diverged})")
+    require(spec_same, "speculative_generate (2-layer draft, fp32) "
+                       "differs from plain greedy decoding")
+    require(prequant_same, "int8 generate differs between quantizing per "
+                           "call and quantizing once")
+    require(vocab_ok, "generate: token id out of range")
+    require(weight_bytes["int8"] < 0.6 * weight_bytes["bf16"],
+            f"int8 weights {weight_bytes} not about half of bf16")
+    require(res["tokens"].shape == (1, 96) and all(
+        0 <= t < 50257 for row in ex_rows for t in row),
+        f"generate_text run.speculative=1: tokens of shape "
+        f"{res['tokens'].shape} or out of range")
+
+
+def _serve_run(torch, model, prompts, *, max_new, **kw) -> dict:
+    """One ServeEngine run with K4's launch count read around it alone."""
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    jnl = Journal(None, host0_only=False, meta={"tool": "chip_smoke"})
+    paged_attention.launches = 0
+    eng, reqs, done, wall = _serve(torch, model, prompts, max_new=max_new,
+                                   impl="paged", journal=jnl, **kw)
+    launches = paged_attention.launches
+    require(len(done) == len(prompts) and all(
+        r.n_generated == max_new for r in reqs),
+        f"{len(done)}/{len(prompts)} requests finished")
+    steps = [r for r in jnl.records if r.get("name") == "serve.step"]
+    n_decode = sum(r["decode_s"] > 0 for r in steps)
+    ttfts = [r.t_first_token - r.t_submit for r in done]
+    return {"eng": eng, "tokens": [r.out_tokens for r in reqs],
+            "launches": launches, "decode_steps": n_decode,
+            "wall_s": wall,
+            "tokens_per_s": sum(r.n_generated for r in done) / wall,
+            "ttft_p50_s": _pct(ttfts, 0.50), "ttft_p99_s": _pct(ttfts, 0.99),
+            "n_prompt_tokens": sum(r.n_prompt for r in done)}
+
+
+def phase_serve_prefix(torch, model) -> dict:
+    """The prefix cache at GPT-2 small: 16 requests, each a shared
+    192-token prefix and 64 tokens of its own (prompt 256), 64 new, 8
+    slots, block 16, chunk 32, the paged kernel; with and without
+    ``prefix_cache``, for a bf16 and an int8 KV pool.  Gates: identical
+    tokens with and without the cache, hits, and one K4 launch a layer a
+    decode step in every run."""
+    import numpy as np
+
+    rs = np.random.RandomState(11)
+    vocab = model.cfg.vocab_size
+    shared = [int(t) for t in rs.randint(1, vocab, size=(192,))]
+    prompts = [shared + [int(t) for t in rs.randint(1, vocab, size=(64,))]
+               for _ in range(16)]
+    base = dict(n_slots=8, max_len=1024, block_size=16, prefill_chunk=32)
+    out = {}
+    for pool in ("bf16", "int8"):
+        runs = {}
+        for cache in (False, True):
+            r = _serve_run(torch, model, prompts, max_new=64,
+                           quant_kv=pool == "int8", prefix_cache=cache,
+                           **base)
+            eng = r.pop("eng")
+            require(r["launches"] == model.cfg.n_layers * r["decode_steps"],
+                    f"serve_prefix {pool} cache={cache}: {r['launches']} K4 "
+                    f"launches over {r['decode_steps']} decode steps")
+            if cache:
+                r.update(prefix_hits=eng.prefix_hits,
+                         prefix_hit_rate=(eng.prefix_cached_tokens
+                                          / r["n_prompt_tokens"]),
+                         prefix_saved_chunks=eng.prefix_saved_chunks,
+                         cow_forks=eng.cow_forks,
+                         index_blocks=eng.prefix_cache.n_blocks)
+            runs["on" if cache else "off"] = r
+        same = runs["on"].pop("tokens") == runs["off"].pop("tokens")
+        rec = {"phase": "serve_prefix", "model": "gpt2-small", "pool": pool,
+               "requests": 16, "shared_prefix": 192, "prompt_len": 256,
+               "max_new": 64, "tokens_identical": same,
+               "launches_per_decode_step": {
+                   k: r["launches"] / max(r["decode_steps"], 1)
+                   for k, r in runs.items()},
+               **runs}
+        emit(rec)
+        require(same, f"serve_prefix {pool}: tokens differ with the cache")
+        require(runs["on"]["prefix_hits"] > 0,
+                f"serve_prefix {pool}: no prefix hit")
+        out[pool] = rec
+    return out
+
+
+def phase_serve_spec(torch, model) -> None:
+    """Speculative decoding on the ``serve`` request set (GPT-2 small, 16
+    requests x 256 prompt + 64 new, 8 slots): ``speculative=4`` against
+    ``speculative=0``.  Gate: identical tokens.  Every verify step (T = 5)
+    takes the dense gather path, as the JAX engine's do, so the
+    speculative run launches K4 on no step; the plain run once a layer a
+    decode step."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    vocab = model.cfg.vocab_size
+    prompts = [[int(t) for t in rs.randint(1, vocab, size=(256,))]
+               for _ in range(16)]
+    base = dict(n_slots=8, max_len=1024, block_size=16, prefill_chunk=32)
+    runs = {}
+    for k in (0, 4):
+        r = _serve_run(torch, model, prompts, max_new=64, speculative=k,
+                       **base)
+        eng = r.pop("eng")
+        r.update(k4_steps=eng.decode_routes["paged"],
+                 dense_verify_steps=eng.decode_routes["dense"])
+        if k:
+            r.update(spec_drafted=eng.spec_drafted,
+                     spec_accepted=eng.spec_accepted,
+                     accept_rate=eng.spec_accepted / max(eng.spec_drafted, 1))
+        runs[f"speculative_{k}"] = r
+    plain, spec = runs["speculative_0"], runs["speculative_4"]
+    same = plain.pop("tokens") == spec.pop("tokens")
+    emit({"phase": "serve_spec", "model": "gpt2-small", "requests": 16,
+          "prompt_len": 256, "max_new": 64, "tokens_identical": same,
+          "decode_steps": {"plain": plain["decode_steps"],
+                           "speculative": spec["decode_steps"]}, **runs})
+    require(same, "serve_spec: speculative=4 tokens differ from plain")
+    require(plain["launches"] == model.cfg.n_layers * plain["k4_steps"]
+            and plain["k4_steps"] == plain["decode_steps"],
+            "serve_spec: the plain run's K4 launches are not one a layer a "
+            "decode step")
+    require(spec["launches"] == 0 and spec["k4_steps"] == 0
+            and spec["dense_verify_steps"] == spec["decode_steps"],
+            "serve_spec: a verify step took the paged kernel")
+
+
+def phase_head_dim_96(torch) -> None:
+    """A decoder at a head dim outside the flash kernels' instances (GPT-2
+    small's width in 8 heads: head_dim 96): one training step, where
+    ``attention(impl="auto")`` takes flash (S 1024), the kernels running
+    on operands zero-padded to head dim 128, and no plain attention; then
+    a few tokens served by ``ServeEngine()`` with its defaults, which
+    takes the paged kernel's head-dim-96 instance, once a layer a decode
+    step, and gives the tokens of ``attention_impl="dense"``."""
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, SyntheticLM)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        attention as attn_mod
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    chosen: dict[str, int] = {}
+    real = {n: getattr(attn_mod, n)
+            for n in ("xla_attention", "chunked_attention")}
+
+    def counted(name):
+        def fn(*a, **kw):
+            chosen[name] = chosen.get(name, 0) + 1
+            return real[name](*a, **kw)
+        return fn
+
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    for w in wrappers:
+        w.launches = 0
+    for n in real:
+        setattr(attn_mod, n, counted(n))
+    try:
+        ad, state = _train_setup(torch, seed=6, n_heads=8)
+        n_layers = ad.model.cfg.n_layers
+        require(ad.model.cfg.head_dim == 96, "head_dim_96: wrong geometry")
+        data = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=4)
+        state, metrics = ad.step(state, data.batch(0))
+        loss = float(metrics["loss"])
+    finally:
+        for n, f in real.items():
+            setattr(attn_mod, n, f)
+    flash = {w.__name__: w.launches for w in wrappers}
+    del ad, state, data
+
+    with torch.device("cuda"):
+        model = GPT2("small", n_heads=8, max_seq_len=1024,
+                     dtype=torch.float32)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(7))
+    rs = np.random.RandomState(7)
+    prompts = [[int(t) for t in rs.randint(1, 50257, size=(64,))]
+               for _ in range(4)]
+    geom = dict(n_slots=4, max_len=256, block_size=16)
+    r = _serve_run(torch, model, prompts, max_new=16, **geom)
+    eng = r.pop("eng")
+    tokens = r.pop("tokens")
+    dense = _engine_tokens(torch, model, prompts, max_new=16,
+                           attention_impl="dense", **geom)
+    emit({"phase": "head_dim_96", "model": "gpt2-small n_heads=8",
+          "head_dim": 96,
+          "train": {"loss": loss, "plain_attention_calls": chosen,
+                    "flash_launches": flash, "kernel_head_dim": 128},
+          "serve": {"attention_impl": eng.attention_impl,
+                    "decode_routes": dict(eng.decode_routes),
+                    "k4_launches": r["launches"],
+                    "decode_steps": r["decode_steps"],
+                    "tokens_per_s": r["tokens_per_s"],
+                    "tokens_equal_dense": tokens == dense,
+                    "first_tokens": tokens[0][:8]}})
+    require(math.isfinite(loss) and abs(loss - math.log(50257)) < 1.0,
+            f"head_dim_96: loss {loss} at random weights, not near "
+            f"ln(50257)")
+    require(not chosen and flash["flash_forward"] >= n_layers
+            and flash["flash_dkv"] == flash["flash_dq"] == n_layers,
+            f"head_dim_96: training attention took plain {chosen}, flash "
+            f"launches {flash}")
+    require(eng.attention_impl == "paged"
+            and r["launches"] == n_layers * r["decode_steps"] > 0
+            and eng.decode_routes["dense"] == 0,
+            f"head_dim_96: the engine's decode steps did not take the "
+            f"paged kernel ({r['launches']} launches, {eng.decode_routes})")
+    require(tokens == dense, "head_dim_96: paged tokens differ from the "
+                             "dense path's")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1420,10 +1958,11 @@ def main(argv=None) -> int:
     if run("serve"):
         gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
                                     dtype=torch.float32), 1)
-        paged_launches = phase_serve(
+        paged_launches, decode_steps = phase_serve(
             torch, name="gpt2-small", model=gpt2, n_requests=16,
             prompt_len=256, max_new=64, n_slots=8, max_len=1024,
             block_size=16, quant_kv=False, seed=0)
+        paged_launches_per_step = paged_launches / decode_steps
         phase_profile(torch, name="gpt2-small", model=gpt2, n_slots=8,
                       prompt_len=256, max_len=1024, block_size=16, seed=2)
         del gpt2
@@ -1447,6 +1986,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("trainer"):
         phase_trainer(torch)
+    if run("generate"):
+        phase_generate(torch)
+        torch.cuda.empty_cache()
+    if run("serve_prefix") or run("serve_spec"):
+        gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
+                                    dtype=torch.float32), 1)
+        if run("serve_prefix"):
+            prefix = phase_serve_prefix(torch, gpt2)
+        if run("serve_spec"):
+            phase_serve_spec(torch, gpt2)
+        del gpt2
+        torch.cuda.empty_cache()
+    if run("head_dim_96"):
+        phase_head_dim_96(torch)
     emit({"phase": "done", "seconds": time.monotonic() - t_start})
     if only is not None:
         return 0
@@ -1465,6 +2018,10 @@ def main(argv=None) -> int:
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
+    emit({"phase": "summary", "n_kernels": len(kernels),
+          "k4_launches_per_decode_step": paged_launches_per_step,
+          "prefix_hit_rate": {pool: rec["on"]["prefix_hit_rate"]
+                              for pool, rec in prefix.items()}})
     emit({"kernels": kernels})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1474,7 +2031,8 @@ def main(argv=None) -> int:
 
 
 PHASES = ("build", "kernel_cases", "timing", "tile_check",
-          "flash_kernel_cases", "flash_timing", "serve", "train", "trainer")
+          "flash_kernel_cases", "flash_timing", "serve", "train", "trainer",
+          "generate", "serve_prefix", "serve_spec", "head_dim_96")
 
 
 if __name__ == "__main__":

@@ -96,7 +96,7 @@ def test_kernel_matches_plain_version(cuda, block_size, pool_dtype, window):
     assert err < 1e-5, err
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 96, 128])
 def test_kernel_bf16_query(cuda, hd):
     """bf16 q (and output) against the plain version: atol 2e-2."""
     rs = np.random.RandomState(1)

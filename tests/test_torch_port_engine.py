@@ -38,6 +38,9 @@ from torch_automatic_distributed_neural_network_tpu_torch.models import (
 from torch_automatic_distributed_neural_network_tpu_torch.obs.journal import (
     Journal,
 )
+from torch_automatic_distributed_neural_network_tpu_torch.ops.paged_attention import (
+    kernel_takes,
+)
 
 VOCAB = 128
 FAMILIES = {"gpt2": (GPT2, gpt2_config), "llama": (Llama, llama_config)}
@@ -159,8 +162,7 @@ def test_engine_checks_and_later_slices():
         eng.submit([], max_new_tokens=2)
     with pytest.raises(ValueError, match="learned positions"):
         ServeEngine(tm, device="cpu", max_len=128)
-    for kw in (dict(speculative=2), dict(prefix_cache=True),
-               dict(disaggregate=True), dict(lora_spec=object()),
+    for kw in (dict(disaggregate=True), dict(lora_spec=object()),
                dict(mesh=object()), dict(export_cache="dir")):
         with pytest.raises(NotImplementedError, match="later slice"):
             ServeEngine(tm, device="cpu", **kw)
@@ -193,5 +195,45 @@ def test_cli_serve_smoke_on_cpu(capsys):
 
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["n_requests"] == 8 and summary["device"] == "cpu"
+    assert summary["prefix_cache"] is False and summary["speculative"] == 0
+    assert main(["serve", "--smoke", "--device", "cpu", "--prefix-cache",
+                 "--shared-prefix", "8", "--speculative", "3"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["n_requests"] == 8 and summary["speculative"] == 3
+    assert summary["prefix_hit_requests"] > 0
+    assert summary["spec_accept_rate"] is not None
+    assert summary["decode_routes"]["paged"] == 0
     assert main(["serve", "--smoke", "--device", "cpu",
-                 "--speculative"]) == 2
+                 "--disaggregate"]) == 2
+
+
+def test_head_dim_96_decoder_serves_by_the_paged_path():
+    """Head dim 96, which the paged kernel has an instance for: the
+    engine, built with its defaults, keeps ``paged`` (every decode step
+    on the kernel's wrapper, the plain version here), journals it, and
+    serves the JAX engine's tokens.  A head dim with no instance is
+    refused by ``kernel_takes``, on which the engine raises on a CUDA
+    device rather than serve by plain code there."""
+    jm = GPT2("test", vocab_size=VOCAB, max_seq_len=64, d_model=192,
+              n_heads=2, dtype=jnp.float32, remat=False)
+    variables = jm.init(jax.random.key(2), jnp.zeros((1, 4), jnp.int32))
+    tm = decoder_from_jax_params(
+        jax.tree.map(np.asarray, variables["params"]),
+        gpt2_config("test", vocab_size=VOCAB, max_seq_len=64, d_model=192,
+                    n_heads=2, dtype=torch.float32), device="cpu")
+    assert tm.cfg.head_dim == 96
+    prompts = _prompts(9, (5, 12))
+    want, _ = run_jax(jm, variables, prompts, max_new=6, eos_id=None,
+                      attention_impl="dense", **GEOM)
+    jnl = Journal(None, host0_only=False)
+    got, eng = run_port(tm, prompts, max_new=6, eos_id=None, journal=jnl,
+                        **GEOM)
+    assert eng.attention_impl == "paged"
+    assert eng.decode_routes["paged"] > 0 and eng.decode_routes["dense"] == 0
+    rec, = [r for r in jnl.records if r["name"] == "serve.engine"]
+    assert rec["attention_impl"] == "paged"
+    assert got == want
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        assert kernel_takes(96, torch.bfloat16, dt)
+        assert not kernel_takes(80, torch.bfloat16, dt)
+    assert not kernel_takes(64, torch.float16, torch.bfloat16)

@@ -216,3 +216,42 @@ def test_flash_gate_is_mask_shape_and_device():
     assert not tattn._flash_ok(fake(511), fake(511), None)
     assert not tattn._flash_ok(fake(512), fake(600), None)
     assert not tattn._flash_ok(fake(512), fake(512), mask=object())
+
+
+@pytest.mark.parametrize("hd,kernel_hd", [
+    (16, 32), (48, 64), (80, 128), (96, 128), (128, 128)])
+def test_flash_pads_a_head_dim_to_the_kernels_instance(monkeypatch, hd,
+                                                       kernel_hd):
+    """A head dim the kernels have no instance for: ``auto`` still takes
+    flash (the gate reads mask, length and device, not the head dim), and
+    the entry point zero-pads q, k and v to the next of ``_HEAD_DIMS``
+    with the scores kept at ``1 / sqrt(hd)``: the kernels' wrappers see
+    ``kernel_hd``, and o and every gradient match the JAX package's
+    Pallas kernel (interpret mode, any head dim) within 1e-5, fp32.  Past
+    the largest instance it raises."""
+    q, k, v, do = _inputs(3, B=1, S=40, H=2, kvH=1, D=hd)
+
+    def jfn(q_, k_, v_):
+        return jflash.flash_attention(q_, k_, v_, causal=True, block_q=16,
+                                      block_k=16)
+
+    jo, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(do))
+    seen = []
+    for name in ("flash_forward", "flash_dkv", "flash_dq"):
+        real = getattr(tflash, name)
+        monkeypatch.setattr(tflash, name, lambda q_, *a, _r=real, **kw: (
+            seen.append(q_.shape[-1]), _r(q_, *a, **kw))[1])
+    monkeypatch.setattr(tattn, "_flash_ok", lambda q_, k_, mask: True)
+    tq, tk, tv = _torch(q, k, v)
+    to = tattn.attention(tq, tk, tv, causal=True)
+    assert to.shape == (1, 40, 2, hd)
+    _close(to, jo)
+    tgrads = torch.autograd.grad(to, (tq, tk, tv), torch.from_numpy(do))
+    for g, jg in zip(tgrads, jgrads):
+        assert g.shape[-1] == hd
+        _close(g, jg)
+    assert seen == [kernel_hd] * 3
+    assert tflash.kernel_head_dim(hd) == kernel_hd
+    with pytest.raises(ValueError, match="head_dim 160"):
+        tflash.kernel_head_dim(160)

@@ -7,10 +7,12 @@ subcommands.
 
 Mirrors the JAX package's ``tadnn serve``: the same flags and the same
 JSON summary line, plus ``--device`` (default ``cuda``; ``cpu`` runs the
-plain PyTorch path).  Weights are random, made from ``--seed``.  Flags
-whose features the port does not have yet (adapters, speculative
-decoding, disaggregation, prefix caching, tensor parallelism) are
-accepted and refused with exit code 2 when set.  ``doctor`` is the
+plain PyTorch path).  Weights are random, made from ``--seed``.
+``--prefix-cache``, ``--shared-prefix N`` (every prompt starts with the
+same N seeded tokens) and ``--speculative K`` run as in the JAX package.
+Flags whose features the port does not have yet (adapters,
+disaggregation, tensor parallelism) are accepted and refused with exit
+code 2 when set.  ``doctor`` is the
 checkpoint part of the JAX package's ``tadnn doctor``.
 """
 
@@ -51,10 +53,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         return 2
     later = [flag for flag, on in (
         ("--adapters", args.adapters), ("--quant-adapters", args.quant_adapters),
-        ("--speculative", args.speculative),
         ("--disaggregate", args.disaggregate),
-        ("--prefix-cache", args.prefix_cache),
-        ("--shared-prefix", args.shared_prefix),
         ("--serve-tp", args.serve_tp > 1)) if on]
     if later:
         print(f"serve: {', '.join(later)} not ported yet (a later slice of "
@@ -88,12 +87,19 @@ def cmd_serve(args: argparse.Namespace) -> int:
             attention_impl=args.attention_impl,
             prefill_chunk=args.prefill_chunk or None,
             admission=args.admission,
+            speculative=args.speculative,
+            prefix_cache=args.prefix_cache,
             journal=jnl,
             device=device,
         )
         streams = args.streams or 8
+        shared_len = max(0, min(args.shared_prefix, prompt_len - 1))
+        shared = (rs.randint(1, cfg.vocab_size, size=(shared_len,))
+                  if shared_len else None)
         for _ in range(streams):
             prompt = rs.randint(1, cfg.vocab_size, size=(prompt_len,))
+            if shared is not None:
+                prompt = np.concatenate([shared, prompt[shared_len:]])
             eng.submit([int(t) for t in prompt],
                        max_new_tokens=args.max_new or 12, eos_id=0)
         t0 = time.monotonic()
@@ -128,14 +134,25 @@ def cmd_serve(args: argparse.Namespace) -> int:
             "adapter_rank": None,
             "quant_adapters": False,
             "adapter_hit_rate": None,
-            "speculative": 0,
-            "spec_accept_rate": None,
+            "speculative": eng.speculative,
+            "spec_accept_rate": (
+                round(eng.spec_accepted / eng.spec_drafted, 4)
+                if eng.spec_drafted else None),
             "disaggregate": False,
-            "prefix_cache": False,
-            "prefix_hit_rate": None,
-            "prefix_hit_requests": None,
-            "prefix_saved_chunks": None,
-            "cow_forks": None,
+            "prefix_cache": eng.prefix_cache is not None,
+            "prefix_hit_rate": (
+                round(eng.prefix_cached_tokens
+                      / max(1, sum(r.n_prompt for r in done)), 4)
+                if eng.prefix_cache is not None else None),
+            "prefix_hit_requests": (eng.prefix_hits
+                                    if eng.prefix_cache is not None
+                                    else None),
+            "prefix_saved_chunks": (eng.prefix_saved_chunks
+                                    if eng.prefix_cache is not None
+                                    else None),
+            "cow_forks": (eng.cow_forks
+                          if eng.prefix_cache is not None else None),
+            "decode_routes": dict(eng.decode_routes),
             "tp": 1,
             "kv_ships": eng.pool.n_transfers,
             "shipped_blocks": eng.pool.transferred_blocks,
@@ -229,14 +246,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant-adapters", action="store_true",
                    dest="quant_adapters", help="(not ported yet)")
     p.add_argument("--speculative", type=int, nargs="?", const=4,
-                   default=0, metavar="K", help="(not ported yet)")
+                   default=0, metavar="K",
+                   help="greedy speculative decoding: K prompt-lookup "
+                        "drafts verified per step (default K 4)")
     p.add_argument("--disaggregate", action="store_true",
                    help="(not ported yet)")
     p.add_argument("--prefix-cache", action="store_true",
-                   dest="prefix_cache", help="(not ported yet)")
+                   dest="prefix_cache",
+                   help="cross-request prefix reuse (radix index over "
+                        "resident KV blocks)")
     p.add_argument("--shared-prefix", type=int, default=0,
                    dest="shared_prefix", metavar="N",
-                   help="(not ported yet)")
+                   help="every stream's prompt starts with the same N "
+                        "seeded tokens (prefix-cache traffic)")
     p.add_argument("--serve-tp", type=int, default=1, dest="serve_tp",
                    metavar="N", help="(not ported yet)")
     p.add_argument("--seed", type=int, default=0)

@@ -13,7 +13,8 @@ single card.
 identity (:class:`ShardPlan`): data parallelism of degree 1 on the mesh
 ``{"data": 1}``, with the loss-level activation checkpoint on only when
 the train state would take half the card's memory
-(``planner.make_plan``'s single-device rule).  Every other
+(``planner.make_plan``'s single-device rule); ``generate`` decodes with
+the trained weights, in bf16 or int8.  Every other
 strategy, a mesh, several devices, sequence or pipeline parallelism,
 ZeRO-1 and the export cache raise ``NotImplementedError`` (ROADMAP
 Queue 1 items 3-5).
@@ -25,6 +26,7 @@ optimizer tensors are the ones it was given, updated.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable
 
@@ -282,6 +284,54 @@ class AutoDistribute:
         new_state = dataclasses.replace(state, step=state.step + 1,
                                         opt_state=opt_state)
         return new_state, {"loss": loss, **aux}
+
+    # -- inference ------------------------------------------------------------
+
+    def _decode_model(self, state_or_params) -> nn.Module:
+        """The decoder holding ``state_or_params``'s weights: the module
+        itself when they are its parameters, else a copy loaded with them
+        (the fp32 masters of a ``mixed`` state, or a bare name -> tensor
+        mapping)."""
+        params = (state_or_params.params
+                  if isinstance(state_or_params, TrainState)
+                  else state_or_params)
+        own = dict(self.model.named_parameters())
+        if all(params.get(n) is p for n, p in own.items()):
+            return self.model
+        model = copy.deepcopy(self.model)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.data = params[name].detach().to(self.device)
+        return model
+
+    @torch.no_grad()
+    def generate(self, state_or_params, prompt, *, max_new_tokens: int,
+                 sample=None, generator: torch.Generator | None = None,
+                 cache_dtype=torch.bfloat16, eos_id: int | None = None,
+                 moe_decode: str = "dense", quant: str | None = None):
+        """Autoregressive generation with the trained weights
+        (``inference/decode.py::generate``) on this device: ``prompt``
+        [B, P] -> [B, P + max_new_tokens] int32.
+
+        ``quant="int8"`` decodes with int8 weights
+        (``quantize_for_decode``), quantized anew on each call as the JAX
+        package's jitted program does; a long-lived server quantizes once
+        and calls ``inference.decode.generate`` itself.  ``sample``
+        defaults to greedy; a sampled run draws from ``generator``."""
+        from .inference import decode
+        from .inference.quant import quantize_for_decode
+
+        if self.plan is None:
+            raise RuntimeError("call init() or build_plan() first")
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant={quant!r}; supported: 'int8'")
+        model = self._decode_model(state_or_params)
+        if quant == "int8":
+            model = quantize_for_decode(model)
+        return decode.generate(
+            model, prompt, max_new_tokens=max_new_tokens, sample=sample,
+            generator=generator, cache_dtype=cache_dtype, eos_id=eos_id,
+            moe_decode=moe_decode)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict

@@ -13,7 +13,7 @@
 //   tables   [S, MB]            int32 block ids, null-padded
 //   ctx      [S]                int32, keys 0..ctx inclusive are attended
 //   out      [S, kvH, G, hd]    q's type
-//   hd is 32, 64 or 128; any block size bs.
+//   hd is 32, 64, 96 or 128; any block size bs.
 //
 // What bounds it: device-memory bytes.  A decode step reads every cached
 // key and value row of every slot once and does 4 flops per element read
@@ -42,7 +42,9 @@
 //   (4-byte rows, under TMA's 16-byte box minimum) are ordinary loads,
 //   started before the stage's wait;
 // - the math on the CUDA cores: a warp reads rows as 16-byte chunks (8
-//   bytes for int8), kL lanes a row, 32 / kL rows at once, conflict-free;
+//   bytes for int8), kL lanes a row, 32 / kL rows at once, conflict-free
+//   (head dim 96, whose row is not a power-of-two count of such chunks:
+//   16 lanes a row, each three 2-element loads);
 //   each lane group keeps its own online-softmax state (running max m,
 //   sum l, its chunk of acc[G][hd]) over its rows, rescaled once for every
 //   four of them (their dot products independent of each other: the
@@ -76,12 +78,17 @@ constexpr int kSegRows = 16;            // rows of one TMA box (a page, or 16 ro
 constexpr float kNegBig = -0.7f * FLT_MAX;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// How a warp reads rows of a KVT pool at head dim HD.
+// How a warp reads rows of a KVT pool at head dim HD: a 16-byte chunk a
+// lane (8 bytes for int8) where the row is a power-of-two count of them,
+// else (head dim 96) 16 lanes a row.
 template <typename KVT, int HD>
 struct Rows {
-  static constexpr int kChunk = sizeof(KVT) == 1 ? 8 : 16;  // bytes a lane reads
-  static constexpr int kEl = kChunk / sizeof(KVT);          // elements a lane reads
-  static constexpr int kL = HD / kEl;                       // lanes a row
+  static constexpr int kVecEl = (sizeof(KVT) == 1 ? 8 : 16) / sizeof(KVT);
+  static constexpr bool kVec =
+      HD % kVecEl == 0 && HD / kVecEl <= 32 && 32 % (HD / kVecEl) == 0;
+  static constexpr int kL = kVec ? HD / kVecEl : 16;        // lanes a row
+  static constexpr int kEl = HD / kL;                       // elements a lane reads
+  static constexpr int kChunk = kEl * sizeof(KVT);          // bytes a lane reads
   static constexpr int kR = 32 / kL;                        // rows a warp reads at once
   static constexpr int kRowBytes = HD * sizeof(KVT);
   static constexpr int kSegBytes = kSegRows * kRowBytes;    // one K or V box
@@ -96,6 +103,7 @@ struct Rows {
   static constexpr int kB = kPasses < 4 ? kPasses : 4;  // passes a softmax step
   static constexpr bool kScaled = std::is_same<KVT, int8_t>::value;
   static_assert(kL >= 1 && kL <= 32 && 32 % kL == 0, "a row's lanes");
+  static_assert(HD % kL == 0 && (kVec || kEl == 6), "a lane's elements");
 };
 
 // The kEl elements of one lane's chunk at `p` (shared memory), as floats.
@@ -127,6 +135,36 @@ __device__ __forceinline__ void unpack(const uint8_t* p, float (&x)[8],
     for (int b = 0; b < 4; ++b)  // sign-extend byte b of word i
       x[4 * i + b] =
           static_cast<float>(static_cast<int32_t>(w[i] << (24 - 8 * b)) >> 24);
+}
+
+// Head dim 96: six elements a lane, as three 2-element loads (a lane's
+// chunk is 24, 12 or 6 bytes, so 8-, 4- or 2-byte aligned).
+__device__ __forceinline__ void unpack(const uint8_t* p, float (&x)[6],
+                                       float) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float2 c = reinterpret_cast<const float2*>(p)[i];
+    x[2 * i] = c.x;
+    x[2 * i + 1] = c.y;
+  }
+}
+__device__ __forceinline__ void unpack(const uint8_t* p, float (&x)[6],
+                                       __nv_bfloat16) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(p)[i];
+    x[2 * i] = __uint_as_float(w << 16);
+    x[2 * i + 1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack(const uint8_t* p, float (&x)[6],
+                                       int8_t) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const uint32_t w = reinterpret_cast<const uint16_t*>(p)[i];
+    x[2 * i] = static_cast<float>(static_cast<int32_t>(w << 24) >> 24);
+    x[2 * i + 1] = static_cast<float>(static_cast<int32_t>(w << 16) >> 24);
+  }
 }
 
 __device__ __forceinline__ float load_q(const void* q, size_t i, int bf16) {
@@ -517,6 +555,8 @@ cudaError_t dispatch_hd(int hd, const Args& a) {
       return dispatch_g<KVT, 32>(a);
     case 64:
       return dispatch_g<KVT, 64>(a);
+    case 96:
+      return dispatch_g<KVT, 96>(a);
     case 128:
       return dispatch_g<KVT, 128>(a);
     default:
@@ -540,6 +580,7 @@ template <typename KVT>
 size_t smem_hd(int hd, int G, int MB) {
   return hd == 32 ? smem_of<KVT, 32>(G, MB)
          : hd == 64 ? smem_of<KVT, 64>(G, MB)
+         : hd == 96 ? smem_of<KVT, 96>(G, MB)
                     : smem_of<KVT, 128>(G, MB);
 }
 
@@ -549,7 +590,7 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns the launch's cudaError_t
 // (0 on success).  q_dtype: 0 fp32, 1 bf16.  kv_dtype: 0 fp32, 1 bf16,
-// 2 int8 (k_scale / v_scale then required).  hd: 32, 64 or 128; the
+// 2 int8 (k_scale / v_scale then required).  hd: 32, 64, 96 or 128; the
 // pools 16-byte aligned.  window <= 0: no window.  n_split >= 1 blocks
 // share each (slot, kv head, query-row group); above 1, `partial` (fp32,
 // tadnn_paged_attention_sizes' floats) and `counters` (int32, as many,

@@ -10,9 +10,15 @@ piecewise (``make_norm``, ``SelfAttention.qkv`` / ``out_proj``,
 ``lax.scan`` over stacked layers is a Python loop over the per-layer
 modules, and the cache is updated in place.
 
+``generate`` is the decode loop on top of it: one prefill pass over the
+prompt, then one-token steps, each sampled from an explicit
+``torch.Generator``; the JAX ``lax.scan`` / ``lax.while_loop`` is a
+Python loop here.  An int8-weight model (``quant.quantize_for_decode``)
+runs through the same code, its weights dequantized at use.
+
 Works for both decoder families (GPT-2: layernorm / learned positions /
 gelu / tied head; Llama: rmsnorm / rope / swiglu / GQA / untied head).
-MoE decoding is a later slice of the port.
+MoE decoding and sharded decoding are later slices of the port.
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.transformer_core import embedding_lookup
 from ..ops.attention import xla_attention
-from .quant import embedding_lookup
 
 
 class KVCache(NamedTuple):
@@ -134,3 +140,94 @@ def _sample(logits: torch.Tensor, generator: torch.Generator | None,
     probs = torch.softmax(logits, -1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def model_device(model) -> torch.device:
+    """The device a decoder's weights live on."""
+    for t in model.parameters():
+        return t.device
+    for t in model.buffers():
+        return t.device
+    raise ValueError("the model holds no tensors")
+
+
+@torch.no_grad()
+def generate(model, prompt, *, max_new_tokens: int,
+             sample: SampleConfig | None = None,
+             generator: torch.Generator | None = None,
+             cache_dtype=torch.bfloat16, mesh=None,
+             eos_id: int | None = None, moe_decode: str = "dense",
+             early_stop: bool = False, return_lengths: bool = False):
+    """Autoregressive generation: a prefill pass over ``prompt`` [B, P],
+    then ``max_new_tokens - 1`` one-token steps.  Returns [B, P +
+    max_new_tokens] int32 on the model's device.
+
+    ``sample`` defaults to greedy; a sampled run draws from
+    ``generator`` (on the model's device; None: torch's default
+    generator).  ``eos_id``: once a row samples it, every later position
+    of that row is ``eos_id``.  ``early_stop=True`` (needs ``eos_id``)
+    ends the loop as soon as every row has sampled it, the positions
+    never reached holding ``eos_id`` — the same output as the full loop.
+    ``return_lengths=True`` also returns each row's valid length [B]
+    int32: the prompt plus the generated tokens up to and including the
+    first ``eos_id`` (``P + max_new_tokens`` for a row without one).
+
+    ``mesh`` (sharded decode) and ``moe_decode`` other than ``"dense"``
+    (the routed MoE decode) are later slices of the port."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "generate(mesh=...): sharded decode is not ported yet (ROADMAP "
+            "Queue 1 item 3); the port decodes on one device")
+    if moe_decode != "dense":
+        raise NotImplementedError(
+            f"moe_decode={moe_decode!r}: MoE decoding is not ported yet "
+            f"(ROADMAP Queue 1 item 6)")
+    if sample is None:
+        sample = SampleConfig(temperature=0.0)
+    if early_stop and eos_id is None:
+        raise ValueError("early_stop=True requires eos_id")
+    cfg = model.cfg
+    device = model_device(model)
+    prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.int64)
+    B, P = prompt.shape
+    if max_new_tokens < 1:
+        out = prompt.to(torch.int32)
+        if return_lengths:
+            return out, torch.full((B,), P, dtype=torch.int32, device=device)
+        return out
+    total = P + max_new_tokens
+    if cfg.pos == "learned" and total > cfg.max_seq_len:
+        raise ValueError(
+            f"prompt {P} + max_new_tokens {max_new_tokens} = {total} exceeds "
+            f"the model's {cfg.max_seq_len} learned positions")
+
+    cache = KVCache.init(cfg, B, total, dtype=cache_dtype, device=device)
+    logits, cache = forward_cached(model, prompt, cache)
+    tok = _sample(logits, generator, sample)
+    done = (tok == eos_id if eos_id is not None
+            else torch.zeros_like(tok, dtype=torch.bool))
+    new = torch.full((B, max_new_tokens), -1 if eos_id is None else eos_id,
+                     dtype=torch.int32, device=device)
+    new[:, 0] = tok
+    for step in range(1, max_new_tokens):
+        if early_stop and bool(done.all()):
+            break  # the rest of the buffer already holds eos_id
+        logits, cache = forward_cached(model, tok[:, None].to(torch.int64),
+                                       cache)
+        nxt = _sample(logits, generator, sample)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        new[:, step] = nxt
+        tok = nxt
+    out = torch.cat([prompt.to(torch.int32), new], dim=1)
+    if not return_lengths:
+        return out
+    if eos_id is None:
+        lengths = torch.full((B,), total, dtype=torch.int32, device=device)
+    else:
+        is_eos = new == eos_id
+        first = torch.argmax(is_eos.to(torch.int32), dim=1)
+        lengths = P + torch.where(is_eos.any(dim=1), first + 1,
+                                  torch.full_like(first, max_new_tokens))
+    return out, lengths.to(torch.int32)

@@ -1,5 +1,5 @@
 """Continuous-batching serving: paged KV cache, iteration-level
-scheduler, slot-padded decode engine (``serve``)."""
+scheduler, prefix cache, slot-padded decode engine (``serve``)."""
 
 from .engine import ServeEngine
 from .kv_pool import (
@@ -11,6 +11,7 @@ from .kv_pool import (
     pool_kv_bytes,
     write_token,
 )
+from .prefix_cache import PrefixCache, block_hashes
 from .scheduler import (
     IDENTITY_ADAPTER,
     Request,
@@ -27,10 +28,12 @@ __all__ = [
     "NULL_BLOCK",
     "BlockAllocator",
     "PagedKVPool",
+    "PrefixCache",
     "Request",
     "Scheduler",
     "ServeEngine",
     "admission_plan",
+    "block_hashes",
     "blocks_at_admission",
     "blocks_for_tokens",
     "decode_needs_block",

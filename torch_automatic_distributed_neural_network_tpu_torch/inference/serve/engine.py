@@ -32,16 +32,39 @@ admission).  In int8 mode each chunk's fresh rows round-trip through the
 pool's (q, scale) form before later chunks attend to them, and the commit
 scatters those exact pairs.
 
+The kernel takes head dims 32, 64, 96 and 128: on a CUDA device the
+engine raises at construction for another head dim under
+``attention_impl="paged"`` (``attention_impl="dense"`` is the explicit
+choice for such a model).
+
+Prefix caching (``prefix_cache=True``, chunked prefill only): a radix
+index over resident prompt blocks (``prefix_cache.py``); a new request's
+matched prefix is ref'd into its table, its temp cache is seeded from
+those blocks (``pool.read_blocks``) and only the uncached suffix is
+prefilled; each committed prompt is published; a decode write into a
+shared block forks it first (``_cow_fork_writes``).  In int8 mode a match
+is floored to the prefill-chunk boundaries, so cache-on tokens are the
+cache-off tokens bit for bit.
+
+Speculative decoding (``speculative=k``, greedy only): every decode step
+drafts k tokens per slot host-side (prompt-lookup n-grams, no draft
+model) and verifies ``[last, d_1..d_k]`` in one step of T = 1 + k
+positions, accepting the longest agreeing prefix plus the target's next
+token.  As in the JAX engine, T = 1 steps take the paged kernel and a
+verify step (T > 1) the dense ``gather_blocks`` + mask path: the kernel
+attends one query per slot.  ``decode_routes`` counts the steps of each.
+
 Greedy decoding (temperature 0) gives the JAX engine's tokens; stochastic
 sampling is reproducible under the engine's own seeded generator.
 
 Telemetry: the same ``serve.engine`` / ``serve.prefill_chunk`` /
-``serve.preempt`` / ``serve.step`` / ``serve.request_done`` journal
-records as the JAX engine, so its ``tadnn report`` renders them.
+``serve.preempt`` / ``serve.prefix`` / ``serve.speculate`` /
+``serve.step`` / ``serve.request_done`` journal records as the JAX
+engine, so its ``tadnn report`` renders them.
 
 Not ported yet (each raises ``NotImplementedError``): LoRA adapters,
-speculative decoding, the prefix cache, disaggregated prefill, tensor
-parallelism (a mesh) and the AOT export cache.
+disaggregated prefill, tensor parallelism (a mesh) and the AOT export
+cache.
 """
 
 from __future__ import annotations
@@ -56,49 +79,66 @@ import numpy as np
 import torch
 
 from ...obs import journal as _journal
+from ...models.transformer_core import embedding_lookup
 from ...ops.attention import xla_attention
-from ...ops.paged_attention import paged_attention
+from ...ops.paged_attention import kernel_takes, paged_attention
 from ...utils.device import resolve_device
 from ..decode import KVCache, SampleConfig, _sample, forward_cached
-from ..quant import dequantize_kv, embedding_lookup, quantize_kv
+from ..quant import dequantize_kv, quantize_kv
+from ..speculative import accept_length, ngram_propose
 from .kv_pool import PagedKVPool, blocks_for_tokens, gather_blocks, write_token
+from .prefix_cache import PrefixCache
 from .scheduler import Request, Scheduler
 
 _LATER = "is a later slice of the PyTorch port (see ROADMAP.md)"
+
+
+def _step_route(attention_impl: str, T: int) -> str:
+    """The step's KV read: the paged kernel for one query a slot, else
+    the dense gather (the kernel attends a single query, so a T > 1
+    verify step reads densely, as in the JAX engine)."""
+    return "paged" if attention_impl == "paged" and T == 1 else "dense"
 
 
 @torch.no_grad()
 def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
                    ctx_lens: torch.Tensor, tok: torch.Tensor, *,
                    attention_impl: str = "paged") -> torch.Tensor:
-    """One decode token per slot: writes each layer's k/v for ``tok``
-    [S, 1] at positions ``ctx_lens`` [S] into the pool (in place), then
-    attends keys ``0..ctx`` inclusive.  Returns fp32 logits [S, vocab]."""
+    """A [S, T] token chunk per slot: T == 1 is one-token decode, T ==
+    1 + k a speculative verify step.  Writes each layer's k/v for chunk
+    position t at ``ctx_lens + t`` into the pool (in place), then
+    position t attends keys ``0..ctx + t`` inclusive.  Returns fp32
+    logits [S, T, vocab]."""
     cfg = model.cfg
     dtype = cfg.dtype
     window = cfg.sliding_window
-    x = embedding_lookup(model.embed, tok, dtype)  # [S, 1, d]
-    positions = ctx_lens.to(torch.int64)[:, None]  # [S, 1]
+    T = tok.shape[1]
+    route = _step_route(attention_impl, T)
+    x = embedding_lookup(model.embed, tok, dtype)  # [S, T, d]
+    positions = (ctx_lens.to(torch.int64)[:, None]
+                 + torch.arange(T, device=tok.device)[None, :])  # [S, T]
     if cfg.pos == "learned":
         x = x + model.pos_embed.to(dtype)[positions]
 
     mask = None
-    if attention_impl == "dense":
+    if route == "dense":
         n_keys = tables.shape[1] * pool.block_size
         key_idx = torch.arange(n_keys, device=tok.device)[None, None, :]
-        # the step writes at ctx then attends keys 0..ctx inclusive;
-        # table padding gathers null-block garbage this never admits
+        # position t writes at ctx + t then attends keys 0..ctx + t
+        # inclusive; table padding gathers null-block garbage this never
+        # admits
         mask = key_idx <= positions[:, :, None]
         if window is not None:
             mask &= key_idx > positions[:, :, None] - window
-        mask = mask[:, None]  # [S, 1, 1, K]
+        mask = mask[:, None]  # [S, 1, T, K]
 
     for layer, k_layer, v_layer in zip(model.layers, pool.k, pool.v):
         h = layer.attn_norm(x)
         q, k, v = layer.attn.qkv(h, positions)
-        write_token(k_layer, tables, ctx_lens, k[:, 0])
-        write_token(v_layer, tables, ctx_lens, v[:, 0])
-        if attention_impl == "paged":
+        for t in range(T):
+            write_token(k_layer, tables, ctx_lens + t, k[:, t])
+            write_token(v_layer, tables, ctx_lens + t, v[:, t])
+        if route == "paged":
             o = paged_attention(q[:, 0], k_layer, v_layer, tables, ctx_lens,
                                 window=window)[:, None]
         else:
@@ -109,17 +149,22 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
         x = x + layer.mlp(layer.mlp_norm(x))
 
     x = model.final_norm(x)
-    return model.logits(x.to(torch.float32))[:, 0]
+    return model.logits(x.to(torch.float32))
 
 
 def _paged_decode_step(model, pool, tables, ctx_lens, tok, active,
                        generator, *, sample: SampleConfig,
                        attention_impl: str = "paged") -> torch.Tensor:
-    """The decode step: sampled tokens [S] int32, 0 on inactive slots."""
+    """The decode step: sampled tokens [S] int32 for a one-token step,
+    or the target's greedy choices [S, T] int32 at every position of a
+    verify step (temperature 0 by contract); 0 on inactive slots."""
     logits = _decode_logits(model, pool, tables, ctx_lens, tok,
                             attention_impl=attention_impl)
-    nxt = _sample(logits, generator, sample)
-    return torch.where(active, nxt, torch.zeros_like(nxt))
+    if tok.shape[1] == 1:
+        nxt = _sample(logits[:, 0], generator, sample)
+        return torch.where(active, nxt, torch.zeros_like(nxt))
+    tgt = torch.argmax(logits, dim=-1).to(torch.int32)
+    return torch.where(active[:, None], tgt, torch.zeros_like(tgt))
 
 
 @torch.no_grad()
@@ -164,8 +209,9 @@ def _cat_qchunks(qchunks: list, n_tokens: int):
 @dataclasses.dataclass
 class _PrefillState:
     """Cursor of one in-flight chunked prefill: the [1, max_len] temp
-    cache being filled, how many prompt tokens have streamed through it,
-    and (int8 pools only) the per-chunk (q, scale) pairs to commit."""
+    cache being filled, how many prompt tokens have streamed through it
+    (a prefix-cache hit starts past the reused rows), and (int8 pools
+    only) the per-chunk (q, scale) pairs to commit."""
 
     cache: KVCache
     pos: int = 0
@@ -199,6 +245,7 @@ class ServeEngine:
                  lora_spec: Any = None,
                  speculative: int = 0,
                  prefix_cache: bool = False,
+                 prefix_ttl_s: float | None = None,
                  disaggregate: bool = False,
                  mesh: Any = None,
                  export_cache: Any = None,
@@ -210,8 +257,6 @@ class ServeEngine:
                 f"unknown attention_impl {attention_impl!r} "
                 f"(expected 'paged' or 'dense')")
         for name, value in (("lora_spec (LoRA adapters)", lora_spec),
-                            ("speculative decoding", speculative),
-                            ("prefix_cache", prefix_cache),
                             ("disaggregate", disaggregate),
                             ("mesh (tensor-parallel serving)", mesh),
                             ("export_cache", export_cache)):
@@ -227,6 +272,23 @@ class ServeEngine:
         self.sample = sample or SampleConfig(temperature=0.0)
         self.n_slots = n_slots
         self.max_len = max_len
+        self.speculative = int(speculative)
+        if self.speculative < 0:
+            raise ValueError(f"speculative={speculative} must be >= 0")
+        if self.speculative and self.sample.temperature != 0.0:
+            raise ValueError(
+                "speculative decoding is greedy-only (the accept rule "
+                "compares against the target's argmax) — use "
+                "temperature=0.0")
+        pool_dtype = torch.int8 if quant_kv else cache_dtype
+        hd = self.cfg.head_dim
+        if (attention_impl == "paged" and self.device.type == "cuda"
+                and not kernel_takes(hd, self.cfg.dtype, pool_dtype)):
+            raise ValueError(
+                f"attention_impl='paged': the paged-attention kernel does "
+                f"not take this model's head_dim {hd} ({self.cfg.dtype} "
+                f"queries, a {pool_dtype} pool); pass "
+                f"attention_impl='dense' to serve it by the dense path")
         self.attention_impl = attention_impl
         if prefill_chunk is not None:
             # snap the chunk to a divisor of max_len: the temp cache is
@@ -243,9 +305,38 @@ class ServeEngine:
             self.cfg, num_blocks=num_blocks, block_size=block_size,
             dtype=cache_dtype, quantize=quant_kv, device=self.device)
         self.journal = journal or _journal.get_default()
+        # cross-request prefix caching: matched prefixes are ref'd into
+        # the new request's table and their chunks skipped.  A match
+        # aligns to blocks, and in int8 mode also to prefill-chunk
+        # boundaries, so the cache-off chunk partition of the recomputed
+        # suffix is reproduced exactly
+        self._prefix_cache = None
+        self.prefix_ttl_s = prefix_ttl_s
+        match_align = None
+        if prefix_cache:
+            if prefill_chunk is None:
+                raise ValueError(
+                    "prefix_cache requires chunked prefill (the "
+                    "single-shot path cannot resume from a cached prefix)")
+            self._prefix_cache = PrefixCache(
+                block_size=block_size, allocator=self.pool.allocator,
+                journal=self.journal)
+            match_align = (math.lcm(block_size, self.prefill_chunk)
+                           if quant_kv else block_size)
+        self.prefix_queries = 0
+        self.prefix_hits = 0
+        self.prefix_cached_tokens = 0
+        self.prefix_saved_chunks = 0
+        self.cow_forks = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        # decode steps by their KV read: "paged" (the kernel) or "dense"
+        self.decode_routes = {"paged": 0, "dense": 0}
         self.scheduler = Scheduler(
             n_slots=n_slots, allocator=self.pool.allocator,
-            block_size=block_size, admission=admission)
+            block_size=block_size, admission=admission,
+            spec_lookahead=self.speculative,
+            prefix_cache=self._prefix_cache, match_align=match_align)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         self._gen = generator
@@ -262,11 +353,12 @@ class ServeEngine:
         self._prefill: dict[int, _PrefillState] = {}
         if self.journal is not None:
             self.journal.event(
-                "serve.engine", attention_impl=attention_impl,
+                "serve.engine", attention_impl=self.attention_impl,
                 prefill_chunk=self.prefill_chunk,
                 n_slots=n_slots, max_len=max_len, block_size=block_size,
                 quant_kv=bool(quant_kv), n_adapters=0, adapter_rank=None,
-                quant_adapters=False, speculative=0, prefix_cache=False,
+                quant_adapters=False, speculative=self.speculative,
+                prefix_cache=self._prefix_cache is not None,
                 disaggregate=False, tp=1)
 
     # -- request intake ------------------------------------------------------
@@ -277,13 +369,18 @@ class ServeEngine:
         if adapter is not None:
             raise NotImplementedError(f"serving LoRA adapters {_LATER}")
         total = len(prompt) + max_new_tokens
-        if total > self.max_len:
+        # speculative steps write up to k draft keys past the emitted
+        # context: that lookahead must fit the slot's table too
+        need_len = total + self.speculative
+        if need_len > self.max_len:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
-                f"= {total} exceeds engine max_len {self.max_len}")
+                + (f"+ speculative lookahead {self.speculative} "
+                   if self.speculative else "")
+                + f"= {need_len} exceeds engine max_len {self.max_len}")
         if not prompt:
             raise ValueError("empty prompt")
-        need = blocks_for_tokens(total, self.pool.block_size)
+        need = blocks_for_tokens(need_len, self.pool.block_size)
         if need > self.pool.num_blocks - 1:
             # the pool could never cover this request even alone
             raise ValueError(
@@ -298,9 +395,22 @@ class ServeEngine:
     # -- one serving iteration ----------------------------------------------
 
     def _commit_prefill(self, req: Request, k: Any, v: Any) -> None:
-        """Land a finished prefill's cache rows in the request's blocks."""
+        """Land a finished prefill's computed cache rows in the request's
+        blocks — only the uncached suffix: rows ``k``/``v`` start at token
+        ``req.cached_tokens`` (a prefix-cache hit's reused blocks already
+        hold their KV).  Then publish every full prompt block into the
+        radix index: decode writes start at position n_prompt, so those
+        rows are immutable."""
         full = blocks_for_tokens(req.n_prompt, self.pool.block_size)
-        self.pool.write_prefill(req.blocks[:full], k, v)
+        self.pool.write_prefill(req.blocks[req.cached_blocks:full], k, v)
+        if self._prefix_cache is not None:
+            n_pub = req.n_prompt // self.pool.block_size
+            new = self._prefix_cache.insert(
+                req.prompt[:n_pub * self.pool.block_size],
+                req.blocks[:n_pub], ttl_s=self.prefix_ttl_s)
+            if new and self.journal is not None:
+                self.journal.event("serve.prefix", kind="publish",
+                                   rid=req.rid, n_blocks=new)
 
     def _first_token(self, req: Request, logits: torch.Tensor) -> None:
         req.out_tokens = [int(_sample(logits, self._gen, self.sample)[0])]
@@ -325,9 +435,35 @@ class ServeEngine:
             self._prefill_into_slot(req)
             return
         req.state = "prefilling"
-        self._prefill[req.rid] = _PrefillState(cache=KVCache.init(
-            self.cfg, 1, self.max_len, dtype=torch.bfloat16,
-            device=self.device))
+        cache = KVCache.init(self.cfg, 1, self.max_len, dtype=torch.bfloat16,
+                             device=self.device)
+        if self._prefix_cache is not None:
+            self.prefix_queries += 1
+            if req.cached_tokens:
+                # seed the temp cache with the matched blocks' KV and
+                # start the cursor after them: the chunks then compute
+                # only the suffix, attending to the reused rows as the
+                # original prefill's later chunks attended to them
+                self.prefix_hits += 1
+                self.prefix_cached_tokens += req.cached_tokens
+                C = self.prefill_chunk
+                self.prefix_saved_chunks += (
+                    -(-req.n_prompt // C)
+                    - -(-(req.n_prompt - req.cached_tokens) // C))
+                kd, vd = self.pool.read_blocks(
+                    req.blocks[:req.cached_blocks], self.max_blocks,
+                    dtype=cache.k.dtype)
+                cache.k[:, 0] = kd[:, :self.max_len]
+                cache.v[:, 0] = vd[:, :self.max_len]
+                cache = cache._replace(length=req.cached_tokens)
+            if self.journal is not None:
+                self.journal.event(
+                    "serve.prefix", kind="match", rid=req.rid,
+                    hit=bool(req.cached_tokens),
+                    cached_tokens=req.cached_tokens,
+                    cached_blocks=req.cached_blocks)
+        self._prefill[req.rid] = _PrefillState(cache=cache,
+                                               pos=req.cached_tokens)
 
     def _advance_prefill(self, slot: int, req: Request) -> None:
         """One [1, C] chunk of ``req``'s prompt; on the final chunk,
@@ -349,14 +485,15 @@ class ServeEngine:
         done = st.pos >= req.n_prompt
         if done:
             self._first_token(req, logits)
+            n_suffix = req.n_prompt - req.cached_tokens
             if self.pool.quantize:
                 # commit the chunks' own (q, scale) pairs verbatim:
                 # re-quantizing the round-tripped bf16 rows would not be
                 # idempotent
-                k_rows, v_rows = _cat_qchunks(st.qchunks, req.n_prompt)
+                k_rows, v_rows = _cat_qchunks(st.qchunks, n_suffix)
             else:
-                k_rows = st.cache.k[:, 0, :req.n_prompt]
-                v_rows = st.cache.v[:, 0, :req.n_prompt]
+                k_rows = st.cache.k[:, 0, req.cached_tokens:req.n_prompt]
+                v_rows = st.cache.v[:, 0, req.cached_tokens:req.n_prompt]
             self._commit_prefill(req, k_rows, v_rows)
             req.state = "running"
             del self._prefill[req.rid]
@@ -369,16 +506,54 @@ class ServeEngine:
                 pos=min(st.pos, req.n_prompt), n_tokens=n_real,
                 seconds=chunk_s, done=bool(done))
 
+    def _cow_fork_writes(self) -> None:
+        """Copy-on-write guard, run right before the decode step: any
+        block this step will write into (positions ctx..ctx+lookahead)
+        that is shared (refcount > 1: another table or the radix index
+        also points at it) is forked to a private copy first, so the
+        write can never corrupt another owner's view.  Natural traffic
+        never fires it (matches stop below the prompt's end and published
+        blocks sit before the first decode write); the guard makes
+        sharing safe by construction."""
+        bs = self.pool.block_size
+        alloc = self.pool.allocator
+        for req in self.scheduler.slots:
+            if req is None or req.state != "running":
+                continue
+            ctx = req.n_prompt + req.n_generated - 1
+            for t in range(1 + self.speculative):
+                bi = (ctx + t) // bs
+                if bi >= len(req.blocks):
+                    break  # optimistic growth handles coverage
+                b = req.blocks[bi]
+                if alloc.refcount(b) <= 1:
+                    continue
+                nb = self.pool.fork_block(b)
+                if (nb is None and self._prefix_cache is not None
+                        and self._prefix_cache.evict(1)):
+                    nb = self.pool.fork_block(b)
+                if nb is None:
+                    raise RuntimeError(
+                        f"cannot fork shared block {b}: pool exhausted "
+                        f"and no evictable index leaf")
+                req.blocks[bi] = nb
+                alloc.release([b])
+                self.cow_forks += 1
+                if self.journal is not None:
+                    self.journal.event("serve.prefix", kind="cow",
+                                       rid=req.rid, block=b, fork=nb)
+
     def _decode_inputs(self):
         """The decode step's slot-padded operands on the device: block
-        tables [S, MB] int32, ctx [S] int32, tokens [S, 1], active [S].
+        tables [S, MB] int32, ctx [S] int32, tokens [S, 1 + k] (the last
+        emitted token, then k prompt-lookup drafts), active [S].
         Inactive and prefilling slots keep an all-null table: the step's
         unconditional KV write lands in the null block instead of their
         half-filled prompt blocks."""
-        S, MB = self.n_slots, self.max_blocks
+        S, MB, k_spec = self.n_slots, self.max_blocks, self.speculative
         tables = np.zeros((S, MB), np.int32)
         ctx = np.zeros((S,), np.int32)
-        tok = np.zeros((S, 1), np.int64)
+        tok = np.zeros((S, 1 + k_spec), np.int64)
         act = np.zeros((S,), bool)
         for s, req in enumerate(self.scheduler.slots):
             if req is None or req.state != "running":
@@ -389,25 +564,63 @@ class ServeEngine:
             # from prefill and was never written)
             ctx[s] = req.n_prompt + req.n_generated - 1
             tok[s, 0] = req.out_tokens[-1]
+            if k_spec:
+                tok[s, 1:] = ngram_propose(req.prompt + req.out_tokens,
+                                           k_spec)
             act[s] = True
         return tuple(torch.from_numpy(a).to(self.device)
                      for a in (tables, ctx, tok, act))
 
     def _decode_all(self) -> None:
         tables, ctx, tok, act = self._decode_inputs()
+        k_spec = self.speculative
+        self.decode_routes[_step_route(self.attention_impl, 1 + k_spec)] += 1
         out = _paged_decode_step(
             self.model, self.pool, tables, ctx, tok, act, self._gen,
             sample=self.sample, attention_impl=self.attention_impl)
         out = out.tolist()
-        # one stamp per step: every token this step emits shares it
+        # one stamp per step: every token this step emits shares it (a
+        # speculative burst lands together)
         now = self.scheduler.clock()
+        if not k_spec:
+            for s, req in enumerate(self.scheduler.slots):
+                if req is not None and req.state == "running":
+                    req.out_tokens.append(int(out[s]))
+                    req.token_walls.append(now)
+                    self.tokens_emitted += 1
+            return
+        drafted = accepted = n_active = 0
+        drafts_all = tok.tolist()
         for s, req in enumerate(self.scheduler.slots):
-            if req is not None and req.state == "running":
-                req.out_tokens.append(int(out[s]))
-                req.token_walls.append(now)
-                self.tokens_emitted += 1
+            if req is None or req.state != "running":
+                continue
+            n_active += 1
+            drafts = drafts_all[s][1:]
+            tgt = out[s]  # [1 + k] the target's greedy choices
+            a = accept_length(drafts, tgt)
+            # d_1..d_a agreed; tgt[a] is the target's own next token
+            emit = [int(d) for d in drafts[:a]] + [int(tgt[a])]
+            drafted += k_spec
+            accepted += a
+            # clip to the budget, and stop at EOS where sequential
+            # decode would have
+            emit = emit[:req.max_new_tokens - req.n_generated]
+            if req.eos_id is not None and req.eos_id in emit:
+                emit = emit[:emit.index(req.eos_id) + 1]
+            req.out_tokens.extend(emit)
+            req.token_walls.extend([now] * len(emit))
+            self.tokens_emitted += len(emit)
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        if self.journal is not None:
+            self.journal.event(
+                "serve.speculate", step=self._step_count + 1, k=k_spec,
+                n_active=n_active, drafted=drafted, accepted=accepted,
+                accept_rate=(accepted / drafted if drafted else None))
 
     def _finish(self, slot: int) -> None:
+        # evict() zeroes the prefix accounting with the block table
+        cached_tokens = self.scheduler.slots[slot].cached_tokens
         req = self.scheduler.evict(slot)
         self.finished.append(req)
         if self.journal is None:
@@ -433,7 +646,7 @@ class ServeEngine:
                     if req.t_first_token else None),
             itl_s=itl_s,
             itl_mean_s=(sum(itl_s) / len(itl_s) if itl_s else None),
-            kv_ship_s=None, cached_tokens=None,
+            kv_ship_s=None, cached_tokens=cached_tokens or None,
             prefill_chunks=req.prefill_chunks or None,
             prefill_compute_s=(round(req.prefill_compute_s, 6)
                                if req.prefill_chunks else None),
@@ -468,6 +681,8 @@ class ServeEngine:
                                    n_regenerate=victim.n_prompt)
         decode_s = 0.0
         if sched.n_decoding:
+            if self._prefix_cache is not None:
+                self._cow_fork_writes()
             t0 = time.monotonic()
             self._decode_all()
             decode_s = time.monotonic() - t0
@@ -477,6 +692,11 @@ class ServeEngine:
         self.decode_busy_s += decode_s
         self.overlapped_wall_s += prefill_s + decode_s
         if self.journal is not None:
+            prefix_stats = {}
+            if self._prefix_cache is not None:
+                prefix_stats = dict(
+                    prefix_blocks=self._prefix_cache.n_blocks,
+                    prefix_hit_tokens=self._prefix_cache.hit_tokens)
             self.journal.event(
                 "serve.step", step=self._step_count,
                 n_active=sched.n_active, n_queued=sched.n_queued,
@@ -485,9 +705,15 @@ class ServeEngine:
                 occupancy=sched.n_active / self.n_slots,
                 free_blocks=self.pool.allocator.n_free,
                 prefill_s=prefill_s, decode_s=decode_s,
-                mode="colocated", overlap_s=prefill_s + decode_s)
+                mode="colocated", overlap_s=prefill_s + decode_s,
+                **prefix_stats)
         if self._debug_invariants:
             sched.check_invariants()
+
+    @property
+    def prefix_cache(self) -> PrefixCache | None:
+        """The engine's radix reuse index (None when disabled)."""
+        return self._prefix_cache
 
     @property
     def mean_occupancy(self) -> float | None:

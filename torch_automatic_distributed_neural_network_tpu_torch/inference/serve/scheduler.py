@@ -18,11 +18,17 @@ slot only if the pool can cover its blocks under the chosen policy:
   t_submit, rid)`` to be recomputed from scratch (``Request.preempted``
   counts the restarts).
 
+Under prefix caching (``prefix_cache``, a
+:class:`~.prefix_cache.PrefixCache`) admission matches each request's
+prompt against the radix index, refs the matched blocks into its table,
+charges only the uncached remainder, and evicts cold index leaves before
+refusing a request or preempting a slot.
+
 A framework-free copy of the JAX package's scheduler, without the parts
-whose features the port does not have yet (prefix-cache matching,
-adapter pinning, disaggregated KV shipping).  The scheduler owns no
-device state: it moves ``Request`` objects between queue and slots and
-block ids between the allocator and block tables.
+whose features the port does not have yet (adapter pinning,
+disaggregated KV shipping).  The scheduler owns no device state: it
+moves ``Request`` objects between queue and slots and block ids between
+the allocator and block tables.
 """
 
 from __future__ import annotations
@@ -143,9 +149,16 @@ class Request:
     blocks: list[int] = dataclasses.field(default_factory=list)
     out_tokens: list[int] = dataclasses.field(default_factory=list)
     preempted: int = 0
-    # prefix-cache accounting (always 0 until the port has a prefix cache)
+    # prefix-cache accounting, set at admission: the first
+    # ``cached_blocks`` entries of ``blocks`` are shared references into
+    # KV an earlier request computed (covering ``cached_tokens`` prompt
+    # tokens); prefill starts after them and commit skips them
     cached_blocks: int = 0
     cached_tokens: int = 0
+    # memoized chained block hashes of the prompt (admission planning
+    # re-matches every queued request every step)
+    _prefix_keys: list | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     # wall-clock marks for the serve.request_done span fields
     t_submit: float = dataclasses.field(default_factory=time.monotonic)
@@ -187,7 +200,8 @@ class Scheduler:
 
     def __init__(self, *, n_slots: int, allocator: BlockAllocator,
                  block_size: int, admission: str = "reserve",
-                 spec_lookahead: int = 0,
+                 spec_lookahead: int = 0, prefix_cache=None,
+                 match_align: int | None = None,
                  clock: Callable[[], float] = time.monotonic):
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -195,6 +209,15 @@ class Scheduler:
         self.allocator = allocator
         self.block_size = block_size
         self.admission = admission
+        # cross-request prefix reuse; ``match_align`` floors a match to a
+        # multiple of this many tokens (>= block_size; the engine passes
+        # the prefill-chunk lcm in int8 mode so reuse stays bit-exact)
+        self.prefix_cache = prefix_cache
+        self.match_align = int(match_align or block_size)
+        if self.match_align % block_size:
+            raise ValueError(
+                f"match_align {self.match_align} must be a multiple of "
+                f"block_size {block_size}")
         # speculative decode writes up to `spec_lookahead` extra KV
         # positions per step — block coverage must lead by that much
         self.spec_lookahead = int(spec_lookahead)
@@ -233,9 +256,10 @@ class Scheduler:
         """Structural invariants; raises AssertionError on violation.
 
         A block appears at most once per table and its refcount equals
-        the number of tables holding it; no live request holds the null
-        block; the live set is exactly the tables' blocks; free + live
-        == num_blocks - 1; queued requests hold no blocks."""
+        the number of tables holding it plus one if the radix index
+        holds it; no live request (nor the index) holds the null block;
+        the live set is exactly tables union index; free + live ==
+        num_blocks - 1; queued requests hold no blocks."""
         table_count: dict[int, int] = {}
         for r in self.slots:
             if r is None:
@@ -248,16 +272,23 @@ class Scheduler:
                     f"block {b} twice on request {r.rid}'s table")
                 mine.add(b)
                 table_count[b] = table_count.get(b, 0) + 1
-        live = set(table_count)
+            assert r.cached_blocks <= len(r.blocks)
+        index_blocks = (self.prefix_cache.blocks()
+                        if self.prefix_cache is not None else set())
+        assert NULL_BLOCK not in index_blocks, (
+            "radix index holds the null block")
+        live = set(table_count) | index_blocks
         assert live == self.allocator._live, (
             f"allocator live set {sorted(self.allocator._live)} != "
-            f"tables {sorted(live)}")
+            f"tables+index {sorted(live)}")
         assert (self.allocator.n_free + len(live)
                 == self.allocator.num_blocks - 1), "block leak"
         for b in live:
-            assert self.allocator.refcount(b) == table_count[b], (
+            want = table_count.get(b, 0) + (1 if b in index_blocks else 0)
+            assert self.allocator.refcount(b) == want, (
                 f"block {b}: refcount {self.allocator.refcount(b)} != "
-                f"{table_count[b]} table holders")
+                f"{table_count.get(b, 0)} table holders "
+                f"+ {int(b in index_blocks)} index reference")
         for r in self.queue:
             assert not r.blocks, (
                 f"queued request {r.rid} still holds blocks")
@@ -291,27 +322,66 @@ class Scheduler:
                     if self._queue_key(r) > key), len(self.queue))
         self.queue.insert(idx, req)
 
+    def match_prefix(self, req: Request) -> tuple[list[int], int]:
+        """The request's longest reusable prompt prefix in the radix
+        index, capped so at least one prompt token is recomputed (the
+        final chunk must produce first-token logits) and floored to
+        ``match_align`` tokens."""
+        if self.prefix_cache is None:
+            return [], 0
+        if req._prefix_keys is None:
+            from .prefix_cache import block_hashes
+
+            req._prefix_keys = block_hashes(req.prompt, self.block_size)
+        cap = ((req.n_prompt - 1) // self.match_align) * self.match_align
+        return self.prefix_cache.match(req.prompt, max_tokens=cap,
+                                       keys=req._prefix_keys)
+
     def admit(self) -> list[tuple[int, Request]]:
         """Move queued requests into free slots (FIFO) while the fit
         check passes; returns the (slot, request) pairs admitted this
-        step — the engine prefills exactly these."""
+        step — the engine prefills exactly these.
+
+        Under prefix caching each admitted request refs its matched
+        blocks (shared, already resident) and allocates only the
+        uncached remainder; the plan may count on index eviction, so a
+        shortfall reclaims cold leaves before granting."""
         free_slots = [s for s in range(self.n_slots)
                       if self.slots[s] is None]
         if not free_slots or not self.queue:
             return []
+        pc = self.prefix_cache
         n_admit = admission_plan(
-            [(r.n_prompt, r.max_new_tokens) for r in self.queue],
+            [(r.n_prompt, r.max_new_tokens, self.match_prefix(r)[1])
+             for r in self.queue],
             len(free_slots), self.allocator.n_free,
             block_size=self.block_size, admission=self.admission,
-            spec_lookahead=self.spec_lookahead)
+            spec_lookahead=self.spec_lookahead,
+            n_evictable=(pc.n_evictable() if pc is not None else 0))
         admitted: list[tuple[int, Request]] = []
         for slot in free_slots[:n_admit]:
             req = self.queue.popleft()
-            got = self.allocator.acquire(self._blocks_at_admission(req))
+            matched, n_cached = self.match_prefix(req)
+            # ref matched blocks first: the eviction that makes room for
+            # the fresh remainder must not reclaim them
+            for b in matched:
+                self.allocator.ref(b)
+            need = self._blocks_at_admission(req) - len(matched)
+            short = need - self.allocator.n_free
+            if short > 0 and pc is not None:
+                pc.evict(short)
+            got = self.allocator.acquire(need)
             if got is None:
+                # an eviction shrank a later match the plan counted on;
+                # undo and keep strict FIFO (retry next step)
+                self.allocator.release(matched)
                 self.queue.appendleft(req)
                 break
-            req.blocks = got
+            if pc is not None:
+                pc.record_query(n_cached)
+            req.blocks = matched + got
+            req.cached_blocks = len(matched)
+            req.cached_tokens = n_cached
             req.slot = slot
             req.state = "running"
             req.out_tokens = []
@@ -336,6 +406,7 @@ class Scheduler:
         assert req is not None, f"evict of empty slot {slot}"
         self.allocator.free(req.blocks)
         req.blocks = []
+        req.cached_blocks = req.cached_tokens = 0
         req.slot = None
         req.state = "done"
         req.t_done = self.clock()
@@ -355,6 +426,7 @@ class Scheduler:
         assert victim is not None
         self.allocator.free(victim.blocks)
         victim.blocks = []
+        victim.cached_blocks = victim.cached_tokens = 0
         victim.slot = None
         victim.state = "queued"
         victim.out_tokens = []
@@ -387,6 +459,10 @@ class Scheduler:
                         spec_lookahead=self.spec_lookahead):
                     break
                 got = self.allocator.alloc(1)
+                if got is None and self.prefix_cache is not None:
+                    # drop cold reusable KV before touching live work
+                    if self.prefix_cache.evict(1):
+                        got = self.allocator.alloc(1)
                 if got is not None:
                     req.blocks.extend(got)
                     continue  # lookahead may span a second block

@@ -14,7 +14,11 @@ device.  Layouts mapped:
 - ``nn.Dense`` MLP kernels ``[in, out]``, transposed the same way;
 - a tied ``embed.embedding`` ``[V, d]`` or an untied ``lm_head.kernel``
   ``[d, V]`` (kept ``[d, V]``), ``pos_embed``, and the ``embed_norm`` and
-  ``final_norm`` the config has.
+  ``final_norm`` the config has;
+- int8 leaves (``{"q", "scale"}``, the JAX ``quantize_for_decode``'s
+  output): the payload and its scales take the same layout change and
+  land as a :class:`~.inference.quant.QuantizedWeight`, so both packages
+  decode with the same int8 weights.
 
 The same mapping carries trained JAX parameters, so a port's
 ``state_dict`` after training steps compares with
@@ -32,6 +36,7 @@ from typing import TYPE_CHECKING, Any
 import numpy as np
 import torch
 
+from .inference.quant import is_quantized_leaf, put_quantized
 from .models.transformer_core import DecoderLM, TransformerConfig
 from .utils.device import resolve_device
 
@@ -65,11 +70,25 @@ def decoder_from_jax_params(params: dict, cfg: TransformerConfig, *,
     numpy ``params`` tree, on ``device`` (default ``cuda``, raising
     without it; pass ``"cpu"`` for the CPU)."""
     model = DecoderLM(cfg)
-    state = {"embed": _t(params["embed"]["embedding"])}
+    state: dict[str, torch.Tensor] = {}
+    quantized: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def put(name, leaf, layout=lambda x: x):
+        """``leaf`` in the port's layout under ``name``; an int8 leaf's
+        payload and scales take the same layout."""
+        if is_quantized_leaf(leaf):
+            quantized[name] = (
+                torch.from_numpy(np.array(
+                    layout(np.asarray(leaf["q"])), dtype=np.int8)),
+                _t(layout(np.asarray(leaf["scale"]))))
+        else:
+            state[name] = _t(layout(np.asarray(leaf)))
+
+    put("embed", params["embed"]["embedding"])
     if cfg.pos == "learned":
         state["pos_embed"] = _t(params["pos_embed"])
     if not cfg.tie_embeddings:
-        state["lm_head"] = _t(params["lm_head"]["kernel"])
+        put("lm_head", params["lm_head"]["kernel"])
     for norm in ("embed_norm", "final_norm"):
         if getattr(cfg, norm):
             for name, leaf in params[norm].items():
@@ -82,23 +101,24 @@ def decoder_from_jax_params(params: dict, cfg: TransformerConfig, *,
                 state[f"{pre}{norm}.{name}"] = _t(leaf)
         for proj in ("q_proj", "k_proj", "v_proj"):
             p = layer["attn"][proj]
-            kernel = np.asarray(p["kernel"])  # [d, H, hd]
-            state[f"{pre}attn.{proj}.weight"] = _t(
-                kernel.reshape(kernel.shape[0], -1).T)
+            put(f"{pre}attn.{proj}.weight", p["kernel"],  # [d, H, hd]
+                lambda x: x.reshape(x.shape[0], -1).T)
             if "bias" in p:
                 state[f"{pre}attn.{proj}.bias"] = _t(
                     np.asarray(p["bias"]).reshape(-1))
         p = layer["attn"]["o_proj"]
-        kernel = np.asarray(p["kernel"])  # [H, hd, d]
-        state[f"{pre}attn.o_proj.weight"] = _t(
-            kernel.reshape(-1, kernel.shape[-1]).T)
+        put(f"{pre}attn.o_proj.weight", p["kernel"],  # [H, hd, d]
+            lambda x: x.reshape(-1, x.shape[-1]).T)
         if "bias" in p:
             state[f"{pre}attn.o_proj.bias"] = _t(p["bias"])
         for proj, p in layer["mlp"].items():
-            state[f"{pre}mlp.{proj}.weight"] = _t(np.asarray(p["kernel"]).T)
+            put(f"{pre}mlp.{proj}.weight", p["kernel"], lambda x: x.T)
             if "bias" in p:
                 state[f"{pre}mlp.{proj}.bias"] = _t(p["bias"])
 
+    for name, (q, scale) in quantized.items():
+        put_quantized(model, name, q, scale)
+        state[f"{name}.q"], state[f"{name}.scale"] = q, scale
     model.load_state_dict(state, strict=True)
     return model.to(resolve_device(device))
 

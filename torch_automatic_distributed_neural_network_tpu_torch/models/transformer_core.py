@@ -155,10 +155,27 @@ def make_norm(cfg: TransformerConfig) -> nn.Module:
     return cls(cfg.d_model, cfg.norm_eps, cfg.dtype)
 
 
+def dense_weight(w, dtype) -> torch.Tensor:
+    """A weight as a dense tensor in ``dtype``: a parameter is cast; a
+    weight kept in another form (the int8 ``QuantizedWeight`` of
+    ``inference/quant.py``) gives its own (``w.dense(dtype)``)."""
+    return w.to(dtype) if isinstance(w, torch.Tensor) else w.dense(dtype)
+
+
+def embedding_lookup(emb, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Rows ``tokens`` of an embedding in ``dtype``; a table kept in
+    another form gathers its own rows (``emb.rows``), converting only
+    those."""
+    if isinstance(emb, torch.Tensor):
+        return emb[tokens].to(dtype)
+    return emb.rows(tokens, dtype)
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
-    """``layer`` in the compute dtype: input, weight and bias cast to it."""
+    """``layer`` in the compute dtype: input, weight and bias cast to it
+    (:func:`dense_weight`)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(x.to(dtype), dense_weight(layer.weight, dtype), bias)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -358,10 +375,12 @@ class DecoderLM(nn.Module):
     def logits(self, feats: torch.Tensor) -> torch.Tensor:
         """fp32 logits of fp32 features through the tied or untied head:
         the decode path's head (the training forward's tied head rounds
-        in ``cfg.dtype``, see :meth:`forward`)."""
+        in ``cfg.dtype``, see :meth:`forward`).  An int8 head or
+        embedding is dequantized to fp32 first, as in the JAX decode
+        path."""
         if self.cfg.tie_embeddings:
-            return feats @ self.embed.to(torch.float32).T
-        return feats @ self.lm_head.to(torch.float32)
+            return feats @ dense_weight(self.embed, torch.float32).T
+        return feats @ dense_weight(self.lm_head, torch.float32)
 
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None,
@@ -384,7 +403,7 @@ class DecoderLM(nn.Module):
                 "ViT families, not ported yet (ROADMAP Queue 1 item 6)")
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens].to(cfg.dtype)
+        x = embedding_lookup(self.embed, tokens, cfg.dtype)
         if positions is None:
             positions = torch.arange(S, device=tokens.device)[None].expand(
                 B, S)
@@ -406,6 +425,7 @@ class DecoderLM(nn.Module):
         if return_features:
             return x
         if cfg.tie_embeddings:
-            return F.linear(x.to(cfg.dtype), self.embed.to(cfg.dtype)).to(
+            return F.linear(x.to(cfg.dtype),
+                            dense_weight(self.embed, cfg.dtype)).to(
                 torch.float32)
-        return x.to(torch.float32) @ self.lm_head.to(torch.float32)
+        return x.to(torch.float32) @ dense_weight(self.lm_head, torch.float32)

@@ -181,7 +181,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``impl="auto"`` takes flash where :func:`_flash_ok` holds (decided
     by the shape and the device alone: a kernel that fails to build or
-    launch raises), ``chunked`` for other self-attention of at least
+    launch raises; a head dim the kernels have no instance for is
+    zero-padded to one, see ``flash_attention._prep_bshd``), ``chunked`` for other self-attention of at least
     ``CHUNKED_MIN_SEQ``, else ``xla``.  ``ring`` / ``ulysses`` need a
     sequence-parallel axis, which this port does not have yet (ROADMAP
     Queue 1 item 5): with none they are plain attention, as in the JAX

@@ -78,11 +78,17 @@ def _library() -> _Libraries:
 # -- the plain versions -------------------------------------------------------
 
 
-def _masked_scores(q, k, causal, window):
+def _scale_of(q, scale):
+    """The score scale: ``1 / sqrt(head_dim)`` unless given (a padded
+    head dim keeps its own, see :func:`_prep_bshd`)."""
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
+
+
+def _masked_scores(q, k, causal, window, scale=None):
     """fp32 scores [B, H, Sq, Sk], ``-0.7 * FLT_MAX`` where the pair may
     not attend (``_pair_mask``: causality and the window band)."""
     sq, sk = q.shape[1], k.shape[1]
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale_of(q, scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if not causal:
         return s
@@ -94,10 +100,11 @@ def _masked_scores(q, k, causal, window):
     return torch.where(mask, s, _NEG_BIG)
 
 
-def flash_forward_reference(q, k, v, causal=False, window=None):
+def flash_forward_reference(q, k, v, causal=False, window=None,
+                            scale=None):
     """The plain version of K1: ``(o, lse)`` for BSHD q, k, v (equal head
     counts), o in q's type, lse [B, H, Sq] fp32."""
-    s = _masked_scores(q, k, causal, window)
+    s = _masked_scores(q, k, causal, window, scale)
     m = torch.clamp(s.amax(-1, keepdim=True), min=_NEG_BIG / 2)
     p = torch.exp(s - m)
     l_safe = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
@@ -113,11 +120,12 @@ def _delta(o, do, dlse=None):
     return delta if dlse is None else delta - dlse
 
 
-def _backward_terms(q, k, v, do, lse, delta, causal, window):
+def _backward_terms(q, k, v, do, lse, delta, causal, window, scale=None):
     """``p = exp(s - lse)`` and ``ds = p * (dp - delta) * scale`` with
     ``dp = do . v^T`` in fp32, both [B, H, Sq, Sk]."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.exp(_masked_scores(q, k, causal, window) - lse[..., None])
+    scale = _scale_of(q, scale)
+    p = torch.exp(_masked_scores(q, k, causal, window, scale)
+                  - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     return p, p * (dp - delta[..., None]) * scale
 
@@ -133,25 +141,27 @@ def _dq_from_terms(q, k, ds):
                         k.float()).to(q.dtype)
 
 
-def flash_dkv_reference(q, k, v, do, lse, delta, causal=False, window=None):
+def flash_dkv_reference(q, k, v, do, lse, delta, causal=False, window=None,
+                        scale=None):
     """The plain version of K2: ``(dk, dv)`` in k's and v's type."""
-    p, ds = _backward_terms(q, k, v, do, lse, delta, causal, window)
+    p, ds = _backward_terms(q, k, v, do, lse, delta, causal, window, scale)
     return _dkv_from_terms(q, k, v, do, p, ds)
 
 
-def flash_dq_reference(q, k, v, do, lse, delta, causal=False, window=None):
+def flash_dq_reference(q, k, v, do, lse, delta, causal=False, window=None,
+                       scale=None):
     """The plain version of K3: dq in q's type."""
-    _, ds = _backward_terms(q, k, v, do, lse, delta, causal, window)
+    _, ds = _backward_terms(q, k, v, do, lse, delta, causal, window, scale)
     return _dq_from_terms(q, k, ds)
 
 
 def flash_backward_reference(q, k, v, o, lse, do, delta=None, causal=False,
-                             window=None):
+                             window=None, scale=None):
     """The plain version of K2 and K3: ``(dq, dk, dv)``.  ``delta`` is
     rowsum(do * o) [B, H, Sq] (computed from ``o`` when None)."""
     if delta is None:
         delta = _delta(o, do)
-    p, ds = _backward_terms(q, k, v, do, lse, delta, causal, window)
+    p, ds = _backward_terms(q, k, v, do, lse, delta, causal, window, scale)
     dk, dv = _dkv_from_terms(q, k, v, do, p, ds)
     return _dq_from_terms(q, k, ds), dk, dv
 
@@ -224,19 +234,21 @@ def _device_kind(q, name):
     return q.device.type
 
 
-def flash_forward(q, k, v, *, causal=False, window=None):
+def flash_forward(q, k, v, *, causal=False, window=None, scale=None):
     """K1: ``(o, lse)`` of BSHD q, k, v with equal head counts; o in q's
-    type, lse [B, H, Sq] fp32.  The plain version on the CPU; on a CUDA
+    type, lse [B, H, Sq] fp32.  ``scale`` (default ``1 / sqrt(hd)``)
+    multiplies the scores.  The plain version on the CPU; on a CUDA
     tensor the kernel (counted in ``flash_forward.launches``)."""
     if _device_kind(q, "flash_forward") == "cpu":
-        return flash_forward_reference(q, k, v, causal, window)
+        return flash_forward_reference(q, k, v, causal, window, scale)
     B, H, Sq, Sk, hd = _check_operands(q, k, v, causal=causal, window=window)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr())
-    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0,
+             _scale_of(q, scale))
     with torch.cuda.device(q.device):
         err = _kernel(q, "forward")(*ptrs, *shape, stream)
     _raise_on(err, "flash_forward")
@@ -247,18 +259,21 @@ def flash_forward(q, k, v, *, causal=False, window=None):
 flash_forward.launches = 0
 
 
-def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None):
+def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
+              scale=None):
     """K2: ``(dk, dv)`` in k's and v's type.  The plain version on the
     CPU; on a CUDA tensor the kernel (``flash_dkv.launches``)."""
     if _device_kind(q, "flash_dkv") == "cpu":
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal, window)
+        return flash_dkv_reference(q, k, v, do, lse, delta, causal, window,
+                                   scale)
     B, H, Sq, Sk, hd = _check_operands(q, k, v, do, stats=(lse, delta),
                                        causal=causal, window=window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0,
+             _scale_of(q, scale))
     with torch.cuda.device(q.device):
         err = _kernel(q, "dkv")(*ptrs, *shape, stream)
     _raise_on(err, "flash_dkv")
@@ -269,18 +284,21 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None):
 flash_dkv.launches = 0
 
 
-def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None):
+def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
+             scale=None):
     """K3: dq in q's type.  The plain version on the CPU; on a CUDA
     tensor the kernel (``flash_dq.launches``)."""
     if _device_kind(q, "flash_dq") == "cpu":
-        return flash_dq_reference(q, k, v, do, lse, delta, causal, window)
+        return flash_dq_reference(q, k, v, do, lse, delta, causal, window,
+                                  scale)
     B, H, Sq, Sk, hd = _check_operands(q, k, v, do, stats=(lse, delta),
                                        causal=causal, window=window)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
-    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, 1.0 / math.sqrt(hd))
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0,
+             _scale_of(q, scale))
     with torch.cuda.device(q.device):
         err = _kernel(q, "dq")(*ptrs, *shape, stream)
     _raise_on(err, "flash_dq")
@@ -321,24 +339,29 @@ def _backward(ctx, do, dlse):
     q, k, v, o, lse = ctx.saved_tensors
     do = do.contiguous()
     delta = _delta(o, do, dlse)
-    kw = dict(causal=ctx.causal, window=ctx.window)
+    kw = dict(causal=ctx.causal, window=ctx.window, scale=ctx.scale)
     dk, dv = flash_dkv(q, k, v, do, lse, delta, **kw)
     return flash_dq(q, k, v, do, lse, delta, **kw), dk, dv
+
+
+def _save(ctx, q, k, v, o, lse, causal, window, scale):
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.window, ctx.scale = causal, window, scale
 
 
 class _FlashCore(torch.autograd.Function):
     """o = attention(q, k, v); the backward runs K2 and K3."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_forward(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_forward(q, k, v, causal=causal, window=window,
+                               scale=scale)
+        _save(ctx, q, k, v, o, lse, causal, window, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        return (*_backward(ctx, do, None), None, None)
+        return (*_backward(ctx, do, None), None, None, None)
 
 
 class _FlashCoreStats(torch.autograd.Function):
@@ -346,22 +369,37 @@ class _FlashCoreStats(torch.autograd.Function):
     dL/ds = p * (dp - delta) + p * dlse = p * (dp - (delta - dlse))."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        o, lse = flash_forward(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.window = causal, window
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_forward(q, k, v, causal=causal, window=window,
+                               scale=scale)
+        _save(ctx, q, k, v, o, lse, causal, window, scale)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        return (*_backward(ctx, do, dlse.float()), None, None)
+        return (*_backward(ctx, do, dlse.float()), None, None, None)
 
 
 # -- the public BSHD entry points ------------------------------------------------
 
 
+def kernel_head_dim(hd: int) -> int:
+    """The kernels' head dim that holds ``hd``: the smallest of
+    ``_HEAD_DIMS`` not below it."""
+    for d in _HEAD_DIMS:
+        if hd <= d:
+            return d
+    raise ValueError(f"head_dim {hd} over the kernels' largest, "
+                     f"{_HEAD_DIMS[-1]}")
+
+
 def _prep_bshd(q, k, v, causal, window):
-    """GQA broadcast, the causal shape rule, contiguous operands."""
+    """GQA broadcast, the causal shape rule, contiguous operands, and a
+    head dim the kernels have no instance for zero-padded to the next
+    one: the padded lanes add 0 to every score and give 0 in o, dq, dk
+    and dv, and the scores keep the scale of the head dim they came
+    with.  Returns ``(q, k, v, hd, scale)``, ``hd`` the head dim before
+    padding."""
     _check_window(window, causal)
     hq, hk = q.shape[2], k.shape[2]
     if hk != hq:
@@ -372,7 +410,12 @@ def _prep_bshd(q, k, v, causal, window):
     if causal and q.shape[1] != k.shape[1]:
         raise NotImplementedError(
             "causal flash attention requires seq_q == seq_k")
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    hd = q.shape[-1]
+    pad = kernel_head_dim(hd) - hd
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    return (q.contiguous(), k.contiguous(), v.contiguous(), hd,
+            1.0 / math.sqrt(hd))
 
 
 def flash_attention(q, k, v, *, causal=False, window=None):
@@ -383,14 +426,15 @@ def flash_attention(q, k, v, *, causal=False, window=None):
     [S, S] scores.  K/V may have fewer heads (GQA).  ``window`` (requires
     ``causal=True``): position q attends keys in ``(q - window, q]``;
     tiles outside the band are skipped in the forward and both backward
-    kernels."""
-    q, k, v = _prep_bshd(q, k, v, causal, window)
-    return _FlashCore.apply(q, k, v, causal, window)
+    kernels.  Any head dim up to 128 (:func:`_prep_bshd`)."""
+    q, k, v, hd, scale = _prep_bshd(q, k, v, causal, window)
+    return _FlashCore.apply(q, k, v, causal, window, scale)[..., :hd]
 
 
 def flash_attention_with_lse(q, k, v, *, causal=False):
     """``(o, lse)``: o BSHD, lse [batch, heads, seq] fp32, the logsumexp
     of each row's scores, which makes per-block results mergeable (ring
     attention).  Gradients flow through both outputs."""
-    q, k, v = _prep_bshd(q, k, v, causal, None)
-    return _FlashCoreStats.apply(q, k, v, causal, None)
+    q, k, v, hd, scale = _prep_bshd(q, k, v, causal, None)
+    o, lse = _FlashCoreStats.apply(q, k, v, causal, None, scale)
+    return o[..., :hd], lse

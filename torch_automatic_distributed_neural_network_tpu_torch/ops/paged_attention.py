@@ -40,6 +40,7 @@ from .build import load
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_HEAD_DIMS = (32, 64, 96, 128)  # the kernel's template instances
 _MAX_SMEM_BYTES = 232448  # what one Hopper thread block may use
 _NEG_BIG = -0.7 * float(torch.finfo(torch.float32).max)
 _MAX_SPLITS = 16
@@ -95,6 +96,17 @@ def _counter_buffer(device, n):
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _counters[device] = buf
     return buf
+
+
+def kernel_takes(head_dim: int, q_dtype: torch.dtype,
+                 pool_dtype: torch.dtype) -> bool:
+    """Whether the kernel takes this geometry: a head dim in
+    ``_HEAD_DIMS``, a query dtype in ``_Q_DTYPES`` and a pool dtype in
+    ``_KV_DTYPES`` (int8 for a quantized pool).  The serving engine asks
+    once, at construction, and on a CUDA device raises for any other
+    geometry under ``attention_impl="paged"``."""
+    return (head_dim in _HEAD_DIMS and q_dtype in _Q_DTYPES
+            and pool_dtype in _KV_DTYPES)
 
 
 def paged_attention(q: torch.Tensor, k_pool, v_pool, tables: torch.Tensor,
@@ -160,8 +172,8 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, ctx_lens, *, window,
             raise ValueError(f"operand on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError("paged_attention needs contiguous operands")
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not one of 32, 64, 128")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not one of {_HEAD_DIMS}")
     if (k_arr.data_ptr() | v_arr.data_ptr()) % 16:
         raise ValueError("the kernel reads pool rows 16 bytes at a time: "
                          "pools must be 16-byte aligned")
