@@ -56,7 +56,9 @@ card, in phases, one JSON line each; any failure exits non-zero:
    at the GPT-2 small (12 heads, hd 64), Llama 1b (32 / 8 heads, GQA
    repeated by the wrapper), hd-128 and hd-96 (zero-padded to 128 by the
    wrapper) geometries, S in {1, 100, 129,
-   512, 1000, 1024}, causal or not, window None or 256, fp32 and bf16;
+   512, 1000, 1024}, causal or not, window None or 256, fp32 and bf16,
+   and at the local heads of a tensor degree of 4 (GPT-2 small's 3,
+   Llama 1b's 8 / 2);
    bounds 1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at
    |x| in [2, 4)), and bf16 dv differing from its plain version in at
    most 2 % of its elements (K2 keeps p in fp32 for dv; rounding p to
@@ -116,7 +118,19 @@ card, in phases, one JSON line each; any failure exits non-zero:
    against ``speculative=0``: identical tokens; accept rate, decode
    steps of each, and the steps by route (K4 for one-token steps, the
    dense gather for every T = 5 verify step, as in the JAX engine);
-14. head dim 96 (GPT-2 small width, 8 heads): one training step, whose
+14. the planner and the sharded step (``dist_plan``): ``topology.detect``
+   on the card (1 device, its name) and ``make_plan`` for GPT-2 small
+   (``dp`` on one device); the plans for hypothetical fleets of 1, 4 and
+   8 H100s (GPT-2 ``1p3b``, Llama 3.2 1B), equal to ``FLEET_PLANS``,
+   which the CPU tests hold too; then GPT-2 small (B 8 x S 1024, bf16
+   compute, fp32 params, per-layer remat "dots", no loss-level
+   checkpoint) for 5 steps unwrapped, and in a world of one NCCL rank
+   wrapped by each strategy at degree 1 (DDP, FSDP2, tensor parallelism,
+   TP x FSDP, and ZeRO-1 on dp, which one card makes a no-op): each
+   run's losses within 1e-3 relative of the unwrapped run's, K1-K3
+   launched 24/12/12 times a step, the median step ms printed beside the
+   unwrapped one and the card;
+15. head dim 96 (GPT-2 small width, 8 heads): one training step, whose
    ``attention(impl="auto")`` takes the flash kernels on operands
    zero-padded to head dim 128 (K1-K3's launches counted, no plain
    attention), and a few tokens from ``ServeEngine()`` with its
@@ -868,8 +882,11 @@ def phase_flash_kernel_cases(torch) -> dict:
 
     # hd96: the kernels take it zero-padded to 128 (``_prep_bshd``), the
     # scores scaled by 1/sqrt(96)
+    # "-tp4": the local heads of one rank of a tensor degree of 4 (the
+    # port's column split takes whole heads)
     geoms = {"gpt2-small": (12, 12, 64), "llama-1b": (32, 8, 64),
-             "hd128": (16, 16, 128), "hd96": (8, 8, 96)}
+             "hd128": (16, 16, 128), "hd96": (8, 8, 96),
+             "gpt2-small-tp4": (3, 3, 64), "llama-1b-tp4": (8, 2, 64)}
     # fp32: the same fp32 products summed in another order; bf16: the
     # outputs are rounded to bf16 on both sides, one ulp at |x| in [2, 4)
     bounds = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -1319,6 +1336,177 @@ def _recorder(into: list):
     def record(step, state, metrics):
         into.append((step, metrics["loss"]))
     return record
+
+
+# what ``fleet_plans`` gives on any machine: (strategy, degrees above 1,
+# loss-level remat, expected collective wire bytes a device a step with
+# fp32 gradients); tests/test_torch_port_planner.py holds the CPU to it
+FLEET_PLANS = {
+    "gpt2-1p3b@1/auto": ["dp", {}, False, 0],
+    "gpt2-1p3b@4/auto": ["dp", {"data": 4}, False, 7881756672],
+    "gpt2-1p3b@4/fsdp": ["fsdp", {"fsdp": 4}, True, 11822635008],
+    "gpt2-1p3b@4/tp_fsdp": ["tp_fsdp", {"fsdp": 2, "tensor": 2}, True,
+                            4256649216],
+    "gpt2-1p3b@8/auto": ["dp", {"data": 8}, False, 9195382784],
+    "gpt2-1p3b@8/fsdp": ["fsdp", {"fsdp": 8}, True, 13793074176],
+    "gpt2-1p3b@8/tp_fsdp": ["tp_fsdp", {"fsdp": 2, "tensor": 4}, True,
+                            2444292096],
+    "llama-3.2-1b@1/auto": ["dp", {}, False, 0],
+    "llama-3.2-1b@4/auto": ["dp", {"data": 4}, False, 8990896128],
+    "llama-3.2-1b@4/fsdp": ["fsdp", {"fsdp": 4}, True, 13486344192],
+    "llama-3.2-1b@4/tp_fsdp": ["tp_fsdp", {"fsdp": 2, "tensor": 2}, True,
+                               4495650816],
+    "llama-3.2-1b@8/auto": ["dp", {"data": 8}, False, 10489378816],
+    "llama-3.2-1b@8/fsdp": ["fsdp", {"fsdp": 8}, True, 15734068224],
+    "llama-3.2-1b@8/tp_fsdp": ["tp_fsdp", {"fsdp": 2, "tensor": 4}, True,
+                               2248028160],
+}
+
+
+def fleet_plans(torch) -> dict:
+    """Plans for hypothetical fleets of 1, 4 and 8 H100s
+    (``topology.parse_topology``), pure shape math on meta tensors:
+    GPT-2 ``1p3b`` and Llama 3.2 1B at full width and depth, the auto
+    strategy and, on several cards, ``fsdp`` and ``tp_fsdp``."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        planner, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        DecoderLM, gpt2_config, llama_config)
+
+    out = {}
+    for name, cfg in (("gpt2-1p3b", gpt2_config("1p3b")),
+                      ("llama-3.2-1b", llama_config("1b"))):
+        with torch.device("meta"):
+            abstract = planner.abstract_params(DecoderLM(cfg))
+        for n in (1, 4, 8):
+            for strategy in ("auto", "fsdp", "tp_fsdp")[:1 if n == 1 else 3]:
+                plan = planner.make_plan(
+                    abstract, strategy=strategy, heads=(cfg.n_heads,
+                                                        cfg.kv_heads),
+                    topology=topology.parse_topology(f"h100-{n}"))
+                est = planner.expected_collective_bytes(plan, abstract)
+                out[f"{name}@{n}/{strategy}"] = [
+                    plan.strategy,
+                    {a: d for a, d in plan.degrees.items() if d > 1},
+                    plan.remat, est["total_wire_bytes"]]
+    return out
+
+
+# the wrapped runs of phase dist_plan: AutoDistribute's options
+DIST_RUNS = {"dp": dict(strategy="dp"), "fsdp": dict(strategy="fsdp"),
+             "tp": dict(strategy="tp"), "tp_fsdp": dict(strategy="tp_fsdp"),
+             "dp+zero1": dict(strategy="dp", zero1=True)}
+
+
+def phase_dist_plan(torch, data, card, *, steps=5) -> dict[str, int]:
+    """The planner on the card's topology and on hypothetical fleets, then
+    the step wrapped by each strategy in a world of one NCCL rank, against
+    the unwrapped step on the same weights and batch."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, adamw, next_token_loss, planner, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    name = torch.cuda.get_device_name(0)
+    topo = topology.detect()
+    with torch.device("meta"):
+        small = GPT2("small")
+    cfg = small.cfg
+    plan = planner.make_plan(planner.abstract_params(small), topology=topo,
+                             heads=(cfg.n_heads, cfg.kv_heads))
+    emit({"phase": "dist_plan_topology", "card": card,
+          "topology": {"num_devices": topo.num_devices,
+                       "platform": topo.platform,
+                       "device_kind": topo.device_kind,
+                       "hbm_bytes": topo.chip.hbm_bytes},
+          "gpt2_small_plan": {"strategy": plan.strategy,
+                              "degrees": plan.degrees, "remat": plan.remat}})
+    require((topo.num_devices, topo.platform, topo.device_kind)
+            == (1, "gpu", name), f"topology.detect() gave {topo}")
+    require(plan.strategy == "dp" and plan.degrees["data"] == 1
+            and math.prod(plan.degrees.values()) == 1,
+            f"one card's plan is {plan.strategy} {plan.degrees}")
+    fleets = fleet_plans(torch)
+    emit({"phase": "dist_plan_fleets", "plans": fleets})
+    require(fleets == FLEET_PLANS, "the fleet plans differ from the CPU's "
+                                   "(FLEET_PLANS)")
+
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    # remat "dots" in each layer: K1 forward and recompute, K2, K3 once;
+    # no loss-level checkpoint on any run (remat=False), so each step
+    # launches what phase train's does
+    per_step = {"flash_forward": 2 * cfg.n_layers,
+                "flash_dkv": cfg.n_layers, "flash_dq": cfg.n_layers}
+    batch = data.batch(0)
+    total = {w.__name__: 0 for w in wrappers}
+
+    def run(**kw):
+        ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                            loss_fn=next_token_loss, remat=False, **kw)
+        state = ad.init(torch.Generator(device="cuda").manual_seed(0))
+        for w in wrappers:
+            w.launches = 0
+        losses, step_ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, metrics = ad.step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+        launches = {w.__name__: w.launches for w in wrappers}
+        for k, v in launches.items():
+            total[k] += v
+        rec = {"strategy": ad.plan.strategy, "degrees": ad.plan.degrees,
+               "zero1": ad.plan.zero1, "loss_level_remat": ad.remat,
+               "world_size": dist.get_world_size() if dist.is_initialized()
+               else 1, "losses": losses, "step_ms": step_ms,
+               "median_step_ms": statistics.median(step_ms[1:]),
+               "launches_per_step": {k: v / steps
+                                     for k, v in launches.items()}}
+        del ad, state
+        torch.cuda.empty_cache()
+        return rec
+
+    runs = {"unwrapped": run()}
+    pg_dir = tempfile.mkdtemp()
+    topology.initialize_distributed(
+        backend="nccl", init_method=f"file://{os.path.join(pg_dir, 'pg')}",
+        world_size=1, rank=0)
+    try:
+        for label, kw in DIST_RUNS.items():
+            runs[label] = run(**kw)
+    finally:
+        dist.destroy_process_group()
+    base = runs["unwrapped"]
+    for label, rec in runs.items():
+        rec["max_rel_loss_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(rec["losses"], base["losses"]))
+        emit({"phase": "dist_plan", "run": label, "card": card, **rec,
+              "unwrapped_median_step_ms": base["median_step_ms"],
+              "expected_launches_per_step": per_step,
+              "bounds": {"rel_loss_diff": 1e-3}})
+    for label, rec in runs.items():
+        require(all(math.isfinite(x) for x in rec["losses"]),
+                f"{label}: non-finite loss {rec['losses']}")
+        require(rec["max_rel_loss_diff"] <= 1e-3,
+                f"{label}: losses {rec['losses']} differ from the unwrapped "
+                f"{base['losses']} by {rec['max_rel_loss_diff']} > 1e-3")
+        require(rec["launches_per_step"] == per_step,
+                f"{label}: K1-K3 launches a step "
+                f"{rec['launches_per_step']} != {per_step}")
+        # ZeRO-1 on a data axis of 1 is the planner's no-op (as in JAX):
+        # its run steps under DDP
+        if label != "unwrapped":
+            require(rec["strategy"] == DIST_RUNS[label]["strategy"]
+                    and not rec["zero1"],
+                    f"{label}: the plan is {rec['strategy']} "
+                    f"zero1={rec['zero1']}")
+    return total
 
 
 def phase_trainer(torch) -> dict[str, int]:
@@ -1974,16 +2162,21 @@ def main(argv=None) -> int:
             block_size=16, quant_kv=True, seed=1)
         del llama
         torch.cuda.empty_cache()
-    if run("train"):
+    if run("train") or run("dist_plan"):
         from torch_automatic_distributed_neural_network_tpu_torch import \
             SyntheticLM
 
         data = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8)
+    if run("train"):
         train_launches = phase_train(torch, data)
         phase_train_parity(torch, data)
         phase_train_profile(torch, data)
-        del data
         torch.cuda.empty_cache()
+    if run("dist_plan"):
+        dist_launches = phase_dist_plan(torch, data, card)
+        torch.cuda.empty_cache()
+    if run("train") or run("dist_plan"):
+        del data
     if run("trainer"):
         phase_trainer(torch)
     if run("generate"):
@@ -2014,7 +2207,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name],
-            "launches": train_launches[name],
+            "launches": train_launches[name] + dist_launches[name],
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
@@ -2031,8 +2224,9 @@ def main(argv=None) -> int:
 
 
 PHASES = ("build", "kernel_cases", "timing", "tile_check",
-          "flash_kernel_cases", "flash_timing", "serve", "train", "trainer",
-          "generate", "serve_prefix", "serve_spec", "head_dim_96")
+          "flash_kernel_cases", "flash_timing", "serve", "train",
+          "dist_plan", "trainer", "generate", "serve_prefix", "serve_spec",
+          "head_dim_96")
 
 
 if __name__ == "__main__":

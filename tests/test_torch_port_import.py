@@ -255,6 +255,30 @@ print("BAD", bad)
     assert "BAD []" in out.stdout, out.stdout
 
 
+# the planner and sharded execution: each imports with torch and numpy
+# alone (one interpreter for all of them)
+_SHARDING = ("topology", "planner", "executor", "parallel",
+             "parallel.collectives", "core")
+
+
+def test_sharding_modules_import_with_torch_and_numpy_alone():
+    imports = "\n".join(f"import {PORT}.{m}" for m in _SHARDING)
+    code = f"""
+import sys
+{imports}
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "tadnn",
+                                    "torch_automatic_distributed_neural_network_tpu"))
+print("BAD", bad)
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_generate_entry_points_default_to_cuda(no_cuda):
     from torch_automatic_distributed_neural_network_tpu_torch.examples import (
         generate_text,

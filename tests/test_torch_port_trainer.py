@@ -179,7 +179,9 @@ def test_trainer_losses_match_jax(jax_run, tmp_path_factory):
     (lint,) = j.named("lint.skipped")
     assert "Queue 1 item 7" in lint["error"]
     (start,) = j.named("run_start")
-    assert start["strategy"] == "dp" and start["mesh"] == {"data": 1}
+    # every mesh axis, as the JAX trainer journals its Mesh's degrees
+    assert start["strategy"] == "dp" and start["mesh"] == {
+        "pipe": 1, "data": 1, "fsdp": 1, "expert": 1, "seq": 1, "tensor": 1}
     good = trainer.goodput
     assert good["seconds"]["compile"] > 0 and good["seconds"]["step"] > 0
     assert sum(good["fractions"].values()) == pytest.approx(1.0)
@@ -362,7 +364,7 @@ def test_stall_escalator_raises_in_training_thread():
             time.sleep(0.05)
 
 
-def test_what_is_not_ported_raises(tmp_path):
+def test_what_is_not_ported_raises(tmp_path, monkeypatch):
     trainer = _tiny_trainer(tmp_path / "a", 2,
                             cfg=dict(preflight_action="raise"))
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -370,9 +372,18 @@ def test_what_is_not_ported_raises(tmp_path):
     trainer = _tiny_trainer(tmp_path / "b", 2, cfg=dict(trace_every_n=1))
     with pytest.raises(NotImplementedError, match="item 7"):
         trainer.fit(_tiny_data())
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # parallel.strategy reaches AutoDistribute; the Trainer across
+    # several processes is what raises (the launcher, item 3b)
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        trainer as trainer_mod,
+    )
+
+    monkeypatch.setattr(trainer_mod, "process_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="item 3b"):
         train_gpt2.main(["model.size=test", "run.device=cpu",
-                         "parallel.strategy=fsdp"])
+                         "model.seq_len=16", "model.vocab_size=64",
+                         "run.batch_size=2", "parallel.strategy=fsdp"])
+    monkeypatch.undo()
     with pytest.raises(NotImplementedError, match="item 3"):
         cli(["doctor", "--launch-dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -394,7 +405,9 @@ def test_example_runs_on_the_cpu_and_doctor_reads_its_chain(tmp_path,
     printed = capsys.readouterr().out
     assert out["state"].step == 4 and out["data"].backend in ("native",
                                                                "numpy")
-    assert "plan: dp mesh={'data': 1}" in printed
+    # every mesh axis, as the JAX example prints its Mesh's degrees
+    assert ("plan: dp mesh={'pipe': 1, 'data': 1, 'fsdp': 1, 'expert': 1, "
+            "'seq': 1, 'tensor': 1}") in printed
     assert "final_step=4" in printed
     assert len(_records(str(tmp_path / "metrics.jsonl"))) == 4
     # doctor on the healthy chain

@@ -28,6 +28,7 @@ version runs instead.
 """
 
 from .core import AutoDistribute, ShardPlan, TrainState, mesh_degrees
+from . import planner, topology
 from .data import SyntheticLM, TokenFileDataset, write_token_file
 from .models import GPT2, DecoderLM, Llama, TransformerConfig
 from .training import (

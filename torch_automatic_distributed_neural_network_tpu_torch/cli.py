@@ -1,9 +1,10 @@
-"""Command line for the PyTorch port: the ``serve`` and ``doctor``
-subcommands.
+"""Command line for the PyTorch port: the ``serve``, ``doctor`` and
+``devices`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
     python -m torch_automatic_distributed_neural_network_tpu_torch doctor CKPT_DIR
+    python -m torch_automatic_distributed_neural_network_tpu_torch devices
 
 Mirrors the JAX package's ``tadnn serve``: the same flags and the same
 JSON summary line, plus ``--device`` (default ``cuda``; ``cpu`` runs the
@@ -19,6 +20,7 @@ checkpoint part of the JAX package's ``tadnn doctor``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -196,6 +198,36 @@ def cmd_doctor(args: argparse.Namespace) -> int:
     return 0 if report["healthy"] else 1
 
 
+def cmd_devices(args: argparse.Namespace) -> int:
+    """The detected topology (``topology.detect``) and its chip's numbers;
+    under ``torchrun`` the process group is brought up first."""
+    import torch
+
+    from . import topology
+    from .utils.device import process_count, process_index
+
+    topology.initialize_distributed()
+    topo = topology.detect()
+    chip = topo.chip
+    print(f"process {process_index()}/{process_count()}")
+    print(f"devices: {topo.num_devices} x {topo.device_kind} "
+          f"({topo.platform}); visible CUDA devices: "
+          f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
+    print(f"hosts: {topo.num_hosts}  multihost: {topo.is_multihost}")
+    print(f"chip: {chip.flops_per_s / 1e12:g} TFLOP/s bf16, "
+          f"{chip.hbm_bytes / 2**30:.1f} GiB at "
+          f"{chip.hbm_bytes_per_s / 1e12:g} TB/s, links "
+          f"{chip.ici_bytes_per_s / 1e9:g} GB/s in a host, "
+          f"{chip.dcn_bytes_per_s / 1e9:g} GB/s between hosts")
+    if args.json:
+        print(json.dumps({"num_devices": topo.num_devices,
+                          "device_kind": topo.device_kind,
+                          "platform": topo.platform,
+                          "process_count": process_count(),
+                          "chip": dataclasses.asdict(chip)}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m torch_automatic_distributed_neural_network_tpu_torch",
@@ -282,6 +314,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fleet post-mortem of a gateway (not ported yet)")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("devices",
+                       help="the detected topology and its chip's numbers")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_devices)
     return ap
 
 

@@ -1,5 +1,4 @@
-"""``AutoDistribute`` on one device: the JAX package's ``core.py`` for a
-single card.
+"""``AutoDistribute``: the JAX package's ``core.py`` on PyTorch.
 
     model = GPT2("small")
     ad = AutoDistribute(model, optimizer=adamw(1e-3),
@@ -9,15 +8,22 @@ single card.
         state, metrics = ad.step(state, batch)
 
 ``loss_fn(model, batch, generator) -> (loss, aux_dict)``
-(``training/losses.py``).  On one device the JAX planner's plan is the
-identity (:class:`ShardPlan`): data parallelism of degree 1 on the mesh
-``{"data": 1}``, with the loss-level activation checkpoint on only when
-the train state would take half the card's memory
-(``planner.make_plan``'s single-device rule); ``generate`` decodes with
-the trained weights, in bf16 or int8.  Every other
-strategy, a mesh, several devices, sequence or pipeline parallelism,
-ZeRO-1 and the export cache raise ``NotImplementedError`` (ROADMAP
-Queue 1 items 3-5).
+(``training/losses.py``).  ``build_plan`` runs the planner
+(``planner.make_plan``) on the model's abstract shapes and the
+topology (``topology.detect``): strategy, mesh degrees, activation
+checkpointing, ZeRO-1.  One process drives one device.  Without a
+``torch.distributed`` process group the plan has one device and the
+step is the single-device one.  With a group up (``torchrun``, then
+``topology.initialize_distributed()``) the plan's mesh becomes a
+``DeviceMesh`` over the world and ``executor.apply_plan`` wraps the
+model by the plan's strategy, even at degree 1: ``dp`` (DDP, or
+ZeRO-1's sharded update), ``fsdp`` (FSDP2), ``tp``
+(``parallelize_module``) or ``tp_fsdp``.  Every rank takes the global
+batch and keeps its rows (``shard_batch``); the step returns the global
+batch's loss.  ``generate`` gathers the full weights on each rank and
+decodes there, in bf16 or int8.  Expert, sequence and pipeline
+parallelism, the tuned and searched strategies and the export cache
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 The step updates the state in place (the JAX step donates its input
 state): ``step`` returns a new :class:`TrainState` whose ``params`` and
@@ -26,41 +32,42 @@ optimizer tensors are the ones it was given, updated.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
+import math
+from collections.abc import Mapping
 from typing import Any, Callable
 
 import numpy as np
 import torch
 from torch import nn
 
+from . import executor as executor_mod
+from . import planner as planner_mod
+from . import topology as topo_mod
+from .models.transformer_core import gathered
 from .models.transformer_core import remat as remat_fn
+from .obs import journal as obs_journal
+from .planner import ShardPlan
+from .topology import mesh_degrees
 from .training import precision as precision_mod
-from .training.optim import GradientTransformation, adamw, apply_updates
-from .utils.device import resolve_device
+from .training.optim import (
+    GradientTransformation,
+    adamw,
+    apply_updates,
+    zero1_shards,
+    zero1_update,
+)
+from .utils.device import (
+    group_up,
+    process_count,
+    process_index,
+    resolve_device,
+)
 
 LossFn = Callable[[nn.Module, dict, "torch.Generator | None"],
                   "tuple[torch.Tensor, dict]"]
 
-# the JAX planner's memory for a device kind it does not know
-_DEFAULT_DEVICE_BYTES = 16 * 2**30
-
-
-@dataclasses.dataclass
-class ShardPlan:
-    """The planner's output on one device: ``strategy`` ``"dp"`` over
-    the mesh ``{"data": 1}`` (axis name -> degree), and whether the loss
-    is wrapped in an activation checkpoint (``remat``)."""
-
-    mesh: dict[str, int]
-    strategy: str
-    remat: bool = False
-
-
-def mesh_degrees(mesh) -> dict[str, int]:
-    """Axis name -> degree of a plan's mesh (a degrees mapping on one
-    device)."""
-    return {ax: int(n) for ax, n in dict(mesh).items()}
+__all__ = ["AutoDistribute", "ShardPlan", "TrainState", "mesh_degrees"]
 
 
 @dataclasses.dataclass
@@ -78,17 +85,22 @@ class TrainState:
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        f"item {item}); AutoDistribute runs on one device")
+        f"item {item})")
 
 
 class AutoDistribute:
-    """One-device training step with the JAX ``AutoDistribute``'s
-    semantics: ``precision`` ('fp32', 'mixed', 'bf16' or a
-    ``Precision``), ``grad_accum`` (sequential batch slices, gradients
-    averaged in the compute dtype, ``tokens``/``items``/``*_count`` aux
-    summed and the rest averaged) and ``remat`` (None: the planner's
-    single-device rule).  ``device``: where it runs, ``cuda`` unless
-    the caller asks for the CPU."""
+    """A model trained by a plan, with the JAX ``AutoDistribute``'s
+    semantics: ``strategy`` ('auto', 'dp', 'fsdp', 'tp', 'tp_fsdp'),
+    ``mesh`` (a ``DeviceMesh`` from ``topology.build_mesh`` or a degrees
+    mapping), ``rules`` (the planner's name rules), ``zero1`` (the
+    optimizer state sharded over ``data``), ``precision`` ('fp32',
+    'mixed', 'bf16' or a ``Precision``), ``grad_accum`` (sequential
+    batch slices, gradients averaged in the compute dtype,
+    ``tokens``/``items``/``*_count`` aux summed and the rest averaged)
+    and ``remat`` (None: the planner's rule).  ``device``: where this
+    process runs, ``cuda`` (``cuda:LOCAL_RANK`` under a process group)
+    unless the caller asks for the CPU; ``devices``: one a process, in
+    rank order."""
 
     def __init__(
         self,
@@ -98,6 +110,7 @@ class AutoDistribute:
         loss_fn: LossFn | None = None,
         strategy: str = "auto",
         mesh: Any = None,
+        rules=planner_mod.TRANSFORMER_RULES,
         remat: bool | None = None,
         devices=None,
         seq_parallel: int = 1,
@@ -108,63 +121,124 @@ class AutoDistribute:
         export_cache: Any = None,
         device=None,
     ):
-        if strategy not in ("auto", "dp"):
-            raise _not_ported(f"strategy={strategy!r}", "3")
-        if mesh is not None:
-            raise _not_ported("mesh=", "3")
-        if devices is not None and len(devices) > 1:
-            raise _not_ported(f"{len(devices)} devices", "3")
+        if strategy in ("tuned", "search"):
+            raise _not_ported(f"strategy={strategy!r} (the tune/ cost-model "
+                              f"and measured searches)", "7")
+        if strategy in ("ep", "ep_fsdp", "ep_tp"):
+            raise _not_ported(f"strategy={strategy!r} (expert parallelism; "
+                              f"the port has no MoE model yet)", "6")
+        if strategy not in planner_mod.KNOWN_STRATEGIES:
+            raise ValueError(f"Unknown strategy {strategy!r}; expected one "
+                             f"of {planner_mod.KNOWN_STRATEGIES}")
+        if mesh is not None and not isinstance(mesh, Mapping) and not (
+                hasattr(mesh, "mesh_dim_names")):
+            raise TypeError(f"mesh must be a DeviceMesh "
+                            f"(topology.build_mesh) or a degrees mapping, "
+                            f"got {type(mesh).__name__}")
         if seq_parallel > 1:
             raise _not_ported("seq_parallel > 1", "5")
         if pipeline_stages > 1:
             raise _not_ported("pipeline_stages > 1", "5")
-        if zero1:
-            raise _not_ported("zero1", "3")
         if export_cache:
             raise _not_ported("export_cache", "4")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-        if device is None and devices:
-            device = devices[0]
+        if devices is not None:
+            devices = list(devices)
+            if len(devices) != process_count():
+                raise _not_ported(
+                    f"{len(devices)} devices in {process_count()} "
+                    f"process(es): the port drives one device a process, "
+                    f"and launching them", "3b")
+            if device is None:
+                device = devices[process_index()]
         self.device = resolve_device(device)
         self.model = model
         self.precision = precision_mod.resolve(precision)
         self.optimizer = precision_mod.wrap_optimizer(
             optimizer or adamw(1e-3), self.precision)
         self._loss_fn = loss_fn
+        self._strategy = strategy
+        self._mesh_arg = mesh
+        self._rules = tuple(rules)
+        self._zero1 = zero1
         self._remat_arg = remat
         self.remat: bool | None = None  # decided by build_plan
         self.plan: ShardPlan | None = None
+        self.comm_profile: dict | None = None
+        self._exec: executor_mod.Execution | None = None
         self._grad_accum = grad_accum
         self._masters_apart = False
 
-    # -- init -----------------------------------------------------------------
+    # -- planning -------------------------------------------------------------
 
-    def _device_bytes(self) -> int:
-        if self.device.type == "cuda":
-            return torch.cuda.get_device_properties(self.device).total_memory
-        return _DEFAULT_DEVICE_BYTES
+    @property
+    def mesh(self):
+        assert self.plan is not None, "call init() or build_plan() first"
+        return self.plan.mesh
 
     def build_plan(self, rng: torch.Generator | None = None,
                    sample_batch: dict | None = None) -> ShardPlan:
-        """The one-device plan: ``dp`` on ``{"data": 1}``, and ``remat``
-        as given, else the planner's rule (params, grads and two moments,
-        as ``state_factor`` times the bytes of the parameters as built,
-        above half the device's memory).  ``rng`` is accepted for the
-        JAX signature; the module's shapes need no trace."""
+        """The planner on the model's abstract shapes (in the precision's
+        storage dtype) and the topology; with a process group up, the
+        plan's mesh as a ``DeviceMesh`` over the world.  ``rng`` is
+        accepted for the JAX signature; the module's shapes need no
+        trace."""
+        prec = self.precision
+        abstract = planner_mod.abstract_params(self.model, prec.param_dtype)
+        cfg = getattr(self.model, "cfg", None)
+        plan = planner_mod.make_plan(
+            abstract, mesh=self._mesh_arg, strategy=self._strategy,
+            rules=self._rules, remat=self._remat_arg,
+            state_factor=prec.bytes_per_param / prec.param_dtype.itemsize,
+            zero1=self._zero1,
+            heads=(cfg.n_heads, cfg.kv_heads) if cfg is not None else None)
+        if group_up():
+            executor_mod.check_executable(plan)
+            if isinstance(plan.mesh, Mapping):
+                plan.mesh = topo_mod.build_mesh(device_type=self.device.type,
+                                                **plan.degrees)
+        elif math.prod(plan.degrees.values()) > 1:
+            raise RuntimeError(
+                f"the plan's mesh {plan.degrees} spans several devices but "
+                f"no process group is up: run one process a device "
+                f"(torchrun) and call topology.initialize_distributed()")
+        self.plan = plan
+        self.remat = plan.remat
+        self._journal_plan(abstract)
         if sample_batch is not None:
             self._check_batch(sample_batch)
-        if self._remat_arg is not None:
-            remat = self._remat_arg
-        else:
-            prec = self.precision
-            state_bytes = (prec.bytes_per_param / prec.param_dtype.itemsize
-                           * sum(p.numel() * p.element_size()
-                                 for p in self.model.parameters()))
-            remat = state_bytes > 0.5 * self._device_bytes()
-        self.remat = remat
-        self.plan = ShardPlan(mesh={"data": 1}, strategy="dp", remat=remat)
-        return self.plan
+        return plan
+
+    def _journal_plan(self, abstract_params) -> None:
+        """Journal the plan and its expected collective traffic."""
+        plan = self.plan
+        obs_journal.event(
+            "plan", strategy=plan.strategy, mesh=plan.degrees,
+            remat=plan.remat,
+            precision=planner_mod._dtype_name(self.precision.param_dtype),
+            grad_accum=self._grad_accum, zero1=plan.zero1)
+        est = planner_mod.expected_collective_bytes(
+            plan, abstract_params, grad_dtype=self.precision.compute_dtype,
+            grad_accum=self._grad_accum)
+        self.comm_profile = est
+        obs_journal.event(
+            "comms.estimate", strategy=est["strategy"], mesh=est["mesh"],
+            total_wire_bytes=est["total_wire_bytes"],
+            per_device={k: v["payload_bytes"]
+                        for k, v in est["per_device"].items()},
+            model_dependent=sorted(est["model_dependent"]))
+        if plan.zero1:
+            per_dev = est["per_device"]
+            obs_journal.event(
+                "plan.zero1", data_degree=plan.degrees.get("data", 1),
+                predicted_reduce_scatter_bytes=per_dev[
+                    "zero1_grad_reduce_scatter"]["wire_bytes"],
+                predicted_allgather_bytes=per_dev[
+                    "zero1_param_allgather"]["wire_bytes"],
+                compiled_bytes=None)
+
+    # -- init -----------------------------------------------------------------
 
     @torch.no_grad()
     def init(self, generator: torch.Generator | None = None,
@@ -172,11 +246,17 @@ class AutoDistribute:
         """The initial state.  With a ``generator`` (on the model's
         device) the weights are drawn anew (``DecoderLM.init_weights``);
         without one the model keeps the weights it holds, e.g. weights
-        carried from JAX (``interop.decoder_from_jax_params``)."""
+        carried from JAX (``interop.decoder_from_jax_params``).  Under a
+        process group the model is then wrapped by the plan, once: every
+        rank draws the same weights from the same generator and keeps
+        its shards."""
         if self.plan is None:
             self.build_plan(generator, sample_batch)
         elif sample_batch is not None:
             self._check_batch(sample_batch)
+        if self._exec is not None:
+            raise RuntimeError("init() already wrapped the model by the "
+                               "plan; make a new AutoDistribute")
         model = self.model.to(self.device)
         if generator is not None:
             model.init_weights(generator)
@@ -184,20 +264,37 @@ class AutoDistribute:
         # the module holds the compute-dtype copy the loss differentiates;
         # under 'mixed' the fp32 masters live apart in the state
         self._masters_apart = prec.compute_dtype != prec.param_dtype
-        params = {}
+        masters = {}
         for name, p in model.named_parameters():
             if self._masters_apart:
-                params[name] = p.detach().to(prec.param_dtype, copy=True)
+                masters[name] = p.detach().to(prec.param_dtype, copy=True)
                 p.data = p.data.to(prec.compute_dtype)
             else:
                 p.data = p.data.to(prec.param_dtype)
-                params[name] = p
+        if group_up():
+            cfg = getattr(model, "cfg", None)
+            self._exec = executor_mod.apply_plan(
+                model, self.plan, self.plan.mesh, self.device,
+                rules=self._rules,
+                heads=(cfg.n_heads, cfg.kv_heads) if cfg is not None else None)
+        params = {name: executor_mod.like(masters[name], p)
+                  if self._masters_apart else p
+                  for name, p in model.named_parameters()}
         seed = 0
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device))
+        opt_params = params
+        if self.plan.zero1 and self._exec is not None:
+            opt_params = zero1_shards(params, **self._zero1_kw())
         return TrainState(step=0, params=params,
-                          opt_state=self.optimizer.init(params), seed=seed)
+                          opt_state=self.optimizer.init(opt_params),
+                          seed=seed)
+
+    def _zero1_kw(self) -> dict:
+        plan = self.plan
+        return dict(mesh=plan.mesh, opt_specs=plan.opt_spec_tree,
+                    param_specs=plan.param_specs)
 
     @torch.no_grad()
     def adopt_state(self, state: TrainState) -> None:
@@ -210,18 +307,37 @@ class AutoDistribute:
                 p.copy_(state.params[name])
 
     def _check_batch(self, batch) -> None:
+        """A readable error when the global batch does not divide over
+        the accumulation slices and the batch axes."""
         k = self._grad_accum
+        dp = math.prod(self.plan.degrees.get(a, 1)
+                       for a in planner_mod.spec_axes(self.plan.batch_spec))
         for leaf in batch.values():
             n = np.shape(leaf)[0] if np.ndim(leaf) else None
-            if n is not None and k > 1 and n % k:
+            if n is None:
+                continue
+            if k > 1 and n % k:
                 raise ValueError(f"Global batch size {n} is not divisible "
                                  f"by grad_accum={k}.")
+            if (n // k) % dp:
+                raise ValueError(
+                    f"Global batch size {n}"
+                    + (f" / grad_accum={k} = {n // k}" if k > 1 else "")
+                    + f" is not divisible by the data-parallel degree {dp} "
+                    f"(mesh {self.plan.degrees}).")
 
     # -- the train step -------------------------------------------------------
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
+
+    def shard_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch, on its device: its
+        coordinate on the batch axes picks them (data-major, the JAX
+        batch spec's order); one device keeps the whole batch."""
+        batch = self._to_device(batch)
+        return batch if self._exec is None else self._exec.local_rows(batch)
 
     def _value_and_grad(self, batch, generator):
         if self._loss_fn is None:
@@ -246,10 +362,13 @@ class AutoDistribute:
 
     def step(self, state: TrainState, batch: dict
              ) -> tuple[TrainState, dict[str, torch.Tensor]]:
-        """One optimizer step on ``batch`` (numpy arrays or tensors).
-        Returns the updated state and ``{"loss": ..., **aux}``."""
+        """One optimizer step on the global ``batch`` (numpy arrays or
+        tensors).  Returns the updated state and ``{"loss": ..., **aux}``
+        of the global batch."""
         if self.remat is None:
             raise RuntimeError("call init() first")
+        if self._exec is not None:
+            return self._sharded_step(state, batch)
         batch = self._to_device(batch)
         k = self._grad_accum
         if k == 1:
@@ -269,18 +388,66 @@ class AutoDistribute:
                 auxes.append(aux_i)
             grads = {n: g / k for n, g in grads.items()}
             loss = loss / k
-            # counts keep full-batch semantics (summed), ratios average
-            aux = {key: torch.stack([a[key] for a in auxes]).sum(0)
-                   if key in ("tokens", "items") or key.endswith("_count")
-                   else torch.stack([a[key] for a in auxes]).mean(0)
-                   for key in auxes[0]}
+            aux = _merge_aux(auxes)
         with torch.no_grad():
             updates, opt_state = self.optimizer.update(
                 grads, state.opt_state, state.params)
             apply_updates(state.params, updates)
-            if self._masters_apart:
-                for name, p in self.model.named_parameters():
-                    p.copy_(state.params[name])
+            self._copy_masters(state)
+        new_state = dataclasses.replace(state, step=state.step + 1,
+                                        opt_state=opt_state)
+        return new_state, {"loss": loss, **aux}
+
+    @torch.no_grad()
+    def _copy_masters(self, state: TrainState) -> None:
+        if self._masters_apart:
+            for name, p in self.model.named_parameters():
+                p.copy_(state.params[name])
+
+    def _sharded_step(self, state: TrainState, batch: dict):
+        """The step under a plan: each slice's loss through the wrapped
+        module and ``backward`` (DDP's and FSDP2's gradient hooks fire
+        there), the wrappers' reduction held back on all slices but the
+        last; the optimizer on the (sharded) gradients, or ZeRO-1's
+        sharded update."""
+        if self._loss_fn is None:
+            raise ValueError("AutoDistribute needs a loss_fn to train")
+        ex = self._exec
+        batch = self._to_device(batch)
+        self._check_batch(batch)
+        k = self._grad_accum
+        loss, auxes = None, []
+        for i in range(k):
+            mb = ex.local_rows({key: v.reshape(k, v.shape[0] // k,
+                                               *v.shape[1:])[i]
+                                if v.ndim else v for key, v in batch.items()})
+            gen = self._generator(state, i)
+            with ex.sync(i == k - 1), torch.enable_grad():
+                if self.remat:
+                    loss_i, aux_i = remat_fn(self._loss_fn, ex.module, mb,
+                                             gen)
+                else:
+                    loss_i, aux_i = self._loss_fn(ex.module, mb, gen)
+                loss_i.backward()
+            loss_i = loss_i.detach()
+            loss = loss_i if loss is None else loss + loss_i
+            auxes.append({key: v.detach() for key, v in aux_i.items()})
+        ex.reduce_grads()
+        with torch.no_grad():
+            grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+                     / k for n, p in self.model.named_parameters()}
+            if self.plan.zero1:
+                _, opt_state = zero1_update(
+                    self.optimizer, grads, state.opt_state, state.params,
+                    **self._zero1_kw())
+            else:
+                updates, opt_state = self.optimizer.update(
+                    grads, state.opt_state, state.params)
+                apply_updates(state.params, updates)
+            self._copy_masters(state)
+            for p in self.model.parameters():
+                p.grad = None
+        loss, aux = ex.reduce_metrics(loss / k, _merge_aux(auxes))
         new_state = dataclasses.replace(state, step=state.step + 1,
                                         opt_state=opt_state)
         return new_state, {"loss": loss, **aux}
@@ -290,18 +457,22 @@ class AutoDistribute:
     def _decode_model(self, state_or_params) -> nn.Module:
         """The decoder holding ``state_or_params``'s weights: the module
         itself when they are its parameters, else a copy loaded with them
-        (the fp32 masters of a ``mixed`` state, or a bare name -> tensor
-        mapping)."""
+        (the fp32 masters of a ``mixed`` state, a bare name -> tensor
+        mapping, or under a plan the full weights gathered on this
+        rank, as the JAX ``generate`` replicates them)."""
         params = (state_or_params.params
                   if isinstance(state_or_params, TrainState)
                   else state_or_params)
         own = dict(self.model.named_parameters())
-        if all(params.get(n) is p for n, p in own.items()):
+        if self._exec is None and all(params.get(n) is p
+                                      for n, p in own.items()):
             return self.model
-        model = copy.deepcopy(self.model)
+        with torch.device("meta"):
+            model = type(self.model)(self.model.cfg)
+        model = model.to_empty(device=self.device)
         with torch.no_grad():
             for name, p in model.named_parameters():
-                p.data = params[name].detach().to(self.device)
+                p.data = gathered(params[name]).detach().to(self.device)
         return model
 
     @torch.no_grad()
@@ -336,8 +507,26 @@ class AutoDistribute:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict
                   ) -> dict[str, torch.Tensor]:
-        """The training loss and aux with no dropout and no update."""
+        """The training loss and aux of the global batch with no dropout
+        and no update."""
         if self.remat is None:
             raise RuntimeError("call init() first")
-        loss, aux = self._loss_fn(self.model, self._to_device(batch), None)
+        if self._exec is None:
+            loss, aux = self._loss_fn(self.model, self._to_device(batch),
+                                      None)
+            return {"loss": loss, **aux}
+        loss, aux = self._loss_fn(self._exec.module, self.shard_batch(batch),
+                                  None)
+        loss, aux = self._exec.reduce_metrics(loss, aux)
         return {"loss": loss, **aux}
+
+
+def _merge_aux(auxes: list[dict]) -> dict:
+    """Accumulation slices' aux: counts keep full-batch semantics
+    (summed), ratios average."""
+    if len(auxes) == 1:
+        return auxes[0]
+    return {key: torch.stack([a[key] for a in auxes]).sum(0)
+            if key in ("tokens", "items") or key.endswith("_count")
+            else torch.stack([a[key] for a in auxes]).mean(0)
+            for key in auxes[0]}

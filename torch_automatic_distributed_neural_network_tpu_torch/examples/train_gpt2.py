@@ -1,5 +1,5 @@
-"""Train GPT-2 on one card: the JAX package's ``examples/train_gpt2.py``
-on the port, line for line.
+"""Train GPT-2: the JAX package's ``examples/train_gpt2.py`` on the
+port, line for line.
 
 Usage::
 
@@ -7,13 +7,18 @@ Usage::
         model.size=small run.steps=100
     python -m torch_automatic_distributed_neural_network_tpu_torch.examples.train_gpt2 \\
         model.size=test model.vocab_size=256 run.device=cpu
+    torchrun --nproc-per-node 1 -m \\
+        torch_automatic_distributed_neural_network_tpu_torch.examples.train_gpt2 \\
+        parallel.strategy=fsdp
 
-One field more than the JAX example: ``run.device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch path).  The port plans for one device, so
-``parallel.*`` values other than the defaults raise through
-``AutoDistribute`` (ROADMAP Queue 1 items 3 and 5).  ``main`` returns
-the final state, the trainer and the data source, so a caller can check
-the run.
+One field more than the JAX example: ``run.device`` (default ``cuda``,
+``cuda:LOCAL_RANK`` under ``torchrun``; ``cpu`` runs the plain PyTorch
+path).  ``parallel.strategy`` reaches ``AutoDistribute``: under
+``torchrun`` the process group comes up and the step runs wrapped by the
+plan (DDP, FSDP2, tensor parallelism); the ``Trainer`` across several
+processes, and ``parallel.seq`` / ``parallel.pipe``, raise (ROADMAP
+Queue 1 items 3b and 5).  ``main`` returns the final state, the trainer
+and the data source, so a caller can check the run.
 """
 
 import dataclasses
@@ -86,10 +91,12 @@ def main(argv=None, *, callbacks=None) -> dict:
     cfg: Cfg = cfglib.apply_overrides(
         Cfg(), sys.argv[1:] if argv is None else argv)
     print(cfglib.to_json(cfg))
-    device = resolve_device(cfg.run.device)
+    tad.topology.initialize_distributed()  # a no-op outside torchrun
+    device = resolve_device(None if cfg.run.device == "cuda"
+                            else cfg.run.device)
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"devices: 1 x {kind}")
+    print(f"devices: {tad.topology.detect().num_devices} x {kind}")
 
     mcfg = gpt2_config(
         cfg.model.size, vocab_size=cfg.model.vocab_size,

@@ -31,6 +31,7 @@ the port's ``TrainState``, so a JAX run continues in the port.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
@@ -121,6 +122,20 @@ def decoder_from_jax_params(params: dict, cfg: TransformerConfig, *,
         state[f"{name}.q"], state[f"{name}.scale"] = q, scale
     model.load_state_dict(state, strict=True)
     return model.to(resolve_device(device))
+
+
+def jax_param_path(name: str) -> str:
+    """The JAX decoder's '/'-joined parameter path (unscanned layers,
+    ``scan_layers=False``) of the port parameter ``name``: the map
+    :func:`decoder_from_jax_params` follows, e.g.
+    ``layers.3.attn.q_proj.weight`` -> ``layers_3/attn/q_proj/kernel``,
+    ``embed`` -> ``embed/embedding``, ``lm_head`` -> ``lm_head/kernel``."""
+    if name in ("embed", "lm_head"):
+        return {"embed": "embed/embedding", "lm_head": "lm_head/kernel"}[name]
+    path = re.sub(r"^layers\.(\d+)\.", r"layers_\1/", name)
+    if path.endswith(".weight"):
+        path = path[:-len(".weight")] + ".kernel"
+    return path.replace(".", "/")
 
 
 def _field(obj: Any, name: str) -> Any:

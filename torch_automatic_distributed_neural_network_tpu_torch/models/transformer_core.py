@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import attention
+from ..utils.device import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,11 +172,27 @@ def embedding_lookup(emb, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return emb.rows(tokens, dtype)
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's dtype: weight and bias cast
+    to it (:func:`dense_weight`, as flax's ``dtype=``).  The model calls
+    it as a module, so a tensor-parallel plan's hooks
+    (``parallelize_module``) see its input and output."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, dense_weight(self.weight, x.dtype), bias)
+
+
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
-    """``layer`` in the compute dtype: input, weight and bias cast to it
-    (:func:`dense_weight`)."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), dense_weight(layer.weight, dtype), bias)
+    """``layer`` in the compute dtype: input, weight and bias cast to it."""
+    return layer(x.to(dtype))
+
+
+def gathered(p):
+    """A parameter as a plain tensor: a tensor-parallel ``DTensor`` (the
+    plan's vocab split of the embedding or the head) all-gathered, in a
+    way autograd differentiates."""
+    return p.full_tensor() if is_dtensor(p) else p
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -202,20 +219,22 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd, bias = cfg.head_dim, cfg.norm == "layernorm"
-        self.q_proj = nn.Linear(cfg.d_model, cfg.n_heads * hd, bias=bias)
-        self.k_proj = nn.Linear(cfg.d_model, cfg.kv_heads * hd, bias=bias)
-        self.v_proj = nn.Linear(cfg.d_model, cfg.kv_heads * hd, bias=bias)
-        self.o_proj = nn.Linear(cfg.n_heads * hd, cfg.d_model, bias=bias)
+        self.q_proj = Linear(cfg.d_model, cfg.n_heads * hd, bias=bias)
+        self.k_proj = Linear(cfg.d_model, cfg.kv_heads * hd, bias=bias)
+        self.v_proj = Linear(cfg.d_model, cfg.kv_heads * hd, bias=bias)
+        self.o_proj = Linear(cfg.n_heads * hd, cfg.d_model, bias=bias)
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         """Projected (and rope-rotated) q [B, T, H, hd] and k, v
-        [B, T, kvH, hd] for a chunk at ``positions`` [B, T]."""
+        [B, T, kvH, hd] for a chunk at ``positions`` [B, T].  Under
+        tensor parallelism the projections give this rank's columns:
+        H and kvH are its local head counts, read from their width."""
         cfg = self.cfg
         B, T, _ = x.shape
         hd = cfg.head_dim
-        q = _linear(x, self.q_proj, cfg.dtype).view(B, T, cfg.n_heads, hd)
-        k = _linear(x, self.k_proj, cfg.dtype).view(B, T, cfg.kv_heads, hd)
-        v = _linear(x, self.v_proj, cfg.dtype).view(B, T, cfg.kv_heads, hd)
+        q = _linear(x, self.q_proj, cfg.dtype).view(B, T, -1, hd)
+        k = _linear(x, self.k_proj, cfg.dtype).view(B, T, -1, hd)
+        v = _linear(x, self.v_proj, cfg.dtype).view(B, T, -1, hd)
         if cfg.pos == "rope":
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -241,9 +260,9 @@ class MLPBlock(nn.Module):
         self.cfg = cfg
         bias = cfg.norm == "layernorm"
         if cfg.act == "swiglu":
-            self.gate_proj = nn.Linear(cfg.d_model, cfg.ff_dim, bias=bias)
-        self.up_proj = nn.Linear(cfg.d_model, cfg.ff_dim, bias=bias)
-        self.down_proj = nn.Linear(cfg.ff_dim, cfg.d_model, bias=bias)
+            self.gate_proj = Linear(cfg.d_model, cfg.ff_dim, bias=bias)
+        self.up_proj = Linear(cfg.d_model, cfg.ff_dim, bias=bias)
+        self.down_proj = Linear(cfg.ff_dim, cfg.d_model, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
@@ -379,8 +398,8 @@ class DecoderLM(nn.Module):
         embedding is dequantized to fp32 first, as in the JAX decode
         path."""
         if self.cfg.tie_embeddings:
-            return feats @ dense_weight(self.embed, torch.float32).T
-        return feats @ dense_weight(self.lm_head, torch.float32)
+            return feats @ dense_weight(gathered(self.embed), torch.float32).T
+        return feats @ dense_weight(gathered(self.lm_head), torch.float32)
 
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None,
@@ -403,7 +422,8 @@ class DecoderLM(nn.Module):
                 "ViT families, not ported yet (ROADMAP Queue 1 item 6)")
         cfg = self.cfg
         B, S = tokens.shape
-        x = embedding_lookup(self.embed, tokens, cfg.dtype)
+        embed = gathered(self.embed)
+        x = embedding_lookup(embed, tokens, cfg.dtype)
         if positions is None:
             positions = torch.arange(S, device=tokens.device)[None].expand(
                 B, S)
@@ -426,6 +446,6 @@ class DecoderLM(nn.Module):
             return x
         if cfg.tie_embeddings:
             return F.linear(x.to(cfg.dtype),
-                            dense_weight(self.embed, cfg.dtype)).to(
-                torch.float32)
-        return x.to(torch.float32) @ dense_weight(self.lm_head, torch.float32)
+                            dense_weight(embed, cfg.dtype)).to(torch.float32)
+        return x.to(torch.float32) @ dense_weight(gathered(self.lm_head),
+                                                  torch.float32)

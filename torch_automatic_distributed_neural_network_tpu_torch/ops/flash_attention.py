@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.device import is_dtensor
 from .attention import _check_window
 from .build import load
 
@@ -228,7 +229,14 @@ def _kernel(q, name):
     return getattr(_library().simt, f"tadnn_flash_{name}")
 
 
-def _device_kind(q, name):
+def _device_kind(q, name, *rest):
+    """``cpu`` (the plain version) or ``cuda`` (the kernel).  The kernels
+    take raw pointers, so a ``DTensor`` (a sharded plan's global view)
+    is refused, never launched on its local shape or sent to the plain
+    version: a plan hands them local tensors."""
+    if any(is_dtensor(t) for t in (q, *rest)):
+        raise TypeError(f"{name}: got a DTensor; the flash kernels take "
+                        f"the local tensors of a sharded plan")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {q.device}")
     return q.device.type
@@ -239,7 +247,7 @@ def flash_forward(q, k, v, *, causal=False, window=None, scale=None):
     type, lse [B, H, Sq] fp32.  ``scale`` (default ``1 / sqrt(hd)``)
     multiplies the scores.  The plain version on the CPU; on a CUDA
     tensor the kernel (counted in ``flash_forward.launches``)."""
-    if _device_kind(q, "flash_forward") == "cpu":
+    if _device_kind(q, "flash_forward", k, v) == "cpu":
         return flash_forward_reference(q, k, v, causal, window, scale)
     B, H, Sq, Sk, hd = _check_operands(q, k, v, causal=causal, window=window)
     o = torch.empty_like(q)
@@ -263,7 +271,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
               scale=None):
     """K2: ``(dk, dv)`` in k's and v's type.  The plain version on the
     CPU; on a CUDA tensor the kernel (``flash_dkv.launches``)."""
-    if _device_kind(q, "flash_dkv") == "cpu":
+    if _device_kind(q, "flash_dkv", k, v, do) == "cpu":
         return flash_dkv_reference(q, k, v, do, lse, delta, causal, window,
                                    scale)
     B, H, Sq, Sk, hd = _check_operands(q, k, v, do, stats=(lse, delta),
@@ -288,7 +296,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
              scale=None):
     """K3: dq in q's type.  The plain version on the CPU; on a CUDA
     tensor the kernel (``flash_dq.launches``)."""
-    if _device_kind(q, "flash_dq") == "cpu":
+    if _device_kind(q, "flash_dq", k, v, do) == "cpu":
         return flash_dq_reference(q, k, v, do, lse, delta, causal, window,
                                   scale)
     B, H, Sq, Sk, hd = _check_operands(q, k, v, do, stats=(lse, delta),
@@ -401,6 +409,7 @@ def _prep_bshd(q, k, v, causal, window):
     with.  Returns ``(q, k, v, hd, scale)``, ``hd`` the head dim before
     padding."""
     _check_window(window, causal)
+    _device_kind(q, "flash_attention", k, v)
     hq, hk = q.shape[2], k.shape[2]
     if hk != hq:
         if hq % hk:

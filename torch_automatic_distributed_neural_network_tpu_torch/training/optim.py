@@ -21,6 +21,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..utils.device import is_dtensor
+
 Params = dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
 
@@ -107,17 +109,88 @@ def adamw(lr_or_schedule: float | Schedule, b1: float = 0.9,
                  _scale_by_learning_rate(lr_or_schedule))
 
 
+def _sq_sum(g: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of a whole tensor: a ``DTensor``'s partial sums
+    reduced over the mesh (each shard once, a replica once)."""
+    s = (g * g).sum()
+    return s.full_tensor() if is_dtensor(s) else s
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """``optax.clip_by_global_norm``: every update scaled by
-    max_norm / ||updates|| when that norm is at least ``max_norm``."""
+    max_norm / ||updates|| when that norm is at least ``max_norm``.  The
+    norm is the global one under a sharded plan (``DTensor`` updates
+    beside plain replicated ones)."""
 
     def update(updates, state, params=None):
-        g_norm = torch.sqrt(sum((g * g).sum() for g in updates.values()))
+        g_norm = torch.sqrt(sum(_sq_sum(g) for g in updates.values()))
         trigger = g_norm < max_norm
         return {n: torch.where(trigger, g, (g / g_norm.to(g.dtype)) * max_norm)
                 for n, g in updates.items()}, state
 
     return GradientTransformation(lambda params: (), update)
+
+
+def _zero1_dim(opt_spec, param_spec) -> int | None:
+    """The dim ZeRO-1 shards over ``data`` (the optimizer spec's, where
+    the parameter's has none), or None."""
+    for d, entry in enumerate(opt_spec):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if "data" in axes and (d >= len(param_spec)
+                               or param_spec[d] != entry):
+            return d
+    return None
+
+
+def zero1_shards(params: Params, *, mesh, opt_specs, param_specs) -> Params:
+    """The optimizer's view of replicated ``params`` under ZeRO-1: a leaf
+    whose optimizer spec adds ``data`` on a dim is this rank's slice
+    there, a ``DTensor`` sharded over ``mesh["data"]``; any other leaf
+    is itself."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    data = mesh["data"]
+    out = {}
+    for name, p in params.items():
+        d = _zero1_dim(opt_specs[name], param_specs[name])
+        out[name] = p if d is None else DTensor.from_local(
+            p.detach(), data, [Replicate()], run_check=False).redistribute(
+                data, [Shard(d)])
+    return out
+
+
+@torch.no_grad()
+def zero1_update(optimizer: GradientTransformation, grads: Params,
+                 opt_state: Any, params: Params, *, mesh, opt_specs,
+                 param_specs) -> tuple[Params, Any]:
+    """ZeRO-1 sharded weight update (arxiv 2004.13336): each rank's
+    local ``grads`` reduce-scattered onto the optimizer shard over
+    ``mesh["data"]`` (averaged over its ranks), the update run on the
+    shard (``opt_state`` holds shards: :func:`zero1_shards` at init),
+    the fresh shards all-gathered into the replicated ``params`` in
+    place.  A leaf ZeRO-1 leaves whole has its gradient all-reduced."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    data = mesh["data"]
+    n = data.size()
+    shards = zero1_shards(params, mesh=mesh, opt_specs=opt_specs,
+                          param_specs=param_specs)
+    sharded_grads = {}
+    for name, g in grads.items():
+        d = _zero1_dim(opt_specs[name], param_specs[name])
+        if d is None:
+            g = g.clone()
+            torch.distributed.all_reduce(g, group=data.get_group())
+        else:
+            g = DTensor.from_local(g, data, [Partial()],
+                                   run_check=False).redistribute(
+                                       data, [Shard(d)])
+        sharded_grads[name] = g / n
+    updates, opt_state = optimizer.update(sharded_grads, opt_state, shards)
+    for name, p in params.items():
+        new = shards[name] + updates[name]
+        p.copy_(new.full_tensor() if is_dtensor(new) else new)
+    return params, opt_state
 
 
 @torch.no_grad()

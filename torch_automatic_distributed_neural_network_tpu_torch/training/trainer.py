@@ -17,7 +17,7 @@ Guards:
   a crash, deterministic under step-indexed data;
 - the cross-process parameter-divergence check (``divergence_every``)
   is a no-op on one process, as in the JAX package; the port's trainer
-  runs one process (several are ROADMAP Queue 1 item 3);
+  runs one process (several are ROADMAP Queue 1 item 3b);
 - determinism: the per-step dropout generators derive from the state's
   seed and step counter, so restarts reproduce.
 
@@ -238,7 +238,7 @@ class Trainer:
         if process_count() > 1:
             raise NotImplementedError(
                 "Trainer across several processes is not ported to the "
-                "PyTorch package yet (ROADMAP Queue 1 item 3)")
+                "PyTorch package yet (ROADMAP Queue 1 item 3b)")
         meter = GoodputMeter()
         indexed = _is_step_indexed(data)
         data_iter = None if indexed else iter(data)
