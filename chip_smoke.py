@@ -135,7 +135,29 @@ card, in phases, one JSON line each; any failure exits non-zero:
    zero-padded to head dim 128 (K1-K3's launches counted, no plain
    attention), and a few tokens from ``ServeEngine()`` with its
    defaults, on K4's head-dim-96 instance once a layer a decode step,
-   equal to the dense path's.
+   equal to the dense path's;
+16. LoRA fine-tuning (``lora_train``): GPT-2 small, B 8 x S 1024, the
+   JAX defaults (bf16 compute, fp32 params, remat "dots", flash),
+   ``LoraSpec(rank=16, alpha=32)`` on q/v/up via
+   ``AutoDistribute(init_fn=lora_init_fn)``, ``lora_optimizer(adamw(3e-3))``,
+   one batch stepped 12 times: the first loss equals the base model's
+   (1e-6 relative), the loss falls, the base stays bitwise, the
+   optimizer state is the factors' two moments, K1/K2/K3 launch
+   24/12/12 a step, and the merged weights give the adapted loss; median
+   step ms, peak memory, optimizer-state bytes and kernels a step beside
+   the full fine-tune in the same call;
+17. multi-tenant LoRA serving (``serve_lora``): GPT-2 small, fp32
+   compute, bf16 KV, 8 slots, 16 requests of 256 + 64 tokens, four
+   rank-16 tenants and every fifth request on the base model; pools of
+   5 slots (fp32, then int8 factors) and of 3 (stalls and requeues):
+   one K4 launch a layer a decode step, no pin left, each request's
+   tokens equal to its own in a one-slot engine; agreement with
+   ``generate`` on merged weights, hit rate, tokens/s and p99 with
+   adapters on and off, kernels a decode step with and without.
+
+Phases 5 (``serve``), 10 (``trainer``), 16 and 17 write their journals
+with schema validation on (``Journal(validate=True)``): a record that
+breaks the event schema fails the run.
 
 Then, on lines of their own: a summary (the number of kernels, K4's
 launches per decode step, the prefix hit rates), the per-kernel JSON record, the
@@ -626,7 +648,7 @@ def _teacher_forced(torch, model, prompts, **kw) -> float:
         eng.submit(p, max_new_tokens=8, eos_id=None)
     while eng.scheduler.n_decoding < len(prompts):
         eng.step()
-    tables, ctx, tok, _ = eng._decode_inputs()
+    tables, ctx, tok, _, _ = eng._decode_inputs()
     leaves = list(eng.pool._leaves())
     saved = [t.clone() for t in leaves]
     paged = _decode_logits(model, eng.pool, tables, ctx, tok,
@@ -672,7 +694,8 @@ def phase_serve(torch, *, name, model, n_requests, prompt_len, max_new,
     _serve(torch, model, prompts[:1], max_new=2, impl="paged", journal=None,
            **kw)
 
-    jnl = Journal(None, host0_only=False, meta={"tool": "chip_smoke"})
+    jnl = Journal(None, host0_only=False, validate=True,
+                  meta={"tool": "chip_smoke"})
     paged_attention.launches = 0
     eng, reqs, done, wall = _serve(torch, model, prompts, max_new=max_new,
                                    impl="paged", journal=jnl, **kw)
@@ -1548,7 +1571,7 @@ def phase_trainer(torch) -> dict[str, int]:
         wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
         for w in wrappers:
             w.launches = 0
-        journal = Journal()
+        journal = Journal(validate=True)
         run1, run2 = [], []
         with as_default(journal):
             out1, text1 = _run_example(
@@ -1621,7 +1644,7 @@ def phase_trainer(torch) -> dict[str, int]:
                               "fractions": g["fractions"],
                               "goodput": g["goodput"]}
                         for run, g in goodput.items()},
-            "checkpoint_bytes": saves[0].get("bytes") if saves else None,
+            "checkpoint_bytes": writes[0]["bytes"] if writes else None,
             "save_dispatch_ms": [r["dur_s"] * 1e3 for r in saves],
             "write_to_durable_ms": [r["off_thread_s"] * 1e3 for r in writes],
             "restore_ms": [r["dur_s"] * 1e3 for r in restores
@@ -2081,6 +2104,426 @@ def phase_head_dim_96(torch) -> None:
                              "dense path's")
 
 
+# -- phases 16 and 17: LoRA ---------------------------------------------------
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested optimizer state."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training.optim \
+        import tree_map
+
+    total = [0]
+
+    def add(x):
+        if hasattr(x, "element_size"):
+            total[0] += x.numel() * x.element_size()
+
+    tree_map(add, tree)
+    return total[0]
+
+
+def _timed_steps(torch, ad, state, batch, steps):
+    """``steps`` steps on one batch: the state, the losses and the
+    host-clock ms of each step (synchronized)."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = ad.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return state, losses, step_ms
+
+
+def _kernels_per_step(torch, ad, state, batch, steps=3):
+    """Kernel launches and device busy ms per training step under
+    ``torch.profiler`` (None when the trace holds no kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = ad.step(state, batch)
+        torch.cuda.synchronize()
+    dev = _device_time(prof, steps, 6)
+    return state, dev
+
+
+def phase_lora_train(torch, data, *, steps=12) -> dict[str, int]:
+    """LoRA fine-tuning at GPT-2 small (B 8 x S 1024, the JAX defaults:
+    bf16 compute, fp32 params, remat "dots", flash): ``LoraSpec(rank=16,
+    alpha=32)`` on q/v/up through ``AutoDistribute(init_fn=lora_init_fn)``
+    with ``lora_optimizer(adamw(3e-3))`` and ``lora_loss``, one batch
+    stepped 12 times, the journal validated.  Gates: the first step's
+    loss is the base model's on the batch (1e-6 relative: b = 0), the
+    loss falls, every base tensor is bitwise unchanged, the optimizer
+    state is the factors' two fp32 moments and nothing else, K1/K2/K3
+    launch 24/12/12 a step, and ``merge_lora``'s plain weights give the
+    adapted model's loss.  Reported beside the full fine-tune
+    (``adamw(3e-3)`` on every parameter, same weights and batch, 6
+    steps) in the same call: median step ms, peak memory, optimizer
+    state bytes, kernels a step."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, adamw, next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        Journal, as_default)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.training \
+        .lora import (LoraSpec, LoraTarget, is_lora_name, lora_init_fn,
+                      lora_loss, lora_optimizer, lora_state, merge_lora)
+
+    spec = LoraSpec(rank=16, alpha=32.0, targets=(
+        LoraTarget(r"q_proj\.weight$", 1, 1, True),
+        LoraTarget(r"v_proj\.weight$", 1, 1, True),
+        LoraTarget(r"up_proj\.weight$", 1, 1, True)))
+    batch = data.batch(0)
+    cuda_batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+    def plain_loss(state_dict) -> float:
+        with torch.device("cuda"):
+            m = GPT2("small")
+        m.load_state_dict(state_dict)
+        with torch.no_grad():
+            return float(next_token_loss(m, cuda_batch, None)[0])
+
+    with torch.device("cuda"):
+        base_model = GPT2("small")
+    base_model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    base = {n: t.detach().clone() for n, t in base_model.state_dict().items()}
+    del base_model
+    base_loss = plain_loss(base)
+
+    jnl = Journal(None, host0_only=False, validate=True,
+                  meta={"tool": "chip_smoke"})
+    with as_default(jnl):
+        ad = AutoDistribute(
+            GPT2("small"), optimizer=lora_optimizer(adamw(3e-3)),
+            loss_fn=lora_loss(next_token_loss, spec),
+            init_fn=lora_init_fn(base, spec))
+        state = ad.init(torch.Generator(device="cuda").manual_seed(1))
+        cfg = ad.model.cfg
+        n_lora = sum(t.numel() for n, t in state.params.items()
+                     if is_lora_name(n))
+        n_base = sum(t.numel() for n, t in state.params.items()
+                     if not is_lora_name(n))
+        lora_bytes = sum(t.numel() * t.element_size()
+                         for n, t in state.params.items() if is_lora_name(n))
+        opt_bytes = _tensor_bytes(state.opt_state)
+        wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers:
+            w.launches = 0
+        state, losses, step_ms = _timed_steps(torch, ad, state, batch, steps)
+        launches = {w.__name__: w.launches for w in wrappers}
+        peak = torch.cuda.max_memory_allocated()
+        unchanged = all(torch.equal(state.params[n], t)
+                        for n, t in base.items())
+        state, dev = _kernels_per_step(torch, ad, state, batch)
+        adapted_loss = float(ad.eval_step(state, batch)["loss"])
+    merged_loss = plain_loss(merge_lora(base, lora_state(ad.model), spec))
+    del ad, state
+    torch.cuda.empty_cache()
+
+    # the full fine-tune on the same weights and batch, in this call
+    with torch.device("cuda"):
+        full_model = GPT2("small")
+    full_model.load_state_dict(base)
+    full = AutoDistribute(full_model, optimizer=adamw(3e-3),
+                          loss_fn=next_token_loss)
+    fstate = full.init(None)
+    full_opt_bytes = _tensor_bytes(fstate.opt_state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fstate, full_losses, full_ms = _timed_steps(torch, full, fstate, batch, 6)
+    full_peak = torch.cuda.max_memory_allocated()
+    fstate, full_dev = _kernels_per_step(torch, full, fstate, batch)
+    del full, fstate, full_model
+    torch.cuda.empty_cache()
+
+    per_layer = {"flash_forward": 2 if cfg.remat else 1, "flash_dkv": 1,
+                 "flash_dq": 1}
+    expected = {n: steps * cfg.n_layers * c for n, c in per_layer.items()}
+    rel0 = abs(losses[0] - base_loss) / abs(base_loss)
+    seq = data.seq_len - 1
+    median_ms = statistics.median(step_ms[1:])
+    emit({"phase": "lora_train", "model": "gpt2-small",
+          "batch": data.batch_size, "seq": seq, "steps": steps,
+          "lora": {"rank": spec.rank, "alpha": spec.alpha,
+                   "targets": ["q_proj", "v_proj", "up_proj"]},
+          "optimizer": "lora_optimizer(adamw(3e-3))",
+          "compute_dtype": str(cfg.dtype).replace("torch.", ""),
+          "params_base": n_base, "params_lora": n_lora,
+          "losses": losses, "base_loss": base_loss,
+          "step0_rel_diff_vs_base": rel0,
+          "merged_loss": merged_loss, "adapted_loss": adapted_loss,
+          "base_bitwise_unchanged": unchanged,
+          "lora_param_bytes": lora_bytes, "opt_state_bytes": opt_bytes,
+          "step_ms": step_ms, "median_step_ms": median_ms,
+          "tokens_per_s": data.batch_size * seq / (median_ms / 1e3),
+          "peak_memory_gib": peak / 2**30,
+          "launches": launches,
+          "launches_per_step": {n: c / steps for n, c in launches.items()},
+          "kernels_per_step": dev and dev["kernels_per_step"],
+          "device_busy_ms_per_step": dev and dev["device_busy_ms_per_step"],
+          "full_finetune": {
+              "optimizer": "adamw(3e-3)", "losses": full_losses,
+              "step_ms": full_ms,
+              "median_step_ms": statistics.median(full_ms[1:]),
+              "peak_memory_gib": full_peak / 2**30,
+              "opt_state_bytes": full_opt_bytes,
+              "kernels_per_step": full_dev and full_dev["kernels_per_step"],
+              "device_busy_ms_per_step":
+                  full_dev and full_dev["device_busy_ms_per_step"]},
+          "journal_records": len(jnl.records)})
+    require(all(math.isfinite(x) for x in losses),
+            f"lora_train: non-finite loss {losses}")
+    require(rel0 <= 1e-6, f"lora_train: step-0 loss {losses[0]} is not the "
+                          f"base model's {base_loss}")
+    require(losses[-1] < losses[0], f"lora_train: loss did not fall {losses}")
+    require(unchanged, "lora_train: a base tensor changed")
+    require(opt_bytes == 2 * lora_bytes,
+            f"lora_train: optimizer state {opt_bytes} B, the factors' two "
+            f"moments are {2 * lora_bytes} B")
+    require(abs(merged_loss - adapted_loss) <= 1e-5 * abs(adapted_loss),
+            f"lora_train: merged weights give {merged_loss}, the adapted "
+            f"model {adapted_loss}")
+    for name, count in launches.items():
+        require(count == expected[name],
+                f"lora_train: {name} {count} launches, expected "
+                f"{expected[name]}")
+    return launches
+
+
+def _lora_requests(rs, vocab, n, prompt_len, tenants):
+    """``n`` seeded prompts; request j goes to tenant ``j % 4`` of the
+    four, every fifth to the base model (None)."""
+    prompts = [[int(t) for t in rs.randint(1, vocab, size=(prompt_len,))]
+               for _ in range(n)]
+    names = [None if j % 5 == 4 else tenants[j % len(tenants)]
+             for j in range(n)]
+    return prompts, names
+
+
+def _lora_serve(torch, model, prompts, names, lora, *, max_new, n_adapters,
+                quant, journal=None, **kw):
+    """One multi-tenant ``ServeEngine`` run; K4's launches read around it
+    alone; the engine, tokens, wall time and latencies."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+    from torch_automatic_distributed_neural_network_tpu_torch.training \
+        .lora import LoraSpec
+
+    eng = ServeEngine(model, lora_spec=LoraSpec(rank=16) if lora else None,
+                      n_adapters=n_adapters, quant_adapters=quant,
+                      journal=journal, device="cuda", **kw)
+    for name, fac in (lora or {}).items():
+        eng.register_adapter(name, fac)
+    reqs = [eng.submit(p, max_new_tokens=max_new, eos_id=None,
+                       adapter=n if lora else None)
+            for p, n in zip(prompts, names)]
+    torch.cuda.synchronize()
+    paged_attention.launches = 0
+    t0 = time.monotonic()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    require(len(done) == len(prompts) and all(
+        r.n_generated == max_new for r in reqs),
+        f"serve_lora: {len(done)}/{len(prompts)} requests finished")
+    totals = [(r.t_done or 0.0) - r.t_submit for r in done]
+    return {"eng": eng, "tokens": [r.out_tokens for r in reqs],
+            "launches": paged_attention.launches, "wall_s": wall,
+            "tokens_per_s": sum(r.n_generated for r in done) / wall,
+            "p99_latency_s": _pct(totals, 0.99),
+            "p50_latency_s": _pct(totals, 0.50)}
+
+
+def _decode_kernels(torch, model, prompts, names, lora, *, steps=8, **kw):
+    """Kernel launches and device busy ms a pure decode step (every slot
+    decoding) under ``torch.profiler``, with the tenants' adapters or
+    without (``lora`` None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.training \
+        .lora import LoraSpec
+
+    n = kw["n_slots"]
+    eng = ServeEngine(model, lora_spec=LoraSpec(rank=16) if lora else None,
+                      n_adapters=len(lora or {}) + 1,
+                      prefill_chunks_per_step=n, device="cuda", **kw)
+    for name, fac in (lora or {}).items():
+        eng.register_adapter(name, fac)
+    for p, a in zip(prompts[:n], names[:n]):
+        eng.submit(p, max_new_tokens=3 * steps, eos_id=None,
+                   adapter=a if lora else None)
+    while eng.scheduler.n_decoding < n:
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    dev = _device_time(prof, steps, 4) or {}
+    return {"decode_step_ms": step_ms,
+            "kernels_per_step": dev.get("kernels_per_step", "not measured"),
+            "device_busy_ms_per_step": dev.get("device_busy_ms_per_step",
+                                               "not measured")}
+
+
+def phase_serve_lora(torch) -> int:
+    """Multi-tenant LoRA serving at GPT-2 small (fp32 compute, bf16 KV,
+    block 16, chunk 32, 8 slots, the paged kernel): 16 requests of 256
+    prompt + 64 new tokens, four rank-16 tenants (``random_adapter``),
+    every fifth request on the base model; journals validated.  Runs:
+    ``n_adapters=5`` with fp32 factors, then int8 factors, then
+    ``n_adapters=3`` (two pool slots for four tenants: faults, stalls,
+    requeues), and the same requests without adapters.  Gates: one K4
+    launch a layer a decode step in every run, no adapter pin left, and
+    each request's tokens equal to those of the same request alone in a
+    one-slot engine with the same adapter and pool type.  Reported:
+    agreement with ``generate`` on each tenant's merged weights, the hit
+    rate, tokens/s and p99 with adapters on and off, kernels and device
+    ms a decode step with and without adapters."""
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import generate
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import random_adapter
+    from torch_automatic_distributed_neural_network_tpu_torch.models import \
+        gpt2_config
+    from torch_automatic_distributed_neural_network_tpu_torch.models \
+        .transformer_core import DecoderLM
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import \
+        Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.training \
+        .lora import LoraSpec, merge_lora
+
+    cfg = gpt2_config("small", max_seq_len=1024, dtype=torch.float32)
+    with torch.device("cuda"):
+        model = DecoderLM(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(1))
+    spec = LoraSpec(rank=16)
+    names4 = [f"tenant{i}" for i in range(4)]
+    lora = {n: random_adapter(model, spec, seed=100 + i)
+            for i, n in enumerate(names4)}
+    rs = np.random.RandomState(8)
+    prompts, names = _lora_requests(rs, cfg.vocab_size, 16, 256, names4)
+    max_new, n_layers = 64, cfg.n_layers
+    geom = dict(n_slots=8, max_len=1024, block_size=16, prefill_chunk=32)
+    # warm-up: first-call costs stay out of the timed runs
+    _lora_serve(torch, model, prompts[:2], names[:2], lora, max_new=2,
+                n_adapters=5, quant=False, **geom)
+
+    runs, engines, launches = {}, {}, 0
+    for key, n_adapters, quant in (("fp32", 5, False), ("int8", 5, True),
+                                   ("fp32_3slots", 3, False)):
+        jnl = Journal(None, host0_only=False, validate=True,
+                      meta={"tool": "chip_smoke"})
+        r = _lora_serve(torch, model, prompts, names, lora, max_new=max_new,
+                        n_adapters=n_adapters, quant=quant, journal=jnl,
+                        **geom)
+        eng = r.pop("eng")
+        steps = [x for x in jnl.records if x["name"] == "serve.step"]
+        n_decode = sum(x["decode_s"] > 0 for x in steps)
+        kinds = [x["kind"] for x in jnl.records
+                 if x["name"] == "serve.adapter"]
+        alloc = eng.adapter_pool.allocator
+        require(r["launches"] == n_layers * n_decode > 0
+                and eng.decode_routes["dense"] == 0,
+                f"serve_lora {key}: {r['launches']} K4 launches over "
+                f"{n_decode} decode steps of {n_layers} layers")
+        require(alloc.n_pinned == 0, f"serve_lora {key}: a pin is left")
+        eng.scheduler.check_invariants()
+        launches += r["launches"]
+        runs[key] = {**r, "n_adapters": n_adapters, "quant_adapters": quant,
+                     "decode_steps": n_decode,
+                     "launches_per_decode_step": r["launches"] / n_decode,
+                     "adapter_hit_rate": alloc.hit_rate,
+                     "faults": kinds.count("fault"),
+                     "hits": kinds.count("hit"),
+                     "stalls": kinds.count("stall"),
+                     "evictions": alloc.evictions,
+                     "requeues": eng.scheduler.n_preemptions,
+                     "pool_bytes": eng.adapter_pool.total_bytes,
+                     "journal_records": len(jnl.records)}
+        engines[key] = eng
+    require(runs["fp32_3slots"]["stalls"] > 0
+            and runs["fp32_3slots"]["evictions"] > 0,
+            "serve_lora: two pool slots for four tenants never stalled")
+    # like with like: each request alone in a one-slot engine with the
+    # same adapter and pool type
+    alone = {}
+    for quant in (False, True):
+        r = _lora_serve(torch, model, prompts, names, lora, max_new=max_new,
+                        n_adapters=5, quant=quant,
+                        **{**geom, "n_slots": 1})
+        alone[quant] = r["tokens"]
+        launches += r["launches"]
+    for key, rec in runs.items():
+        rec["tokens_equal_alone"] = rec["tokens"] == alone[
+            rec["quant_adapters"]]
+    # the merged-weight reference: generate per tenant, its prompts batched
+    merged_rows = [None] * len(prompts)
+    for name in [None] + names4:
+        idx = [j for j, n in enumerate(names) if n == name]
+        ref = model
+        if name is not None:
+            ref = DecoderLM(cfg).cuda()
+            ref.load_state_dict(merge_lora(
+                model, engines["fp32"].adapter_pool.effective_lora(name),
+                spec))
+        out = generate(ref, torch.tensor([prompts[j] for j in idx],
+                                         device="cuda"),
+                       max_new_tokens=max_new, cache_dtype=torch.bfloat16)
+        for row, j in enumerate(idx):
+            merged_rows[j] = out[row, len(prompts[j]):].tolist()
+        del ref
+    off = _lora_serve(torch, model, prompts, names, None, max_new=max_new,
+                      n_adapters=8, quant=False, **geom)
+    off.pop("eng")
+    launches += off["launches"]
+    kern_on = _decode_kernels(torch, model, prompts, names, lora, **{
+        k: v for k, v in geom.items() if k != "prefill_chunk"})
+    kern_off = _decode_kernels(torch, model, prompts, names, None, **{
+        k: v for k, v in geom.items() if k != "prefill_chunk"})
+    agree = _agreement(runs["fp32"]["tokens"], merged_rows)
+    for rec in runs.values():
+        rec.pop("tokens")
+    emit({"phase": "serve_lora", "model": "gpt2-small", "requests": 16,
+          "prompt_len": 256, "max_new": max_new, "tenants": 4,
+          "rank": spec.rank, **geom, "kv_dtype": "bfloat16",
+          "runs": runs,
+          "agreement_vs_merged_generate": agree,
+          "adapters_off": {k: off[k] for k in (
+              "tokens_per_s", "p50_latency_s", "p99_latency_s", "wall_s",
+              "launches")},
+          "decode_step_kernels": {"adapters_on": kern_on,
+                                  "adapters_off": kern_off}})
+    for key, rec in runs.items():
+        require(rec["tokens_equal_alone"],
+                f"serve_lora {key}: tokens differ from each request alone "
+                f"in a one-slot engine")
+    del model, engines
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2193,13 +2636,23 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("head_dim_96"):
         phase_head_dim_96(torch)
+    if run("lora_train"):
+        from torch_automatic_distributed_neural_network_tpu_torch import \
+            SyntheticLM
+
+        lora_launches = phase_lora_train(
+            torch, SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8))
+        torch.cuda.empty_cache()
+    if run("serve_lora"):
+        lora_k4_launches = phase_serve_lora(torch)
     emit({"phase": "done", "seconds": time.monotonic() - t_start})
     if only is not None:
         return 0
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
-        "replaces": PAGED_REPLACES, "launches": paged_launches,
+        "replaces": PAGED_REPLACES,
+        "launches": paged_launches + lora_k4_launches,
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -2207,7 +2660,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name],
-            "launches": train_launches[name] + dist_launches[name],
+            "launches": (train_launches[name] + dist_launches[name]
+                         + lora_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
@@ -2226,7 +2680,7 @@ def main(argv=None) -> int:
 PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
           "dist_plan", "trainer", "generate", "serve_prefix", "serve_spec",
-          "head_dim_96")
+          "head_dim_96", "lora_train", "serve_lora")
 
 
 if __name__ == "__main__":

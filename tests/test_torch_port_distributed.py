@@ -8,7 +8,13 @@ process) and runs every strategy in turn in that one group:
 
 - 2 ranks: ``dp`` (DDP), ``fsdp`` (FSDP2), ``tp`` (``parallelize_module``)
   with ``clip_by_global_norm`` in the optimizer, ``dp`` + ZeRO-1 with
-  and without the clip, ``fsdp`` with ``grad_accum=2``;
+  and without the clip, ``fsdp`` with ``grad_accum=2``, and LoRA
+  fine-tuning (q/v/o/up factors of rank 4 on the frozen base,
+  ``lora_optimizer``) under ``dp``, ``fsdp``, ``tp_fsdp`` (JAX's plan
+  on two devices: every axis of degree 1) and ``tp`` (tensor 2: a
+  column-split layer's ``b`` and a row-split layer's ``a`` split with
+  their weight): the base stays bitwise as it was and the factors train
+  as JAX's do;
 - 4 ranks: ``fsdp``, and ``tp_fsdp`` on 2 x 2 with the clip;
 - 1 rank: ``dp``, ``fsdp``, ``tp`` and ``tp_fsdp``, each wrapper applied
   at degree 1, as on one card.
@@ -47,9 +53,11 @@ from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
 )
 from torch_automatic_distributed_neural_network_tpu.models import GPT2
 from torch_automatic_distributed_neural_network_tpu.training import losses as jlosses
+from torch_automatic_distributed_neural_network_tpu.training import lora as jlora
 from torch_automatic_distributed_neural_network_tpu.utils.jax_compat import shard_map
 from torch_automatic_distributed_neural_network_tpu_torch.interop import (
     decoder_from_jax_params,
+    lora_from_jax,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.inference.decode import (
     generate,
@@ -57,6 +65,9 @@ from torch_automatic_distributed_neural_network_tpu_torch.inference.decode impor
 from torch_automatic_distributed_neural_network_tpu_torch.models import (
     DecoderLM,
     gpt2_config,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.training import (
+    lora as tlora,
 )
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,11 +87,26 @@ RUNS = {
         dict(name="tp_clip", strategy="tp", clip=CLIP, inspect=True),
         dict(name="zero1", strategy="dp", zero1=True),
         dict(name="zero1_clip", strategy="dp", zero1=True, clip=CLIP),
-        dict(name="fsdp_accum2", strategy="fsdp", grad_accum=2)],
+        dict(name="fsdp_accum2", strategy="fsdp", grad_accum=2),
+        dict(name="lora_dp", strategy="dp", lora=True),
+        dict(name="lora_fsdp", strategy="fsdp", lora=True),
+        dict(name="lora_tp_fsdp", strategy="tp_fsdp", lora=True),
+        dict(name="lora_tp", strategy="tp", lora=True)],
     4: [dict(name="fsdp", strategy="fsdp"),
         dict(name="tp_fsdp_clip", strategy="tp_fsdp", clip=CLIP,
              inspect=True)],
 }
+
+
+# LoRA on every kind of projection: q/v column-split, o row-split, up
+# column-split (the MLP view)
+JLORA_SPEC = jlora.LoraSpec(rank=4, alpha=8.0, targets=(
+    jlora.LoraTarget(r"q_proj/kernel", 1, 2),
+    jlora.LoraTarget(r"v_proj/kernel", 1, 2), jlora.O_LIKE,
+    jlora.LoraTarget(r"up_proj/kernel", 1, 1)))
+LORA_SPEC = tlora.LoraSpec(rank=4, alpha=8.0, targets=(
+    tlora.LoraTarget(r"(q_proj|v_proj)\.weight$", 1, 1, True), tlora.O_LIKE,
+    tlora.LoraTarget(r"up_proj\.weight$", 1, 1, True)))
 
 
 def _batches():
@@ -93,13 +119,17 @@ def _jax_model():
     return GPT2("test", vocab_size=VOCAB, max_seq_len=64, dtype=jnp.float32)
 
 
-def _jax_run(world, run):
+def _jax_run(world, run, base=None):
     opt = optax.adamw(1e-3)
     if run.get("clip"):
         opt = optax.chain(optax.clip_by_global_norm(run["clip"]), opt)
-    ad = JAutoDistribute(_jax_model(), optimizer=opt,
-                         loss_fn=jlosses.next_token_loss,
-                         strategy=run["strategy"],
+    loss, init_fn = jlosses.next_token_loss, None
+    if run.get("lora"):
+        opt = jlora.lora_optimizer(opt)
+        loss = jlora.lora_loss(loss, JLORA_SPEC)
+        init_fn = jlora.lora_init_fn(base, JLORA_SPEC)
+    ad = JAutoDistribute(_jax_model(), optimizer=opt, loss_fn=loss,
+                         init_fn=init_fn, strategy=run["strategy"],
                          devices=jax.devices()[:world],
                          zero1=run.get("zero1", False),
                          grad_accum=run.get("grad_accum", 1))
@@ -141,9 +171,19 @@ def _spawn(world, job, tmp_path):
     return torch.load(out_path, weights_only=False)
 
 
+def _port_params(params, cfg):
+    """A JAX run's parameters by the port's names: a LoRA run's base and
+    factors (``lora_named``) together."""
+    if set(params) == {"base", "lora"}:
+        return {**_port_params(params["base"], cfg), **tlora.lora_named(
+            lora_from_jax(params["lora"], cfg.n_layers))}
+    return decoder_from_jax_params(params, cfg, device="cpu").state_dict()
+
+
 @functools.lru_cache(maxsize=None)
 def _results(world, tmp_root):
-    jax_runs = {run["name"]: _jax_run(world, run) for run in RUNS[world]}
+    plain = [run for run in RUNS[world] if not run.get("lora")]
+    jax_runs = {run["name"]: _jax_run(world, run) for run in plain}
     params0 = next(iter(jax_runs.values()))["params0"]
     for r in jax_runs.values():  # JAX draws the same weights on any mesh
         jax.tree.map(np.testing.assert_array_equal, r["params0"], params0)
@@ -152,7 +192,17 @@ def _results(world, tmp_root):
            "state_dict": decoder_from_jax_params(
                params0, cfg, device="cpu").state_dict(),
            "batches": _batches(), "runs": RUNS[world],
-           "prompt": torch.from_numpy(PROMPT)}
+           "prompt": torch.from_numpy(PROMPT), "lora_spec": LORA_SPEC}
+    for run in RUNS[world]:
+        if run.get("lora"):
+            r = jax_runs[run["name"]] = _jax_run(world, run, base=params0)
+            # the same base and the same initial factors on any mesh
+            jax.tree.map(np.testing.assert_array_equal,
+                         r["params0"]["base"], params0)
+            lora0 = lora_from_jax(r["params0"]["lora"], cfg.n_layers)
+            for name, fac in job.setdefault("lora", lora0).items():
+                for side in ("a", "b"):
+                    assert torch.equal(fac[side], lora0[name][side])
     tmp = Path(tmp_root) / f"world{world}"
     tmp.mkdir()
     return jax_runs, _spawn(world, job, tmp)
@@ -181,10 +231,15 @@ def test_sharded_step_matches_jax(results, world, name):
                                atol=0)
     assert got["tokens"] == [BATCH * (SEQ - 1)] * STEPS
     cfg = gpt2_config("test", **CFG)
-    expect = decoder_from_jax_params(want["params"], cfg,
-                                     device="cpu").state_dict()
+    expect = _port_params(want["params"], cfg)
     assert expect.keys() == got["params"].keys()
+    lora = "lora" in name
     for pname, p in got["params"].items():
+        if lora and not tlora.is_lora_name(pname):
+            # the frozen base, bitwise as it was
+            np.testing.assert_array_equal(p.numpy(), expect[pname].numpy(),
+                                          err_msg=pname)
+            continue
         atol = 5e-3 if pname.endswith("k_proj.bias") else 1e-4
         np.testing.assert_allclose(p.numpy(), expect[pname].numpy(),
                                    atol=atol, rtol=0, err_msg=pname)
@@ -226,6 +281,12 @@ def test_plans_shard_the_parameters(results):
     assert tpf["layers.0.attn.k_proj.bias"] == (h // 4,)
     assert tpf["layers.0.mlp.up_proj.bias"] == (4 * h // 2,)
     assert port2["runs"]["zero1"]["local_shapes"]["embed"] == (VOCAB, h)
+    lora_tp = port2["runs"]["lora_tp"]["local_shapes"]
+    assert lora_tp["layers.0.attn.q_proj.lora_a"] == (h, 4)
+    assert lora_tp["layers.0.attn.q_proj.lora_b"] == (4, h // 2)
+    assert lora_tp["layers.0.attn.o_proj.lora_a"] == (h // 2, 4)
+    assert lora_tp["layers.0.attn.o_proj.lora_b"] == (4, h)
+    assert lora_tp["layers.0.mlp.up_proj.lora_b"] == (4, 4 * h // 2)
     assert port2["runs"]["tp_clip"]["local_shapes"][
         "layers.0.mlp.down_proj.weight"] == (h, 4 * h // 2)
     topo = port4["topology"]

@@ -162,11 +162,15 @@ def test_engine_checks_and_later_slices():
         eng.submit([], max_new_tokens=2)
     with pytest.raises(ValueError, match="learned positions"):
         ServeEngine(tm, device="cpu", max_len=128)
-    for kw in (dict(disaggregate=True), dict(lora_spec=object()),
-               dict(mesh=object()), dict(export_cache="dir")):
-        with pytest.raises(NotImplementedError, match="later slice"):
+    for kw, item in ((dict(disaggregate=True), "2"),
+                     (dict(mesh=object()), "2"),
+                     (dict(export_cache="dir"), "4")):
+        with pytest.raises(NotImplementedError,
+                           match=f"later slice .*item {item}"):
             ServeEngine(tm, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    # LoRA serving is ported (tests/test_torch_port_adapters.py): an
+    # engine without a spec refuses a named adapter as the JAX engine does
+    with pytest.raises(ValueError, match="without lora_spec"):
         eng.submit([1, 2], max_new_tokens=2, adapter="tenant0")
 
 

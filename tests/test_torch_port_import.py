@@ -232,8 +232,9 @@ print("BAD", bad)
 _SERVING_FEATURES = (
     "training.lora", "inference.quant", "inference.decode",
     "inference.speculative", "inference.serve.prefix_cache",
-    "inference.serve.scheduler", "inference.serve.engine",
-    "examples.generate_text",
+    "inference.serve.scheduler", "inference.serve.adapters",
+    "inference.serve.engine", "obs.schema", "examples.generate_text",
+    "examples.finetune_lora",
 )
 
 

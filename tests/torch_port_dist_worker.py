@@ -15,7 +15,9 @@ port's collectives over the mesh's named axes; rank 0 writes
 plan and its journal events, the local shapes of the parameters, the
 full final parameters (gathered) and, for a run marked ``inspect``, the
 eval loss and greedy tokens of the trained state; and the collectives'
-results of every rank.  Imports torch and the port only.
+results of every rank.  A run marked ``lora`` freezes the base, puts
+``job["lora"]``'s factors on it (``job["lora_spec"]``) and trains them
+under ``lora_optimizer``.  Imports torch and the port only.
 """
 
 import sys
@@ -52,8 +54,20 @@ def _run(job, run):
 
     model = DecoderLM(TransformerConfig(**job["cfg"]))
     model.load_state_dict(job["state_dict"])
-    ad = AutoDistribute(model, optimizer=_optimizer(run.get("clip")),
-                        loss_fn=next_token_loss, device="cpu",
+    optimizer, loss_fn = _optimizer(run.get("clip")), next_token_loss
+    if run.get("lora"):
+        # the base frozen, JAX's initial factors on it
+        from torch_automatic_distributed_neural_network_tpu_torch.training.lora import (
+            apply_lora,
+            lora_loss,
+            lora_optimizer,
+        )
+
+        apply_lora(model, job["lora_spec"], job["lora"])
+        optimizer = lora_optimizer(optimizer)
+        loss_fn = lora_loss(next_token_loss, job["lora_spec"])
+    ad = AutoDistribute(model, optimizer=optimizer,
+                        loss_fn=loss_fn, device="cpu",
                         strategy=run["strategy"], zero1=run.get("zero1", False),
                         grad_accum=run.get("grad_accum", 1))
     with journal.as_default(journal.Journal(host0_only=False)) as j:

@@ -10,9 +10,11 @@ Mirrors the JAX package's ``tadnn serve``: the same flags and the same
 JSON summary line, plus ``--device`` (default ``cuda``; ``cpu`` runs the
 plain PyTorch path).  Weights are random, made from ``--seed``.
 ``--prefix-cache``, ``--shared-prefix N`` (every prompt starts with the
-same N seeded tokens) and ``--speculative K`` run as in the JAX package.
-Flags whose features the port does not have yet (adapters,
-disaggregation, tensor parallelism) are accepted and refused with exit
+same N seeded tokens), ``--speculative K`` and ``--adapters N
+[--adapter-rank R] [--quant-adapters]`` (N seeded LoRA tenants
+``tenant{i}``, request j served by ``tenant{j % N}``) run as in the JAX
+package.  Flags whose features the port does not have yet
+(disaggregation, tensor parallelism) are accepted and refused with exit
 code 2 when set.  ``doctor`` is the
 checkpoint part of the JAX package's ``tadnn doctor``.
 """
@@ -34,7 +36,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     import numpy as np
     import torch
 
-    from .inference.serve import ServeEngine
+    from .inference.serve import ServeEngine, random_adapter
     from .models import GPT2, Llama
     from .obs.journal import Journal
     from .utils.device import resolve_device
@@ -54,7 +56,6 @@ def cmd_serve(args: argparse.Namespace) -> int:
               file=sys.stderr)
         return 2
     later = [flag for flag, on in (
-        ("--adapters", args.adapters), ("--quant-adapters", args.quant_adapters),
         ("--disaggregate", args.disaggregate),
         ("--serve-tp", args.serve_tp > 1)) if on]
     if later:
@@ -77,6 +78,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
     cfg = model.cfg
     rs = np.random.RandomState(args.seed)
     prompt_len = args.prompt_len or 10
+    lora_spec = None
+    n_adapters = int(args.adapters or 0)
+    if n_adapters:
+        from .training.lora import LoraSpec
+
+        lora_spec = LoraSpec(rank=args.adapter_rank)
 
     with Journal(args.journal, host0_only=False,
                  meta={"tool": "serve"}) as jnl:
@@ -91,19 +98,29 @@ def cmd_serve(args: argparse.Namespace) -> int:
             admission=args.admission,
             speculative=args.speculative,
             prefix_cache=args.prefix_cache,
+            lora_spec=lora_spec,
+            # +1: slot 0 is the identity adapter
+            n_adapters=n_adapters + 1 if n_adapters else 8,
+            quant_adapters=args.quant_adapters,
             journal=jnl,
             device=device,
         )
+        for i in range(n_adapters):
+            eng.register_adapter(
+                f"tenant{i}", random_adapter(model, lora_spec,
+                                             seed=args.seed + 100 + i))
         streams = args.streams or 8
         shared_len = max(0, min(args.shared_prefix, prompt_len - 1))
         shared = (rs.randint(1, cfg.vocab_size, size=(shared_len,))
                   if shared_len else None)
-        for _ in range(streams):
+        for j in range(streams):
             prompt = rs.randint(1, cfg.vocab_size, size=(prompt_len,))
             if shared is not None:
                 prompt = np.concatenate([shared, prompt[shared_len:]])
             eng.submit([int(t) for t in prompt],
-                       max_new_tokens=args.max_new or 12, eos_id=0)
+                       max_new_tokens=args.max_new or 12, eos_id=0,
+                       adapter=(f"tenant{j % n_adapters}" if n_adapters
+                                else None))
         t0 = time.monotonic()
         done = eng.run()
         if device.type == "cuda":
@@ -132,10 +149,12 @@ def cmd_serve(args: argparse.Namespace) -> int:
             "quant_kv": args.quant_kv,
             "attention_impl": eng.attention_impl,
             "prefill_chunk": eng.prefill_chunk,
-            "adapters": 0,
-            "adapter_rank": None,
-            "quant_adapters": False,
-            "adapter_hit_rate": None,
+            "adapters": n_adapters,
+            "adapter_rank": lora_spec.rank if lora_spec else None,
+            "quant_adapters": bool(args.quant_adapters and n_adapters),
+            "adapter_hit_rate": (
+                round(eng.adapter_pool.allocator.hit_rate, 4)
+                if eng.adapter_pool is not None else None),
             "speculative": eng.speculative,
             "spec_accept_rate": (
                 round(eng.spec_accepted / eng.spec_drafted, 4)
@@ -272,11 +291,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("reserve", "optimistic"),
                    help="block admission policy (scheduler.py)")
     p.add_argument("--adapters", type=int, default=0,
-                   help="LoRA tenants (not ported yet)")
+                   help="serve N seeded LoRA tenants (tenant0..N-1); "
+                        "request j goes to tenant j %% N")
     p.add_argument("--adapter-rank", type=int, default=8,
-                   dest="adapter_rank", help="LoRA rank (not ported yet)")
+                   dest="adapter_rank", help="LoRA rank of the tenants")
     p.add_argument("--quant-adapters", action="store_true",
-                   dest="quant_adapters", help="(not ported yet)")
+                   dest="quant_adapters",
+                   help="int8 adapter pool (per-output-channel scales)")
     p.add_argument("--speculative", type=int, nargs="?", const=4,
                    default=0, metavar="K",
                    help="greedy speculative decoding: K prompt-lookup "

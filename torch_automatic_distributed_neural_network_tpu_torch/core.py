@@ -8,7 +8,12 @@
         state, metrics = ad.step(state, batch)
 
 ``loss_fn(model, batch, generator) -> (loss, aux_dict)``
-(``training/losses.py``).  ``build_plan`` runs the planner
+(``training/losses.py``).  ``init_fn(model, generator)`` (optional)
+prepares the model once before it is planned, e.g. LoRA's
+``lora_init_fn(base, spec)``, which loads the base weights, freezes them
+and adds the factors; only the parameters that train
+(``requires_grad``) get gradients, optimizer state and ``mixed``'s fp32
+masters, and a frozen parameter stays bitwise as it was.  ``build_plan`` runs the planner
 (``planner.make_plan``) on the model's abstract shapes and the
 topology (``topology.detect``): strategy, mesh degrees, activation
 checkpointing, ZeRO-1.  One process drives one device.  Without a
@@ -97,7 +102,9 @@ class AutoDistribute:
     'mixed', 'bf16' or a ``Precision``), ``grad_accum`` (sequential
     batch slices, gradients averaged in the compute dtype,
     ``tokens``/``items``/``*_count`` aux summed and the rest averaged)
-    and ``remat`` (None: the planner's rule).  ``device``: where this
+    and ``remat`` (None: the planner's rule).  ``init_fn(model,
+    generator)``: called once, before the plan, in place of drawing the
+    weights (``training/lora.py::lora_init_fn``).  ``device``: where this
     process runs, ``cuda`` (``cuda:LOCAL_RANK`` under a process group)
     unless the caller asks for the CPU; ``devices``: one a process, in
     rank order."""
@@ -119,6 +126,7 @@ class AutoDistribute:
         grad_accum: int = 1,
         zero1: bool = False,
         export_cache: Any = None,
+        init_fn: Callable | None = None,
         device=None,
     ):
         if strategy in ("tuned", "search"):
@@ -169,6 +177,10 @@ class AutoDistribute:
         self._exec: executor_mod.Execution | None = None
         self._grad_accum = grad_accum
         self._masters_apart = False
+        self._init_fn = init_fn
+        self._prepared = init_fn is None
+        # names of the parameters that train, fixed at init
+        self._trainable: frozenset[str] = frozenset()
 
     # -- planning -------------------------------------------------------------
 
@@ -184,6 +196,7 @@ class AutoDistribute:
         plan's mesh as a ``DeviceMesh`` over the world.  ``rng`` is
         accepted for the JAX signature; the module's shapes need no
         trace."""
+        self._prepare(rng)
         prec = self.precision
         abstract = planner_mod.abstract_params(self.model, prec.param_dtype)
         cfg = getattr(self.model, "cfg", None)
@@ -209,6 +222,16 @@ class AutoDistribute:
         if sample_batch is not None:
             self._check_batch(sample_batch)
         return plan
+
+    def _prepare(self, generator) -> None:
+        """Run ``init_fn`` on the model, once."""
+        if not self._prepared:
+            self._init_fn(self.model, generator)
+            self._prepared = True
+
+    def _trained(self, tree: dict) -> dict:
+        """The entries of a name-keyed ``tree`` that train."""
+        return {n: v for n, v in tree.items() if n in self._trainable}
 
     def _journal_plan(self, abstract_params) -> None:
         """Journal the plan and its expected collective traffic."""
@@ -244,9 +267,10 @@ class AutoDistribute:
     def init(self, generator: torch.Generator | None = None,
              sample_batch: dict | None = None) -> TrainState:
         """The initial state.  With a ``generator`` (on the model's
-        device) the weights are drawn anew (``DecoderLM.init_weights``);
-        without one the model keeps the weights it holds, e.g. weights
-        carried from JAX (``interop.decoder_from_jax_params``).  Under a
+        device) the weights are drawn anew (``DecoderLM.init_weights``),
+        or ``init_fn`` prepares them; without either the model keeps the
+        weights it holds, e.g. weights carried from JAX
+        (``interop.decoder_from_jax_params``).  Under a
         process group the model is then wrapped by the plan, once: every
         rank draws the same weights from the same generator and keeps
         its shards."""
@@ -257,16 +281,21 @@ class AutoDistribute:
         if self._exec is not None:
             raise RuntimeError("init() already wrapped the model by the "
                                "plan; make a new AutoDistribute")
+        self._prepare(generator)
         model = self.model.to(self.device)
-        if generator is not None:
+        if generator is not None and self._init_fn is None:
             model.init_weights(generator)
         prec = self.precision
+        self._trainable = frozenset(n for n, p in model.named_parameters()
+                                    if p.requires_grad)
         # the module holds the compute-dtype copy the loss differentiates;
-        # under 'mixed' the fp32 masters live apart in the state
+        # under 'mixed' the fp32 masters live apart in the state.  A
+        # frozen parameter stays in the storage dtype and is its own
+        # state entry (the forward casts it at use)
         self._masters_apart = prec.compute_dtype != prec.param_dtype
         masters = {}
         for name, p in model.named_parameters():
-            if self._masters_apart:
+            if self._masters_apart and name in self._trainable:
                 masters[name] = p.detach().to(prec.param_dtype, copy=True)
                 p.data = p.data.to(prec.compute_dtype)
             else:
@@ -278,13 +307,13 @@ class AutoDistribute:
                 rules=self._rules,
                 heads=(cfg.n_heads, cfg.kv_heads) if cfg is not None else None)
         params = {name: executor_mod.like(masters[name], p)
-                  if self._masters_apart else p
+                  if name in masters else p
                   for name, p in model.named_parameters()}
         seed = 0
         if generator is not None:
             seed = int(torch.randint(0, 2**62, (1,), generator=generator,
                                      device=generator.device))
-        opt_params = params
+        opt_params = self._trained(params)
         if self.plan.zero1 and self._exec is not None:
             opt_params = zero1_shards(params, **self._zero1_kw())
         return TrainState(step=0, params=params,
@@ -302,9 +331,7 @@ class AutoDistribute:
         something wrote into them (a checkpoint restore): under
         ``mixed`` the module holds a compute-dtype copy of the fp32
         masters; otherwise the state's parameters are the module's."""
-        if self._masters_apart:
-            for name, p in self.model.named_parameters():
-                p.copy_(state.params[name])
+        self._copy_masters(state)
 
     def _check_batch(self, batch) -> None:
         """A readable error when the global batch does not divide over
@@ -342,7 +369,8 @@ class AutoDistribute:
     def _value_and_grad(self, batch, generator):
         if self._loss_fn is None:
             raise ValueError("AutoDistribute needs a loss_fn to train")
-        names, params = zip(*self.model.named_parameters())
+        names, params = zip(*self._trained(
+            dict(self.model.named_parameters())).items())
         with torch.enable_grad():
             if self.remat:
                 loss, aux = remat_fn(self._loss_fn, self.model, batch,
@@ -391,7 +419,7 @@ class AutoDistribute:
             aux = _merge_aux(auxes)
         with torch.no_grad():
             updates, opt_state = self.optimizer.update(
-                grads, state.opt_state, state.params)
+                grads, state.opt_state, self._trained(state.params))
             apply_updates(state.params, updates)
             self._copy_masters(state)
         new_state = dataclasses.replace(state, step=state.step + 1,
@@ -400,8 +428,11 @@ class AutoDistribute:
 
     @torch.no_grad()
     def _copy_masters(self, state: TrainState) -> None:
+        """The module's compute-dtype copies of the trained parameters
+        from the state's masters (``mixed``)."""
         if self._masters_apart:
-            for name, p in self.model.named_parameters():
+            for name, p in self._trained(
+                    dict(self.model.named_parameters())).items():
                 p.copy_(state.params[name])
 
     def _sharded_step(self, state: TrainState, batch: dict):
@@ -435,14 +466,15 @@ class AutoDistribute:
         ex.reduce_grads()
         with torch.no_grad():
             grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
-                     / k for n, p in self.model.named_parameters()}
+                     / k for n, p in self._trained(
+                         dict(self.model.named_parameters())).items()}
             if self.plan.zero1:
                 _, opt_state = zero1_update(
-                    self.optimizer, grads, state.opt_state, state.params,
-                    **self._zero1_kw())
+                    self.optimizer, grads, state.opt_state,
+                    self._trained(state.params), **self._zero1_kw())
             else:
                 updates, opt_state = self.optimizer.update(
-                    grads, state.opt_state, state.params)
+                    grads, state.opt_state, self._trained(state.params))
                 apply_updates(state.params, updates)
             self._copy_masters(state)
             for p in self.model.parameters():
@@ -467,6 +499,17 @@ class AutoDistribute:
         if self._exec is None and all(params.get(n) is p
                                       for n, p in own.items()):
             return self.model
+        spec = getattr(self.model, "lora_spec", None)
+        if spec is not None:
+            # a plain decoder holding the merged weights
+            from .training.lora import is_lora_name, merge_lora
+
+            full = {n: gathered(p).detach() for n, p in params.items()}
+            lora = {n[:-len(".lora_a")] + ".weight":
+                    {"a": full[n], "b": full[n[:-1] + "b"]}
+                    for n in full if n.endswith(".lora_a")}
+            params = merge_lora({n: t for n, t in full.items()
+                                 if not is_lora_name(n)}, lora, spec)
         with torch.device("meta"):
             model = type(self.model)(self.model.cfg)
         model = model.to_empty(device=self.device)

@@ -43,6 +43,7 @@ from .planner import (
     abstract_params,
     param_spec_tree,
 )
+from .training.lora import FACTOR_NAMES
 from .utils.device import is_dtensor
 
 EXECUTABLE = ("dp", "fsdp", "tp", "tp_fsdp")
@@ -90,14 +91,15 @@ class _DDP(nn.parallel.DistributedDataParallel):
             return getattr(self.module, name)
 
 
-def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
+def _set_param(model: nn.Module, name: str, value: torch.Tensor,
+               requires_grad: bool = True) -> None:
     owner_name, _, attr = name.rpartition(".")
     owner = model.get_submodule(owner_name) if owner_name else model
-    owner.register_parameter(attr, nn.Parameter(value))
+    owner.register_parameter(attr, nn.Parameter(value, requires_grad))
 
 
 def _apply_tp(model: nn.Module, layout: dict, mesh) -> None:
-    from torch.distributed.tensor import Shard, distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
         RowwiseParallel,
@@ -105,23 +107,35 @@ def _apply_tp(model: nn.Module, layout: dict, mesh) -> None:
     )
 
     tp_mesh = mesh["tensor"]
-    styles, in_modules = {}, set()
+    styles, in_modules, factors = {}, set(), {}
     for mod_name, mod in model.named_modules():
         if not isinstance(mod, nn.Linear):
             continue
         in_modules.update(f"{mod_name}.{p}" for p, _ in
                           mod.named_parameters(recurse=False))
+        # LoRA factors stay out of the Linear styles (which would split
+        # every parameter of the module like its weight): they take the
+        # plan's own split below
+        for f in FACTOR_NAMES:
+            if f in mod._parameters:
+                factors[f"{mod_name}.{f}"] = mod._parameters.pop(f)
         dim = _dim_of(layout[f"{mod_name}.weight"], "tensor")
         if dim is not None:
             styles[mod_name] = ColwiseParallel() if dim == 0 else (
                 RowwiseParallel())
     if styles:
         parallelize_module(model, tp_mesh, styles)
+    for name, p in factors.items():
+        dim = _dim_of(layout[name], "tensor")
+        _set_param(model, name, distribute_tensor(
+            p.data, tp_mesh, [Replicate() if dim is None else Shard(dim)],
+            src_data_rank=None), p.requires_grad)
     for name, p in list(model.named_parameters()):
         dim = _dim_of(layout[name], "tensor")
         if name not in in_modules and dim is not None:
             _set_param(model, name, distribute_tensor(
-                p.data, tp_mesh, [Shard(dim)], src_data_rank=None))
+                p.data, tp_mesh, [Shard(dim)], src_data_rank=None),
+                p.requires_grad)
     for name, p in model.named_parameters():
         dim = _dim_of(layout[name], "tensor")
         got = (p.placements[0].dim if is_dtensor(p)

@@ -21,6 +21,8 @@ fp32 inputs quantize to the same payloads.
   axis), so each token of each head requantizes independently when it is
   written into a paged block: freeing or reusing a block needs no scale
   bookkeeping.
+- **LoRA factors** (:func:`quantize_lora_factor`): one scale per output
+  channel of the factor, over its contraction axis.
 """
 
 from __future__ import annotations
@@ -137,6 +139,16 @@ def quantize_kv(x: torch.Tensor) -> dict:
     cache block, a single written token, a whole pooled cache); the
     scale reduces over head_dim only."""
     return _quantize(x, (x.dim() - 1,))
+
+
+def quantize_lora_factor(x: torch.Tensor) -> dict:
+    """int8 storage for a LoRA low-rank factor: an A factor
+    ``[.., d_in, r]`` or a B factor ``[.., r, d_out]``.  Either way the
+    second-to-last axis is the contraction axis of the rank-r product,
+    so the scale reduces over it: one fp32 scale per output channel of
+    the factor.  The serving adapter pool (``inference/serve/adapters.py``)
+    stores its tenants this way."""
+    return _quantize(x, (x.dim() - 2,))
 
 
 def dequantize_kv(qkv: dict, dtype=torch.bfloat16) -> torch.Tensor:

@@ -1,6 +1,14 @@
 """Continuous-batching serving: paged KV cache, iteration-level
-scheduler, prefix cache, slot-padded decode engine (``serve``)."""
+scheduler, prefix cache, LoRA adapter pool, slot-padded decode engine
+(``serve``)."""
 
+from .adapters import (
+    AdapterAllocator,
+    AdapterPool,
+    factor_rows,
+    pool_adapter_bytes,
+    random_adapter,
+)
 from .engine import ServeEngine
 from .kv_pool import (
     NULL_BLOCK,
@@ -25,6 +33,8 @@ from .scheduler import (
 
 __all__ = [
     "IDENTITY_ADAPTER",
+    "AdapterAllocator",
+    "AdapterPool",
     "NULL_BLOCK",
     "BlockAllocator",
     "PagedKVPool",
@@ -37,9 +47,12 @@ __all__ = [
     "blocks_at_admission",
     "blocks_for_tokens",
     "decode_needs_block",
+    "factor_rows",
     "gather_blocks",
+    "pool_adapter_bytes",
     "pool_kv_bytes",
     "preemption_victim",
     "prefill_schedule",
+    "random_adapter",
     "write_token",
 ]

@@ -54,17 +54,32 @@ token.  As in the JAX engine, T = 1 steps take the paged kernel and a
 verify step (T > 1) the dense ``gather_blocks`` + mask path: the kernel
 attends one query per slot.  ``decode_routes`` counts the steps of each.
 
+Multi-tenant LoRA (``lora_spec=...``): each request may name a
+registered adapter (``register_adapter``).  The decode step gathers each
+slot's (A, B) factors from the fixed-shape adapter pool
+(``adapters.AdapterPool``) by slot id and adds the per-slot low-rank
+delta ``scaling * (x @ A) @ B`` to q, k, v (q and k rope-rotated) and to
+o's output, so heterogeneous tenants and the base model (identity
+adapter 0) share one decode step: a one-token step still attends through
+the paged kernel, one launch a layer.  A tenant's prompt is prefilled
+through its merged weights, merged per layer in each chunk's forward
+(``training.lora.adapted``).  Adapters are pinned in the pool only while
+their request is RUNNING; if every pool slot is pinned when a prefill
+completes, the request bounces back to the queue (``Scheduler.requeue``)
+and ``serve.adapter`` journals the stall.  Prefix-cache keys commit to
+the adapter, so a tenant reuses only its own KV.
+
 Greedy decoding (temperature 0) gives the JAX engine's tokens; stochastic
 sampling is reproducible under the engine's own seeded generator.
 
 Telemetry: the same ``serve.engine`` / ``serve.prefill_chunk`` /
 ``serve.preempt`` / ``serve.prefix`` / ``serve.speculate`` /
-``serve.step`` / ``serve.request_done`` journal records as the JAX
-engine, so its ``tadnn report`` renders them.
+``serve.adapter`` / ``serve.step`` / ``serve.request_done`` journal
+records as the JAX engine, so its ``tadnn report`` renders them.
 
-Not ported yet (each raises ``NotImplementedError``): LoRA adapters,
-disaggregated prefill, tensor parallelism (a mesh) and the AOT export
-cache.
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): disaggregated prefill, tensor parallelism (a mesh) and the AOT
+export cache.
 """
 
 from __future__ import annotations
@@ -79,18 +94,20 @@ import numpy as np
 import torch
 
 from ...obs import journal as _journal
-from ...models.transformer_core import embedding_lookup
+from ...models.transformer_core import embedding_lookup, rope
 from ...ops.attention import xla_attention
 from ...ops.paged_attention import kernel_takes, paged_attention
+from ...training.lora import LoraSpec, adapted
 from ...utils.device import resolve_device
 from ..decode import KVCache, SampleConfig, _sample, forward_cached
 from ..quant import dequantize_kv, quantize_kv
 from ..speculative import accept_length, ngram_propose
+from .adapters import AdapterPool, factor_rows
 from .kv_pool import PagedKVPool, blocks_for_tokens, gather_blocks, write_token
 from .prefix_cache import PrefixCache
 from .scheduler import Request, Scheduler
 
-_LATER = "is a later slice of the PyTorch port (see ROADMAP.md)"
+_LATER = "is a later slice of the PyTorch port (ROADMAP Queue 1 item {})"
 
 
 def _step_route(attention_impl: str, T: int) -> str:
@@ -100,15 +117,40 @@ def _step_route(attention_impl: str, T: int) -> str:
     return "paged" if attention_impl == "paged" and T == 1 else "dense"
 
 
+def _lora_delta(site: dict, inp: torch.Tensor, ids: torch.Tensor,
+                scaling: float) -> torch.Tensor:
+    """Each slot's low-rank delta ``scaling * (x @ A_id) @ B_id`` in fp32:
+    ``inp [S, T, d_in]`` fp32, the site's layer factors gathered at
+    ``ids [S]`` -> ``[S, T, d_out]``."""
+    a = factor_rows(site["a"], ids)  # [S, d_in, r]
+    b = factor_rows(site["b"], ids)  # [S, r, d_out]
+    return scaling * torch.bmm(torch.bmm(inp, a), b)
+
+
+def _plus_delta(t: torch.Tensor, delta: torch.Tensor, cfg,
+                positions: torch.Tensor, rotate: bool = False):
+    """``t + delta`` in fp32, stored in ``t``'s dtype; a q or k delta is
+    rope-rotated like the projection it perturbs (rope is linear, so
+    that IS the merged weight's output)."""
+    d = delta.reshape(t.shape)
+    if rotate and cfg.pos == "rope":
+        d = rope(d, positions, cfg.rope_theta)
+    return (t.to(torch.float32) + d).to(t.dtype)
+
+
 @torch.no_grad()
 def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
                    ctx_lens: torch.Tensor, tok: torch.Tensor, *,
-                   attention_impl: str = "paged") -> torch.Tensor:
+                   attention_impl: str = "paged",
+                   adapters: AdapterPool | None = None,
+                   adapter_ids: torch.Tensor | None = None) -> torch.Tensor:
     """A [S, T] token chunk per slot: T == 1 is one-token decode, T ==
     1 + k a speculative verify step.  Writes each layer's k/v for chunk
     position t at ``ctx_lens + t`` into the pool (in place), then
-    position t attends keys ``0..ctx + t`` inclusive.  Returns fp32
-    logits [S, T, vocab]."""
+    position t attends keys ``0..ctx + t`` inclusive.  With ``adapters``
+    each slot's LoRA delta (its pool slot in ``adapter_ids [S]``) is
+    added to q, k, v and o's output.  Returns fp32 logits [S, T,
+    vocab]."""
     cfg = model.cfg
     dtype = cfg.dtype
     window = cfg.sliding_window
@@ -132,9 +174,23 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
             mask &= key_idx > positions[:, :, None] - window
         mask = mask[:, None]  # [S, 1, T, K]
 
-    for layer, k_layer, v_layer in zip(model.layers, pool.k, pool.v):
+    scaling = adapters.spec.scaling if adapters is not None else 1.0
+    for i, (layer, k_layer, v_layer) in enumerate(
+            zip(model.layers, pool.k, pool.v)):
         h = layer.attn_norm(x)
         q, k, v = layer.attn.qkv(h, positions)
+        ad = adapters.layer_factors(i) if adapters is not None else {}
+        if ad:
+            hf = h.to(torch.float32)
+            if "q" in ad:
+                q = _plus_delta(q, _lora_delta(ad["q"], hf, adapter_ids,
+                                               scaling), cfg, positions, True)
+            if "k" in ad:
+                k = _plus_delta(k, _lora_delta(ad["k"], hf, adapter_ids,
+                                               scaling), cfg, positions, True)
+            if "v" in ad:
+                v = _plus_delta(v, _lora_delta(ad["v"], hf, adapter_ids,
+                                               scaling), cfg, positions)
         for t in range(T):
             write_token(k_layer, tables, ctx_lens + t, k[:, t])
             write_token(v_layer, tables, ctx_lens + t, v[:, t])
@@ -145,7 +201,12 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
             kd = gather_blocks(k_layer, tables, dtype)
             vd = gather_blocks(v_layer, tables, dtype)
             o = xla_attention(q, kd, vd, causal=False, mask=mask)
-        x = x + layer.attn.out_proj(o.to(dtype))
+        ao = layer.attn.out_proj(o.to(dtype))
+        if "o" in ad:
+            of = o.reshape(o.shape[0], o.shape[1], -1).to(torch.float32)
+            ao = _plus_delta(ao, _lora_delta(ad["o"], of, adapter_ids,
+                                             scaling), cfg, positions)
+        x = x + ao
         x = x + layer.mlp(layer.mlp_norm(x))
 
     x = model.final_norm(x)
@@ -154,12 +215,16 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
 
 def _paged_decode_step(model, pool, tables, ctx_lens, tok, active,
                        generator, *, sample: SampleConfig,
-                       attention_impl: str = "paged") -> torch.Tensor:
+                       attention_impl: str = "paged",
+                       adapters: AdapterPool | None = None,
+                       adapter_ids: torch.Tensor | None = None
+                       ) -> torch.Tensor:
     """The decode step: sampled tokens [S] int32 for a one-token step,
     or the target's greedy choices [S, T] int32 at every position of a
     verify step (temperature 0 by contract); 0 on inactive slots."""
     logits = _decode_logits(model, pool, tables, ctx_lens, tok,
-                            attention_impl=attention_impl)
+                            attention_impl=attention_impl,
+                            adapters=adapters, adapter_ids=adapter_ids)
     if tok.shape[1] == 1:
         nxt = _sample(logits[:, 0], generator, sample)
         return torch.where(active, nxt, torch.zeros_like(nxt))
@@ -169,7 +234,9 @@ def _paged_decode_step(model, pool, tables, ctx_lens, tok, active,
 
 @torch.no_grad()
 def _prefill_chunk_step(model, tokens: torch.Tensor, cache: KVCache,
-                        last_idx: int, *, quantize: bool = False):
+                        last_idx: int, *, quantize: bool = False,
+                        lora: dict | None = None,
+                        lora_spec: LoraSpec | None = None):
     """One [1, C] prefill chunk through ``forward_cached`` against the
     [1, max_len] temp cache.  The final chunk of a prompt may be
     right-padded; ``last_idx`` selects the last REAL token's logits, and
@@ -178,10 +245,13 @@ def _prefill_chunk_step(model, tokens: torch.Tensor, cache: KVCache,
     ``quantize=True`` (int8 pools) round-trips the chunk's fresh cache
     rows through the pool's (q, scale) form before later chunks attend
     to them, and returns that quantized chunk so the commit scatters the
-    exact same pairs.  Returns ``(logits [1, V], cache, qchunk | None)``.
+    exact same pairs.  ``lora``: a tenant's factors, merged into the
+    targeted weights layer by layer for this chunk's forward.  Returns
+    ``(logits [1, V], cache, qchunk | None)``.
     """
     pos0 = cache.length
-    logits, cache = forward_cached(model, tokens, cache, all_logits=True)
+    with adapted(model, lora, lora_spec):
+        logits, cache = forward_cached(model, tokens, cache, all_logits=True)
     last = logits[:, last_idx]
     if not quantize:
         return last, cache, None
@@ -210,11 +280,13 @@ def _cat_qchunks(qchunks: list, n_tokens: int):
 class _PrefillState:
     """Cursor of one in-flight chunked prefill: the [1, max_len] temp
     cache being filled, how many prompt tokens have streamed through it
-    (a prefix-cache hit starts past the reused rows), and (int8 pools
-    only) the per-chunk (q, scale) pairs to commit."""
+    (a prefix-cache hit starts past the reused rows), the tenant's
+    factors (None for base-model requests), and (int8 pools only) the
+    per-chunk (q, scale) pairs to commit."""
 
     cache: KVCache
     pos: int = 0
+    lora: Any = None
     qchunks: list = dataclasses.field(default_factory=list)
 
 
@@ -228,6 +300,10 @@ class ServeEngine:
     ``device`` defaults to ``cuda`` and raises without it; pass
     ``device="cpu"`` to run the plain PyTorch path (the paged kernel's
     plain version) on the CPU.  The model is moved to the device.
+
+    ``lora_spec`` serves LoRA tenants: a pool of ``n_adapters`` slots
+    (slot 0 the base model), int8 factors with ``quant_adapters``; size
+    ``n_adapters > n_slots`` to never stall on a full pool.
     """
 
     def __init__(self, model, *,
@@ -242,7 +318,9 @@ class ServeEngine:
                  attention_impl: str = "paged",
                  prefill_chunk: int | None = 32,
                  prefill_chunks_per_step: int = 1,
-                 lora_spec: Any = None,
+                 lora_spec: LoraSpec | None = None,
+                 n_adapters: int = 8,
+                 quant_adapters: bool = False,
                  speculative: int = 0,
                  prefix_cache: bool = False,
                  prefix_ttl_s: float | None = None,
@@ -256,12 +334,12 @@ class ServeEngine:
             raise ValueError(
                 f"unknown attention_impl {attention_impl!r} "
                 f"(expected 'paged' or 'dense')")
-        for name, value in (("lora_spec (LoRA adapters)", lora_spec),
-                            ("disaggregate", disaggregate),
-                            ("mesh (tensor-parallel serving)", mesh),
-                            ("export_cache", export_cache)):
+        for name, value, item in (
+                ("disaggregate (disaggregated prefill)", disaggregate, "2"),
+                ("mesh (tensor-parallel serving)", mesh, "2"),
+                ("export_cache", export_cache, "4")):
             if value:
-                raise NotImplementedError(f"{name} {_LATER}")
+                raise NotImplementedError(f"{name} {_LATER.format(item)}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = model.cfg
@@ -305,6 +383,12 @@ class ServeEngine:
             self.cfg, num_blocks=num_blocks, block_size=block_size,
             dtype=cache_dtype, quantize=quant_kv, device=self.device)
         self.journal = journal or _journal.get_default()
+        self.lora_spec = lora_spec
+        self.adapter_pool: AdapterPool | None = None
+        if lora_spec is not None:
+            self.adapter_pool = AdapterPool(
+                self.model, lora_spec, n_adapters=n_adapters,
+                quantize=quant_adapters, device=self.device)
         # cross-request prefix caching: matched prefixes are ref'd into
         # the new request's table and their chunks skipped.  A match
         # aligns to blocks, and in int8 mode also to prefill-chunk
@@ -335,7 +419,7 @@ class ServeEngine:
         self.scheduler = Scheduler(
             n_slots=n_slots, allocator=self.pool.allocator,
             block_size=block_size, admission=admission,
-            spec_lookahead=self.speculative,
+            adapter_pool=self.adapter_pool, spec_lookahead=self.speculative,
             prefix_cache=self._prefix_cache, match_align=match_align)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
@@ -356,18 +440,29 @@ class ServeEngine:
                 "serve.engine", attention_impl=self.attention_impl,
                 prefill_chunk=self.prefill_chunk,
                 n_slots=n_slots, max_len=max_len, block_size=block_size,
-                quant_kv=bool(quant_kv), n_adapters=0, adapter_rank=None,
-                quant_adapters=False, speculative=self.speculative,
+                quant_kv=bool(quant_kv),
+                n_adapters=(n_adapters if lora_spec else 0),
+                adapter_rank=(lora_spec.rank if lora_spec else None),
+                quant_adapters=bool(quant_adapters and lora_spec),
+                speculative=self.speculative,
                 prefix_cache=self._prefix_cache is not None,
                 disaggregate=False, tp=1)
 
     # -- request intake ------------------------------------------------------
 
+    def register_adapter(self, name: str, lora) -> None:
+        """Stage a tenant's LoRA factors for serving (see
+        ``AdapterPool.register``).  Requires ``lora_spec`` at
+        construction."""
+        if self.adapter_pool is None:
+            raise ValueError(
+                "engine built without lora_spec — pass lora_spec=... to "
+                "serve adapters")
+        self.adapter_pool.register(name, lora)
+
     def submit(self, prompt: list[int], max_new_tokens: int,
                eos_id: int | None = None, adapter: str | None = None,
                priority: int = 0) -> Request:
-        if adapter is not None:
-            raise NotImplementedError(f"serving LoRA adapters {_LATER}")
         total = len(prompt) + max_new_tokens
         # speculative steps write up to k draft keys past the emitted
         # context: that lookahead must fit the slot's table too
@@ -380,6 +475,15 @@ class ServeEngine:
                 + f"= {need_len} exceeds engine max_len {self.max_len}")
         if not prompt:
             raise ValueError("empty prompt")
+        if adapter is not None:
+            if self.adapter_pool is None:
+                raise ValueError(
+                    "engine built without lora_spec cannot serve "
+                    f"adapter {adapter!r}")
+            if not self.adapter_pool.has(adapter):
+                raise ValueError(
+                    f"unknown adapter {adapter!r} — register_adapter() "
+                    "it first")
         need = blocks_for_tokens(need_len, self.pool.block_size)
         if need > self.pool.num_blocks - 1:
             # the pool could never cover this request even alone
@@ -388,11 +492,38 @@ class ServeEngine:
                 f"{self.pool.num_blocks - 1} allocatable")
         req = Request(prompt=list(map(int, prompt)),
                       max_new_tokens=max_new_tokens, eos_id=eos_id,
-                      priority=int(priority))
+                      adapter=adapter, priority=int(priority))
         self.scheduler.submit(req)
         return req
 
     # -- one serving iteration ----------------------------------------------
+
+    def _bind_adapter(self, slot: int, req: Request) -> bool:
+        """Pin the request's adapter at the move into decode (pins back
+        live decode reads only; prefilling slots reference adapters by
+        name).  When every pool slot is pinned by other running
+        requests, the request bounces back to the queue
+        recompute-style; pins are held by running slots only, so some
+        slot always makes progress and the bounce cannot livelock."""
+        info = self.scheduler.pin_adapter(req)
+        if info is None:
+            self._prefill.pop(req.rid, None)
+            self.scheduler.requeue(slot)
+            if self.journal is not None:
+                self.journal.event("serve.adapter", kind="stall",
+                                   rid=req.rid, adapter=req.adapter)
+            return False
+        if info and self.journal is not None:
+            self.journal.event(
+                "serve.adapter", kind="hit" if info["hit"] else "fault",
+                rid=req.rid, adapter=req.adapter, idx=info["idx"],
+                evicted=info["evicted"])
+        return True
+
+    def _req_lora(self, req: Request):
+        if req.adapter is None:
+            return None
+        return self.adapter_pool.effective_lora(req.adapter)
 
     def _commit_prefill(self, req: Request, k: Any, v: Any) -> None:
         """Land a finished prefill's computed cache rows in the request's
@@ -407,7 +538,8 @@ class ServeEngine:
             n_pub = req.n_prompt // self.pool.block_size
             new = self._prefix_cache.insert(
                 req.prompt[:n_pub * self.pool.block_size],
-                req.blocks[:n_pub], ttl_s=self.prefix_ttl_s)
+                req.blocks[:n_pub], ttl_s=self.prefix_ttl_s,
+                adapter=req.adapter)
             if new and self.journal is not None:
                 self.journal.event("serve.prefix", kind="publish",
                                    rid=req.rid, n_blocks=new)
@@ -423,7 +555,8 @@ class ServeEngine:
                               device=self.device)
         cache = KVCache.init(self.cfg, 1, tokens.shape[1],
                              dtype=torch.bfloat16, device=self.device)
-        logits, cache = forward_cached(self.model, tokens, cache)
+        with adapted(self.model, self._req_lora(req), self.lora_spec):
+            logits, cache = forward_cached(self.model, tokens, cache)
         self._first_token(req, logits)
         self._commit_prefill(req, cache.k[:, 0], cache.v[:, 0])
 
@@ -432,6 +565,10 @@ class ServeEngine:
         "prefilling" so step() streams the prompt through [1, C] chunks,
         interleaved with decode."""
         if self.prefill_chunk is None:
+            # single-shot requests go straight to running, so the pin
+            # happens here, before the prefill work
+            if not self._bind_adapter(slot, req):
+                return
             self._prefill_into_slot(req)
             return
         req.state = "prefilling"
@@ -462,12 +599,13 @@ class ServeEngine:
                     hit=bool(req.cached_tokens),
                     cached_tokens=req.cached_tokens,
                     cached_blocks=req.cached_blocks)
-        self._prefill[req.rid] = _PrefillState(cache=cache,
-                                               pos=req.cached_tokens)
+        self._prefill[req.rid] = _PrefillState(
+            cache=cache, pos=req.cached_tokens, lora=self._req_lora(req))
 
     def _advance_prefill(self, slot: int, req: Request) -> None:
-        """One [1, C] chunk of ``req``'s prompt; on the final chunk,
-        sample the first token, copy the filled temp-cache rows into the
+        """One [1, C] chunk of ``req``'s prompt; on the final chunk, pin
+        the adapter (bouncing the request if the pool is full), sample
+        the first token, copy the filled temp-cache rows into the
         request's blocks, and hand the slot to decode."""
         st = self._prefill[req.rid]
         C = self.prefill_chunk
@@ -478,12 +616,14 @@ class ServeEngine:
         t0 = time.monotonic()
         logits, st.cache, qchunk = _prefill_chunk_step(
             self.model, tokens, st.cache, n_real - 1,
-            quantize=self.pool.quantize)
+            quantize=self.pool.quantize, lora=st.lora,
+            lora_spec=self.lora_spec)
         if qchunk is not None:
             st.qchunks.append(qchunk)
         st.pos += n_real
         done = st.pos >= req.n_prompt
-        if done:
+        bounced = done and not self._bind_adapter(slot, req)
+        if done and not bounced:
             self._first_token(req, logits)
             n_suffix = req.n_prompt - req.cached_tokens
             if self.pool.quantize:
@@ -504,7 +644,7 @@ class ServeEngine:
             self.journal.event(
                 "serve.prefill_chunk", rid=req.rid, slot=slot,
                 pos=min(st.pos, req.n_prompt), n_tokens=n_real,
-                seconds=chunk_s, done=bool(done))
+                seconds=chunk_s, done=bool(done and not bounced))
 
     def _cow_fork_writes(self) -> None:
         """Copy-on-write guard, run right before the decode step: any
@@ -546,7 +686,8 @@ class ServeEngine:
     def _decode_inputs(self):
         """The decode step's slot-padded operands on the device: block
         tables [S, MB] int32, ctx [S] int32, tokens [S, 1 + k] (the last
-        emitted token, then k prompt-lookup drafts), active [S].
+        emitted token, then k prompt-lookup drafts), active [S], adapter
+        pool slots [S] (0, the identity, for base-model and idle slots).
         Inactive and prefilling slots keep an all-null table: the step's
         unconditional KV write lands in the null block instead of their
         half-filled prompt blocks."""
@@ -555,6 +696,7 @@ class ServeEngine:
         ctx = np.zeros((S,), np.int32)
         tok = np.zeros((S, 1 + k_spec), np.int64)
         act = np.zeros((S,), bool)
+        ids = np.zeros((S,), np.int64)
         for s, req in enumerate(self.scheduler.slots):
             if req is None or req.state != "running":
                 continue
@@ -567,17 +709,19 @@ class ServeEngine:
             if k_spec:
                 tok[s, 1:] = ngram_propose(req.prompt + req.out_tokens,
                                            k_spec)
+            ids[s] = req.adapter_idx
             act[s] = True
         return tuple(torch.from_numpy(a).to(self.device)
-                     for a in (tables, ctx, tok, act))
+                     for a in (tables, ctx, tok, act, ids))
 
     def _decode_all(self) -> None:
-        tables, ctx, tok, act = self._decode_inputs()
+        tables, ctx, tok, act, ids = self._decode_inputs()
         k_spec = self.speculative
         self.decode_routes[_step_route(self.attention_impl, 1 + k_spec)] += 1
         out = _paged_decode_step(
             self.model, self.pool, tables, ctx, tok, act, self._gen,
-            sample=self.sample, attention_impl=self.attention_impl)
+            sample=self.sample, attention_impl=self.attention_impl,
+            adapters=self.adapter_pool, adapter_ids=ids)
         out = out.tolist()
         # one stamp per step: every token this step emits shares it (a
         # speculative burst lands together)
@@ -692,9 +836,13 @@ class ServeEngine:
         self.decode_busy_s += decode_s
         self.overlapped_wall_s += prefill_s + decode_s
         if self.journal is not None:
-            prefix_stats = {}
+            extra = {}
+            if self.adapter_pool is not None:
+                alloc = self.adapter_pool.allocator
+                extra.update(adapters_resident=alloc.n_resident,
+                             adapters_pinned=alloc.n_pinned)
             if self._prefix_cache is not None:
-                prefix_stats = dict(
+                extra.update(
                     prefix_blocks=self._prefix_cache.n_blocks,
                     prefix_hit_tokens=self._prefix_cache.hit_tokens)
             self.journal.event(
@@ -706,7 +854,7 @@ class ServeEngine:
                 free_blocks=self.pool.allocator.n_free,
                 prefill_s=prefill_s, decode_s=decode_s,
                 mode="colocated", overlap_s=prefill_s + decode_s,
-                **prefix_stats)
+                **extra)
         if self._debug_invariants:
             sched.check_invariants()
 

@@ -2,8 +2,12 @@
 
 The JAX package's ``inference/serve/prefix_cache.py``, which imports no
 jax, copied over the port's ref-counted ``BlockAllocator``: the same
-keys, the same radix walk, the same eviction order and the same
-``serve.prefix`` journal records.
+radix walk, the same eviction order and the same ``serve.prefix``
+journal records.  The keys differ in one way: a LoRA tenant's keys are
+seeded with its adapter's name (:func:`block_hashes`), so a tenant never
+reuses KV that the base model or another tenant computed (the JAX
+package keys on tokens alone and matches across tenants); base-model
+keys are the JAX package's.
 
 Production serving traffic is prefix-heavy — thousands of tenants share
 one system prompt or few-shot preamble, and re-prefilling that preamble
@@ -51,14 +55,21 @@ from typing import Callable
 from .kv_pool import BlockAllocator, NULL_BLOCK
 
 
-def block_hashes(tokens: list[int], block_size: int) -> list[str]:
+def block_hashes(tokens: list[int], block_size: int,
+                 adapter: str | None = None) -> list[str]:
     """Chained content keys of every FULL block of ``tokens``.
 
     ``h_i = H(h_{i-1} || tokens[i*bs : (i+1)*bs])`` — each key commits
     to the whole prefix through its block.  Trailing partial blocks
-    get no key (their positions are not fully prompt-determined)."""
+    get no key (their positions are not fully prompt-determined).
+
+    The chain's seed commits to the LoRA ``adapter`` the KV was computed
+    through (None: the base model, the JAX package's seed): an adapter
+    changes the k/v projections, so one tenant's blocks are not
+    another's, whatever the tokens."""
     keys: list[str] = []
-    prev = b"root"
+    prev = b"root" if adapter is None else (
+        b"root|adapter|" + adapter.encode())
     for i in range(len(tokens) // block_size):
         blk = tokens[i * block_size:(i + 1) * block_size]
         h = hashlib.sha256(
@@ -196,7 +207,8 @@ class PrefixCache:
             self.hit_tokens += n_cached_tokens
 
     def insert(self, tokens: list[int], blocks: list[int], *,
-               ttl_s: float | None = None) -> int:
+               ttl_s: float | None = None,
+               adapter: str | None = None) -> int:
         """Publish a prefill's full prompt blocks; returns how many new
         nodes were indexed.  ``blocks[i]`` must hold the KV of tokens
         ``[i*bs, (i+1)*bs)`` (the caller passes a committed table
@@ -210,12 +222,15 @@ class PrefixCache:
         reclaimed lazily (the match/evict expiry sweeps) — one tenant's
         stale system prompts cannot pin index leaves forever.  A
         re-publish of already-indexed content renews its lease (the
-        content is demonstrably still live traffic)."""
+        content is demonstrably still live traffic).  ``adapter``: the
+        LoRA tenant whose weights computed the blocks (None: the base
+        model), part of every key."""
         new = 0
         node = self._root
         now = self.clock()
         expires = None if ttl_s is None else now + float(ttl_s)
-        for i, key in enumerate(block_hashes(tokens, self.block_size)):
+        for i, key in enumerate(block_hashes(tokens, self.block_size,
+                                             adapter)):
             if i >= len(blocks):
                 break
             child = node.children.get(key)

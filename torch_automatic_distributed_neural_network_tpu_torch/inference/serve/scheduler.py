@@ -24,11 +24,18 @@ prompt against the radix index, refs the matched blocks into its table,
 charges only the uncached remainder, and evicts cold index leaves before
 refusing a request or preempting a slot.
 
-A framework-free copy of the JAX package's scheduler, without the parts
-whose features the port does not have yet (adapter pinning,
-disaggregated KV shipping).  The scheduler owns no device state: it
-moves ``Request`` objects between queue and slots and block ids between
-the allocator and block tables.
+Multi-tenant state rides along: each request may name a LoRA
+``adapter``; the scheduler pins it in the ``AdapterPool`` exactly when
+the request enters the RUNNING state and unpins on evict, preempt and
+requeue, so queued, prefilling and preempted requests never hold a
+pinned reference (``check_invariants`` asserts it).  Prefix matches are
+keyed by the adapter too (``prefix_cache.block_hashes``): a tenant
+reuses only KV computed through its own weights.
+
+A framework-free copy of the JAX package's scheduler, without
+disaggregated KV shipping (not ported yet).  The scheduler owns no
+device state: it moves ``Request`` objects between queue and slots and
+block ids between the allocator and block tables.
 """
 
 from __future__ import annotations
@@ -134,8 +141,10 @@ class Request:
     rid: int = dataclasses.field(
         default_factory=lambda: next(_rid_counter))
     eos_id: int | None = None
-    # LoRA tenant by name (serving adapters is a later slice of the
-    # port: the engine refuses a named adapter), and its pool slot
+    # LoRA tenant: referenced by NAME until the request is running, at
+    # which point the scheduler pins it and adapter_idx holds its pool
+    # slot (IDENTITY_ADAPTER for base-model requests and all non-running
+    # states)
     adapter: str | None = None
     adapter_idx: int = IDENTITY_ADAPTER
     # admission class: lower value is more urgent; queue order is
@@ -200,8 +209,8 @@ class Scheduler:
 
     def __init__(self, *, n_slots: int, allocator: BlockAllocator,
                  block_size: int, admission: str = "reserve",
-                 spec_lookahead: int = 0, prefix_cache=None,
-                 match_align: int | None = None,
+                 adapter_pool=None, spec_lookahead: int = 0,
+                 prefix_cache=None, match_align: int | None = None,
                  clock: Callable[[], float] = time.monotonic):
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -209,6 +218,7 @@ class Scheduler:
         self.allocator = allocator
         self.block_size = block_size
         self.admission = admission
+        self.adapter_pool = adapter_pool
         # cross-request prefix reuse; ``match_align`` floors a match to a
         # multiple of this many tokens (>= block_size; the engine passes
         # the prefill-chunk lcm in int8 mode so reuse stays bit-exact)
@@ -292,6 +302,28 @@ class Scheduler:
         for r in self.queue:
             assert not r.blocks, (
                 f"queued request {r.rid} still holds blocks")
+        # adapter pins back live decode reads ONLY: a slot pins exactly
+        # while running, so preemption and eviction never leak a pin
+        for r in self.slots:
+            if r is not None and r.state != "running":
+                assert r.adapter_idx == IDENTITY_ADAPTER, (
+                    f"{r.state} request {r.rid} holds a pinned adapter "
+                    f"reference (idx {r.adapter_idx})")
+        for r in self.queue:
+            assert r.adapter_idx == IDENTITY_ADAPTER, (
+                f"queued/preempted request {r.rid} holds a pinned "
+                f"adapter reference (idx {r.adapter_idx})")
+        if self.adapter_pool is not None:
+            want: dict[str, int] = {}
+            for r in self.slots:
+                if (r is not None and r.state == "running"
+                        and r.adapter is not None
+                        and r.adapter_idx != IDENTITY_ADAPTER):
+                    want[r.adapter] = want.get(r.adapter, 0) + 1
+            have = self.adapter_pool.allocator.pinned_names()
+            assert want == have, (
+                f"adapter pin leak: running slots pin {want}, pool "
+                f"holds {have}")
 
     # -- admission / eviction ------------------------------------------------
 
@@ -322,17 +354,66 @@ class Scheduler:
                     if self._queue_key(r) > key), len(self.queue))
         self.queue.insert(idx, req)
 
+    # -- adapter pins --------------------------------------------------------
+
+    def pin_adapter(self, req: Request) -> dict | None:
+        """Pin ``req``'s adapter for decode; called exactly at the
+        transition into the RUNNING state.  Returns a fault-info dict
+        ({} for base-model requests), or None when every pool slot is
+        pinned by other running requests — the caller must NOT run the
+        request (the engine requeues it)."""
+        if req.adapter is None or self.adapter_pool is None:
+            return {}
+        got = self.adapter_pool.acquire(req.adapter)
+        if got is None:
+            return None
+        slot, was_resident, evicted = got
+        req.adapter_idx = slot
+        return {"idx": slot, "hit": was_resident, "evicted": evicted}
+
+    def unpin_adapter(self, req: Request) -> None:
+        if req.adapter_idx != IDENTITY_ADAPTER and req.adapter is not None:
+            assert self.adapter_pool is not None
+            self.adapter_pool.release(req.adapter)
+        req.adapter_idx = IDENTITY_ADAPTER
+
+    def requeue(self, slot: int) -> Request:
+        """Bounce a slot's request back to the queue (blocks freed,
+        recompute-style): the adapter-stall path, where its prefill
+        finished but every adapter pool slot is pinned by other running
+        requests.  Counted as a preemption."""
+        req = self.slots[slot]
+        assert req is not None, f"requeue of empty slot {slot}"
+        self.unpin_adapter(req)
+        self.allocator.free(req.blocks)
+        req.blocks = []
+        req.cached_blocks = req.cached_tokens = 0
+        req.slot = None
+        req.state = "queued"
+        req.out_tokens = []
+        req.token_walls = []
+        if req.t_admit is not None:
+            req.lost_s += max(0.0, self.clock() - req.t_admit)
+        req.preempted += 1
+        self.n_preemptions += 1
+        self.slots[slot] = None
+        self._requeue_fifo(req)
+        return req
+
     def match_prefix(self, req: Request) -> tuple[list[int], int]:
         """The request's longest reusable prompt prefix in the radix
         index, capped so at least one prompt token is recomputed (the
         final chunk must produce first-token logits) and floored to
-        ``match_align`` tokens."""
+        ``match_align`` tokens.  The keys commit to the request's
+        adapter, so a tenant matches only blocks its own weights
+        computed."""
         if self.prefix_cache is None:
             return [], 0
         if req._prefix_keys is None:
             from .prefix_cache import block_hashes
 
-            req._prefix_keys = block_hashes(req.prompt, self.block_size)
+            req._prefix_keys = block_hashes(req.prompt, self.block_size,
+                                            adapter=req.adapter)
         cap = ((req.n_prompt - 1) // self.match_align) * self.match_align
         return self.prefix_cache.match(req.prompt, max_tokens=cap,
                                        keys=req._prefix_keys)
@@ -404,6 +485,7 @@ class Scheduler:
         """Finished request out of its slot; blocks back to the pool."""
         req = self.slots[slot]
         assert req is not None, f"evict of empty slot {slot}"
+        self.unpin_adapter(req)
         self.allocator.free(req.blocks)
         req.blocks = []
         req.cached_blocks = req.cached_tokens = 0
@@ -424,6 +506,7 @@ class Scheduler:
             return None
         victim = self.slots[slot]
         assert victim is not None
+        self.unpin_adapter(victim)
         self.allocator.free(victim.blocks)
         victim.blocks = []
         victim.cached_blocks = victim.cached_tokens = 0

@@ -26,6 +26,14 @@ The same mapping carries trained JAX parameters, so a port's
 :func:`train_state_from_jax` carries a whole JAX train state (step,
 parameters and the AdamW moments, which have the parameters' tree) into
 the port's ``TrainState``, so a JAX run continues in the port.
+
+LoRA factors (:func:`lora_from_jax`): the JAX package's factor tree
+(``init_lora_params``' layout, scan-stacked ``a [L, d_in, r]`` /
+``b [L, r, d_out]``) split per layer and keyed by the port's weight
+names; both packages keep the factors in the matrix view, so no factor
+is transposed.  A LoRA train state (``{"base", "lora"}`` parameters and
+``lora_optimizer``'s moments) crosses through
+:func:`train_state_from_jax` too.
 """
 
 from __future__ import annotations
@@ -138,6 +146,45 @@ def jax_param_path(name: str) -> str:
     return path.replace(".", "/")
 
 
+def port_param_name(path: str) -> str:
+    """The port parameter name of a JAX decoder's '/'-joined path with
+    unscanned layers: the inverse of :func:`jax_param_path`."""
+    if path in ("embed/embedding", "lm_head/kernel"):
+        return path.split("/")[0]
+    name = re.sub(r"^layers_(\d+)/", r"layers.\1/", path)
+    if name.endswith("/kernel"):
+        name = name[:-len("/kernel")] + "/weight"
+    return name.replace("/", ".")
+
+
+def lora_from_jax(lora: dict, n_layers: int
+                  ) -> dict[str, dict[str, torch.Tensor]]:
+    """The port's ``{weight name: {"a", "b"}}`` fp32 factors of a JAX
+    factor tree with numpy leaves: a scan-stacked site
+    (``layers/.../kernel``) gives one entry a layer, an unscanned one
+    (``layers_3/...``) its own."""
+    sites = []
+
+    def walk(node, path):
+        if set(node) == {"a", "b"} and not isinstance(node["a"], dict):
+            sites.append(("/".join(path), node))
+            return
+        for k, v in node.items():
+            walk(v, path + [k])
+
+    walk(lora, [])
+    out = {}
+    for path, node in sites:
+        a, b = np.asarray(node["a"]), np.asarray(node["b"])
+        if path.startswith("layers/"):
+            for i in range(n_layers):
+                out[port_param_name(f"layers_{i}/{path[len('layers/'):]}")
+                    ] = {"a": _t(a[i]), "b": _t(b[i])}
+        else:
+            out[port_param_name(path)] = {"a": _t(a), "b": _t(b)}
+    return out
+
+
 def _field(obj: Any, name: str) -> Any:
     """``obj.name`` or ``obj[name]``: a JAX struct, NamedTuple or dict."""
     return obj[name] if isinstance(obj, dict) else getattr(obj, name)
@@ -153,6 +200,19 @@ def _with_count(tree: Any, count: int) -> Any:
     return tree
 
 
+def _adam_state(opt_state: Any) -> Any:
+    """optax's AdamW state (``count``, ``mu``, ``nu``) inside a JAX
+    optimizer state: the chain's first element, or the ``lora`` branch
+    of ``lora_optimizer``'s ``multi_transform``."""
+    inner = getattr(opt_state, "inner_states", None)
+    if inner is not None:
+        lora = inner["lora"]
+        return _adam_state(getattr(lora, "inner_state", lora))
+    if isinstance(opt_state, (list, tuple)) and not hasattr(opt_state, "mu"):
+        return _adam_state(opt_state[0])
+    return opt_state
+
+
 def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
                          seed: int = 0) -> "TrainState":
     """The port's ``TrainState`` continuing a JAX ``TrainState``.
@@ -166,17 +226,38 @@ def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
     parameters go into ``ad.model`` and the moments into the state
     through :func:`decoder_from_jax_params`'s mapping; every optimizer
     count becomes AdamW's.  ``seed`` takes the place of the JAX rng (the
-    port draws dropout masks from its own generators)."""
+    port draws dropout masks from its own generators).
+
+    A LoRA state (parameters ``{"base", "lora"}``, ``lora_optimizer``'s
+    moments): ``ad`` is built with ``lora_loss``/``lora_optimizer`` and
+    no ``init_fn`` (the factors come from the state, the spec from
+    ``lora_loss``), its model takes the base weights and
+    the carried factors (``training.lora.apply_lora``), and the moments
+    of the factors go into the state."""
+    from .training.lora import apply_lora, lora_named
+
     cfg = ad.model.cfg
 
     def port_named(tree) -> dict[str, torch.Tensor]:
         return decoder_from_jax_params(tree, cfg, device="cpu").state_dict()
 
-    ad.model.load_state_dict(port_named(_field(jax_state, "params")))
+    params = _field(jax_state, "params")
+    adam = _adam_state(_field(jax_state, "opt_state"))
+    if isinstance(params, dict) and set(params) == {"base", "lora"}:
+        spec = getattr(ad._loss_fn, "lora_spec", None)
+        if spec is None:
+            raise ValueError("a LoRA state needs an AutoDistribute whose "
+                             "loss_fn is lora_loss(..., spec)")
+        ad.model.load_state_dict(port_named(params["base"]))
+        apply_lora(ad.model, spec, lora_from_jax(params["lora"],
+                                                 cfg.n_layers))
+        moments = {key: lora_named(lora_from_jax(
+            _field(adam, key)["lora"], cfg.n_layers)) for key in ("mu", "nu")}
+    else:
+        ad.model.load_state_dict(port_named(params))
+        moments = {"mu": port_named(_field(adam, "mu")),
+                   "nu": port_named(_field(adam, "nu"))}
     state = ad.init(None)
-    adam = _field(jax_state, "opt_state")[0]
-    moments = {"mu": port_named(_field(adam, "mu")),
-               "nu": port_named(_field(adam, "nu"))}
 
     def fill(tree):
         if isinstance(tree, dict):

@@ -6,8 +6,9 @@ The port writes the same JSON lines as the JAX package's
 size-capped rotation, the in-memory filter ``named``, the torn-line
 tolerant reader ``Journal.read``, and the process-default helpers
 (``as_default`` and the module-level ``event`` / ``span``, which library
-code logs through).  Following a live file and the schema registry stay
-in the JAX package (ROADMAP Queue 1 item 7).
+code logs through), and emit-time validation against the event schema
+registry (``obs/schema.py``, ``validate=True``).  Following a live file
+stays in the JAX package (ROADMAP Queue 1 item 7).
 
 Every record carries BOTH clocks:
 
@@ -15,7 +16,7 @@ Every record carries BOTH clocks:
   creation — durations and ordering survive wall-clock jumps;
 - ``wall``: unix time — joinable against logs.
 
-Zero-dep (json/time/os only; torch.distributed is read lazily, for
+Zero-dep (json/time/os and the stdlib schema registry; torch.distributed is read lazily, for
 rank-0 gating)::
 
     j = Journal("run/journal.jsonl")
@@ -40,6 +41,8 @@ import os
 import time
 import warnings
 from typing import Any, IO, Iterator
+
+from . import schema as _schema
 
 
 def _process_index() -> int:
@@ -67,11 +70,10 @@ class Journal:
     ``<path>.1`` (one generation, overwritten) and the journal keeps
     appending to a fresh file, led by a ``journal.rotated`` record.
 
-    ``validate=True`` (or ``TADNN_JOURNAL_VALIDATE=1``) asks for
-    emit-time checks against the event schema registry, which the port
-    does not have yet: it raises at construction.  Audit a journal the
-    port wrote with the JAX package's ``tadnn check --journal
-    --journal-file FILE``.
+    ``validate=True`` (or ``TADNN_JOURNAL_VALIDATE=1``) checks every
+    record against the event schema registry (:mod:`.schema`) at emit
+    time and raises :class:`~.schema.JournalContractError` at the site
+    that emitted a drifting record.  Off by default.
     """
 
     def __init__(self, path: str | None = None, *,
@@ -82,12 +84,7 @@ class Journal:
         if validate is None:
             validate = os.environ.get(
                 "TADNN_JOURNAL_VALIDATE", "").strip() not in ("", "0")
-        if validate:
-            raise NotImplementedError(
-                "journal schema validation is not ported yet (unset "
-                "TADNN_JOURNAL_VALIDATE); audit the written journal with "
-                "the JAX package's `tadnn check --journal --journal-file "
-                "FILE`")
+        self.validate = bool(validate)
         self.enabled = (not host0_only) or _process_index() == 0
         self._t0 = time.monotonic()
         self._depth = 0
@@ -115,6 +112,12 @@ class Journal:
     def _write(self, rec: dict) -> None:
         if not self.enabled:
             return
+        if self.validate:
+            problems = _schema.validate_record(rec)
+            if problems:
+                detail = "; ".join(f"{c}: {m}" for c, m in problems)
+                raise _schema.JournalContractError(
+                    f"journal record violates its event schema ({detail})")
         name = rec.get("name", "?")
         self.counts[name] = self.counts.get(name, 0) + 1
         if self._file is not None:

@@ -91,6 +91,13 @@ TRANSFORMER_RULES: tuple[Rule, ...] = (
     # biases of column-split layers follow the split output dim
     Rule(r"(q_proj|k_proj|v_proj|qkv|up_proj|gate_proj|fc1|wi|w1|w3)\.bias$",
          ("tensor",)),
+    # LoRA factors in the matrix view (a [in, r], b [r, out]): a
+    # column-split layer's b splits its output dim, a row-split layer's
+    # a its input dim, so each rank's delta is its shard of the weight's
+    Rule(r"(q_proj|k_proj|v_proj|qkv|up_proj|gate_proj|fc1|wi|w1|w3)"
+         r"\.lora_b$", (None, "tensor")),
+    Rule(r"(o_proj|out_proj|attn_out|wo|proj_out|down_proj|fc2|wo_mlp|w2|"
+         r"mlp_out)\.lora_a$", ("tensor", None)),
     # norms / scalars replicated
     Rule(r"(norm|ln|layernorm|rmsnorm|scale)", ()),
 )

@@ -1,5 +1,5 @@
 """Training-loop subsystems: losses, optimizers and precision policies,
-metrics, checkpointing, resilience and the trainer.
+LoRA, metrics, checkpointing, resilience and the trainer.
 
 The checkpoint, resilience, elastic and trainer symbols are lazy (module
 ``__getattr__``, as in the JAX package): they import
@@ -7,6 +7,16 @@ The checkpoint, resilience, elastic and trainer symbols are lazy (module
 serving should not pay for.
 """
 
+from .lora import (
+    LoraSpec,
+    LoraTarget,
+    apply_lora,
+    init_lora_params,
+    lora_init_fn,
+    lora_loss,
+    lora_optimizer,
+    merge_lora,
+)
 from .losses import blockwise_next_token_loss, next_token_loss
 from .metrics import MetricsLogger, peak_flops_per_chip, transformer_step_flops
 from .optim import (
@@ -45,9 +55,11 @@ _LAZY = {
 }
 
 __all__ = [
-    "GradientTransformation", "MetricsLogger", "PRESETS", "Precision",
-    "adamw", "adamw_cosine", "apply_updates", "blockwise_next_token_loss",
-    "cast_floats", "chain", "clip_by_global_norm", "decay_mask",
+    "GradientTransformation", "LoraSpec", "LoraTarget", "MetricsLogger",
+    "PRESETS", "Precision", "adamw", "adamw_cosine", "apply_lora",
+    "apply_updates", "blockwise_next_token_loss", "cast_floats", "chain",
+    "clip_by_global_norm", "decay_mask", "init_lora_params",
+    "lora_init_fn", "lora_loss", "lora_optimizer", "merge_lora",
     "next_token_loss", "peak_flops_per_chip", "resolve",
     "transformer_step_flops", "warmup_cosine", "wrap_optimizer", *_LAZY,
 ]

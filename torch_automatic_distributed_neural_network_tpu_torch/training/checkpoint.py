@@ -178,8 +178,9 @@ class CheckpointManager:
             self._queue.put((step, snapshot,
                              config if config is not None else {},
                              time.monotonic()))
+            # the bytes written are journaled with the write itself
+            # (ckpt.async_save), as the event schema declares them
             rec["saved"] = True
-            rec["bytes"] = sum(t.nbytes for t in snapshot.values())
             rec["manifest_queued"] = self.integrity
         return True
 
@@ -304,7 +305,6 @@ class CheckpointManager:
         verify = self.integrity if verify is None else verify
         with obs_journal.span("ckpt.restore", step=int(step)) as rec:
             leaves = resilience._raw_restore_state(self.directory, step)
-            rec["bytes"] = sum(t.nbytes for t in leaves.values())
             manifest = (resilience.read_manifest(self.directory, step)
                         if verify else None)
             if manifest is not None:

@@ -56,6 +56,55 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def set_to_zero() -> GradientTransformation:
+    """``optax.set_to_zero``: a zero update for every gradient it gets,
+    and no state."""
+
+    def update(updates, state, params=None):
+        return {n: torch.zeros_like(g) for n, g in updates.items()}, state
+
+    return GradientTransformation(lambda params: (), update)
+
+
+def multi_transform(
+        transforms: dict[str, GradientTransformation],
+        labels: Callable[[Params], dict[str, str]] | dict[str, str]
+) -> GradientTransformation:
+    """``optax.multi_transform``: each parameter's gradient goes through
+    the transformation its label names (``labels``: a name -> label
+    mapping, or a function of the parameters giving one), each
+    transformation's state covers its own parameters only."""
+
+    def label_of(tree) -> dict[str, str]:
+        lab = labels(tree) if callable(labels) else labels
+        unknown = {lab[n] for n in tree} - set(transforms)
+        if unknown:
+            raise ValueError(f"labels {sorted(unknown)} name no "
+                             f"transformation of {sorted(transforms)}")
+        return lab
+
+    def part(tree, lab, key):
+        return {n: v for n, v in tree.items() if lab[n] == key}
+
+    def init(params):
+        lab = label_of(params)
+        return {key: tx.init(part(params, lab, key))
+                for key, tx in transforms.items()}
+
+    def update(updates, state, params=None):
+        lab = label_of(updates)
+        out, new_state = {}, {}
+        for key, tx in transforms.items():
+            sub = part(updates, lab, key)
+            sub_params = None if params is None else {
+                n: params[n] for n in sub}
+            upd, new_state[key] = tx.update(sub, state[key], sub_params)
+            out.update(upd)
+        return out, new_state
+
+    return GradientTransformation(init, update)
+
+
 def _scale_by_adam(b1: float, b2: float, eps: float) -> GradientTransformation:
     def init(params):
         return {"count": 0,
@@ -195,10 +244,11 @@ def zero1_update(optimizer: GradientTransformation, grads: Params,
 
 @torch.no_grad()
 def apply_updates(params: Params, updates: Params) -> None:
-    """``p <- p + u`` in place, computed in the promoted type and stored
-    in the parameter's own (``optax.apply_updates``)."""
-    for n, p in params.items():
-        p.copy_(p + updates[n])
+    """``p <- p + u`` in place for every parameter that has an update,
+    computed in the promoted type and stored in the parameter's own
+    (``optax.apply_updates``); a frozen parameter gets none."""
+    for n, u in updates.items():
+        params[n].copy_(params[n] + u)
 
 
 def warmup_cosine(peak_lr: float, total_steps: int, *,
