@@ -153,11 +153,32 @@ card, in phases, one JSON line each; any failure exits non-zero:
    one K4 launch a layer a decode step, no pin left, each request's
    tokens equal to its own in a one-slot engine; agreement with
    ``generate`` on merged weights, hit rate, tokens/s and p99 with
-   adapters on and off, kernels a decode step with and without.
+   adapters on and off, kernels a decode step with and without;
+18. the launcher (``launch``): ``launch --smoke --hosts 1`` (NCCL),
+   one NCCL worker on the card training the JAX package's launcher
+   workload (GPT-2 ``test``, vocab 512, seq 33, batch 16, SGD 0.1) for
+   8 steps with a ``ShardedCheckpoint`` every 2, a clean run and a run
+   SIGKILLed right after step 3: per-step losses bitwise equal, one
+   restart, resumed from step 2, the merged journal valid against the
+   event schema, ``doctor --launch-dir`` healthy; spawn to first
+   heartbeat, each round's seconds and the resume time (no kernel: S 32
+   is below the flash floor);
+19. sharded checkpoints at full width (``sharded_trainer``): GPT-2 small
+   (B 8 x S 1024, bf16 compute, flash) under ``Trainer.fit`` with a
+   ``ShardedCheckpoint`` every 5 steps for 20 steps; step 20's shard
+   torn, a resumed fit quarantines it (``ckpt.corrupt``), falls back to
+   step 15 and replays steps 16-20 bitwise; the newest intact step
+   restored into fresh ``AutoDistribute``s under fsdp, tp and tp_fsdp in
+   a world of one NCCL rank, parameters and Adam moments bitwise equal
+   to the saved ones and one more step's loss bitwise equal to the
+   unwrapped continuation's; K1/K2/K3 24/12/12 a step; save dispatch,
+   write to durable, restore seconds and bytes, beside the same four of
+   ``CheckpointManager`` (DCP, the coordinated save) on the same state.
 
-Phases 5 (``serve``), 10 (``trainer``), 16 and 17 write their journals
+Phases 5 (``serve``), 10 (``trainer``), 16, 17 and 19 write their journals
 with schema validation on (``Journal(validate=True)``): a record that
-breaks the event schema fails the run.
+breaks the event schema fails the run; phase 18 checks every record
+of its merged journal the same way.
 
 Then, on lines of their own: a summary (the number of kernels, K4's
 launches per decode step, the prefix hit rates), the per-kernel JSON record, the
@@ -1684,6 +1705,289 @@ def phase_trainer(torch) -> dict[str, int]:
     return launches
 
 
+# -- phases 18 and 19: training across processes ----------------------------
+
+
+def phase_launch(card) -> dict:
+    """``launch --smoke`` on the card: one NCCL worker (the default
+    backend, one host) on the JAX package's launcher workload, a clean
+    run and a run SIGKILLed right after step 3 (``ckpt_every`` 2, 8
+    steps); the losses bitwise equal, one restart, the merged journal
+    valid against the event schema, ``doctor --launch-dir`` healthy on
+    the chaos run."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from torch_automatic_distributed_neural_network_tpu_torch import cli
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        Journal, schema)
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="tadnn_launch_")
+    try:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["launch", "--smoke",
+                           "--hosts", "1", "--steps", "8",
+                           "--ckpt-every", "2", "--launch-dir", tmp])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+        merged = Journal.read(out["merged_journal"])
+        problems = [(r.get("name"), p) for r in merged
+                    for p in schema.validate_record(r)]
+        chaos = os.path.join(tmp, "chaos")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            doctor_rc = cli.main(["doctor", "--launch-dir", chaos])
+        doctor = buf.getvalue().splitlines()
+        with open(os.path.join(chaos, "worker_0.log")) as f:
+            resumed = "resumed from step 2" in f.read()
+        rec = {"phase": "launch", "card": card, "rc": rc,
+               "parity": out["parity"], "restarts_used": out["restarts_used"],
+               "final_loss": out["final_loss"], "world": out["world"],
+               "spawn_to_first_heartbeat_s": {
+                   "clean": [r["first_beat_s"] for r in out["clean_rounds_s"]],
+                   "chaos": [r["first_beat_s"] for r in out["chaos_rounds_s"]]},
+               "round_s": {
+                   "clean": [r["seconds"] for r in out["clean_rounds_s"]],
+                   "chaos": [r["seconds"] for r in out["chaos_rounds_s"]]},
+               "resume_s": out["resume_s"], "resumed_from_2": resumed,
+               "merged_records": len(merged),
+               "schema_problems": problems[:5], "doctor_rc": doctor_rc,
+               "doctor": doctor, "seconds": time.monotonic() - t0}
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(rc == 0 and out["parity"], f"launch --smoke: rc {rc}, {out}")
+    require(out["restarts_used"] == 1,
+            f"{out['restarts_used']} restarts, expected 1")
+    require(resumed, "the restarted worker did not resume from step 2")
+    require(not problems, f"merged journal breaks the schema: {problems[:5]}")
+    require(doctor_rc == 0 and any("COMPLETED ok" in ln for ln in doctor),
+            f"doctor --launch-dir: rc {doctor_rc}, {doctor}")
+    return rec
+
+
+class _OneBatch:
+    """Step-indexed source giving one batch at every step (phase train's
+    reason: fresh batches at vocab 50257 teach the copy task nothing)."""
+
+    step_indexed = True
+
+    def __init__(self, batch):
+        self._batch = batch
+
+    def batch(self, i):
+        return self._batch
+
+
+def _ckpt_timing(journal) -> dict:
+    """Save dispatch, write-to-durable and restore times and the bytes,
+    from a journal's ``ckpt.*`` records."""
+    recs = journal.records
+    saves = [r for r in recs if r["name"] == "ckpt.save"]
+    writes = [r for r in recs if r["name"] == "ckpt.async_save"]
+    restores = [r for r in recs if r["name"] == "ckpt.restore"
+                and "error" not in r]
+    return {"save_dispatch_ms": [r["dur_s"] * 1e3 for r in saves],
+            "write_to_durable_s": [r["off_thread_s"] for r in writes],
+            "restore_s": [r["dur_s"] for r in restores],
+            "bytes": writes[0]["bytes"] if writes else None}
+
+
+def phase_sharded_trainer(torch, data, card, *, steps=20,
+                          every=5) -> dict[str, int]:
+    """GPT-2 small at full width and depth (B 8 x S 1024, bf16 compute)
+    under the Trainer with a ``ShardedCheckpoint`` every ``every`` steps
+    for ``steps`` steps; the newest step torn, a resumed fit falls back
+    one interval (``ckpt.corrupt``) and replays bitwise; the newest
+    intact step restored into fresh ``AutoDistribute``s under fsdp, tp
+    and tp_fsdp in a world of one NCCL rank: parameters and moments
+    bitwise equal to the saved ones, one more step's loss equal to the
+    unwrapped continuation's; ``CheckpointManager`` (DCP) timed on the
+    same state beside it.  Under the NCCL group the host-side agreements
+    (the restores' verdicts, ``host_allgather``) run on the gloo side
+    group ``topology.initialize_distributed`` made."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, adamw, next_token_loss, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.models \
+        .transformer_core import gathered
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        Journal, as_default)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        CheckpointManager, Trainer, TrainerConfig, resilience)
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards \
+        import ShardedCheckpoint, tear_shard
+    from torch_automatic_distributed_neural_network_tpu_torch.utils.device \
+        import host_allgather, host_group
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="tadnn_sharded_")
+    ckdir = os.path.join(tmp, "ckpt")
+    src = _OneBatch(data.batch(0))
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+
+    def make_ad(**kw):
+        # remat=False on every run: each launches what phase train's does
+        return AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                              loss_fn=next_token_loss, remat=False, **kw)
+
+    stamps: dict[int, float] = {}
+
+    def stamp(step, state, metrics):
+        torch.cuda.synchronize()  # as MetricsLogger's log_every=1 does
+        stamps[step] = time.monotonic()
+
+    def fit(journal):
+        losses = []
+        trainer = Trainer(
+            make_ad(), TrainerConfig(steps=steps, log_every=0,
+                                     ckpt_every=every, preflight=False),
+            ckpt=ShardedCheckpoint(ckdir),
+            callbacks=[_recorder(losses), stamp], journal=journal)
+        t = time.monotonic()
+        state = trainer.fit(src)
+        torch.cuda.synchronize()
+        trainer.ckpt.close()
+        return trainer, state, {s: float(x) for s, x in losses}, (
+            time.monotonic() - t)
+
+    def leaves(state):
+        return {k: gathered(resilience.as_tensor(v)).detach().to(
+            "cpu", copy=True) for k, v in resilience.flatten_state(
+                state).items()}
+
+    try:
+        for w in wrappers:
+            w.launches = 0
+        j1, j2 = Journal(validate=True), Journal(validate=True)
+        trainer1, state1, losses1, fit1_s = fit(j1)
+        # a step's host ms (synchronized) from one callback to the next:
+        # a plain step, and one that also dispatched a save (the save
+        # runs before the step's callbacks)
+        gaps = {s: (stamps[s] - stamps[s - 1]) * 1e3
+                for s in range(2, steps + 1)}
+        step_ms = statistics.median(
+            v for s, v in gaps.items() if s % every)
+        save_step_ms = [v for s, v in gaps.items() if s % every == 0]
+        del trainer1, state1
+        torch.cuda.empty_cache()
+        saved = sorted(int(n) for n in os.listdir(ckdir) if n.isdigit())
+        torn = tear_shard(ckdir, steps)
+        trainer2, state2, losses2, fit2_s = fit(j2)
+        launches = {w.__name__: w.launches for w in wrappers}
+        corrupt = [r for r in j2.records if r["name"] == "ckpt.corrupt"]
+        ad2 = trainer2.ad
+        want = leaves(state2)  # step `steps`, as saved again by run 2
+
+        # CheckpointManager (DCP) on the same state, in the same call
+        topology.initialize_distributed(
+            backend="nccl",
+            init_method=f"file://{os.path.join(tmp, 'pg')}",
+            world_size=1, rank=0)
+        side = host_group()
+        host_side = {"default": dist.get_backend(),
+                     "host_group": dist.get_backend(side),
+                     "separate": side is not None,
+                     "allgather": host_allgather({"rank": 0})}
+        jd = Journal(validate=True)
+        with as_default(jd):
+            cm = CheckpointManager(os.path.join(tmp, "dcp"))
+            for s in (steps, steps + 1):
+                cm.save(s, state2)
+                cm.wait()
+            state2 = cm.restore(state2, step=steps + 1)
+            cm.close()
+        got = leaves(state2)
+        dcp_bitwise = all(torch.equal(got[k], v) for k, v in want.items())
+        del got
+
+        state2, m = ad2.step(state2, src.batch(steps))
+        base_loss = float(m["loss"])
+        del trainer2, ad2, state2
+        torch.cuda.empty_cache()
+        runs = {}
+        for label in ("fsdp", "tp", "tp_fsdp"):
+            ad = make_ad(strategy=label)
+            state = ad.init(torch.Generator(device="cuda").manual_seed(1))
+            jr = Journal(validate=True)
+            with as_default(jr):
+                state = ShardedCheckpoint(ckdir).restore(state)
+            ad.adopt_state(state)
+            got = leaves(state)
+            for w in wrappers:
+                w.launches = 0
+            state, m = ad.step(state, src.batch(steps))
+            runs[label] = {
+                "strategy": ad.plan.strategy,
+                "restored_bitwise": sorted(got) == sorted(want) and all(
+                    torch.equal(got[k], want[k]) for k in want),
+                "next_loss": float(m["loss"]),
+                "restore_s": _ckpt_timing(jr)["restore_s"],
+                "launches": {w.__name__: w.launches for w in wrappers}}
+            del ad, state, got
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        per_step = {"flash_forward": 24, "flash_dkv": 12, "flash_dq": 12}
+        steps_run = len(losses1) + len(losses2)
+        rec = {
+            "phase": "sharded_trainer", "card": card, "model": "gpt2-small",
+            "batch": 8, "seq": 1024, "steps": steps, "ckpt_every": every,
+            "saved_steps": saved, "torn_step": steps, "torn": torn,
+            "losses_run1": [losses1[s] for s in sorted(losses1)],
+            "run2_steps": sorted(losses2),
+            "replay_bitwise": all(losses2[s] == losses1[s] for s in losses2),
+            "corrupt_events": [{k: r[k] for k in ("step", "quarantined")}
+                               for r in corrupt],
+            "fit_s": {"run1": fit1_s, "run2": fit2_s},
+            "median_step_ms": step_ms, "step_after_save_ms": save_step_ms,
+            "sharded": {"run1": _ckpt_timing(j1), "run2": _ckpt_timing(j2)},
+            "dcp": {**_ckpt_timing(jd), "restored_bitwise": dcp_bitwise},
+            "unwrapped_next_loss": base_loss, "resharded": runs,
+            "host_side": host_side,
+            "launches": launches,
+            "launches_per_step": {k: v / steps_run
+                                  for k, v in launches.items()},
+            "seconds": time.monotonic() - t0}
+        emit(rec)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(saved == list(range(every, steps + 1, every))[-3:],
+            f"committed steps {saved}")
+    require(torn and [r["step"] for r in corrupt] == [steps],
+            f"torn step {steps} not quarantined: {corrupt}")
+    require(sorted(losses2) == list(range(steps - every + 1, steps + 1)),
+            f"run 2 ran steps {sorted(losses2)}: it did not fall back one "
+            f"interval")
+    require(rec["replay_bitwise"], "the resumed steps' losses differ")
+    require(rec["losses_run1"][-1] < rec["losses_run1"][0],
+            f"loss did not fall: {rec['losses_run1']}")
+    require(dcp_bitwise, "the DCP round trip is not bitwise")
+    require(host_side == {"default": "nccl", "host_group": "gloo",
+                          "separate": True, "allgather": [{"rank": 0}]},
+            f"host-side agreement group under NCCL: {host_side}")
+    for label, r in runs.items():
+        require(r["restored_bitwise"] and r["strategy"] == label,
+                f"{label}: restore not bitwise ({r})")
+        require(r["next_loss"] == base_loss,
+                f"{label}: next loss {r['next_loss']} != unwrapped "
+                f"{base_loss}")
+        require(r["launches"] == per_step,
+                f"{label}: K1-K3 a step {r['launches']}")
+    require(rec["launches_per_step"] == per_step,
+            f"K1-K3 a step {rec['launches_per_step']} != {per_step}")
+    return launches
+
+
 # -- phases 11 to 14: generation and the serving features -------------------
 
 
@@ -2605,7 +2909,7 @@ def main(argv=None) -> int:
             block_size=16, quant_kv=True, seed=1)
         del llama
         torch.cuda.empty_cache()
-    if run("train") or run("dist_plan"):
+    if run("train") or run("dist_plan") or run("sharded_trainer"):
         from torch_automatic_distributed_neural_network_tpu_torch import \
             SyntheticLM
 
@@ -2618,10 +2922,15 @@ def main(argv=None) -> int:
     if run("dist_plan"):
         dist_launches = phase_dist_plan(torch, data, card)
         torch.cuda.empty_cache()
-    if run("train") or run("dist_plan"):
-        del data
     if run("trainer"):
         phase_trainer(torch)
+    if run("launch"):
+        phase_launch(card)
+    if run("sharded_trainer"):
+        sharded_launches = phase_sharded_trainer(torch, data, card)
+        torch.cuda.empty_cache()
+    if run("train") or run("dist_plan") or run("sharded_trainer"):
+        del data
     if run("generate"):
         phase_generate(torch)
         torch.cuda.empty_cache()
@@ -2661,7 +2970,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name],
             "launches": (train_launches[name] + dist_launches[name]
-                         + lora_launches[name]),
+                         + lora_launches[name] + sharded_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
@@ -2679,8 +2988,9 @@ def main(argv=None) -> int:
 
 PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
-          "dist_plan", "trainer", "generate", "serve_prefix", "serve_spec",
-          "head_dim_96", "lora_train", "serve_lora")
+          "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
+          "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
+          "serve_lora")
 
 
 if __name__ == "__main__":

@@ -15,7 +15,13 @@ process) and runs every strategy in turn in that one group:
   column-split layer's ``b`` and a row-split layer's ``a`` split with
   their weight): the base stays bitwise as it was and the factors train
   as JAX's do;
-- 4 ranks: ``fsdp``, and ``tp_fsdp`` on 2 x 2 with the clip;
+- 4 ranks: ``fsdp``, ``tp_fsdp`` on 2 x 2 with the clip, and the
+  hybrid meshes, a data axis beside the others: HSDP on data 2 x fsdp 2,
+  DP x TP on data 2 x tensor 2, and ZeRO-1 beside tensor 2 (the JAX
+  package on 4 devices with the same degrees); then the sharded
+  checkpoint's resharding chain, dp/4 -> fsdp/2 -> dp + ZeRO-1/4 -> one
+  process, bitwise at every hop (parameters and Adam moments), and the
+  divergence check under HSDP tripping on one perturbed data replica;
 - 1 rank: ``dp``, ``fsdp``, ``tp`` and ``tp_fsdp``, each wrapper applied
   at degree 1, as on one card.
 
@@ -52,6 +58,9 @@ from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
     SyntheticLM as JSyntheticLM,
 )
 from torch_automatic_distributed_neural_network_tpu.models import GPT2
+from torch_automatic_distributed_neural_network_tpu.topology import (
+    build_mesh as jbuild_mesh,
+)
 from torch_automatic_distributed_neural_network_tpu.training import losses as jlosses
 from torch_automatic_distributed_neural_network_tpu.training import lora as jlora
 from torch_automatic_distributed_neural_network_tpu.utils.jax_compat import shard_map
@@ -94,7 +103,12 @@ RUNS = {
         dict(name="lora_tp", strategy="tp", lora=True)],
     4: [dict(name="fsdp", strategy="fsdp"),
         dict(name="tp_fsdp_clip", strategy="tp_fsdp", clip=CLIP,
-             inspect=True)],
+             inspect=True),
+        dict(name="data2xfsdp2", strategy="auto", mesh={"data": 2, "fsdp": 2}),
+        dict(name="data2xtensor2", strategy="auto",
+             mesh={"data": 2, "tensor": 2}),
+        dict(name="zero1+tensor2", strategy="auto", zero1=True,
+             mesh={"data": 2, "tensor": 2})],
 }
 
 
@@ -128,10 +142,12 @@ def _jax_run(world, run, base=None):
         opt = jlora.lora_optimizer(opt)
         loss = jlora.lora_loss(loss, JLORA_SPEC)
         init_fn = jlora.lora_init_fn(base, JLORA_SPEC)
+    mesh = (jbuild_mesh(**run["mesh"], devices=jax.devices()[:world])
+            if run.get("mesh") else None)
     ad = JAutoDistribute(_jax_model(), optimizer=opt, loss_fn=loss,
                          init_fn=init_fn, strategy=run["strategy"],
-                         devices=jax.devices()[:world],
-                         zero1=run.get("zero1", False),
+                         devices=None if mesh else jax.devices()[:world],
+                         mesh=mesh, zero1=run.get("zero1", False),
                          grad_accum=run.get("grad_accum", 1))
     batches = _batches()
     state = ad.init(jax.random.key(0), batches[0])
@@ -192,7 +208,8 @@ def _results(world, tmp_root):
            "state_dict": decoder_from_jax_params(
                params0, cfg, device="cpu").state_dict(),
            "batches": _batches(), "runs": RUNS[world],
-           "prompt": torch.from_numpy(PROMPT), "lora_spec": LORA_SPEC}
+           "prompt": torch.from_numpy(PROMPT), "lora_spec": LORA_SPEC,
+           "reshard": world == 4}
     for run in RUNS[world]:
         if run.get("lora"):
             r = jax_runs[run["name"]] = _jax_run(world, run, base=params0)
@@ -337,3 +354,24 @@ def test_collectives_match_jax(results, world):
         for name, arr in want.items():
             np.testing.assert_array_equal(got[name].numpy(), arr[rank],
                                           err_msg=f"{name} rank {rank}")
+
+
+def test_sharded_checkpoint_reshards_bitwise(results):
+    """A ``ShardedCheckpoint`` step written under dp on 4 ranks restores
+    under fsdp on 2, is written again and restores under dp + ZeRO-1 on
+    4, and again on one process: parameters and Adam moments bitwise
+    equal to the first state at every hop (JAX's dp/8 -> fsdp/4 ->
+    dp+zero1/8 chain, ``tests/test_launch.py``)."""
+    _, port = results(4)
+    assert port["reshard"] == {"fsdp/2": True, "dp+zero1/4": True,
+                               "one process": True}
+
+
+def test_divergence_check_trips_under_hsdp(results):
+    """data 2 x fsdp 2: a healthy state passes (each replica sums its
+    fsdp shards, reduced over the shard group), one replica's perturbed
+    shard trips the check."""
+    _, port = results(4)
+    got = port["hsdp_divergence"]
+    assert got["healthy"] is None
+    assert "Parameter divergence across hosts at step 1" in got["perturbed"]

@@ -336,23 +336,26 @@ def test_autodistribute_refuses_what_is_not_ported():
     """What the port cannot run raises ``NotImplementedError`` naming its
     ROADMAP item, never a quiet fall to another strategy: expert
     parallelism (item 6), the tuned and searched strategies (item 7),
-    sequence and pipeline parallelism (item 5), several devices in one
-    process (the launcher, item 3b) and the export cache (item 4).  A
-    mesh that is not a ``DeviceMesh`` or a mapping is a TypeError, and a
-    plan over several devices without a process group a RuntimeError;
-    ZeRO-1 without a data axis is the JAX planner's no-op."""
+    sequence and pipeline parallelism (item 5) and the export cache
+    (item 4).  Several devices in one process is a ValueError (one device
+    a process is the port's design, a deliberate difference).  A mesh
+    that is not a ``DeviceMesh`` or a mapping is a TypeError, and a plan
+    over several devices without a process group a RuntimeError; ZeRO-1
+    without a data axis is the JAX planner's no-op."""
     _, params = jax_model_and_params()
     model = port_model(params)
     for kw, item in ((dict(strategy="ep"), "6"), (dict(strategy="ep_fsdp"), "6"),
                      (dict(strategy="ep_tp"), "6"),
                      (dict(strategy="tuned"), "7"),
                      (dict(strategy="search"), "7"),
-                     (dict(devices=["cpu", "cpu"]), "3b"),
                      (dict(seq_parallel=2), "5"),
                      (dict(pipeline_stages=2), "5"),
                      (dict(export_cache=True), "4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             AutoDistribute(model, loss_fn=next_token_loss, device="cpu", **kw)
+    with pytest.raises(ValueError, match="one device a process"):
+        AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
+                       devices=["cpu", "cpu"])
     with pytest.raises(TypeError, match="mesh"):
         AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
                        mesh=object())

@@ -17,10 +17,23 @@ full final parameters (gathered) and, for a run marked ``inspect``, the
 eval loss and greedy tokens of the trained state; and the collectives'
 results of every rank.  A run marked ``lora`` freezes the base, puts
 ``job["lora"]``'s factors on it (``job["lora_spec"]``) and trains them
-under ``lora_optimizer``.  Imports torch and the port only.
+under ``lora_optimizer``.  A run may name a ``mesh`` (a degrees
+mapping: the hybrid meshes, a data axis beside fsdp or tensor).
+
+In the world of 4 the job also holds ``reshard``: the resharding chain
+of ``training/shards.py`` — a ``ShardedCheckpoint`` step written under
+dp on 4 ranks restores under fsdp on 2 (ranks 0-1 in a new group of
+their own), is written again, restores under dp + ZeRO-1 on 4 (a new
+group of all 4), is written again and restores on one process (rank 0,
+no group); rank 0 records whether each hop's state (parameters and the
+Adam moments, gathered) equals the first bitwise — and
+``hsdp_divergence``: the Trainer's divergence check on a data2 x fsdp2
+state, healthy and with one data replica's shard perturbed.  Imports
+torch and the port only.
 """
 
 import sys
+from pathlib import Path
 
 import torch
 
@@ -69,7 +82,8 @@ def _run(job, run):
     ad = AutoDistribute(model, optimizer=optimizer,
                         loss_fn=loss_fn, device="cpu",
                         strategy=run["strategy"], zero1=run.get("zero1", False),
-                        grad_accum=run.get("grad_accum", 1))
+                        grad_accum=run.get("grad_accum", 1),
+                        mesh=run.get("mesh"))
     with journal.as_default(journal.Journal(host0_only=False)) as j:
         state = ad.init(None, job["batches"][0])
     events = {name: [r for r in j.records if r["name"] == name]
@@ -147,6 +161,118 @@ def _flash_refusals(world):
     return out
 
 
+def _fresh_ad(job, strategy="dp", zero1=False, mesh=None):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        DecoderLM,
+        TransformerConfig,
+        next_token_loss,
+    )
+
+    model = DecoderLM(TransformerConfig(**job["cfg"]))
+    model.load_state_dict(job["state_dict"])
+    return AutoDistribute(model, optimizer=_optimizer(None),
+                          loss_fn=next_token_loss, device="cpu",
+                          strategy=strategy, zero1=zero1, mesh=mesh)
+
+
+def _full_state(state):
+    """Every leaf of the state, whole (a sharded one gathered)."""
+    from torch_automatic_distributed_neural_network_tpu_torch.models.transformer_core import (
+        gathered,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        resilience,
+    )
+
+    return {k: gathered(resilience.as_tensor(v)).detach().clone()
+            for k, v in resilience.flatten_state(state).items()}
+
+
+def _equal(a, b):
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _reshard(job, rank, init_file, out_dir):
+    """dp/4 -> fsdp/2 -> dp+zero1/4 -> one process (module docstring);
+    rank 0's verdict per hop."""
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import topology
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards import (
+        ShardedCheckpoint,
+    )
+
+    batches = job["batches"]
+    dirs = [f"{out_dir}/reshard{i}" for i in range(3)]
+
+    def restored(ad, directory):
+        state = ad.init(None, batches[0])
+        state = ShardedCheckpoint(directory).restore(state)
+        ad.adopt_state(state)
+        return state
+
+    def save(state, directory):
+        with ShardedCheckpoint(directory) as ck:
+            ck.save(2, state)
+            ck.wait()
+        dist.barrier()  # per-process saves: every marker has landed
+
+    ad = _fresh_ad(job)
+    state = ad.init(None, batches[0])
+    for b in batches[:2]:
+        state, _ = ad.step(state, b)
+    want = _full_state(state)
+    save(state, dirs[0])
+    out = {}
+    dist.destroy_process_group()
+    if rank < 2:
+        topology.initialize_distributed(
+            backend="gloo", init_method=f"file://{init_file}.fsdp2",
+            world_size=2, rank=rank)
+        state = restored(_fresh_ad(job, "fsdp"), dirs[0])
+        out["fsdp/2"] = _equal(_full_state(state), want)
+        save(state, dirs[1])
+        dist.destroy_process_group()
+    topology.initialize_distributed(
+        backend="gloo", init_method=f"file://{init_file}.zero1",
+        world_size=4, rank=rank)
+    state = restored(_fresh_ad(job, "dp", zero1=True), dirs[1])
+    out["dp+zero1/4"] = _equal(_full_state(state), want)
+    save(state, dirs[2])
+    dist.destroy_process_group()
+    if rank == 0:
+        state = restored(_fresh_ad(job), dirs[2])
+        out["one process"] = _equal(_full_state(state), want)
+    return out
+
+
+def _hsdp_divergence(job, rank):
+    """The divergence check on data2 x fsdp2: healthy, then with the
+    shard of one replica (data coordinate 1) moved."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        Trainer,
+        TrainerConfig,
+    )
+
+    ad = _fresh_ad(job, mesh={"data": 2, "fsdp": 2})
+    state = ad.init(None, job["batches"][0])
+    state, _ = ad.step(state, job["batches"][0])
+    trainer = Trainer(ad, TrainerConfig(divergence_every=1))
+    out = {}
+    for case in ("healthy", "perturbed"):
+        if case == "perturbed" and ad.plan.mesh.get_local_rank("data") == 1:
+            with torch.no_grad():
+                p = state.params["layers.0.mlp.up_proj.weight"]
+                (p.to_local() if hasattr(p, "to_local") else p).add_(1e-3)
+        try:
+            trainer._guard_divergence(state, 1)
+            out[case] = None
+        except RuntimeError as e:
+            out[case] = str(e)
+    return out
+
+
 def main(rank, world, init_file, job_path, out_path):
     import torch.distributed as dist
 
@@ -164,10 +290,15 @@ def main(rank, world, init_file, job_path, out_path):
     dist.all_gather_object(gathered, got)
     out["collectives"] = gathered
     out["flash_refusals"] = _flash_refusals(world)
+    if job.get("reshard"):
+        out["hsdp_divergence"] = _hsdp_divergence(job, rank)
+        out["reshard"] = _reshard(job, rank, init_file,
+                                  str(Path(out_path).parent))
+    else:
+        dist.barrier()
+        dist.destroy_process_group()
     if rank == 0:
         torch.save(out, out_path)
-    dist.barrier()
-    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

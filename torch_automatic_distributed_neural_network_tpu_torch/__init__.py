@@ -1,7 +1,7 @@
 """tadnn on PyTorch and CUDA: the port of the JAX package
 ``torch_automatic_distributed_neural_network_tpu`` to an NVIDIA H100.
 
-Three slices so far:
+Its slices:
 
 - serving: the GPT-2 and Llama decoder families (``models``), KV-cached
   decoding (``inference.decode``), the paged KV pool, scheduler and
@@ -19,7 +19,16 @@ Three slices so far:
   fallback chain, restarts, anomaly rollback and preemption drain
   (``training``), the token-file loader with its native C++ backend
   (``data``), ``doctor`` in the command line, and the ``train_gpt2``
-  example (``examples``).
+  example (``examples``);
+- generation, the serving features and LoRA (``inference``,
+  ``training.lora``), and the journal's event schema (``obs.schema``);
+- training across processes: the planner and its wrappers over a
+  ``torch.distributed`` group (``planner``, ``executor``: DDP, FSDP2,
+  tensor parallelism, ZeRO-1 and their hybrids with a data axis), the
+  Trainer over a process group, coordinated and per-process sharded
+  checkpoints (``training.checkpoint``, ``training.shards``), and the
+  launcher (``training.launch``, ``launch`` and ``run`` in the command
+  line).
 
 The kernels are CUDA C++ for Hopper (sources in ``csrc/``).  The package
 imports torch and numpy, never jax.  Entry points run on the card unless

@@ -1,10 +1,15 @@
-"""Command line for the PyTorch port: the ``serve``, ``doctor`` and
-``devices`` subcommands.
+"""Command line for the PyTorch port: the ``serve``, ``doctor``,
+``devices``, ``run`` and ``launch`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
     python -m torch_automatic_distributed_neural_network_tpu_torch doctor CKPT_DIR
+    python -m torch_automatic_distributed_neural_network_tpu_torch doctor --launch-dir DIR
     python -m torch_automatic_distributed_neural_network_tpu_torch devices
+    torchrun --nproc-per-node 2 -m torch_automatic_distributed_neural_network_tpu_torch \\
+        run train.py -- ARGS
+    python -m torch_automatic_distributed_neural_network_tpu_torch launch \\
+        --smoke --hosts 2 --launch-dir DIR
 
 Mirrors the JAX package's ``tadnn serve``: the same flags and the same
 JSON summary line, plus ``--device`` (default ``cuda``; ``cpu`` runs the
@@ -15,8 +20,15 @@ same N seeded tokens), ``--speculative K`` and ``--adapters N
 ``tenant{i}``, request j served by ``tenant{j % N}``) run as in the JAX
 package.  Flags whose features the port does not have yet
 (disaggregation, tensor parallelism) are accepted and refused with exit
-code 2 when set.  ``doctor`` is the
-checkpoint part of the JAX package's ``tadnn doctor``.
+code 2 when set.  ``doctor`` is the checkpoint and launch part of the
+JAX package's ``tadnn doctor`` (a sharded directory, ``training/
+shards.py``, is verified through its per-host shard chain).  ``run``
+brings the process group up from ``torchrun``'s environment and runs a
+script (the JAX package's ``tadnn run``); ``launch`` spawns and
+supervises a worker cohort (``training/launch.py``), and ``launch
+--smoke`` runs a clean and a SIGKILLed launch and exits 0 only when
+their per-step losses are bitwise equal.  The cohort forms over NCCL,
+one card a worker, unless ``--simulate`` asks for gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +37,8 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import runpy
 import sys
 import time
 
@@ -195,21 +209,39 @@ def cmd_serve(args: argparse.Namespace) -> int:
 def cmd_doctor(args: argparse.Namespace) -> int:
     """Verify a checkpoint directory's integrity and print the fallback
     chain restore_or_init would walk.  Exit 0 when at least one step is
-    restorable, 1 otherwise (corrupt-only or empty directory)."""
+    restorable, 1 otherwise (corrupt-only or empty directory).
+
+    ``--launch-dir`` switches to launch supervision health (training/
+    launch.py): per-host last-seen heartbeats, restart-budget
+    consumption, and which host broke the cohort; exit 1 when the
+    launch gave up."""
     if args.launch_dir:
-        raise NotImplementedError(
-            "doctor --launch-dir: the launcher is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 3)")
+        from .training import launch as launch_mod
+
+        doc = launch_mod.launch_doctor(args.launch_dir)
+        if args.json:
+            print(json.dumps(doc))
+        else:
+            print(launch_mod.format_launch_doctor(doc))
+        return 1 if doc.get("ok") is False else 0
     if args.gateway_dir:
         raise NotImplementedError(
             "doctor --gateway-dir: the gateway is not ported to the "
             "PyTorch package yet (ROADMAP Queue 1 item 7)")
     if not args.directory:
-        print("doctor: a checkpoint directory is required", file=sys.stderr)
+        print("doctor: a checkpoint directory or --launch-dir is required",
+              file=sys.stderr)
         return 2
-    from .training import resilience
+    from .training import resilience, shards
 
-    report = resilience.verify_directory(args.directory)
+    # sharded-format dirs (training/shards.py) carry a meta.json per
+    # step; verify those through the per-host shard chain instead
+    sharded = any(
+        os.path.isfile(os.path.join(args.directory, str(s), "meta.json"))
+        for s in resilience.list_steps(args.directory)
+    )
+    report = (shards.verify_directory(args.directory) if sharded
+              else resilience.verify_directory(args.directory))
     if args.json:
         print(json.dumps(report))
     else:
@@ -245,6 +277,110 @@ def cmd_devices(args: argparse.Namespace) -> int:
                           "process_count": process_count(),
                           "chip": dataclasses.asdict(chip)}))
     return 0
+
+
+def cmd_run(args: argparse.Namespace) -> int:
+    """Bring the process group up from ``torchrun``'s environment
+    (``topology.initialize_distributed``; a no-op for one process
+    launched without it), then run ``script`` as ``__main__`` with the
+    arguments after it."""
+    from . import topology
+    from .utils.device import process_count, process_index
+
+    topology.initialize_distributed()
+    if process_count() > 1 and process_index() == 0:
+        print(f"distributed: {process_count()} processes, backend "
+              f"{__import__('torch').distributed.get_backend()}")
+    script_args = list(args.script_args)
+    if script_args and script_args[0] == "--":
+        script_args = script_args[1:]
+    sys.argv = [args.script, *script_args]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(args.script)) or ".")
+    runpy.run_path(args.script, run_name="__main__")
+    return 0
+
+
+def cmd_launch(args: argparse.Namespace) -> int:
+    """Elastic multi-process launch (training/launch.py): spawn and
+    supervise N workers with sharded async checkpoints, cohort restart
+    under the RestartPolicy budget, and seeded chaos.
+
+    ``--smoke`` runs the acceptance pair — a clean run and a chaos run
+    (one SIGKILL) — and exits nonzero unless the chaos run resumes to
+    **bitwise-identical** per-step losses."""
+    from .training import resilience
+    from .training.launch import LaunchConfig, Launcher
+
+    chaos = None
+    if args.kill_host_at or args.tear_shard_at or args.partition_journal_at:
+        chaos = resilience.ChaosPlan(
+            seed=args.seed,
+            sigkill_at=tuple(args.kill_host_at or ()),
+            shard_tear_at=tuple(args.tear_shard_at or ()),
+            journal_partition_at=tuple(args.partition_journal_at or ()),
+            chaos_host=args.chaos_host,
+        )
+
+    def make_cfg(launch_dir: str, chaos_plan) -> LaunchConfig:
+        return LaunchConfig(
+            launch_dir=launch_dir, hosts=args.hosts, steps=args.steps,
+            ckpt_every=args.ckpt_every, strategy=args.strategy,
+            zero1=args.zero1, seed=args.seed,
+            max_restarts=args.max_restarts, elastic=args.elastic,
+            watchdog_s=args.watchdog_s, chaos=chaos_plan,
+            heartbeat_interval_s=args.heartbeat_interval_s,
+            simulate=args.simulate, export_cache=args.export_cache,
+        )
+
+    if args.smoke:
+        # acceptance pair: uninterrupted oracle, then the same seeded
+        # run with one SIGKILL right after a step — per-step losses must
+        # match bitwise after the resume
+        if chaos is None:
+            chaos = resilience.ChaosPlan(
+                seed=args.seed, sigkill_at=(max(args.ckpt_every + 1, 3),),
+                chaos_host=args.chaos_host)
+        clean = Launcher(make_cfg(
+            os.path.join(args.launch_dir, "clean"), None)).run()
+        chaotic = Launcher(make_cfg(
+            os.path.join(args.launch_dir, "chaos"), chaos)).run()
+        parity = (clean.get("ok") and chaotic.get("ok")
+                  and clean.get("losses") == chaotic.get("losses"))
+        out = {
+            "ok": bool(parity),
+            "clean_ok": clean.get("ok"),
+            "chaos_ok": chaotic.get("ok"),
+            "parity": bool(clean.get("losses")
+                           and clean.get("losses") == chaotic.get("losses")),
+            "restarts_used": chaotic.get("restarts_used"),
+            "final_loss": chaotic.get("final_loss"),
+            "world": chaotic.get("world"),
+            "merged_journal": chaotic.get("merged_journal"),
+            "launch_dir": args.launch_dir,
+            "clean_rounds_s": clean.get("rounds_s"),
+            "chaos_rounds_s": chaotic.get("rounds_s"),
+            "resume_s": chaotic.get("resume_s"),
+        }
+        if not chaotic.get("ok"):
+            out["error"] = chaotic.get("error")
+        print(json.dumps(out))
+        return 0 if out["ok"] else 1
+
+    result = Launcher(make_cfg(args.launch_dir, chaos)).run()
+    if args.json:
+        print(json.dumps(result))
+    else:
+        if result["ok"]:
+            print(f"launch ok: world={result['world']} "
+                  f"rounds={result['rounds']} "
+                  f"restarts={result['restarts_used']} "
+                  f"final_step={result['final_step']} "
+                  f"final_loss={result['final_loss']}")
+            if result.get("merged_journal"):
+                print(f"merged journal: {result['merged_journal']}")
+        else:
+            print(f"launch FAILED: {result.get('error')}", file=sys.stderr)
+    return 0 if result["ok"] else 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -330,7 +466,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("directory", nargs="?", default=None,
                    help="CheckpointManager directory")
     p.add_argument("--launch-dir", default=None,
-                   help="launch supervision health (not ported yet)")
+                   help="launch supervision health (training/launch.py): "
+                        "heartbeats, restart budget, the failed host")
     p.add_argument("--gateway-dir", default=None,
                    help="fleet post-mortem of a gateway (not ported yet)")
     p.add_argument("--json", action="store_true")
@@ -340,6 +477,58 @@ def build_parser() -> argparse.ArgumentParser:
                        help="the detected topology and its chip's numbers")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_devices)
+
+    p = sub.add_parser("run", help="run a training script (initializes the "
+                                   "process group under torchrun)")
+    p.add_argument("script")
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser(
+        "launch",
+        help="elastic multi-process launcher: spawn + supervise N workers "
+             "(one device each) with async sharded checkpoints, cohort "
+             "restart on death/hang, and seeded chaos "
+             "(training/launch.py); --smoke runs the kill-and-resume "
+             "bitwise-parity acceptance pair",
+    )
+    p.add_argument("--launch-dir", required=True,
+                   help="run directory (heartbeats, shards, journals)")
+    p.add_argument("--hosts", type=int, default=2,
+                   help="worker processes, one device each")
+    p.add_argument("--steps", type=int, default=6)
+    p.add_argument("--ckpt-every", type=int, default=2)
+    p.add_argument("--strategy", default="auto",
+                   help="worker strategy ('auto' re-plans per cohort)")
+    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-restarts", type=int, default=2)
+    p.add_argument("--elastic", action="store_true",
+                   help="shrink the cohort after a host death instead "
+                        "of respawning at full size")
+    p.add_argument("--watchdog-s", type=float, default=120.0,
+                   help="no heartbeat step-progress within this = hung")
+    p.add_argument("--heartbeat-interval-s", type=float, default=0.5)
+    p.add_argument("--kill-host-at", type=int, action="append",
+                   help="SIGKILL the chaos host right after this step "
+                        "(repeatable)")
+    p.add_argument("--tear-shard-at", type=int, action="append",
+                   help="tear the chaos host's shard of the newest "
+                        "committed step at this step (repeatable)")
+    p.add_argument("--partition-journal-at", type=int, action="append",
+                   help="partition the chaos host's journal at this "
+                        "step (repeatable)")
+    p.add_argument("--chaos-host", type=int, default=0)
+    p.add_argument("--simulate", action="store_true",
+                   help="workers on the CPU over gloo (default: NCCL, "
+                        "the card LOCAL_RANK names a worker)")
+    p.add_argument("--export-cache", default=None, dest="export_cache",
+                   help="not ported yet (ROADMAP Queue 1 item 4)")
+    p.add_argument("--smoke", action="store_true",
+                   help="clean + one-SIGKILL chaos pair; exit nonzero "
+                        "unless resumed losses match bitwise")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_launch)
     return ap
 
 

@@ -18,17 +18,20 @@ masters, and a frozen parameter stays bitwise as it was.  ``build_plan`` runs th
 topology (``topology.detect``): strategy, mesh degrees, activation
 checkpointing, ZeRO-1.  One process drives one device.  Without a
 ``torch.distributed`` process group the plan has one device and the
-step is the single-device one.  With a group up (``torchrun``, then
-``topology.initialize_distributed()``) the plan's mesh becomes a
-``DeviceMesh`` over the world and ``executor.apply_plan`` wraps the
-model by the plan's strategy, even at degree 1: ``dp`` (DDP, or
-ZeRO-1's sharded update), ``fsdp`` (FSDP2), ``tp``
-(``parallelize_module``) or ``tp_fsdp``.  Every rank takes the global
-batch and keeps its rows (``shard_batch``); the step returns the global
-batch's loss.  ``generate`` gathers the full weights on each rank and
-decodes there, in bf16 or int8.  Expert, sequence and pipeline
-parallelism, the tuned and searched strategies and the export cache
-raise ``NotImplementedError`` naming their ROADMAP item.
+step is the single-device one.  With a group up (``tadnn launch``,
+``torchrun``, then ``topology.initialize_distributed()``) the plan's
+mesh becomes a ``DeviceMesh`` over the world and
+``executor.apply_plan`` wraps the model by the plan's strategy, even at
+degree 1: ``dp`` (DDP, or ZeRO-1's sharded update), ``fsdp`` (FSDP2;
+HSDP beside a data axis), ``tp`` (``parallelize_module``; beside a data
+axis its gradients averaged over it) or ``tp_fsdp``.  Every rank takes
+the global batch and keeps its rows (``shard_batch``), or its own rows
+only (a ``data.HostBatch`` from ``data.shard_for_host``); the step
+returns the global batch's loss.  ``generate`` gathers the full
+weights on each rank and decodes there, in bf16 or int8.  Expert,
+sequence and pipeline parallelism, the tuned and searched strategies
+and the export cache raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 The step updates the state in place (the JAX step donates its input
 state): ``step`` returns a new :class:`TrainState` whose ``params`` and
@@ -62,6 +65,7 @@ from .training.optim import (
     zero1_shards,
     zero1_update,
 )
+from .data.loader import HostBatch
 from .utils.device import (
     group_up,
     process_count,
@@ -154,10 +158,13 @@ class AutoDistribute:
         if devices is not None:
             devices = list(devices)
             if len(devices) != process_count():
-                raise _not_ported(
+                # a deliberate difference from the JAX package, whose
+                # process drives all of its host's devices
+                raise ValueError(
                     f"{len(devices)} devices in {process_count()} "
-                    f"process(es): the port drives one device a process, "
-                    f"and launching them", "3b")
+                    f"process(es): the port drives one device a process; "
+                    f"start one process a device (tadnn launch, torchrun) "
+                    f"and pass one device a process, in rank order")
             if device is None:
                 device = devices[process_index()]
         self.device = resolve_device(device)
@@ -343,6 +350,8 @@ class AutoDistribute:
             n = np.shape(leaf)[0] if np.ndim(leaf) else None
             if n is None:
                 continue
+            if isinstance(batch, HostBatch):
+                n *= dp  # this rank's rows of the global batch
             if k > 1 and n % k:
                 raise ValueError(f"Global batch size {n} is not divisible "
                                  f"by grad_accum={k}.")
@@ -356,15 +365,24 @@ class AutoDistribute:
     # -- the train step -------------------------------------------------------
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.as_tensor(v).to(self.device)
+               for k, v in batch.items()}
+        return HostBatch(out) if isinstance(batch, HostBatch) else out
+
+    def _local_rows(self, batch: dict) -> dict:
+        """This rank's rows: a ``HostBatch`` holds them already."""
+        if self._exec is None or isinstance(batch, HostBatch):
+            return batch
+        return self._exec.local_rows(batch)
 
     def shard_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch, on its device: its
         coordinate on the batch axes picks them (data-major, the JAX
-        batch spec's order); one device keeps the whole batch."""
-        batch = self._to_device(batch)
-        return batch if self._exec is None else self._exec.local_rows(batch)
+        batch spec's order); one device keeps the whole batch, and a
+        ``HostBatch`` (``data.shard_for_host``) is this rank's rows
+        already, as the JAX step takes a host's slice under several
+        processes."""
+        return self._local_rows(self._to_device(batch))
 
     def _value_and_grad(self, batch, generator):
         if self._loss_fn is None:
@@ -391,8 +409,9 @@ class AutoDistribute:
     def step(self, state: TrainState, batch: dict
              ) -> tuple[TrainState, dict[str, torch.Tensor]]:
         """One optimizer step on the global ``batch`` (numpy arrays or
-        tensors).  Returns the updated state and ``{"loss": ..., **aux}``
-        of the global batch."""
+        tensors), or on this rank's rows of it (a ``HostBatch``).
+        Returns the updated state and ``{"loss": ..., **aux}`` of the
+        global batch."""
         if self.remat is None:
             raise RuntimeError("call init() first")
         if self._exec is not None:
@@ -449,9 +468,9 @@ class AutoDistribute:
         k = self._grad_accum
         loss, auxes = None, []
         for i in range(k):
-            mb = ex.local_rows({key: v.reshape(k, v.shape[0] // k,
-                                               *v.shape[1:])[i]
-                                if v.ndim else v for key, v in batch.items()})
+            mb = self._local_rows(type(batch)(
+                {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
+                 if v.ndim else v for key, v in batch.items()}))
             gen = self._generator(state, i)
             with ex.sync(i == k - 1), torch.enable_grad():
                 if self.remat:

@@ -15,14 +15,16 @@ package's ``data/loader.py``; batches bit-identical to its).
   bound with ctypes.  The pure-numpy fallback implements the identical
   determinism contract, so the backend is a pure speed choice.
 
-Per-host input sharding (``shard_for_host``) comes with the multi-GPU
-slice (ROADMAP Queue 1 item 3).
+Per-host input sharding: :func:`shard_for_host` slices a global batch
+to this process's rows and marks them (:class:`HostBatch`), which
+``AutoDistribute.step`` then takes as they are.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import threading
@@ -31,6 +33,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils.device import process_count as _process_count
+from ..utils.device import process_index as _process_index
 from ..utils.device import resolve_device
 
 _MAGIC = 0x4E444154  # "TADN"
@@ -314,3 +318,50 @@ class TokenFileDataset:
             self.close()
         except Exception:
             pass
+
+
+class HostBatch(dict):
+    """A batch that holds this process's rows only (:func:`shard_for_host`).
+    ``AutoDistribute.step`` and ``eval_step`` take it as it is; a plain
+    mapping is the global batch, of which every rank keeps its rows."""
+
+
+_BATCH_AXES = ("data", "fsdp", "expert")  # the planner's batch spec order
+
+
+def shard_for_host(batch: dict, *, process_index: int | None = None,
+                   process_count: int | None = None,
+                   mesh: Any = None) -> HostBatch:
+    """Slice a global batch to this process's rows (the multi-process
+    input path, the JAX package's ``shard_for_host``).
+
+    Without ``mesh``: part ``process_index`` of ``process_count`` equal
+    parts, as in the JAX package (default: this process's rank and the
+    world size; one process keeps the whole batch).  That is right when
+    every process sits on the batch axes (dp, fsdp, a hybrid of the
+    two).  With ``mesh`` (a plan's ``DeviceMesh``): the rows of this
+    rank's coordinate on the batch axes, data-major, which
+    ``Execution.local_rows`` picks from a global batch.  Under a tensor
+    axis the ranks of one tensor group then hold the same rows (one
+    device a process, where a JAX host feeds all of its devices)."""
+    if mesh is not None:
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        axes = [a for a in _BATCH_AXES if sizes.get(a, 1) > 1]
+        pc = math.prod(sizes[a] for a in axes)
+        pi = 0
+        for a in axes:
+            pi = pi * sizes[a] + mesh.get_local_rank(a)
+    else:
+        pi = _process_index() if process_index is None else process_index
+        pc = _process_count() if process_count is None else process_count
+    if pc == 1:
+        return HostBatch(batch)
+
+    def slc(x):
+        n = x.shape[0]
+        if n % pc:
+            raise ValueError(f"batch dim {n} not divisible by {pc} hosts")
+        per = n // pc
+        return x[pi * per:(pi + 1) * per]
+
+    return HostBatch({k: slc(v) for k, v in batch.items()})

@@ -14,11 +14,13 @@ Usage::
 One field more than the JAX example: ``run.device`` (default ``cuda``,
 ``cuda:LOCAL_RANK`` under ``torchrun``; ``cpu`` runs the plain PyTorch
 path).  ``parallel.strategy`` reaches ``AutoDistribute``: under
-``torchrun`` the process group comes up and the step runs wrapped by the
-plan (DDP, FSDP2, tensor parallelism); the ``Trainer`` across several
-processes, and ``parallel.seq`` / ``parallel.pipe``, raise (ROADMAP
-Queue 1 items 3b and 5).  ``main`` returns the final state, the trainer
-and the data source, so a caller can check the run.
+``torchrun`` (or ``python -m torch_automatic_distributed_neural_network_tpu_torch
+run``) the process group comes up, the step runs wrapped by the plan
+(DDP, FSDP2, tensor parallelism, their hybrids with a data axis), every
+rank takes the global batch and keeps its rows, and the checkpoints
+are coordinated across the ranks; ``parallel.seq`` / ``parallel.pipe``
+raise (ROADMAP Queue 1 item 5).  ``main`` returns the final state, the
+trainer and the data source, so a caller can check the run.
 """
 
 import dataclasses

@@ -21,9 +21,17 @@ in place by the plan's strategy, even at degree 1:
   (``ignored_params``), never padded;
 - ``tp_fsdp``: the TP wrappers, then ``fully_shard`` on ``mesh["fsdp"]``.
 
+Hybrid meshes, a ``data`` axis beside the others: under ``fsdp`` and
+``tp_fsdp`` FSDP2 shards on the 2-D ``mesh["data", "fsdp"]`` (HSDP:
+replicas over data, shards over fsdp); under ``tp`` the TP wrappers sit
+on ``mesh["tensor"]`` and the gradients are averaged over ``data``; with
+``zero1`` the optimizer state also shards over ``data``
+(``training/optim.py::zero1_update``, beside the tensor shards).
+
 Gradients come out as the mean over the batch axes: DDP and FSDP2
 average over their groups, and :meth:`Execution.reduce_grads` averages
-what no wrapper reduced (the parameters FSDP ignores).
+what no wrapper reduced (the parameters FSDP ignores, and every
+gradient over ``data`` beside tensor parallelism).
 """
 
 from __future__ import annotations
@@ -65,11 +73,6 @@ def check_executable(plan: ShardPlan) -> None:
             raise NotImplementedError(
                 f"a {axis} mesh axis of {degrees[axis]} is not ported to "
                 f"the PyTorch package yet (ROADMAP Queue 1 item {item})")
-    if plan.strategy != "dp" and degrees.get("data", 1) > 1:
-        raise NotImplementedError(
-            f"strategy {plan.strategy!r} on a mesh with a data axis of "
-            f"{degrees['data']} (a hybrid of replicas and shards) is not "
-            f"ported to the PyTorch package yet (ROADMAP Queue 1 item 3b)")
 
 
 def _dim_of(spec, axis: str) -> int | None:
@@ -147,7 +150,8 @@ def _apply_tp(model: nn.Module, layout: dict, mesh) -> None:
 
 
 def _apply_fsdp(model: nn.Module, layout: dict, mesh) -> set[str]:
-    """``fully_shard`` per layer and at the root; returns the names of
+    """``fully_shard`` per layer and at the root (HSDP on
+    ``mesh["data", "fsdp"]`` beside a data axis); returns the names of
     the parameters FSDP manages."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
@@ -156,7 +160,9 @@ def _apply_fsdp(model: nn.Module, layout: dict, mesh) -> set[str]:
     dims = {id(p): _dim_of(layout[n], "fsdp")
             for n, p in named.items()}
     ignored = {p for p in named.values() if dims[id(p)] is None}
-    kw = dict(mesh=mesh["fsdp"], ignored_params=ignored,
+    hybrid = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"] > 1
+    kw = dict(mesh=mesh["data", "fsdp"] if hybrid else mesh["fsdp"],
+              ignored_params=ignored,
               shard_placement_fn=lambda p: Shard(dims[id(p)]))
     for layer in getattr(model, "layers", ()):
         fully_shard(layer, **kw)
@@ -266,12 +272,13 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
         _apply_tp(model, layout, mesh)
     if plan.strategy in ("fsdp", "tp_fsdp"):
         for name in _apply_fsdp(model, layout, mesh):
-            reduced[name].add("fsdp")
-    if plan.strategy == "dp":
-        # ZeRO-1's update reduces over data itself
+            # HSDP averages over data too
+            reduced[name].update(("fsdp", "data"))
+    if plan.strategy == "dp" or plan.zero1:
+        # DDP averages over data, and ZeRO-1's update reduces over it
         for name in names:
             reduced[name].add("data")
-        if not plan.zero1:
+        if plan.strategy == "dp" and not plan.zero1:
             module = _DDP(model, process_group=mesh.get_group("data"),
                           device_ids=([device.index or 0]
                                       if device.type == "cuda" else None))

@@ -34,7 +34,7 @@ from typing import Mapping
 
 import torch
 
-from .utils.device import group_up
+from .utils.device import group_up, host_group
 
 # Canonical axis ordering: outermost (slowest links OK) -> innermost
 # (fastest links required).
@@ -404,3 +404,4 @@ def initialize_distributed(*, backend: str | None = None,
         backend, init_method=init_method or "env://",
         world_size=-1 if world_size is None else world_size,
         rank=-1 if rank is None else rank, **kwargs)
+    host_group()  # under NCCL its gloo side group, made here, not mid-step

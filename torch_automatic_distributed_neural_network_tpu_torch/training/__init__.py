@@ -1,8 +1,9 @@
 """Training-loop subsystems: losses, optimizers and precision policies,
-LoRA, metrics, checkpointing, resilience and the trainer.
+LoRA, metrics, checkpointing (coordinated and per-process sharded),
+resilience, the trainer and the multi-process launcher.
 
-The checkpoint, resilience, elastic and trainer symbols are lazy (module
-``__getattr__``, as in the JAX package): they import
+The checkpoint, resilience, elastic, trainer, shards and launch symbols
+are lazy (module ``__getattr__``, as in the JAX package): they import
 ``torch.distributed.checkpoint``, which importing the package for
 serving should not pay for.
 """
@@ -27,6 +28,7 @@ from .optim import (
     chain,
     clip_by_global_norm,
     decay_mask,
+    sgd,
     warmup_cosine,
 )
 from .precision import PRESETS, Precision, cast_floats, resolve, wrap_optimizer
@@ -52,6 +54,13 @@ _LAZY = {
     "StallError": "resilience",
     "tear_checkpoint": "resilience",
     "verify_directory": "resilience",
+    "ShardedCheckpoint": "shards",
+    "tear_shard": "shards",
+    "verify_sharded_directory": "shards",
+    "LaunchConfig": "launch",
+    "Launcher": "launch",
+    "launch_doctor": "launch",
+    "format_launch_doctor": "launch",
 }
 
 __all__ = [
@@ -60,7 +69,7 @@ __all__ = [
     "apply_updates", "blockwise_next_token_loss", "cast_floats", "chain",
     "clip_by_global_norm", "decay_mask", "init_lora_params",
     "lora_init_fn", "lora_loss", "lora_optimizer", "merge_lora",
-    "next_token_loss", "peak_flops_per_chip", "resolve",
+    "next_token_loss", "peak_flops_per_chip", "resolve", "sgd",
     "transformer_step_flops", "warmup_cosine", "wrap_optimizer", *_LAZY,
 ]
 

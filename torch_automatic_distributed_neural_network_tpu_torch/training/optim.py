@@ -158,6 +158,11 @@ def adamw(lr_or_schedule: float | Schedule, b1: float = 0.9,
                  _scale_by_learning_rate(lr_or_schedule))
 
 
+def sgd(lr_or_schedule: float | Schedule) -> GradientTransformation:
+    """``optax.sgd`` without momentum: the update is ``-lr * g``."""
+    return _scale_by_learning_rate(lr_or_schedule)
+
+
 def _sq_sum(g: torch.Tensor) -> torch.Tensor:
     """The sum of squares of a whole tensor: a ``DTensor``'s partial sums
     reduced over the mesh (each shard once, a replica once)."""
@@ -191,20 +196,48 @@ def _zero1_dim(opt_spec, param_spec) -> int | None:
     return None
 
 
-def zero1_shards(params: Params, *, mesh, opt_specs, param_specs) -> Params:
-    """The optimizer's view of replicated ``params`` under ZeRO-1: a leaf
-    whose optimizer spec adds ``data`` on a dim is this rank's slice
-    there, a ``DTensor`` sharded over ``mesh["data"]``; any other leaf
-    is itself."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+def _zero1_layout(p: torch.Tensor, mesh, d: int):
+    """Where ZeRO-1 keeps ``p``'s optimizer shard: ``(mesh, placements
+    of p, placements of the shard)``.  A plain (replicated) tensor
+    shards over ``mesh["data"]``; a ``DTensor`` of a plan keeps its own
+    placements and adds ``Shard(d)`` on ``data``: its mesh's data dim
+    where it has one (HSDP), else a ``data`` dim in front of its mesh
+    (tensor parallelism beside a data axis)."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    data = mesh["data"]
+    if not is_dtensor(p):
+        return mesh["data"], [Replicate()], [Shard(d)]
+    names = p.device_mesh.mesh_dim_names
+    placements = list(p.placements)
+    if "data" in names:
+        i = names.index("data")
+        return (p.device_mesh, placements,
+                placements[:i] + [Shard(d)] + placements[i + 1:])
+    return (mesh[("data", *names)], [Replicate(), *placements],
+            [Shard(d), *placements])
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def zero1_shards(params: Params, *, mesh, opt_specs, param_specs) -> Params:
+    """The optimizer's view of ``params`` under ZeRO-1: a leaf whose
+    optimizer spec adds ``data`` on a dim is this rank's slice there, a
+    ``DTensor`` sharded over ``data`` (:func:`_zero1_layout`: beside a
+    plan's own tensor or fsdp shards); any other leaf is itself."""
+    from torch.distributed.tensor import DTensor
+
     out = {}
     for name, p in params.items():
         d = _zero1_dim(opt_specs[name], param_specs[name])
-        out[name] = p if d is None else DTensor.from_local(
-            p.detach(), data, [Replicate()], run_check=False).redistribute(
-                data, [Shard(d)])
+        if d is None:
+            out[name] = p
+            continue
+        m, whole, shard = _zero1_layout(p, mesh, d)
+        out[name] = DTensor.from_local(
+            _local(p.detach()), m, whole, run_check=False).redistribute(
+                m, shard)
     return out
 
 
@@ -213,12 +246,14 @@ def zero1_update(optimizer: GradientTransformation, grads: Params,
                  opt_state: Any, params: Params, *, mesh, opt_specs,
                  param_specs) -> tuple[Params, Any]:
     """ZeRO-1 sharded weight update (arxiv 2004.13336): each rank's
-    local ``grads`` reduce-scattered onto the optimizer shard over
-    ``mesh["data"]`` (averaged over its ranks), the update run on the
-    shard (``opt_state`` holds shards: :func:`zero1_shards` at init),
-    the fresh shards all-gathered into the replicated ``params`` in
-    place.  A leaf ZeRO-1 leaves whole has its gradient all-reduced."""
-    from torch.distributed.tensor import DTensor, Partial, Shard
+    ``grads`` reduce-scattered onto the optimizer shard over
+    ``mesh["data"]`` (averaged over its ranks; a gradient FSDP2 already
+    averaged over data, under HSDP, is only sliced), the update run on
+    the shard (``opt_state`` holds shards: :func:`zero1_shards` at
+    init), the fresh shards all-gathered into ``params`` in place.  A
+    leaf ZeRO-1 leaves whole has its gradient all-reduced over data,
+    unless its ``DTensor`` already carries the data axis."""
+    from torch.distributed.tensor import DTensor, Partial
 
     data = mesh["data"]
     n = data.size()
@@ -227,18 +262,34 @@ def zero1_update(optimizer: GradientTransformation, grads: Params,
     sharded_grads = {}
     for name, g in grads.items():
         d = _zero1_dim(opt_specs[name], param_specs[name])
+        averaged = is_dtensor(g) and "data" in g.device_mesh.mesh_dim_names
         if d is None:
-            g = g.clone()
-            torch.distributed.all_reduce(g, group=data.get_group())
-        else:
-            g = DTensor.from_local(g, data, [Partial()],
-                                   run_check=False).redistribute(
-                                       data, [Shard(d)])
-        sharded_grads[name] = g / n
+            if not averaged:
+                local = _local(g).clone()
+                torch.distributed.all_reduce(local, group=data.get_group())
+                local = local / n
+                g = (DTensor.from_local(local, g.device_mesh, g.placements,
+                                        run_check=False)
+                     if is_dtensor(g) else local)
+            sharded_grads[name] = g
+            continue
+        m, whole, shard = _zero1_layout(params[name], mesh, d)
+        if averaged:
+            sharded_grads[name] = DTensor.from_local(
+                _local(g), m, whole, run_check=False).redistribute(m, shard)
+            continue
+        # the data dim _zero1_layout put in front: this rank's sum
+        sharded_grads[name] = DTensor.from_local(
+            _local(g), m, [Partial(), *whole[1:]],
+            run_check=False).redistribute(m, shard) / n
     updates, opt_state = optimizer.update(sharded_grads, opt_state, shards)
     for name, p in params.items():
         new = shards[name] + updates[name]
-        p.copy_(new.full_tensor() if is_dtensor(new) else new)
+        d = _zero1_dim(opt_specs[name], param_specs[name])
+        if d is not None:
+            m, whole, _ = _zero1_layout(p, mesh, d)
+            new = new.redistribute(m, whole)
+        _local(p).copy_(_local(new))
     return params, opt_state
 
 

@@ -45,6 +45,7 @@ import torch
 from torch.distributed.checkpoint.api import CheckpointException
 
 from ..obs import journal as obs_journal
+from ..utils.device import local_shard
 
 MANIFEST_VERSION = 1
 
@@ -185,17 +186,34 @@ def read_manifest(directory: str, step: int) -> dict | None:
 
 def verify_tree(tree: Any, manifest: dict) -> list[str]:
     """Problems (empty = verified) comparing ``tree``'s leaves against a
-    manifest from :func:`write_manifest`."""
+    manifest from :func:`write_manifest`.  An entry with ``leaf`` and
+    ``offsets`` (a shard of a leaf written by several processes,
+    ``checkpoint.CheckpointManager``) is checked on that slice of the
+    leaf when the part of the leaf held here (a ``DTensor``'s local
+    shard, or a whole tensor) contains it, and skipped otherwise (another
+    rank holds it)."""
     want = manifest.get("leaves", {})
-    got = leaf_checksums(tree)
-    problems = []
-    for path in sorted(set(want) - set(got)):
-        problems.append(f"missing leaf {path}")
-    for path in sorted(set(got) - set(want)):
-        problems.append(f"unexpected leaf {path}")
-    for path in sorted(set(want) & set(got)):
-        if want[path]["sha256"] != got[path]["sha256"]:
-            problems.append(f"checksum mismatch at {path}")
+    leaves = flatten_state(tree)
+    paths = {e.get("leaf", key) for key, e in want.items()}
+    problems = [f"missing leaf {p}" for p in sorted(paths - set(leaves))]
+    problems += [f"unexpected leaf {p}"
+                 for p in sorted(set(leaves) - paths)]
+    for key, entry in sorted(want.items()):
+        path = entry.get("leaf", key)
+        if path not in leaves:
+            continue
+        local, held, _ = local_shard(as_tensor(leaves[path]))
+        offsets = entry.get("offsets", [0] * local.dim())
+        box = []
+        for o, n, h, size in zip(offsets, entry["shape"], held, local.shape):
+            if o < h or o + n > h + size:
+                break
+            box.append(slice(o - h, o - h + n))
+        else:
+            piece = as_tensor(local[tuple(box)])
+            if hashlib.sha256(_host_bytes(piece)).hexdigest() != (
+                    entry["sha256"]):
+                problems.append(f"checksum mismatch at {key}")
     return problems
 
 
@@ -204,7 +222,7 @@ def verify_tree(tree: Any, manifest: dict) -> list[str]:
 
 def list_steps(directory: str) -> list[int]:
     """Committed step numbers in a checkpoint directory, ascending.
-    Quarantined (``<step>.corrupt``) and in-progress (``<step>.tmp-*``)
+    Quarantined (``<step>.corrupt``) and in-progress (``<step>.tmp``)
     directories are excluded."""
     if not os.path.isdir(directory):
         return []
@@ -255,9 +273,9 @@ def _raw_restore_state(directory: str, step: int) -> dict[str, torch.Tensor]:
         if not hasattr(m, "properties"):
             raise ValueError(f"leaf {name} is not a tensor")
         leaves[name] = torch.empty(tuple(m.size), dtype=m.properties.dtype)
-    # one process, no process group: the port's checkpoints are written
-    # by a single process (multi-process sharding is ROADMAP Queue 1
-    # item 3)
+    # one process reads every rank's files: the metadata holds each
+    # leaf's global shape, so a step written by several processes loads
+    # whole here
     dcp.load(leaves, checkpoint_id=path, no_dist=True)
     return leaves
 
@@ -478,8 +496,7 @@ class ChaosPlan:
     lands), ``nan`` (``ChaosData`` poisons that step's batch) and
     ``stall`` (the callback sleeps ``stall_s``).  The orchestrator kinds
     (``sigkill``, ``journal_partition``, ``shard_tear``) are scheduled
-    the same way; the launcher that fires them is not ported yet
-    (ROADMAP Queue 1 item 3).
+    the same way and fired by the launcher (``training/launch.py``).
     """
 
     seed: int = 0

@@ -1,6 +1,6 @@
 """Training loop with metrics, checkpointing and debug guards (the JAX
-package's ``training/trainer.py`` over the port's one-device
-``AutoDistribute``).
+package's ``training/trainer.py`` over the port's ``AutoDistribute``,
+one device a process, one process or several).
 
 The loop is deliberately thin: ``AutoDistribute.step`` is the hot path;
 everything here runs on the host between steps and touches device data
@@ -15,9 +15,16 @@ Guards:
   spike or NaN the last verified checkpoint is restored and the
   offending batch window skipped (resilience.py) — recovery instead of
   a crash, deterministic under step-indexed data;
-- the cross-process parameter-divergence check (``divergence_every``)
-  is a no-op on one process, as in the JAX package; the port's trainer
-  runs one process (several are ROADMAP Queue 1 item 3b);
+- the cross-process parameter-divergence check (``divergence_every``):
+  every rank sums |param| in fp32 over the whole of each parameter (a
+  sharded one reduced over its shards first, so replicas compare the
+  same global value) and the sums are all-gathered and held equal to
+  rtol 1e-6; a no-op on one process, as in the JAX package;
+- the preemption drain agrees across processes: the ranks OR their
+  SIGTERM flags by an all-gather every ``preempt_check_every`` steps, on
+  the same schedule everywhere, and stop after the same step.  These
+  agreements run on CPU tensors over a gloo group
+  (``utils.device.host_group``);
 - determinism: the per-step dropout generators derive from the state's
   seed and step counter, so restarts reproduce.
 
@@ -38,12 +45,23 @@ from typing import Any, Callable, Iterable
 
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 from ..obs import GoodputMeter
 from ..obs import journal as obs_journal
-from ..utils.device import process_count, process_index
-from .checkpoint import RESTORE_ERRORS, CheckpointManager, restore_or_init
+from ..utils.device import (
+    host_allgather,
+    is_dtensor,
+    process_count,
+    process_index,
+)
+from .checkpoint import (
+    RESTORE_ERRORS,
+    CheckpointManager,
+    agreed_latest_step,
+    restore_or_init,
+)
 from .metrics import MetricsLogger
 from .resilience import (
     AnomalyConfig,
@@ -85,6 +103,12 @@ class TrainerConfig:
     eval_every: int = 0  # 0 = off; run evaluate(eval_data) every N steps
     eval_batches: int = 8  # batches per periodic evaluation
     preempt_drain: bool = True  # SIGTERM -> checkpoint + clean return
+    # the drain agreement across processes is a host-blocking all-gather,
+    # amortized to every N steps (the same on every rank: a local flag
+    # never starts an all-gather off the schedule, or the ranks hang).
+    # Drain latency is then up to N step times, which must fit the
+    # preemptor's grace window.  One process checks its flag every step.
+    preempt_check_every: int = 8
     # static lint before step 0: not ported yet (module docstring);
     # True journals lint.skipped, preflight_action='raise' raises
     preflight: bool = True
@@ -235,10 +259,6 @@ class Trainer:
                 f"trace_every_n={cfg.trace_every_n}: profiler-traced steps "
                 "are not ported to the PyTorch package yet (ROADMAP Queue 1 "
                 "item 7)")
-        if process_count() > 1:
-            raise NotImplementedError(
-                "Trainer across several processes is not ported to the "
-                "PyTorch package yet (ROADMAP Queue 1 item 3b)")
         meter = GoodputMeter()
         indexed = _is_step_indexed(data)
         data_iter = None if indexed else iter(data)
@@ -572,10 +592,10 @@ class Trainer:
         self, state: "TrainState",
     ) -> "tuple[TrainState | None, int | None]":
         """Walk the fallback chain newest→oldest with verification,
-        quarantining corrupt steps (restore_or_init's walk, written into
-        the live state's tensors)."""
+        quarantining corrupt steps (restore_or_init's walk, the ranks
+        together, written into the live state's tensors)."""
         while True:
-            step = self.ckpt.latest_step()
+            step = agreed_latest_step(self.ckpt)
             if step is None:
                 return None, None
             try:
@@ -587,10 +607,20 @@ class Trainer:
             return restored, step
 
     def _drain_agreed(self, step: int) -> bool:
-        """Whether to drain after ``step``: this process's flag (one
-        process; the JAX package's multi-host agreement comes with
-        ROADMAP Queue 1 item 3)."""
-        return self.preempt.requested
+        """Cross-process agreement on the preemption drain.
+
+        Each process sees only its own SIGTERM, and signals can land on
+        opposite sides of a step boundary: the ranks must agree on WHICH
+        step to stop after, or they run mismatched collectives and hang.
+        One process: the local flag.  Several: an all-gather OR of the
+        flags on a deterministic schedule (every ``preempt_check_every``
+        steps, identical on every rank, so they stay in lockstep)."""
+        if process_count() == 1:
+            return self.preempt.requested
+        every = max(1, self.cfg.preempt_check_every)
+        if step % every != 0:
+            return False
+        return any(host_allgather(bool(self.preempt.requested)))
 
     # -- guards -------------------------------------------------------------
 
@@ -611,5 +641,23 @@ class Trainer:
         warnings.warn(msg)
 
     def _guard_divergence(self, state: "TrainState", step: int) -> None:
-        """Cross-process param-hash agreement: a no-op on one process, as
-        in the JAX package."""
+        """Cross-process parameter agreement (several processes only): the
+        sum of |param| in fp32 over every parameter, a sharded one summed
+        over its shards first (``full_tensor`` of the partial sums, as
+        JAX's ``jnp.sum`` of a global array), all-gathered and held equal
+        to rtol 1e-6."""
+        if process_count() == 1:
+            return
+        with torch.no_grad():
+            total = torch.zeros((), dtype=torch.float32)
+            for p in state.params.values():
+                s = p.detach().float().abs().sum()
+                if is_dtensor(s):
+                    s = s.full_tensor()
+                total = total + s.cpu()
+        gathered = np.asarray(host_allgather(float(total)))
+        if not np.allclose(gathered, gathered[0], rtol=1e-6):
+            raise RuntimeError(
+                f"Parameter divergence across hosts at step {step}: "
+                f"{gathered}")
+

@@ -1,5 +1,6 @@
-"""Device resolution for the port's entry points, and the process's
-place in a ``torch.distributed`` group.
+"""Device resolution for the port's entry points, the process's place in
+a ``torch.distributed`` group, a tensor's local shard, and the gloo
+group for small host-side agreements.
 
 Entry points run on the card unless the caller asks for the CPU: a
 ``device`` of None means ``cuda`` (``cuda:LOCAL_RANK`` when a process
@@ -73,3 +74,54 @@ def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
     return isinstance(x, DTensor)
+
+
+def local_shard(t: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...],
+                                          bool]:
+    """``(local tensor, its global offsets, replica 0?)`` of a tensor: a
+    ``DTensor``'s local shard where its placements put it (its
+    coordinate 0 on every mesh dim that does not shard it makes it
+    replica 0); a plain tensor is whole, replica 0 everywhere (the
+    caller picks one process)."""
+    if not is_dtensor(t):
+        return t, (0,) * t.dim(), True
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset,
+    )
+
+    _, offsets = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    coord = t.device_mesh.get_coordinate()
+    replica0 = all(c == 0 for c, pl in zip(coord, t.placements)
+                   if not pl.is_shard())
+    return t.to_local(), tuple(int(o) for o in offsets), replica0
+
+
+_HOST_GROUPS: dict = {}
+
+
+def host_group():
+    """The process group for small host-side agreements (a drain flag, a
+    parameter checksum), as CPU tensors: the default group under gloo,
+    and a gloo group over the same ranks, made once, under NCCL (a CPU
+    tensor never goes over an NCCL group).  ``new_group`` is itself a
+    collective: ``topology.initialize_distributed`` makes it as the group
+    comes up, so the first agreement inside a step loop makes none."""
+    dist = torch.distributed
+    if dist.get_backend() == "gloo":
+        return None
+    default = dist.distributed_c10d._get_default_group()
+    if default not in _HOST_GROUPS:
+        _HOST_GROUPS[default] = dist.new_group(backend="gloo")
+    return _HOST_GROUPS[default]
+
+
+def host_allgather(obj) -> list:
+    """``obj`` (picklable) from every rank, in rank order, over
+    :func:`host_group`; ``[obj]`` when no process group is up."""
+    if not group_up():
+        return [obj]
+    dist = torch.distributed
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj, group=host_group())
+    return out
