@@ -58,7 +58,8 @@ card, in phases, one JSON line each; any failure exits non-zero:
    wrapper) geometries, S in {1, 100, 129,
    512, 1000, 1024}, causal or not, window None or 256, fp32 and bf16,
    and at the local heads of a tensor degree of 4 (GPT-2 small's 3,
-   Llama 1b's 8 / 2);
+   Llama 1b's 8 / 2), and at BERT base's training shape (B 8, 12 heads,
+   hd 64, S 512, not causal, bf16);
    bounds 1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at
    |x| in [2, 4)), and bf16 dv differing from its plain version in at
    most 2 % of its elements (K2 keeps p in fp32 for dv; rounding p to
@@ -67,7 +68,8 @@ card, in phases, one JSON line each; any failure exits non-zero:
    then the ``autograd.Function`` on the card against autograd of
    ``xla_attention`` in fp32 (1e-4);
 8. flash timing at the training shape (B 8, S 1024, 12 heads, hd 64,
-   causal, bf16), L2 flushed before each launch: K1, K2 and K3 beside
+   causal, bf16) and at BERT base's (B 8, S 512, not causal), L2 flushed
+   before each launch: K1, K2 and K3 beside
    their plain versions, their bounds, their achieved TFLOP/s and PyTorch's
    ``scaled_dot_product_attention`` (forward for K1, its backward for K2
    and K3 together; beside it the kernel time ``torch.profiler`` sees);
@@ -173,7 +175,22 @@ card, in phases, one JSON line each; any failure exits non-zero:
    to the saved ones and one more step's loss bitwise equal to the
    unwrapped continuation's; K1/K2/K3 24/12/12 a step; save dispatch,
    write to durable, restore seconds and bytes, beside the same four of
-   ``CheckpointManager`` (DCP, the coordinated save) on the same state.
+   ``CheckpointManager`` (DCP, the coordinated save) on the same state;
+20. the model zoo (``zoo``): the port's examples ``train_bert_mlm``,
+   ``train_moe``, ``train_vit``, ``train_transformer_mt`` and
+   ``train_mnist_mlp`` at full width (random weights from a seed), each
+   stepping on one batch of its synthetic stream: BERT base MLM at B 8 x
+   S 512 (bf16; K1-K3 non-causal, 24/12/12 a step) and again with
+   ``model.attention_impl=xla`` (no flash launch; the losses of steps
+   1-3 within 2e-3), and one more step at the run's last weights with
+   every K1-K3 call held against its plain version on the same tensors
+   (within 2e-2 of the output's largest magnitude), MoE ``small`` at B 8 x S 1024 (8 experts, top-2,
+   capacity factor 1.25; K1-K3 causal, 24/12/12 a step; the first step's
+   dropped fraction, aux and z losses), ViT-B/16 at B 64 x 224^2, the MT
+   Transformer base at B 64 x 64 + 64 and the MNIST MLP at B 128 (no
+   flash launch: below the flash floor or no attention); every loss
+   finite and falling; step ms (median after one warm-up), items a
+   second, MFU where the logger has one, peak memory.
 
 Phases 5 (``serve``), 10 (``trainer``), 16, 17 and 19 write their journals
 with schema validation on (``Journal(validate=True)``): a record that
@@ -191,6 +208,7 @@ check of a new kernel) and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -999,6 +1017,37 @@ def phase_flash_kernel_cases(torch) -> dict:
                      if dtype == torch.bfloat16 else {})})
             key = str(dtype).replace("torch.", "")
             worst[key] = max(worst.get(key, 0.0), *errs.values())
+    # BERT base's attention as it trains (phase zoo): B 8, 12 heads, hd 64,
+    # S 512, not causal, no mask, bf16
+    n += 1
+    q, k, v, do = _flash_inputs(torch, B=8, S=512, H=12, kvH=12, hd=64,
+                                dtype=torch.bfloat16, seed=n)
+    o, lse = fa.flash_forward(q, k, v, causal=False)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, False)
+    delta = fa._delta(o_ref, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal=False)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal=False)
+    want = {"o": o_ref, "lse": lse_ref, "dq": fa.flash_dq_reference(
+        q, k, v, do, lse_ref, delta, False)}
+    want["dk"], want["dv"] = fa.flash_dkv_reference(q, k, v, do, lse_ref,
+                                                    delta, False)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a in {"o": o, "lse": lse, "dk": dk, "dv": dv, "dq": dq}.items():
+        require(bool(torch.isfinite(a).all()),
+                f"bert-base flash case: non-finite {name}")
+        errs[name] = _max_err(a, want[name])
+        require(errs[name] <= bounds[torch.bfloat16],
+                f"bert-base flash case: {name} max_abs_err {errs[name]} > "
+                f"{bounds[torch.bfloat16]}")
+    share = _diff_share(dv, want["dv"])
+    dv_shares.append((share, n, "bert-base", 512, False, None))
+    worst["bfloat16"] = max(worst["bfloat16"], *errs.values())
+    emit({"phase": "flash_kernel_cases", "geometry": "bert-base",
+          "B": 8, "heads": 12, "kv_heads": 12, "hd": 64, "dtype": "bfloat16",
+          "S": [512], "masks": ["full"], "max_abs_err": errs,
+          "bound": bounds[torch.bfloat16],
+          "dv_diff_share": {"kernel": share}})
     share, *case = max(dv_shares)
     emit({"phase": "flash_kernel_cases_done", "cases": n,
           "worst_abs_err": worst, "worst_dv_diff_share": share,
@@ -1099,36 +1148,37 @@ def _flash_bound_ms(*, pairs, hd, n_products, bytes_moved):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def phase_flash_timing(torch) -> dict:
+def _flash_timing_at(torch, flush, *, B, S, H, hd, causal, seed) -> dict:
+    """K1, K2 and K3 at one bf16 shape: each against its plain version
+    (2e-2), then timed beside the plain version, the bound and PyTorch's
+    ``scaled_dot_product_attention`` (its backward for K2 and K3)."""
     import torch.nn.functional as F
 
     from torch_automatic_distributed_neural_network_tpu_torch.ops import \
         flash_attention as fa
-    from torch_automatic_distributed_neural_network_tpu_torch.ops.attention \
-        import attention
 
-    B, S, H, hd = 8, 1024, 12, 64
     q, k, v, do = _flash_inputs(torch, B=B, S=S, H=H, kvH=H, hd=hd,
-                                dtype=torch.bfloat16, seed=1001)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    kw = dict(causal=True)
+                                dtype=torch.bfloat16, seed=seed)
+    kw = dict(causal=causal)
     o, lse = fa.flash_forward(q, k, v, **kw)
-    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, True)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal)
     delta = fa._delta(o_ref, do)
     dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
     dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
-    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, True)
-    dq_ref = fa.flash_dq_reference(q, k, v, do, lse_ref, delta, True)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref, delta,
+                                            causal)
+    dq_ref = fa.flash_dq_reference(q, k, v, do, lse_ref, delta, causal)
     errs = {"flash_forward": max(_max_err(o, o_ref), _max_err(lse, lse_ref)),
             "flash_dkv": max(_max_err(dk, dk_ref), _max_err(dv, dv_ref)),
             "flash_dq": _max_err(dq, dq_ref)}
     for name, err in errs.items():
-        require(err <= 2e-2, f"timing-shape {name} error {err} > 2e-2")
+        require(err <= 2e-2, f"timing-shape {name} error {err} > 2e-2 "
+                f"(B {B}, S {S}, causal {causal})")
 
     # the library yardstick: one PyTorch call for the same function
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))  # BHSD
     qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
 
     def sdpa_bwd():
         return torch.autograd.grad(sdpa_out, (qg, kg, vg), dot,
@@ -1137,16 +1187,18 @@ def phase_flash_timing(torch) -> dict:
     runs = {
         "flash_forward": (
             lambda: fa.flash_forward(q, k, v, **kw),
-            lambda: fa.flash_forward_reference(q, k, v, True),
+            lambda: fa.flash_forward_reference(q, k, v, causal),
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True)),
+                                                   is_causal=causal)),
         "flash_dkv": (
             lambda: fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw),
-            lambda: fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, True),
+            lambda: fa.flash_dkv_reference(q, k, v, do, lse_ref, delta,
+                                           causal),
             sdpa_bwd),
         "flash_dq": (
             lambda: fa.flash_dq(q, k, v, do, lse_ref, delta, **kw),
-            lambda: fa.flash_dq_reference(q, k, v, do, lse_ref, delta, True),
+            lambda: fa.flash_dq_reference(q, k, v, do, lse_ref, delta,
+                                          causal),
             sdpa_bwd),
     }
     # the library calls' device time, timed once each: the cold-L2 median,
@@ -1154,8 +1206,8 @@ def phase_flash_timing(torch) -> dict:
     library_ms = {fn: (_time_ms(torch, fn, 20, flush),
                        _profiled_ms(torch, fn, 10))
                   for fn in dict.fromkeys(r[2] for r in runs.values())}
-    # causal: the pairs with q >= k, what the function needs
-    pairs = B * H * S * (S + 1) // 2
+    # the (q, k) pairs the function needs: q >= k when causal, all if not
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     t_bytes = B * S * H * hd * q.element_size()  # one [B, S, H, hd] tensor
     row_bytes = B * H * S * 4                    # lse or delta, fp32
     work = {"flash_forward": dict(n_products=2,
@@ -1176,12 +1228,28 @@ def phase_flash_timing(torch) -> dict:
         rec["roofline_share"] = rec["bound_ms"] / ms
         rec["tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
         emit({"phase": "flash_timing", "kernel": name,
-              "shape": {"B": B, "S": S, "H": H, "hd": hd, "causal": True,
+              "shape": {"B": B, "S": S, "H": H, "hd": hd, "causal": causal,
                         "dtype": "bfloat16"},
               "library": ("scaled_dot_product_attention backward (dq, dk "
                           "and dv together)" if library is sdpa_bwd else
                           "scaled_dot_product_attention"), **rec})
         out[name] = rec
+    return out
+
+
+def phase_flash_timing(torch) -> tuple[dict, dict]:
+    """K1-K3 timed at GPT-2 small's training shape (causal) and at BERT
+    base's (B 8, S 512, not causal), then flash against ``xla`` through
+    the dispatcher."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops.attention \
+        import attention
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    out = _flash_timing_at(torch, flush, B=8, S=1024, H=12, hd=64,
+                           causal=True, seed=1001)
+    bert = _flash_timing_at(torch, flush, B=8, S=512, H=12, hd=64,
+                            causal=False, seed=1002)
+    B, H, hd = 8, 12, 64
 
     # flash against the einsum path through the dispatcher, forward and
     # forward + backward, from below the floor (512) to the training length
@@ -1203,7 +1271,7 @@ def phase_flash_timing(torch) -> dict:
             rec[f"{impl}_fwd_bwd_ms"] = _time_ms(torch, fwd_bwd, 10, flush)
         emit({"phase": "flash_vs_xla", "S": seq, "B": B, "H": H, "hd": hd,
               "causal": True, "dtype": "bfloat16", **rec})
-    return out
+    return out, bert
 
 
 # -- phase 9: the training main path ---------------------------------------
@@ -1781,6 +1849,10 @@ class _OneBatch:
 
     def batch(self, i):
         return self._batch
+
+    def __iter__(self):
+        while True:
+            yield self._batch
 
 
 def _ckpt_timing(journal) -> dict:
@@ -2828,6 +2900,259 @@ def phase_serve_lora(torch) -> int:
     return launches
 
 
+# -- phase 20: the model zoo on one card -------------------------------------
+
+
+_FLASH_NAMES = ("flash_forward", "flash_dkv", "flash_dq")
+# BERT base through K1-K3 against the plain attention, bf16: the losses of
+# steps 1-3 on one batch
+_BERT_LOSS_BOUND = 2e-3
+# each K1-K3 call of one BERT base step, against its plain version on the
+# very same tensors: the largest error over the output's largest magnitude
+_PATH_CALL_BOUND = 2e-2
+
+
+def _zoo_run(torch, family, module, argv, data, *, steps, items,
+             keep=False):
+    """One example's ``main`` (``examples/<module>.py``) at full width,
+    stepping on one batch (``data``): its per-step metrics records (host
+    step ms, synchronised by the loss fetch of every step), the K1-K3
+    launches of the run, the peak memory and the wall time; with
+    ``keep``, ``(record, what main returned)``."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    mod = importlib.import_module(
+        f"torch_automatic_distributed_neural_network_tpu_torch.examples."
+        f"{module}")
+    wrappers = [getattr(fa, n) for n in _FLASH_NAMES]
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="tadnn_zoo_")
+    try:
+        if module == "train_mnist_mlp":
+            argv = argv + ["--steps", str(steps), "--log-every", "1",
+                           "--out-dir", tmp]
+            path = os.path.join(tmp, "metrics.jsonl")
+        else:
+            path = os.path.join(tmp, "metrics.jsonl")
+            argv = argv + [f"run.steps={steps}", "run.log_every=1",
+                           f"run.metrics_path={path}"]
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv, data=data)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        with open(path) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    records = [r for r in records if "step_time_s" in r]
+    require(len(records) == steps,
+            f"{family}: {len(records)} metrics records for {steps} steps")
+    step_ms = [r["step_time_s"] * 1e3 for r in records]
+    losses = [r["loss"] for r in records]
+    median_ms = statistics.median(step_ms[1:])  # after one warm-up step
+    mfu = [r["mfu"] for r in records[1:] if "mfu" in r]
+    launches = {w.__name__: w.launches for w in wrappers}
+    rec = {"family": family, "example": module, "argv": argv,
+           "steps": steps, "step_ms": step_ms, "median_step_ms": median_ms,
+           "items_per_step": items,
+           "items_per_s": items / (median_ms / 1e3),
+           "mfu": statistics.median(mfu) if mfu else None,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "launches": launches,
+           "launches_per_step": {n: c / steps for n, c in launches.items()},
+           "seconds": seconds,
+           "printed_last": buf.getvalue().strip().splitlines()[-1]}
+    require(all(math.isfinite(x) for x in losses),
+            f"{family}: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"{family}: loss did not fall: {losses}")
+    return (rec, out) if keep else rec
+
+
+def _checked_calls(run) -> tuple:
+    """``run()`` with every K1-K3 wrapper call also computed by the
+    kernel's plain version on the very same tensors: what ``run``
+    returns, the calls of each kernel, and each kernel's largest error
+    over the largest magnitude of the output it was compared on."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    plain = {"flash_forward": fa.flash_forward_reference,
+             "flash_dkv": fa.flash_dkv_reference,
+             "flash_dq": fa.flash_dq_reference}
+    kernels = {name: getattr(fa, name) for name in _FLASH_NAMES}
+    calls = dict.fromkeys(_FLASH_NAMES, 0)
+    errs = dict.fromkeys(_FLASH_NAMES, 0.0)
+
+    def checked(name):
+        def call(*args, **kw):
+            got = kernels[name](*args, **kw)
+            want = plain[name](*args, **kw)
+            for a, b in zip(*(x if isinstance(x, tuple) else (x,)
+                              for x in (got, want))):
+                scale = float(b.detach().float().abs().max())
+                errs[name] = max(errs[name],
+                                 _max_err(a, b) / max(scale, 1e-30))
+            calls[name] += 1
+            return got
+        call.launches = 0  # the wrapper counts its launches by its name
+        return call
+
+    for name in _FLASH_NAMES:
+        setattr(fa, name, checked(name))
+    try:
+        out = run()
+    finally:
+        for name, kernel in kernels.items():
+            setattr(fa, name, kernel)
+    return out, calls, errs
+
+
+def phase_zoo(torch) -> dict[str, int]:
+    """The rest of the model zoo through its examples' entry points
+    (``AutoDistribute`` and ``Trainer.fit``, or the MoE and MNIST
+    examples' own loops), at full width with random weights from a seed,
+    each stepping on one batch of its synthetic stream: BERT base MLM at
+    B 8 x S 512 (K1-K3 non-causal; one more step's K1-K3 calls each held
+    to its plain version on its own tensors), the same with the plain
+    attention (the losses of steps 1-3 within ``_BERT_LOSS_BOUND``), MoE ``small`` at B 8 x S 1024 (K1-K3
+    causal beside the routed expert bank), ViT-B/16 at B 64 x 224^2, the
+    MT Transformer base at B 64 x 64 and the MNIST MLP at B 128.  Each
+    family's K1-K3 launches a step must be what its depth and remat
+    imply (none below the flash floor of 512)."""
+    from torch_automatic_distributed_neural_network_tpu_torch.data import (
+        SyntheticClassification, SyntheticLM, SyntheticMLM, SyntheticSeq2Seq)
+    from torch_automatic_distributed_neural_network_tpu_torch.models.moe \
+        import MoEMlp
+
+    t_phase = time.monotonic()
+    total = dict.fromkeys(_FLASH_NAMES, 0)
+    per_layer = {"flash_forward": 2, "flash_dkv": 1, "flash_dq": 1}  # remat
+
+    def check_launches(rec, layers):
+        for name, count in rec["launches"].items():
+            want = rec["steps"] * layers * per_layer[name]
+            require(count == want, f"{rec['family']}: {name} launched "
+                    f"{count} times, {layers} layers and remat imply {want}")
+            total[name] += count
+
+    # BERT base, masked LM at its published maximum length
+    bert_argv = ["model.size=base", "model.seq_len=512", "run.batch_size=8"]
+    mlm = _OneBatch(SyntheticMLM(vocab_size=30522, seq_len=512,
+                                 batch_size=8).batch(0))
+    bert, out = _zoo_run(torch, "bert-base-mlm", "train_bert_mlm", bert_argv,
+                         mlm, steps=10, items=8 * 512, keep=True)
+    check_launches(bert, 12)
+    # one more step's gradients at the run's last weights, every K1-K3
+    # call also made by its plain version on the very same tensors
+    ad = out["trainer"].ad
+    _, calls, call_errs = _checked_calls(
+        lambda: ad._value_and_grad(ad._to_device(mlm.batch(0)), None))
+    del out, ad
+    gc.collect()
+    plain = _zoo_run(torch, "bert-base-mlm-xla", "train_bert_mlm",
+                     bert_argv + ["model.attention_impl=xla"], mlm,
+                     steps=3, items=8 * 512)
+    require(all(c == 0 for c in plain["launches"].values()),
+            f"the plain BERT run launched flash kernels: {plain['launches']}")
+    bert["path_calls"] = calls
+    bert["path_call_rel_err"] = call_errs
+    bert["path_call_bound"] = _PATH_CALL_BOUND
+    # steps 1-3 on the same batch from the same weights: step 1's loss is
+    # K1's forward, steps 2 and 3 follow updates made from K2 and K3
+    n = plain["steps"]
+    bert["losses_xla"] = plain["losses"]
+    bert["loss_diffs"] = [abs(a - b) for a, b in
+                          zip(bert["losses"][:n], plain["losses"])]
+    bert["loss_bound"] = _BERT_LOSS_BOUND
+    bert["xla_median_step_ms"] = plain["median_step_ms"]
+    bert["xla_peak_memory_gib"] = plain["peak_memory_gib"]
+    emit({"phase": "zoo", **bert})
+    require(max(bert["loss_diffs"]) <= _BERT_LOSS_BOUND,
+            f"BERT flash vs plain losses of steps 1-{n} differ by "
+            f"{bert['loss_diffs']}, over {_BERT_LOSS_BOUND}")
+    require(calls == {k: 12 * c for k, c in per_layer.items()},
+            f"BERT: K1-K3 called {calls} times in the checked step")
+    for name, err in call_errs.items():
+        require(err <= _PATH_CALL_BOUND,
+                f"BERT: {name} differs from its plain version by {err} of "
+                f"the output's largest magnitude, over {_PATH_CALL_BOUND}")
+
+    # MoE small: the routing metrics of the first step's forward, read off
+    # each layer's expert bank by a global forward hook that removes itself
+    # once it has every layer's
+    first = []
+
+    def on_forward(module, args, output):
+        if isinstance(module, MoEMlp):
+            first.append({k: float(v) for k, v in module.metrics.items()})
+            if len(first) == module.cfg.n_layers:
+                hook.remove()
+
+    hook = torch.nn.modules.module.register_module_forward_hook(on_forward)
+    try:
+        moe = _zoo_run(
+            torch, "moe-small", "train_moe",
+            ["model.size=small", "model.seq_len=1024", "run.batch_size=8"],
+            _OneBatch(SyntheticLM(vocab_size=32000, seq_len=1025,
+                                  batch_size=8).batch(0)),
+            steps=6, items=8 * 1024)
+    finally:
+        hook.remove()
+    from torch_automatic_distributed_neural_network_tpu_torch.models import \
+        moe_config
+
+    mcfg = moe_config("small", max_seq_len=1024)
+    require(len(first) == mcfg.n_layers,
+            f"MoE: routing metrics of {len(first)} layers")
+    moe["first_step_routing"] = {
+        k: statistics.mean(layer[k] for layer in first)
+        for k in ("dropped_fraction", "aux_loss", "z_loss")}
+    moe["first_step_routing_per_layer"] = first
+    moe["params"] = {"total": mcfg.num_params(),
+                     "active": mcfg.active_params()}
+    emit({"phase": "zoo", **moe})
+    check_launches(moe, 12)
+
+    # the families below the flash floor: plain GEMMs, no flash kernel.
+    # ViT-B/16 steps at lr 1e-4: the example's default 3e-3 is set for its
+    # test-size default model
+    for family, module, argv, data, steps, items in (
+            ("vit-b16", "train_vit",
+             ["model.size=base", "model.image_size=224",
+              "model.patch_size=16", "model.num_classes=1000",
+              "run.batch_size=64", "run.lr=1e-4"],
+             SyntheticClassification(image_shape=(224, 224, 3),
+                                     num_classes=1000, batch_size=64),
+             6, 64),
+            ("mt-base", "train_transformer_mt",
+             ["model.size=base", "run.batch_size=64"],
+             SyntheticSeq2Seq(vocab_size=32000, src_len=64, tgt_len=64,
+                              batch_size=64), 6, 64 * 64),
+            ("mnist-mlp", "train_mnist_mlp", ["--batch-size", "128"],
+             SyntheticClassification(batch_size=128), 10, 128)):
+        rec = _zoo_run(torch, family, module, argv,
+                          _OneBatch(data.batch(0)), steps=steps, items=items)
+        emit({"phase": "zoo", **rec})
+        check_launches(rec, 0)
+    emit({"phase": "zoo_done", "launches": total,
+          "seconds": time.monotonic() - t_phase})
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2866,8 +3191,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
 
+    starts: dict[str, float] = {}  # each phase's first start, for the record
+
     def run(name) -> bool:
-        return only is None or name in only
+        if only is None or name in only:
+            starts.setdefault(name, time.monotonic() - t_start)
+            return True
+        return False
 
     card = phase_environment(torch)
     if run("build"):
@@ -2883,7 +3213,7 @@ def main(argv=None) -> int:
         phase_flash_determinism(torch)
         phase_flash_autograd(torch)
     if run("flash_timing"):
-        flash = phase_flash_timing(torch)
+        flash, flash_bert = phase_flash_timing(torch)
 
     def model_of(cfg, seed):
         with torch.device("cuda"):
@@ -2954,7 +3284,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("serve_lora"):
         lora_k4_launches = phase_serve_lora(torch)
-    emit({"phase": "done", "seconds": time.monotonic() - t_start})
+        torch.cuda.empty_cache()
+    if run("zoo"):
+        zoo_launches = phase_zoo(torch)
+    emit({"phase": "done", "seconds": time.monotonic() - t_start,
+          "phase_start_s": starts})
     if only is not None:
         return 0
 
@@ -2970,8 +3304,13 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": FLASH_SOURCES[name],
             "replaces": FLASH_REPLACES[name],
             "launches": (train_launches[name] + dist_launches[name]
-                         + lora_launches[name] + sharded_launches[name]),
+                         + lora_launches[name] + sharded_launches[name]
+                         + zoo_launches[name]),
             **{key: rec[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            # the same kernel at BERT base's shape, not causal (phase zoo)
+            "noncausal_bert_shape": {key: flash_bert[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}})
     emit({"phase": "summary", "n_kernels": len(kernels),
@@ -2990,7 +3329,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
-          "serve_lora")
+          "serve_lora", "zoo")
 
 
 if __name__ == "__main__":

@@ -303,6 +303,27 @@ def test_flash_bf16_tensor_core_kernels_match_plain_versions(cuda, hd, S,
     assert float((dv != want[3]).float().mean()) <= 0.02
 
 
+def test_flash_bf16_noncausal_at_bert_base_shape(cuda):
+    """BERT base's attention as it trains: B 8, 12 heads, hd 64, S 512,
+    not causal, no mask, bf16.  K1, K2 and K3 against their plain
+    versions under the bounds above (atol 2e-2; dv in all but 2 %)."""
+    q, k, v, do = _flash_operands(np.random.RandomState(512), 8, 512, 12, 64,
+                                  torch.bfloat16, cuda)
+    o, lse = fa.flash_forward(q, k, v, causal=False)
+    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, False)
+    delta = fa._delta(o_ref, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal=False)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal=False)
+    want = (o_ref, lse_ref,
+            *fa.flash_dkv_reference(q, k, v, do, lse_ref, delta, False),
+            fa.flash_dq_reference(q, k, v, do, lse_ref, delta, False))
+    torch.cuda.synchronize()
+    for got, ref in zip((o, lse, dk, dv, dq), want):
+        assert got.dtype == ref.dtype and bool(torch.isfinite(got).all())
+        assert float((got.float() - ref.float()).abs().max()) <= 2e-2
+    assert float((dv != want[3]).float().mean()) <= 0.02
+
+
 def test_flash_bf16_tensor_core_kernels_are_deterministic(cuda):
     """Two launches on the same inputs give bitwise-equal outputs."""
     q, k, v, do = _flash_operands(np.random.RandomState(9), 2, 300, 4, 64,
@@ -445,3 +466,22 @@ def test_checkpoint_snapshot_survives_in_place_steps_on_card(cuda, tmp_path):
         else:
             assert got[k] == v, k
     mgr.close()
+
+
+def test_moe_routing_takes_the_first_of_tied_experts_on_card(cuda):
+    """``torch.argmax`` on the card takes the first of equal maxima, as
+    ``jnp.argmax`` does, so a tie routes to the lower expert index; the
+    routing on the card equals the routing on the CPU, fp32."""
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel import (
+        expert,
+    )
+
+    logits = torch.from_numpy(
+        np.random.RandomState(7).randn(2, 64, 8).astype(np.float32))
+    logits[0, :, 2] = logits[0, :, 5] = 9.0
+    on_cpu = expert.top_k_routing(logits, 2, 16)
+    on_card = expert.top_k_routing(logits.to(cuda), 2, 16)
+    torch.testing.assert_close(on_card[1].cpu(), on_cpu[1], atol=0, rtol=0)
+    torch.testing.assert_close(on_card[0].cpu(), on_cpu[0], atol=1e-6,
+                               rtol=0)
+    assert float(on_card[1][0, :, 2].sum()) == 16  # capacity-bound first

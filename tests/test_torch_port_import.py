@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing it loads no jax, no port file
-(nor ``chip_smoke.py`` or ``time_kernel_build.py``) imports jax or the JAX
-package, and its entry points run on the card unless the caller asks for
-the CPU."""
+(nor ``chip_smoke.py``, ``time_kernel_build.py`` or ``bert_flash_probe.py``)
+imports jax or the JAX package, and its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -25,7 +25,8 @@ _FORBIDDEN = re.compile(
 def _port_files():
     files = sorted((ROOT / PORT).rglob("*.py"))
     assert len(files) > 10, files
-    return files + [ROOT / "chip_smoke.py", ROOT / "time_kernel_build.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "time_kernel_build.py",
+                    ROOT / "bert_flash_probe.py"]
 
 
 def test_forbidden_pattern_tells_the_names_apart():

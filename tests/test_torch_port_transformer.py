@@ -17,7 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+import flax.linen as flax_nn
+
 from torch_automatic_distributed_neural_network_tpu.models import GPT2, Llama
+from torch_automatic_distributed_neural_network_tpu.models import transformer_core as jcore
+from torch_automatic_distributed_neural_network_tpu.models.gpt2 import (
+    gpt2_config as jcfg_gpt2,
+)
 from torch_automatic_distributed_neural_network_tpu_torch.interop import (
     decoder_from_jax_params,
 )
@@ -147,10 +153,58 @@ def test_remat_changes_no_gradient(policy, dropout):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 
 
-def test_encoder_inputs_are_not_ported_yet():
-    _, _, tm = model_pair("gpt2")
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    for kw in (dict(segment_ids=toks), dict(inputs_embeds=torch.zeros(1, 4)),
-               dict(head=lambda x, e: x)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            tm(toks, **kw)
+class _EncoderInputs(flax_nn.Module):
+    """JAX's ``apply_decoder_backbone`` with the encoder families' three
+    inputs: ``segment_ids``, ``inputs_embeds`` and ``head=``."""
+
+    cfg: object
+
+    @flax_nn.compact
+    def __call__(self, tokens, segment_ids=None, inputs_embeds=None,
+                 head=False, return_features=False):
+        out, _ = jcore.apply_decoder_backbone(
+            self, self.cfg, tokens, None, None, jcore.DecoderLayer,
+            return_features=return_features, segment_ids=segment_ids,
+            inputs_embeds=inputs_embeds,
+            head=(lambda x, e: e.attend(x.astype(jnp.float32)) * 0.5)
+            if head else None)
+        return out
+
+
+def test_encoder_inputs_match_jax():
+    """The backbone's encoder inputs against JAX's on the same weights:
+    segment embeddings (``type_vocab_size`` 2, token-type ids given and
+    defaulted to zeros), given input embeddings in place of the token
+    table, and a ``head(features, embed)`` in place of the tied head;
+    fp32, atol 1e-4 as above."""
+    kw = dict(vocab_size=128, max_seq_len=64, remat=False, type_vocab_size=2,
+              dtype=jnp.float32)
+    jm = _EncoderInputs(jcfg_gpt2("test", **kw))
+    toks = _tokens(6)
+    seg = (np.arange(24)[None] >= np.array([[5], [17]])).astype(np.int32)
+    params = jax.tree.map(np.asarray, jax.jit(jm.init)(
+        jax.random.key(7), jnp.asarray(toks), jnp.asarray(seg))["params"])
+    tm = decoder_from_jax_params(params, gpt2_config(
+        "test", **{**kw, "dtype": torch.float32}), device="cpu")
+    assert tm.seg_embed.shape == (2, 128)
+    embeds = np.random.RandomState(8).randn(2, 24, 128).astype(np.float32)
+    cases = [
+        (dict(segment_ids=seg), dict(segment_ids=seg)),
+        ({}, {}),
+        (dict(inputs_embeds=embeds, return_features=True),
+         dict(inputs_embeds=embeds, return_features=True)),
+        (dict(segment_ids=seg, head=True),
+         dict(segment_ids=seg, head=lambda x, e: (x @ e.T) * 0.5)),
+    ]
+    for jkw, tkw in cases:
+        jtoks = None if "inputs_embeds" in jkw else jnp.asarray(toks)
+        arrays = {k: jnp.asarray(v) for k, v in jkw.items()
+                  if isinstance(v, np.ndarray)}
+        flags = {k: v for k, v in jkw.items() if k not in arrays}
+        want = np.asarray(jax.jit(functools.partial(jm.apply, **flags))(
+            {"params": params}, jtoks, **arrays))
+        with torch.no_grad():
+            got = tm(None if jtoks is None else torch.from_numpy(toks),
+                     **{k: torch.from_numpy(v) if isinstance(v, np.ndarray)
+                        else v for k, v in tkw.items()})
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL)

@@ -28,7 +28,12 @@ Its slices:
   Trainer over a process group, coordinated and per-process sharded
   checkpoints (``training.checkpoint``, ``training.shards``), and the
   launcher (``training.launch``, ``launch`` and ``run`` in the command
-  line).
+  line);
+- the rest of the model zoo on one card: BERT (MLM and classifier),
+  ViT, the MT Transformer, MoE at expert degree 1 (``parallel.expert``'s
+  routing) and the MNIST MLP (``models``), their losses
+  (``training.losses``), the synthetic and on-disk datasets (``data``)
+  and one example a family (``examples``).
 
 The kernels are CUDA C++ for Hopper (sources in ``csrc/``).  The package
 imports torch and numpy, never jax.  Entry points run on the card unless
@@ -38,20 +43,45 @@ version runs instead.
 
 from .core import AutoDistribute, ShardPlan, TrainState, mesh_degrees
 from . import planner, topology
-from .data import SyntheticLM, TokenFileDataset, write_token_file
-from .models import GPT2, DecoderLM, Llama, TransformerConfig
+from .data import (
+    SyntheticClassification,
+    SyntheticLM,
+    SyntheticMLM,
+    SyntheticSeq2Seq,
+    TokenFileDataset,
+    write_token_file,
+)
+from .models import (
+    GPT2,
+    MLP,
+    Bert,
+    DecoderLM,
+    Llama,
+    MoE,
+    TransformerConfig,
+    TransformerMT,
+    ViT,
+)
 from .training import (
     adamw,
     adamw_cosine,
     blockwise_next_token_loss,
+    masked_lm_loss,
+    moe_next_token_loss,
+    mse_loss,
     next_token_loss,
+    seq2seq_loss,
+    softmax_xent_loss,
 )
 
 __version__ = "0.3.0"
 
 __all__ = [
-    "GPT2", "AutoDistribute", "DecoderLM", "Llama", "ShardPlan",
-    "SyntheticLM", "TokenFileDataset", "TrainState", "TransformerConfig",
-    "adamw", "adamw_cosine", "blockwise_next_token_loss", "mesh_degrees",
-    "next_token_loss", "write_token_file",
+    "GPT2", "MLP", "AutoDistribute", "Bert", "DecoderLM", "Llama", "MoE",
+    "ShardPlan", "SyntheticClassification", "SyntheticLM", "SyntheticMLM",
+    "SyntheticSeq2Seq", "TokenFileDataset", "TrainState",
+    "TransformerConfig", "TransformerMT", "ViT", "adamw", "adamw_cosine",
+    "blockwise_next_token_loss", "masked_lm_loss", "mesh_degrees",
+    "moe_next_token_loss", "mse_loss", "next_token_loss", "seq2seq_loss",
+    "softmax_xent_loss", "write_token_file",
 ]

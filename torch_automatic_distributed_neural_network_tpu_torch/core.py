@@ -1,14 +1,18 @@
 """``AutoDistribute``: the JAX package's ``core.py`` on PyTorch.
 
-    model = GPT2("small")
+    model = GPT2("small")      # or Bert, ViT, TransformerMT, MoE, MLP
     ad = AutoDistribute(model, optimizer=adamw(1e-3),
-                        loss_fn=next_token_loss)
+                        loss_fn=next_token_loss)  # its family's loss
     state = ad.init(torch.Generator("cuda").manual_seed(0), batch)
     for batch in data:
         state, metrics = ad.step(state, batch)
 
 ``loss_fn(model, batch, generator) -> (loss, aux_dict)``
-(``training/losses.py``).  ``init_fn(model, generator)`` (optional)
+(``training/losses.py``): the loss reads its family's batch keys
+(``input_ids``, ``x``/``label``, ``src``/``tgt``, ``labels``) and the
+model's outputs (MoE's ``(logits, aux)``), so the step takes any
+family's batches and models; a model draws its own weights with
+``init_weights(generator)``.  ``init_fn(model, generator)`` (optional)
 prepares the model once before it is planned, e.g. LoRA's
 ``lora_init_fn(base, spec)``, which loads the base weights, freezes them
 and adds the factors; only the parameters that train
@@ -138,7 +142,7 @@ class AutoDistribute:
                               f"and measured searches)", "7")
         if strategy in ("ep", "ep_fsdp", "ep_tp"):
             raise _not_ported(f"strategy={strategy!r} (expert parallelism; "
-                              f"the port has no MoE model yet)", "6")
+                              f"the port runs MoE at expert degree 1)", "6")
         if strategy not in planner_mod.KNOWN_STRATEGIES:
             raise ValueError(f"Unknown strategy {strategy!r}; expected one "
                              f"of {planner_mod.KNOWN_STRATEGIES}")
@@ -206,13 +210,12 @@ class AutoDistribute:
         self._prepare(rng)
         prec = self.precision
         abstract = planner_mod.abstract_params(self.model, prec.param_dtype)
-        cfg = getattr(self.model, "cfg", None)
         plan = planner_mod.make_plan(
             abstract, mesh=self._mesh_arg, strategy=self._strategy,
             rules=self._rules, remat=self._remat_arg,
             state_factor=prec.bytes_per_param / prec.param_dtype.itemsize,
             zero1=self._zero1,
-            heads=(cfg.n_heads, cfg.kv_heads) if cfg is not None else None)
+            heads=_heads(self.model))
         if group_up():
             executor_mod.check_executable(plan)
             if isinstance(plan.mesh, Mapping):
@@ -308,11 +311,9 @@ class AutoDistribute:
             else:
                 p.data = p.data.to(prec.param_dtype)
         if group_up():
-            cfg = getattr(model, "cfg", None)
             self._exec = executor_mod.apply_plan(
                 model, self.plan, self.plan.mesh, self.device,
-                rules=self._rules,
-                heads=(cfg.n_heads, cfg.kv_heads) if cfg is not None else None)
+                rules=self._rules, heads=_heads(model))
         params = {name: executor_mod.like(masters[name], p)
                   if name in masters else p
                   for name, p in model.named_parameters()}
@@ -581,6 +582,17 @@ class AutoDistribute:
                                   None)
         loss, aux = self._exec.reduce_metrics(loss, aux)
         return {"loss": loss, **aux}
+
+
+def _heads(model: nn.Module) -> tuple[int, int] | None:
+    """``(n_heads, kv_heads)`` of a model's transformer config (ViT's
+    ``cfg.core``; the MT config's heads are all query and key heads), or
+    None for a model without attention (the MLP)."""
+    cfg = getattr(model, "cfg", None)
+    cfg = getattr(cfg, "core", cfg)
+    if cfg is None or not hasattr(cfg, "n_heads"):
+        return None
+    return cfg.n_heads, getattr(cfg, "kv_heads", cfg.n_heads)
 
 
 def _merge_aux(auxes: list[dict]) -> dict:

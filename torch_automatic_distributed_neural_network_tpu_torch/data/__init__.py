@@ -1,8 +1,17 @@
 """Training data for the port (numpy batches, as in the JAX package):
-synthetic LM batches and the token-file loader with its native C++
-backend, and :func:`shard_for_host` (a process's rows of a global
-batch)."""
+the synthetic streams, the on-disk array datasets (MNIST idx, CIFAR-10
+pickles, npy pairs) with their synthetic fallback, the token-file
+loader with its native C++ backend, and :func:`shard_for_host` (a
+process's rows of a global batch)."""
 
+from .arrays import (
+    ArrayClassification,
+    ArraySeq2Seq,
+    classification_dataset,
+    load_cifar10,
+    load_mnist,
+    load_seq2seq,
+)
 from .loader import (
     HostBatch,
     TokenFileDataset,
@@ -10,7 +19,15 @@ from .loader import (
     shard_for_host,
     write_token_file,
 )
-from .synthetic import SyntheticLM
+from .synthetic import (
+    SyntheticClassification,
+    SyntheticLM,
+    SyntheticMLM,
+    SyntheticSeq2Seq,
+)
 
-__all__ = ["HostBatch", "SyntheticLM", "TokenFileDataset", "TokenFileWriter",
-           "shard_for_host", "write_token_file"]
+__all__ = ["ArrayClassification", "ArraySeq2Seq", "HostBatch",
+           "SyntheticClassification", "SyntheticLM", "SyntheticMLM",
+           "SyntheticSeq2Seq", "TokenFileDataset", "TokenFileWriter",
+           "classification_dataset", "load_cifar10", "load_mnist",
+           "load_seq2seq", "shard_for_host", "write_token_file"]

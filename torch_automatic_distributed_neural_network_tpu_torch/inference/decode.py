@@ -178,10 +178,10 @@ def generate(model, prompt, *, max_new_tokens: int,
         raise NotImplementedError(
             "generate(mesh=...): sharded decode is not ported yet (ROADMAP "
             "Queue 1 item 3); the port decodes on one device")
-    if moe_decode != "dense":
+    if moe_decode != "dense" or getattr(model.cfg, "n_experts", None):
         raise NotImplementedError(
-            f"moe_decode={moe_decode!r}: MoE decoding is not ported yet "
-            f"(ROADMAP Queue 1 item 6)")
+            f"moe_decode={moe_decode!r} on {type(model).__name__}: MoE "
+            f"decoding is not ported yet (ROADMAP Queue 1 item 6)")
     if sample is None:
         sample = SampleConfig(temperature=0.0)
     if early_stop and eos_id is None:

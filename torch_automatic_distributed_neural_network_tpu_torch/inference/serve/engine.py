@@ -337,7 +337,9 @@ class ServeEngine:
         for name, value, item in (
                 ("disaggregate (disaggregated prefill)", disaggregate, "2"),
                 ("mesh (tensor-parallel serving)", mesh, "2"),
-                ("export_cache", export_cache, "4")):
+                ("export_cache", export_cache, "4"),
+                (f"serving {type(model).__name__} (MoE decoding)",
+                 getattr(model.cfg, "n_experts", None), "6")):
             if value:
                 raise NotImplementedError(f"{name} {_LATER.format(item)}")
         self.device = resolve_device(device)

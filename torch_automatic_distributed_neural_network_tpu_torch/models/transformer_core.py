@@ -6,8 +6,11 @@ untied head.  The port of the JAX package's
 ``models/transformer_core.py``: the config, the norms, rope, the
 attention projections (split into ``qkv`` / ``out_proj`` so the cached
 decode path applies them around its own attention), the MLP, the
-layer, and :class:`DecoderLM` with the full-sequence forward
-(``apply_decoder_backbone`` for tokens).
+layer, the backbone every family shares (:func:`build_backbone` and
+:func:`backbone_forward`, JAX's ``apply_decoder_backbone``: token or
+given input embeddings, learned positions, segment embeddings, the
+layer stack with its summed aux losses, the final norm), and
+:class:`DecoderLM` with the full-sequence forward.
 
 Parameters are fp32; ``cfg.dtype`` is the compute dtype.  Each
 projection casts its input and weights to it (as flax's ``dtype=``
@@ -64,6 +67,7 @@ class TransformerConfig:
     norm_order: Literal["pre", "post"] = "pre"
     embed_norm: bool = False  # a norm on the embeddings (BERT)
     final_norm: bool = True  # post-norm stacks end already normalized
+    type_vocab_size: int = 0  # >0 -> segment embeddings (BERT)
     tie_embeddings: bool = True
     dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16  # compute dtype; params stay fp32
@@ -113,6 +117,7 @@ class TransformerConfig:
         norms = (2 * d) * L + (d if self.final_norm else 0) + (
             d if self.embed_norm else 0)
         emb = v * d * (1 if self.tie_embeddings else 2)
+        emb += self.type_vocab_size * d
         pos = self.max_seq_len * d if self.pos == "learned" else 0
         return L * (attn + mlp) + norms + emb + pos
 
@@ -244,11 +249,14 @@ class SelfAttention(nn.Module):
         """[B, T, H, hd] attention output -> [B, T, d]."""
         return _linear(out.flatten(-2), self.o_proj, self.cfg.dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``mask``: [B, 1|H, 1|T, T] boolean, True = attend (a padding
+        mask sends ``impl="auto"`` to the plain path, as in JAX)."""
         cfg = self.cfg
         q, k, v = self.qkv(x, positions)
         out = attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
-                        impl=cfg.attention_impl)
+                        mask=mask, impl=cfg.attention_impl)
         return self.out_proj(out)
 
 
@@ -290,33 +298,41 @@ def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
 
 
 class DecoderLayer(nn.Module):
-    """Attention + MLP block, pre-norm (GPT-2, Llama) or post-norm."""
+    """Attention + MLP block, pre-norm (GPT-2, Llama) or post-norm.
+    ``mlp_cls`` swaps the feed-forward (``models/moe.py``'s routed
+    ``MoEMlp``): an MLP returning ``(h, aux)`` makes the layer return
+    ``(x, aux)``."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mlp_cls=MLPBlock):
         super().__init__()
         self.cfg = cfg
         self.attn_norm = make_norm(cfg)
         self.attn = SelfAttention(cfg)
         self.mlp_norm = make_norm(cfg)
-        self.mlp = MLPBlock(cfg)
+        self.mlp = mlp_cls(cfg)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                seeds: tuple[int, int] | None = None) -> torch.Tensor:
-        """``seeds``: the two dropout seeds (attention, MLP), or None."""
+                seeds: tuple[int, int] | None = None,
+                mask: torch.Tensor | None = None):
+        """``seeds``: the two dropout seeds (attention, MLP), or None;
+        ``mask``: the attention's key mask, or None."""
         cfg = self.cfg
         post = cfg.norm_order == "post"
         s_attn, s_mlp = seeds or (None, None)
         h = x if post else self.attn_norm(x)
-        h = _dropout(self.attn(h, positions), cfg.dropout_rate, s_attn)
+        h = _dropout(self.attn(h, positions, mask), cfg.dropout_rate, s_attn)
         x = x + h
         if post:
             x = self.attn_norm(x)
         h = x if post else self.mlp_norm(x)
-        h = _dropout(self.mlp(h), cfg.dropout_rate, s_mlp)
+        h, aux = self.mlp(h), None
+        if isinstance(h, tuple):
+            h, aux = h
+        h = _dropout(h, cfg.dropout_rate, s_mlp)
         out = x + h
         if post:
             out = self.mlp_norm(out)
-        return out
+        return out if aux is None else (out, aux)
 
 
 # ``checkpoint_dots_with_no_batch_dims``: keep the outputs of the matrix
@@ -343,26 +359,124 @@ def remat(fn, *args, policy: Literal["dots", "nothing"] = "dots"):
     return checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
+def build_backbone(mod: nn.Module, cfg: TransformerConfig,
+                   layer_cls=DecoderLayer, *, token_embed: bool = True) -> None:
+    """Register the shared backbone's parameters on ``mod``, with the
+    names every family shares: ``embed`` (unless ``token_embed`` is
+    False: continuous inputs, ViT, have no token table), ``pos_embed``,
+    ``seg_embed``, ``embed_norm``, ``layers`` and ``final_norm``, each
+    where the config has it."""
+    if token_embed:
+        mod.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+    if cfg.pos == "learned":
+        mod.pos_embed = nn.Parameter(torch.empty(cfg.max_seq_len, cfg.d_model))
+    if cfg.type_vocab_size:
+        mod.seg_embed = nn.Parameter(
+            torch.empty(cfg.type_vocab_size, cfg.d_model))
+    if cfg.embed_norm:
+        mod.embed_norm = make_norm(cfg)
+    mod.layers = nn.ModuleList(layer_cls(cfg) for _ in range(cfg.n_layers))
+    if cfg.final_norm:
+        mod.final_norm = make_norm(cfg)
+
+
+@torch.no_grad()
+def init_parameters(mod: nn.Module, generator: torch.Generator,
+                    embeddings=("embed", "pos_embed", "seg_embed")) -> None:
+    """The JAX package's initializers on ``mod``: N(0, 0.02) for each
+    parameter of ``mod`` named in ``embeddings`` that it has, in that
+    order, then lecun-normal linear weights (std 1/sqrt(fan_in)), zero
+    biases and unit norm scales, module by module."""
+    for name in embeddings:
+        p = getattr(mod, name, None)
+        if isinstance(p, torch.Tensor):
+            p.normal_(0.0, 0.02, generator=generator)
+    for sub in mod.modules():
+        if isinstance(sub, nn.Linear):
+            sub.weight.normal_(0.0, 1.0 / math.sqrt(sub.in_features),
+                               generator=generator)
+            if sub.bias is not None:
+                sub.bias.zero_()
+        elif isinstance(sub, (LayerNorm, RMSNorm)):
+            sub.scale.fill_(1.0)
+            if isinstance(sub, LayerNorm):
+                sub.bias.zero_()
+
+
+def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
+                     positions=None, *, generator=None, segment_ids=None,
+                     inputs_embeds=None, mask=None):
+    """The shared body (JAX ``apply_decoder_backbone`` up to the head):
+    embed -> layer stack (each layer recomputed in the backward under
+    ``cfg.remat``) -> final norm.  Returns ``(features, aux)``: the
+    features [B, S, d] in ``cfg.dtype`` and the fp32 sum of the layers'
+    aux losses (MoE layers return ``(x, aux)``; zero for dense layers).
+
+    ``segment_ids`` [B, S] add the segment embeddings (``cfg.type_vocab_size
+    > 0``; zeros when None); ``inputs_embeds`` [B, S, d] take the token
+    embedding's place (ViT's patches); ``mask`` is the attention's key
+    mask (BERT's padding, [B, 1, 1, S]); ``generator`` (a CPU
+    generator) draws the dropout seeds, None is deterministic."""
+    if inputs_embeds is not None:
+        if tokens is not None:
+            raise ValueError("pass tokens or inputs_embeds, not both")
+        x = inputs_embeds.to(cfg.dtype)
+    else:
+        x = embedding_lookup(gathered(mod.embed), tokens, cfg.dtype)
+    B, S = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    if cfg.pos == "learned":
+        x = x + mod.pos_embed[:S].to(cfg.dtype)[None]
+    if cfg.type_vocab_size:
+        if segment_ids is None:
+            segment_ids = torch.zeros((B, S), dtype=torch.long,
+                                      device=x.device)
+        x = x + embedding_lookup(mod.seg_embed, segment_ids.long(),
+                                 cfg.dtype)
+    if cfg.embed_norm:
+        x = mod.embed_norm(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in mod.layers:
+        seeds = None
+        if cfg.dropout_rate and generator is not None:
+            seeds = tuple(int(s) for s in torch.randint(
+                0, 2**62, (2,), generator=generator))
+        if cfg.remat and torch.is_grad_enabled():
+            out = remat(layer, x, positions, seeds, mask,
+                        policy=cfg.remat_policy)
+        else:
+            out = layer(x, positions, seeds, mask)
+        if isinstance(out, tuple):
+            x, layer_aux = out
+            aux = aux + layer_aux
+        else:
+            x = out
+    if cfg.final_norm:
+        x = mod.final_norm(x)
+    return x, aux
+
+
+def tied_logits(x: torch.Tensor, embed, dtype) -> torch.Tensor:
+    """flax ``Embed.attend``: features and embedding both in ``dtype``,
+    the product rounded to it, then fp32."""
+    return F.linear(x.to(dtype), dense_weight(embed, dtype)).to(torch.float32)
+
+
 class DecoderLM(nn.Module):
     """Causal language model: token embedding, learned positions
     (GPT-2), per-layer modules, final norm, and a tied or untied head.
     :meth:`forward` runs a full sequence; the cached decode passes live
     in ``inference/decode.py`` (``forward_cached``) and the serving
-    engine's decode step."""
+    engine's decode step.  ``layer_cls`` is the layer a subclass stacks
+    (``models/moe.py``'s routed layer)."""
+
+    layer_cls = DecoderLayer
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
-        if cfg.pos == "learned":
-            self.pos_embed = nn.Parameter(
-                torch.empty(cfg.max_seq_len, cfg.d_model))
-        if cfg.embed_norm:
-            self.embed_norm = make_norm(cfg)
-        self.layers = nn.ModuleList(DecoderLayer(cfg)
-                                    for _ in range(cfg.n_layers))
-        if cfg.final_norm:
-            self.final_norm = make_norm(cfg)
+        build_backbone(self, cfg, self.layer_cls)
         if not cfg.tie_embeddings:
             # [d, V], the JAX package's lm_head kernel layout
             self.lm_head = nn.Parameter(
@@ -371,21 +485,9 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "DecoderLM":
         """Random weights from ``generator``, with the JAX package's
-        initializers: N(0, 0.02) embeddings, lecun-normal projections
-        (std 1/sqrt(fan_in)), zero biases, unit norm scales."""
-        self.embed.normal_(0.0, 0.02, generator=generator)
-        if self.cfg.pos == "learned":
-            self.pos_embed.normal_(0.0, 0.02, generator=generator)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features),
-                                   generator=generator)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (LayerNorm, RMSNorm)):
-                mod.scale.fill_(1.0)
-                if isinstance(mod, LayerNorm):
-                    mod.bias.zero_()
+        initializers (:func:`init_parameters`; the untied head
+        lecun-normal)."""
+        init_parameters(self, generator)
         if not self.cfg.tie_embeddings:
             self.lm_head.normal_(0.0, 1.0 / math.sqrt(self.cfg.d_model),
                                  generator=generator)
@@ -401,51 +503,32 @@ class DecoderLM(nn.Module):
             return feats @ dense_weight(gathered(self.embed), torch.float32).T
         return feats @ dense_weight(gathered(self.lm_head), torch.float32)
 
-    def forward(self, tokens: torch.Tensor,
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The training forward's head: the tied one is flax
+        ``Embed.attend`` (:func:`tied_logits`); the untied one an fp32
+        product."""
+        cfg = self.cfg
+        if cfg.tie_embeddings:
+            return tied_logits(x, gathered(self.embed), cfg.dtype)
+        return x.to(torch.float32) @ dense_weight(gathered(self.lm_head),
+                                                  torch.float32)
+
+    def forward(self, tokens: torch.Tensor | None,
                 positions: torch.Tensor | None = None,
                 return_features: bool = False, *,
                 generator: torch.Generator | None = None,
-                segment_ids=None, inputs_embeds=None,
-                head=None) -> torch.Tensor:
+                segment_ids=None, inputs_embeds=None, head=None,
+                mask=None) -> torch.Tensor:
         """Logits [B, S, V] fp32 of tokens [B, S], or with
         ``return_features`` the final-norm features [B, S, d] in
-        ``cfg.dtype``.  ``generator`` (a CPU generator) draws the dropout
-        seeds; None is deterministic.
-
-        The tied head is flax ``Embed.attend``: features and embedding
-        both in ``cfg.dtype``, the product rounded to it, then fp32.  The
-        untied head is an fp32 product."""
-        if segment_ids is not None or inputs_embeds is not None or (
-                head is not None):
-            raise NotImplementedError(
-                "segment_ids, inputs_embeds and head= serve the BERT and "
-                "ViT families, not ported yet (ROADMAP Queue 1 item 6)")
-        cfg = self.cfg
-        B, S = tokens.shape
-        embed = gathered(self.embed)
-        x = embedding_lookup(embed, tokens, cfg.dtype)
-        if positions is None:
-            positions = torch.arange(S, device=tokens.device)[None].expand(
-                B, S)
-        if cfg.pos == "learned":
-            x = x + self.pos_embed[:S].to(cfg.dtype)[None]
-        if cfg.embed_norm:
-            x = self.embed_norm(x)
-        for layer in self.layers:
-            seeds = None
-            if cfg.dropout_rate and generator is not None:
-                seeds = tuple(int(s) for s in torch.randint(
-                    0, 2**62, (2,), generator=generator))
-            if cfg.remat and torch.is_grad_enabled():
-                x = remat(layer, x, positions, seeds, policy=cfg.remat_policy)
-            else:
-                x = layer(x, positions, seeds)
-        if cfg.final_norm:
-            x = self.final_norm(x)
+        ``cfg.dtype``.  ``segment_ids``, ``inputs_embeds`` and ``mask``
+        go to :func:`backbone_forward`; ``head(features, embed)``
+        replaces the tied or untied head (``embed`` the token table)."""
+        x, _ = backbone_forward(self, self.cfg, tokens, positions,
+                                generator=generator, segment_ids=segment_ids,
+                                inputs_embeds=inputs_embeds, mask=mask)
         if return_features:
             return x
-        if cfg.tie_embeddings:
-            return F.linear(x.to(cfg.dtype),
-                            dense_weight(embed, cfg.dtype)).to(torch.float32)
-        return x.to(torch.float32) @ dense_weight(gathered(self.lm_head),
-                                                  torch.float32)
+        if head is not None:
+            return head(x, gathered(self.embed))
+        return self._head(x)

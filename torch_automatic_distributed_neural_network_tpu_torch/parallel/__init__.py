@@ -1,7 +1,8 @@
 """Parallel execution over ``torch.distributed``: the named-axis
-collectives (``collectives``).  Sequence, pipeline and expert
-parallelism are later slices of the port (ROADMAP Queue 1 item 5)."""
+collectives (``collectives``) and MoE routing at expert degree 1
+(``expert``).  Sequence, pipeline and expert parallelism are later
+slices of the port (ROADMAP Queue 1 items 5 and 6)."""
 
-from . import collectives
+from . import collectives, expert
 
-__all__ = ["collectives"]
+__all__ = ["collectives", "expert"]

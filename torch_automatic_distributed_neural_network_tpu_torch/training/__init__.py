@@ -18,7 +18,15 @@ from .lora import (
     lora_optimizer,
     merge_lora,
 )
-from .losses import blockwise_next_token_loss, next_token_loss
+from .losses import (
+    blockwise_next_token_loss,
+    masked_lm_loss,
+    moe_next_token_loss,
+    mse_loss,
+    next_token_loss,
+    seq2seq_loss,
+    softmax_xent_loss,
+)
 from .metrics import MetricsLogger, peak_flops_per_chip, transformer_step_flops
 from .optim import (
     GradientTransformation,
@@ -68,8 +76,10 @@ __all__ = [
     "PRESETS", "Precision", "adamw", "adamw_cosine", "apply_lora",
     "apply_updates", "blockwise_next_token_loss", "cast_floats", "chain",
     "clip_by_global_norm", "decay_mask", "init_lora_params",
-    "lora_init_fn", "lora_loss", "lora_optimizer", "merge_lora",
-    "next_token_loss", "peak_flops_per_chip", "resolve", "sgd",
+    "lora_init_fn", "lora_loss", "lora_optimizer", "masked_lm_loss",
+    "merge_lora", "moe_next_token_loss", "mse_loss", "next_token_loss",
+    "peak_flops_per_chip", "resolve", "seq2seq_loss", "sgd",
+    "softmax_xent_loss",
     "transformer_step_flops", "warmup_cosine", "wrap_optimizer", *_LAZY,
 ]
 
