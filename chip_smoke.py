@@ -58,8 +58,9 @@ card, in phases, one JSON line each; any failure exits non-zero:
    wrapper) geometries, S in {1, 100, 129,
    512, 1000, 1024}, causal or not, window None or 256, fp32 and bf16,
    and at the local heads of a tensor degree of 4 (GPT-2 small's 3,
-   Llama 1b's 8 / 2), and at BERT base's training shape (B 8, 12 heads,
-   hd 64, S 512, not causal, bf16);
+   Llama 1b's 8 / 2), and at two training paths' own shapes in bf16:
+   BERT base's (B 8, 12 heads, hd 64, S 512, not causal) and Llama 1b's
+   (B 8, S 2048, 32 / 8 heads repeated by the wrapper, hd 64, causal);
    bounds 1e-4 (fp32: sums in another order) and 2e-2 (bf16: one ulp at
    |x| in [2, 4)), and bf16 dv differing from its plain version in at
    most 2 % of its elements (K2 keeps p in fp32 for dv; rounding p to
@@ -190,7 +191,30 @@ card, in phases, one JSON line each; any failure exits non-zero:
    Transformer base at B 64 x 64 + 64 and the MNIST MLP at B 128 (no
    flash launch: below the flash floor or no attention); every loss
    finite and falling; step ms (median after one warm-up), items a
-   second, MFU where the logger has one, peak memory.
+   second, MFU where the logger has one, peak memory;
+21. ResNet-50 with BatchNorm (``resnet``): the port's
+   ``examples/train_resnet_cifar.py`` at its own config (CIFAR stem,
+   32^2, B 128, bf16, ``sgd(0.1, momentum=0.9)``, ``dp``) through
+   ``Trainer.fit``, 20 steps on one batch; ``bench.py``'s cell (ImageNet
+   stem, 224^2, B 256, 1000 classes, one synthetic batch drawn once);
+   each with step ms, images/s, MFU against 989.4 TFLOP/s, peak memory,
+   falling losses and every running mean moved, no flash launch; then
+   ResNet-50 in fp32 with TF32 off, one step from seeded weights on the
+   card and on the CPU: the running statistics and ``ad(state, x,
+   train=False)`` within 1e-3 of the CPU's (of its largest magnitude);
+   then the CIFAR cell's step under ``dp`` in a world of one NCCL rank
+   (DDP, the BatchNorm statistics all-reduced on NCCL): losses within
+   1e-6 relative of the unwrapped step's;
+22. the Llama FSDP example (``llama_fsdp``): the port's
+   ``examples/train_llama_fsdp.py`` at ``model.size=1b`` (Llama 3.2 1B,
+   1.24B parameters), S 2048, B 8 (halved while it does not fit), 6
+   steps on one batch under ``python -m torch.distributed.run
+   --nproc-per-node 1`` (FSDP2 at degree 1, remat on): a falling loss,
+   K1/K2/K3 48/16/16 a step (the forward and two nested recomputes of
+   every layer's GQA attention, K and V repeated by the wrapper), step
+   ms, tokens/s, MFU, peak memory, and the device ms a step of the K/V
+   repeat (``aten::repeat_interleave``) and of its gradient
+   (``ExpandBackward0``) from ``torch.profiler``.
 
 Phases 5 (``serve``), 10 (``trainer``), 16, 17 and 19 write their journals
 with schema validation on (``Journal(validate=True)``): a record that
@@ -203,7 +227,8 @@ launches per decode step, the prefix hit rates), the per-kernel JSON record, the
 ``{"ok": true, "device": {...}}``.  Exits non-zero without printing a
 result when no CUDA device is visible or the package is missing.
 ``--phases a,b,...`` runs only the named phases (for a short first
-check of a new kernel) and prints no result.
+check of a new kernel) and prints no result.  The ``done`` record holds
+each phase's start and seconds.
 """
 
 from __future__ import annotations
@@ -1017,37 +1042,51 @@ def phase_flash_kernel_cases(torch) -> dict:
                      if dtype == torch.bfloat16 else {})})
             key = str(dtype).replace("torch.", "")
             worst[key] = max(worst.get(key, 0.0), *errs.values())
-    # BERT base's attention as it trains (phase zoo): B 8, 12 heads, hd 64,
-    # S 512, not causal, no mask, bf16
-    n += 1
-    q, k, v, do = _flash_inputs(torch, B=8, S=512, H=12, kvH=12, hd=64,
-                                dtype=torch.bfloat16, seed=n)
-    o, lse = fa.flash_forward(q, k, v, causal=False)
-    o_ref, lse_ref = fa.flash_forward_reference(q, k, v, False)
-    delta = fa._delta(o_ref, do)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal=False)
-    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal=False)
-    want = {"o": o_ref, "lse": lse_ref, "dq": fa.flash_dq_reference(
-        q, k, v, do, lse_ref, delta, False)}
-    want["dk"], want["dv"] = fa.flash_dkv_reference(q, k, v, do, lse_ref,
-                                                    delta, False)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, a in {"o": o, "lse": lse, "dk": dk, "dv": dv, "dq": dq}.items():
-        require(bool(torch.isfinite(a).all()),
-                f"bert-base flash case: non-finite {name}")
-        errs[name] = _max_err(a, want[name])
-        require(errs[name] <= bounds[torch.bfloat16],
-                f"bert-base flash case: {name} max_abs_err {errs[name]} > "
-                f"{bounds[torch.bfloat16]}")
-    share = _diff_share(dv, want["dv"])
-    dv_shares.append((share, n, "bert-base", 512, False, None))
-    worst["bfloat16"] = max(worst["bfloat16"], *errs.values())
-    emit({"phase": "flash_kernel_cases", "geometry": "bert-base",
-          "B": 8, "heads": 12, "kv_heads": 12, "hd": 64, "dtype": "bfloat16",
-          "S": [512], "masks": ["full"], "max_abs_err": errs,
-          "bound": bounds[torch.bfloat16],
-          "dv_diff_share": {"kernel": share}})
+    # the training paths' own shapes, bf16, through the public entry
+    # point's preparation: BERT base as phase zoo trains it (B 8, 12
+    # heads, hd 64, S 512, not causal) and Llama 1b as phase llama_fsdp
+    # trains it (B 8, S 2048, 32 q heads over 8 kv heads repeated by
+    # ``_prep_bshd``, hd 64, causal): S 2048 is twice the K/V tiles of
+    # every case above
+    path_shapes = {"bert-base": (8, 512, 12, 12, False),
+                   "llama-1b-train": (8, 2048, 32, 8, True)}
+    for gname, (B, S, H, kvH, causal) in path_shapes.items():
+        n += 1
+        q, k, v, do = _flash_inputs(torch, B=B, S=S, H=H, kvH=kvH, hd=64,
+                                    dtype=torch.bfloat16, seed=n)
+        q, k, v, _, scale = fa._prep_bshd(q, k, v, causal, None)
+        kw = dict(causal=causal, scale=scale)
+        o, lse = fa.flash_forward(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_forward_reference(q, k, v, causal, None,
+                                                    scale)
+        delta = fa._delta(o_ref, do)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, **kw)
+        dq = fa.flash_dq(q, k, v, do, lse_ref, delta, **kw)
+        want = {"o": o_ref, "lse": lse_ref, "dq": fa.flash_dq_reference(
+            q, k, v, do, lse_ref, delta, causal, None, scale)}
+        want["dk"], want["dv"] = fa.flash_dkv_reference(
+            q, k, v, do, lse_ref, delta, causal, None, scale)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a in {"o": o, "lse": lse, "dk": dk, "dv": dv,
+                        "dq": dq}.items():
+            require(bool(torch.isfinite(a).all()),
+                    f"{gname} flash case: non-finite {name}")
+            errs[name] = _max_err(a, want[name])
+            require(errs[name] <= bounds[torch.bfloat16],
+                    f"{gname} flash case: {name} max_abs_err {errs[name]} > "
+                    f"{bounds[torch.bfloat16]}")
+        share = _diff_share(dv, want["dv"])
+        dv_shares.append((share, n, gname, S, causal, None))
+        worst["bfloat16"] = max(worst["bfloat16"], *errs.values())
+        emit({"phase": "flash_kernel_cases", "geometry": gname,
+              "B": B, "heads": H, "kv_heads": kvH, "hd": 64,
+              "dtype": "bfloat16", "S": [S],
+              "masks": ["causal" if causal else "full"], "max_abs_err": errs,
+              "bound": bounds[torch.bfloat16],
+              "dv_diff_share": {"kernel": share}})
+        del q, k, v, do, o, lse, dk, dv, dq, want, o_ref, lse_ref, delta
+        torch.cuda.empty_cache()
     share, *case = max(dv_shares)
     emit({"phase": "flash_kernel_cases_done", "cases": n,
           "worst_abs_err": worst, "worst_dv_diff_share": share,
@@ -3153,6 +3192,369 @@ def phase_zoo(torch) -> dict[str, int]:
     return total
 
 
+
+# -- phase 21: ResNet with BatchNorm ------------------------------------------
+
+
+# card against the port's CPU path: fp32, TF32 off, the same weights and
+# batch; the largest error over the CPU result's largest magnitude
+_RESNET_CPU_BOUND = 1e-3
+# DDP at degree 1 in a world of one NCCL rank against the unwrapped step:
+# the losses, relative (the statistics' all-reduce and the gradient mean
+# over one rank change no number)
+_RESNET_NCCL_BOUND = 1e-6
+# the H100 SXM's dense bf16 rate for ResNet's MFU, as the JAX bench counts
+_MFU_PEAK = 989.4e12
+
+
+def _rel(got, want) -> float:
+    """Largest error of ``got`` over the largest magnitude of ``want``,
+    both moved to the CPU."""
+    want = want.detach().float().cpu()
+    return _max_err(got.cpu(), want) / max(float(want.abs().max()), 1e-30)
+
+
+def _resnet_card_vs_cpu(torch) -> dict:
+    """ResNet-50 (ImageNet stem, 224^2, B 4, fp32) from one set of seeded
+    weights on the card and on the CPU: one SGD-momentum step each on the
+    same batch, then the running statistics and ``ad(state, x,
+    train=False)`` of both, held within ``_RESNET_CPU_BOUND``."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, ResNet50, sgd, softmax_xent_loss_mutable)
+
+    import numpy as np
+
+    rs = np.random.RandomState(7)
+    batch = {"x": rs.rand(4, 224, 224, 3).astype("float32"),
+             "label": rs.randint(0, 1000, 4).astype("int32")}
+    weights = ResNet50(dtype=torch.float32).init_weights(
+        torch.Generator().manual_seed(3)).state_dict()
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = ResNet50(dtype=torch.float32)
+        model.load_state_dict(weights)
+        ad = AutoDistribute(model, optimizer=sgd(0.1, momentum=0.9),
+                            loss_fn=softmax_xent_loss_mutable, device=device)
+        state = ad.init(None)
+        state, m = ad.step(state, batch)
+        out[device] = {"loss": float(m["loss"]),
+                       "stats": {n: t.detach().cpu().clone()
+                                 for n, t in state.model_state.items()},
+                       "logits": ad(state, batch["x"], train=False).cpu()}
+        del ad, state, model
+    card, cpu = out["cuda"], out["cpu"]
+    stats_err = max(_rel(card["stats"][n], t) for n, t in cpu["stats"].items())
+    return {"loss_card": card["loss"], "loss_cpu": cpu["loss"],
+            "running_stats_rel_err": stats_err,
+            "eval_logits_rel_err": _rel(card["logits"], cpu["logits"]),
+            "bound": _RESNET_CPU_BOUND}
+
+
+def _resnet_bench_cell(torch, *, steps=6) -> dict:
+    """``bench.py``'s ResNet cell on the port: ResNet-50, ImageNet stem,
+    224^2, B 256, 1000 classes, bf16, ``sgd(0.1, momentum=0.9)``,
+    ``softmax_xent_loss_mutable``, one synthetic batch drawn once (its
+    teacher is a 150528 x 1000 host product a batch) and reused."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, ResNet50, SyntheticClassification, sgd,
+        softmax_xent_loss_mutable)
+
+    B, hw = 256, (224, 224)
+    batch = SyntheticClassification(image_shape=(*hw, 3), num_classes=1000,
+                                    batch_size=B).batch(0)
+    model = ResNet50(num_classes=1000)
+    ad = AutoDistribute(model, optimizer=sgd(0.1, momentum=0.9),
+                        loss_fn=softmax_xent_loss_mutable, strategy="dp")
+    state = ad.init(torch.Generator(device="cuda").manual_seed(0), batch)
+    batch = ad.shard_batch(batch)  # on the card once
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, step_ms = _timed_steps(torch, ad, state, batch, steps)
+    median = statistics.median(step_ms[1:])
+    flops = model.cfg.train_step_flops(hw, B)
+    means = [float(t.abs().sum()) for n, t in state.model_state.items()
+             if n.endswith(".mean")]
+    rec = {"cell": "resnet50-224", "batch": B, "image": list(hw),
+           "step_ms": step_ms, "median_step_ms": median,
+           "images_per_s": B / (median / 1e3),
+           "train_step_flops": flops,
+           "mfu": flops / (median / 1e3) / _MFU_PEAK,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "running_means_moved": sum(m > 0 for m in means),
+           "batchnorms": len(means)}
+    require(all(math.isfinite(x) for x in losses),
+            f"resnet50-224: non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"resnet50-224: loss did not fall {losses}")
+    require(rec["running_means_moved"] == len(means),
+            f"resnet50-224: {len(means) - rec['running_means_moved']} "
+            f"running means never moved")
+    del ad, state, model
+    return rec
+
+
+def _resnet_nccl(torch, *, steps=5) -> dict:
+    """The CIFAR cell's step unwrapped and then under ``dp`` in a world of
+    one NCCL rank (DDP at degree 1; BatchNorm sums its statistics over the
+    data and fsdp groups, on NCCL): the losses and the running
+    statistics (each buffer's largest error over its largest magnitude)
+    within ``_RESNET_NCCL_BOUND``, and every running mean moved."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, ResNet50, SyntheticClassification, sgd,
+        softmax_xent_loss_mutable, topology)
+
+    batch = SyntheticClassification(image_shape=(32, 32, 3), num_classes=10,
+                                    batch_size=128).batch(0)
+
+    def run():
+        ad = AutoDistribute(ResNet50(num_classes=10, small_inputs=True),
+                            optimizer=sgd(0.1, momentum=0.9),
+                            loss_fn=softmax_xent_loss_mutable, strategy="dp")
+        state = ad.init(torch.Generator(device="cuda").manual_seed(0), batch)
+        state, losses, step_ms = _timed_steps(torch, ad, state, batch, steps)
+        wrapped = ad._exec is not None and type(ad._exec.module).__name__
+        groups = [len(m.stat_groups) for m in ad.model.modules()
+                  if hasattr(m, "stat_groups")]
+        return {"losses": losses, "median_step_ms":
+                statistics.median(step_ms[1:]), "wrapper": wrapped,
+                "stat_groups": sorted(set(groups)),
+                "stats": {n: t.clone() for n, t in state.model_state.items()}}
+
+    plain = run()
+    pg_dir = tempfile.mkdtemp()
+    topology.initialize_distributed(
+        backend="nccl", init_method=f"file://{os.path.join(pg_dir, 'pg')}",
+        world_size=1, rank=0)
+    try:
+        ddp = run()
+    finally:
+        dist.destroy_process_group()
+    diff = max(abs(a - b) / abs(b) for a, b in zip(ddp["losses"],
+                                                    plain["losses"]))
+    stats_equal = all(torch.equal(ddp["stats"][n], t)
+                      for n, t in plain["stats"].items())
+    stats_diff = max(_max_err(ddp["stats"][n], t)
+                     / max(float(t.abs().max()), 1e-30)
+                     for n, t in plain["stats"].items())
+    unmoved = [n for n, t in plain["stats"].items()
+               if n.endswith(".mean") and not bool(t.abs().max() > 0)]
+    rec = {"unwrapped_losses": plain["losses"], "ddp_losses": ddp["losses"],
+           "max_rel_loss_diff": diff, "bound": _RESNET_NCCL_BOUND,
+           "running_stats_bitwise": stats_equal,
+           "max_rel_running_stats_diff": stats_diff,
+           "wrapper": ddp["wrapper"],
+           "stat_groups": ddp["stat_groups"],
+           "unwrapped_median_step_ms": plain["median_step_ms"],
+           "ddp_median_step_ms": ddp["median_step_ms"]}
+    require(ddp["wrapper"] == "_DDP" and ddp["stat_groups"] == [2],
+            f"the NCCL run was not DDP with statistics over two groups: "
+            f"{ddp['wrapper']} {ddp['stat_groups']}")
+    require(diff <= _RESNET_NCCL_BOUND,
+            f"ResNet under DDP at degree 1: losses {ddp['losses']} vs "
+            f"{plain['losses']} differ by {diff} > {_RESNET_NCCL_BOUND}")
+    # the statistics the step commits: a DDP step that dropped
+    # aux["model_state"] would leave them where init put them
+    require(not unmoved, f"ResNet unwrapped: running means never moved: "
+                         f"{unmoved[:3]}")
+    require(stats_diff <= _RESNET_NCCL_BOUND,
+            f"ResNet under DDP at degree 1: running statistics differ from "
+            f"the unwrapped run's by {stats_diff} > {_RESNET_NCCL_BOUND}")
+    return rec
+
+
+def phase_resnet(torch, card) -> None:
+    """ResNet-50 with BatchNorm on the card: the port's
+    ``examples/train_resnet_cifar.py`` at its own config through
+    ``Trainer.fit`` (CIFAR stem, 32^2, B 128, bf16, ``dp``, 20 steps on
+    one batch), then ``bench.py``'s cell (224^2, B 256, 1000 classes),
+    the card against the CPU in fp32, and the step under DDP in a world
+    of one NCCL rank.  No flash kernel runs (JAX has no Pallas
+    convolution); falling losses and moved running statistics."""
+    from torch_automatic_distributed_neural_network_tpu_torch.data import \
+        SyntheticClassification
+
+    t0 = time.monotonic()
+    data = _OneBatch(SyntheticClassification(
+        image_shape=(32, 32, 3), num_classes=10, batch_size=128).batch(0))
+    cifar, out = _zoo_run(torch, "resnet50-cifar", "train_resnet_cifar",
+                          ["model.arch=resnet50", "run.batch_size=128"],
+                          data, steps=20, items=128, keep=True)
+    state = out["state"]
+    means = [float(t.abs().sum()) for n, t in state.model_state.items()
+             if n.endswith(".mean")]
+    moved = sum(m > 0 for m in means)
+    cifar["running_means_moved"] = moved
+    cifar["batchnorms"] = len(means)
+    cifar["mfu_989"] = (out["trainer"].ad.model.cfg.train_step_flops(
+        (32, 32), 128) / (cifar["median_step_ms"] / 1e3) / _MFU_PEAK)
+    del out, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet", "card": card, **cifar})
+    require(all(c == 0 for c in cifar["launches"].values()),
+            f"ResNet launched flash kernels: {cifar['launches']}")
+    require(moved == len(means) == 53,
+            f"resnet50-cifar: {moved} of {len(means)} running means moved")
+    bench = _resnet_bench_cell(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet", "card": card, **bench})
+    gate = _resnet_card_vs_cpu(torch)
+    emit({"phase": "resnet_card_vs_cpu", "card": card, **gate})
+    require(gate["running_stats_rel_err"] <= _RESNET_CPU_BOUND
+            and gate["eval_logits_rel_err"] <= _RESNET_CPU_BOUND,
+            f"ResNet-50 on the card against the CPU: {gate}")
+    nccl = _resnet_nccl(torch)
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet_nccl", "card": card, **nccl,
+          "seconds": time.monotonic() - t0})
+
+
+# -- phase 22: the Llama FSDP example ------------------------------------------
+
+
+LLAMA_FSDP_LAYERS = 16  # Llama 3.2 1B
+# K1 a layer: the forward, the layer's own recompute (remat "dots") and
+# the loss-level recompute the fsdp plan adds, nested as JAX nests its
+# jax.checkpoint of the loss around the layers' remat; K2, K3 once
+LLAMA_FSDP_PER_LAYER = {"flash_forward": 3, "flash_dkv": 1, "flash_dq": 1}
+
+
+def _llama_fsdp_child(out_path: str, batch_size: int, steps: int) -> int:
+    """One rank of ``python -m torch.distributed.run --nproc-per-node 1``:
+    the port's ``examples/train_llama_fsdp.py`` at ``model.size=1b``,
+    S 2048, on one batch, FSDP2 at degree 1 with remat; then one more step
+    under ``torch.profiler`` for the GQA repeat's device time.  Writes a
+    JSON record to ``out_path`` (``{"oom": true}`` when the batch does not
+    fit)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch_automatic_distributed_neural_network_tpu_torch.data import \
+        SyntheticLM
+    from torch_automatic_distributed_neural_network_tpu_torch.examples import \
+        train_llama_fsdp
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = [getattr(fa, n) for n in _FLASH_NAMES]
+    data = _OneBatch(SyntheticLM(vocab_size=128256, seq_len=2049,
+                                 batch_size=batch_size).batch(0))
+    path = os.path.join(tempfile.mkdtemp(), "metrics.jsonl")
+    argv = ["model.size=1b", "model.seq_len=2048",
+            f"run.batch_size={batch_size}", f"run.steps={steps}",
+            "run.log_every=1", f"run.metrics_path={path}"]
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        out = train_llama_fsdp.main(argv, data=data)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        with open(out_path, "w") as f:
+            json.dump({"oom": True, "batch_size": batch_size,
+                       "error": str(e)[:300]}, f)
+        return 3
+    launches = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(path) as f:
+        records = [r for r in map(json.loads, f) if "step_time_s" in r]
+    ad, state = out["trainer"].ad, out["state"]
+    batch = ad.shard_batch(data.batch(0))
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = ad.step(state, batch)
+        torch.cuda.synchronize()
+
+    def device_ms(key):
+        for e in prof.key_averages():
+            if e.key == key:
+                t = getattr(e, "device_time_total", None)
+                if t is None:
+                    t = e.cuda_time_total
+                return t / 1e3
+        return 0.0
+
+    step_ms = [r["step_time_s"] * 1e3 for r in records]
+    median = statistics.median(step_ms[1:])
+    rec = {"batch_size": batch_size, "steps": steps, "step_ms": step_ms,
+           "median_step_ms": median,
+           "tokens_per_s": batch_size * 2048 / (median / 1e3),
+           "mfu": statistics.median(r["mfu"] for r in records[1:]
+                                    if "mfu" in r),
+           "flops_per_step": records[-1].get("flops_per_step"),
+           "peak_memory_gib": peak, "losses": [r["loss"] for r in records],
+           "launches": launches, "strategy": ad.plan.strategy,
+           "degrees": ad.plan.degrees, "remat": ad.plan.remat,
+           "wrapped": type(ad.model).__name__,
+           "params": ad.model.cfg.num_params(),
+           "gqa_repeat_fwd_device_ms": device_ms("aten::repeat_interleave"),
+           "expand_backward_device_ms": device_ms("ExpandBackward0"),
+           "profiled_step": _device_time(prof, 1, 8)}
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def phase_llama_fsdp(card, *, steps=6) -> dict[str, int]:
+    """The port's Llama FSDP example at ``model.size=1b`` (1.24B
+    parameters, the Llama 3.2 1B geometry), S 2048, B 8 (halved while it
+    does not fit), FSDP2 at degree 1 with remat, under ``python -m
+    torch.distributed.run --nproc-per-node 1``: K1-K3 on every layer of a
+    GQA training path (K and V repeated by ``_prep_bshd``), a falling
+    loss; step ms, tokens/s, MFU, peak memory and the repeat's device ms
+    from ``torch.profiler``."""
+    import os
+    import tempfile
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="tadnn_llama_")
+    out_path = os.path.join(tmp, "llama_fsdp.json")
+    tried = []
+    for batch_size in (8, 4, 2):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", "1", os.path.abspath(__file__),
+               "--llama-fsdp-child", out_path, "--llama-fsdp-batch",
+               str(batch_size), "--llama-fsdp-steps", str(steps)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        rec = None
+        if os.path.exists(out_path):
+            with open(out_path) as f:
+                rec = json.load(f)
+            os.remove(out_path)
+        tried.append({"batch_size": batch_size, "rc": proc.returncode,
+                      "oom": bool(rec and rec.get("oom"))})
+        if rec is None or not rec.get("oom"):
+            break
+    require(proc.returncode == 0 and rec is not None and not rec.get("oom"),
+            f"llama_fsdp: rc {proc.returncode}, tried {tried}\n"
+            f"{proc.stderr[-3000:]}")
+    per_step = {n: c / steps for n, c in rec["launches"].items()}
+    want = {n: LLAMA_FSDP_LAYERS * k for n, k in LLAMA_FSDP_PER_LAYER.items()}
+    rec.update({"card": card, "tried": tried, "launches_per_step": per_step,
+                "expected_launches_per_step": want,
+                "seconds": time.monotonic() - t0})
+    emit({"phase": "llama_fsdp", **rec})
+    losses = rec["losses"]
+    require(rec["strategy"] == "fsdp" and rec["remat"]
+            and rec["wrapped"].startswith("FSDP"),
+            f"llama_fsdp: plan {rec['strategy']} remat {rec['remat']}, "
+            f"model {rec['wrapped']}")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"llama_fsdp: losses {losses}")
+    require(per_step == want, f"llama_fsdp: K1-K3 a step {per_step} != {want}")
+    return rec["launches"]
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3160,6 +3562,12 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases to run alone: "
                          + ", ".join(PHASES) + " (prints no result)")
+    # phase llama_fsdp's rank, started under torch.distributed.run
+    ap.add_argument("--llama-fsdp-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--llama-fsdp-batch", type=int, default=8,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--llama-fsdp-steps", type=int, default=6,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
@@ -3181,6 +3589,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: run it from the root of a checkout ({e})",
               file=sys.stderr)
         return 1
+    if args.llama_fsdp_child:
+        return _llama_fsdp_child(args.llama_fsdp_child, args.llama_fsdp_batch,
+                                 args.llama_fsdp_steps)
     from torch_automatic_distributed_neural_network_tpu_torch.models import (
         gpt2_config, llama_config)
     from torch_automatic_distributed_neural_network_tpu_torch.models \
@@ -3287,8 +3698,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("zoo"):
         zoo_launches = phase_zoo(torch)
-    emit({"phase": "done", "seconds": time.monotonic() - t_start,
-          "phase_start_s": starts})
+        torch.cuda.empty_cache()
+    if run("resnet"):
+        phase_resnet(torch, card)
+        torch.cuda.empty_cache()
+    if run("llama_fsdp"):
+        llama_launches = phase_llama_fsdp(card)
+    seconds = time.monotonic() - t_start
+    order = sorted(starts, key=starts.get)
+    emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
+          "phase_seconds": {name: (starts[nxt] if nxt else seconds)
+                            - starts[name] for name, nxt in
+                            zip(order, order[1:] + [None])}})
     if only is not None:
         return 0
 
@@ -3305,7 +3726,7 @@ def main(argv=None) -> int:
             "replaces": FLASH_REPLACES[name],
             "launches": (train_launches[name] + dist_launches[name]
                          + lora_launches[name] + sharded_launches[name]
-                         + zoo_launches[name]),
+                         + zoo_launches[name] + llama_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -3329,7 +3750,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
-          "serve_lora", "zoo")
+          "serve_lora", "zoo", "resnet", "llama_fsdp")
 
 
 if __name__ == "__main__":

@@ -14,7 +14,10 @@ process) and runs every strategy in turn in that one group:
   on two devices: every axis of degree 1) and ``tp`` (tensor 2: a
   column-split layer's ``b`` and a row-split layer's ``a`` split with
   their weight): the base stays bitwise as it was and the factors train
-  as JAX's do;
+  as JAX's do; and ResNet18Thin with BatchNorm under ``dp`` and ``fsdp``
+  (``sgd(0.05, momentum=0.9)``, ``softmax_xent_loss_mutable``, 3 steps
+  of 16 images of 16 x 16), whose statistics are the global batch's;
+  the fsdp state's ``ShardedCheckpoint`` restores into ``dp`` bitwise;
 - 4 ranks: ``fsdp``, ``tp_fsdp`` on 2 x 2 with the clip, and the
   hybrid meshes, a data axis beside the others: HSDP on data 2 x fsdp 2,
   DP x TP on data 2 x tensor 2, and ZeRO-1 beside tensor 2 (the JAX
@@ -32,9 +35,15 @@ order across ranks), the final parameters within 1e-4 absolute (10 % of
 one Adam step of ~lr), the key biases within 5e-3 (their gradient is
 rounding noise, as in ``test_torch_port_train.py``); the clip threshold
 0.1 sits below the gradient norm, so every step is clipped.  Three runs
-also check the trained state's ``eval_step`` (2e-5 relative of JAX's)
-and ``generate`` (the tokens of a plain decode with the same weights),
-and every run its journal's ``plan`` events.  The
+also check the trained state's ``eval_step`` (2e-5 relative of JAX's),
+``generate`` (the tokens of a plain decode with the same weights) and
+``ad(state, x)`` (1e-5 of one process's forward with the gathered
+weights), and every run its journal's ``plan`` events.  ResNet: the
+losses within 2e-4 relative and the running statistics within 1e-3
+relative / 1e-5 absolute of JAX's (JAX's own bounds for 8 devices
+against 1, ``tests/test_models.py``), ``ad(state, x)`` on both ranks
+within 1e-5 of one process's forward with the gathered weights and
+statistics, in either mode.  The
 collectives are held to ``jax.lax`` inside ``shard_map`` on the same
 local values, exactly.
 """
@@ -57,7 +66,11 @@ from torch_automatic_distributed_neural_network_tpu import AutoDistribute as JAu
 from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
     SyntheticLM as JSyntheticLM,
 )
+from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
+    SyntheticClassification as JSyntheticClassification,
+)
 from torch_automatic_distributed_neural_network_tpu.models import GPT2
+from torch_automatic_distributed_neural_network_tpu.models import resnet as jresnet
 from torch_automatic_distributed_neural_network_tpu.topology import (
     build_mesh as jbuild_mesh,
 )
@@ -66,7 +79,9 @@ from torch_automatic_distributed_neural_network_tpu.training import lora as jlor
 from torch_automatic_distributed_neural_network_tpu.utils.jax_compat import shard_map
 from torch_automatic_distributed_neural_network_tpu_torch.interop import (
     decoder_from_jax_params,
+    jax_param_path,
     lora_from_jax,
+    resnet_from_jax_params,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.inference.decode import (
     generate,
@@ -74,6 +89,10 @@ from torch_automatic_distributed_neural_network_tpu_torch.inference.decode impor
 from torch_automatic_distributed_neural_network_tpu_torch.models import (
     DecoderLM,
     gpt2_config,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.models.resnet import (
+    ResNet,
+    ResNetConfig,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.training import (
     lora as tlora,
@@ -110,6 +129,49 @@ RUNS = {
         dict(name="zero1+tensor2", strategy="auto", zero1=True,
              mesh={"data": 2, "tensor": 2})],
 }
+
+
+RESNET_CFG = ResNetConfig(stage_sizes=(2, 2), num_classes=10, width=16,
+                          small_inputs=True, dtype=torch.float32)
+RESNET_RUNS = [dict(name="dp", strategy="dp"),
+               dict(name="fsdp", strategy="fsdp", reshard=True)]
+RESNET_LR = 0.05
+
+
+def _images():
+    data = JSyntheticClassification(image_shape=(16, 16, 3), num_classes=10,
+                                    batch_size=16)
+    return [data.batch(i) for i in range(3)]
+
+
+def _jax_resnet(world, strategy):
+    ad = JAutoDistribute(jresnet.ResNet18Thin(dtype=jnp.float32),
+                         optimizer=optax.sgd(RESNET_LR, momentum=0.9),
+                         loss_fn=jlosses.softmax_xent_loss_mutable,
+                         strategy=strategy, devices=jax.devices()[:world])
+    batches = _images()
+    state = ad.init(jax.random.key(0), batches[0])
+    variables0 = jax.tree.map(np.asarray, {"params": state.params,
+                                           **state.model_state})
+    losses = []
+    for b in batches:
+        state, m = ad.step(state, b)
+        losses.append(float(m["loss"]))
+    return {"variables0": variables0, "losses": losses, "plan": ad.plan,
+            "batch_stats": jax.tree.map(np.asarray,
+                                        state.model_state["batch_stats"])}
+
+
+def _resnet_job(world):
+    runs = {run["name"]: _jax_resnet(world, run["strategy"])
+            for run in RESNET_RUNS}
+    variables0 = runs["dp"]["variables0"]
+    model = resnet_from_jax_params(variables0, RESNET_CFG, device="cpu")
+    job = {"cfg": {f: getattr(RESNET_CFG, f)
+                   for f in RESNET_CFG.__dataclass_fields__},
+           "state_dict": model.state_dict(), "batches": _images(),
+           "x": _images()[0]["x"], "lr": RESNET_LR, "runs": RESNET_RUNS}
+    return runs, job
 
 
 # LoRA on every kind of projection: q/v column-split, o row-split, up
@@ -210,6 +272,8 @@ def _results(world, tmp_root):
            "batches": _batches(), "runs": RUNS[world],
            "prompt": torch.from_numpy(PROMPT), "lora_spec": LORA_SPEC,
            "reshard": world == 4}
+    if world == 2:
+        jax_runs["resnet"], job["resnet"] = _resnet_job(world)
     for run in RUNS[world]:
         if run.get("lora"):
             r = jax_runs[run["name"]] = _jax_run(world, run, base=params0)
@@ -277,6 +341,44 @@ def test_sharded_step_matches_jax(results, world, name):
         np.testing.assert_array_equal(
             got["generated"].numpy(),
             generate(model, torch.from_numpy(PROMPT), max_new_tokens=4))
+        # the forward on every rank: one process's with the same weights
+        with torch.no_grad():
+            want_logits = model(torch.from_numpy(PROMPT))
+        np.testing.assert_allclose(got["logits"].numpy(),
+                                   want_logits.numpy(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", [run["name"] for run in RESNET_RUNS])
+def test_resnet_batchnorm_matches_jax_on_two_ranks(results, name):
+    """ResNet18Thin on 2 gloo ranks against JAX on 2 devices: global-batch
+    statistics, so the losses and running statistics are JAX's; the
+    forward on every rank is one process's; the fsdp state reshards."""
+    jax_runs, port = results(2)
+    want, got = jax_runs["resnet"][name], port["resnet"][name]
+    plan = want["plan"]
+    assert (got["strategy"], got["remat"]) == (plan.strategy, plan.remat)
+    assert got["degrees"] == dict(zip(plan.mesh.axis_names,
+                                      plan.mesh.devices.shape))
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-4,
+                               atol=0)
+    assert len(got["model_state"]) == 30
+    for bname, t in got["model_state"].items():
+        tree = want["batch_stats"]
+        for key in jax_param_path(bname).split("/"):
+            tree = tree[key]
+        np.testing.assert_allclose(t.numpy(), tree, rtol=1e-3, atol=1e-5,
+                                   err_msg=bname)
+    model = ResNet(RESNET_CFG)
+    model.load_state_dict({**got["params"], **got["model_state"]})
+    x = torch.from_numpy(_images()[0]["x"])
+    with torch.no_grad():
+        for train, key in ((False, "call"), (True, "call_train"),
+                           (False, "call_gathered")):
+            np.testing.assert_allclose(got[key].numpy(),
+                                       model(x, train=train).numpy(),
+                                       atol=1e-5, rtol=0, err_msg=key)
+    if name == "fsdp":
+        assert got["resharded"] is True
 
 
 def test_plans_shard_the_parameters(results):

@@ -2,7 +2,11 @@
 shapes only (meta tensors on the port's side, ``jax.eval_shape`` on
 JAX's): GPT-2 and Llama at the ``test`` presets and at full width
 (GPT-2 small, Llama 3.2 1B), strategies ``dp``, ``fsdp``, ``tp``,
-``tp_fsdp`` and ``dp`` + ZeRO-1 on meshes of 2, 4 and 8.
+``tp_fsdp`` and ``dp`` + ZeRO-1 on meshes of 2, 4 and 8; and ResNet
+(ResNet18Thin and ResNet-50) under ``dp``, ``fsdp``, ``tp`` and
+``tp_fsdp`` on the same meshes, whose conv kernels are [out, in, kh,
+kw] in the port and HWIO in flax, and where no tensor rule matches, so
+``tp`` replicates everything and ``tp_fsdp`` is FSDP, in both packages.
 
 The two packages lay the weights out differently (``nn.Linear``'s
 [out, in] against flax's [in, H, hd] kernels), so a spec is not
@@ -28,6 +32,7 @@ from torch_automatic_distributed_neural_network_tpu import planner as jplanner
 from torch_automatic_distributed_neural_network_tpu import topology as jtopo
 from torch_automatic_distributed_neural_network_tpu.models import GPT2 as JGPT2
 from torch_automatic_distributed_neural_network_tpu.models import Llama as JLlama
+from torch_automatic_distributed_neural_network_tpu.models import resnet as jresnet
 from torch_automatic_distributed_neural_network_tpu_torch import planner
 from torch_automatic_distributed_neural_network_tpu_torch import topology
 from torch_automatic_distributed_neural_network_tpu_torch.interop import (
@@ -38,6 +43,7 @@ from torch_automatic_distributed_neural_network_tpu_torch.models import (
     gpt2_config,
     llama_config,
 )
+from torch_automatic_distributed_neural_network_tpu_torch.models import resnet
 
 MODELS = {("gpt2", "test"): (JGPT2, gpt2_config),
           ("gpt2", "small"): (JGPT2, gpt2_config),
@@ -121,6 +127,50 @@ def test_make_plan_matches_jax(model, strategy, zero1, n):
         for key in ("strategy", "mesh", "grad_accum", "grad_dtype",
                     "per_device", "total_wire_bytes", "model_dependent"):
             assert got[key] == want[key], key
+
+
+RESNETS = {"thin": (jresnet.ResNet18Thin, resnet.ResNet18Thin),
+           "50": (jresnet.ResNet50, resnet.ResNet50)}
+RESNET_CASES = [(m, s, n) for m in RESNETS
+                for s in ("dp", "fsdp", "tp", "tp_fsdp") for n in (2, 4, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def resnet_pair(name):
+    jcls, pcls = RESNETS[name]
+    jm = jcls(dtype=jnp.float32)
+    jabs = jax.eval_shape(lambda: jm.init(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 3))))["params"]
+    with torch.device("meta"):
+        pabs = planner.abstract_params(pcls(dtype=torch.float32))
+    return jabs, dict(jplanner._flatten_with_paths(jabs)), pabs
+
+
+@pytest.mark.filterwarnings("ignore:.*(ZERO|no parameter matched)")
+@pytest.mark.parametrize("model,strategy,n", RESNET_CASES,
+                         ids=[f"resnet{m}-{s}-{n}" for m, s, n in RESNET_CASES])
+def test_resnet_plan_matches_jax(model, strategy, n):
+    """Per parameter the axes and the elements a device holds, under the
+    interop name map (BatchNorm's ``scale``/``bias`` keep their names;
+    the running statistics are buffers, outside the plan, as
+    ``batch_stats`` is outside JAX's), and the strategy, degrees, remat
+    and collective bytes."""
+    jabs, jflat, pabs = resnet_pair(model)
+    jplan = jplanner.make_plan(jabs, strategy=strategy,
+                               devices=jax.devices()[:n])
+    jdeg = jtopo.mesh_degrees(jplan.mesh)
+    plan = planner.make_plan(pabs, strategy=strategy,
+                             topology=topology.parse_topology(f"cpu-{n}"))
+    assert (plan.strategy, plan.degrees, plan.remat) == (
+        jplan.strategy, jdeg, jplan.remat)
+    jspecs = dict(jplanner._flatten_with_paths(jplan.param_specs))
+    _assert_same_specs(jspecs, plan.param_specs, jflat, pabs, jdeg)
+    want = jplanner.expected_collective_bytes(jplan, jabs,
+                                              grad_dtype=jnp.bfloat16)
+    got = planner.expected_collective_bytes(plan, pabs,
+                                            grad_dtype=torch.bfloat16)
+    for key in ("per_device", "total_wire_bytes", "model_dependent"):
+        assert got[key] == want[key], key
 
 
 KINDS = ["cpu", "mystery-accelerator"]

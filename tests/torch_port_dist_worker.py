@@ -20,6 +20,18 @@ results of every rank.  A run marked ``lora`` freezes the base, puts
 under ``lora_optimizer``.  A run may name a ``mesh`` (a degrees
 mapping: the hybrid meshes, a data axis beside fsdp or tensor).
 
+A run marked ``inspect`` also records ``ad(state, prompt)``, the
+forward on every rank.  In the world of 2 the job also holds
+``resnet``: ResNet18Thin (fp32) from its weights and running statistics,
+``sgd`` with momentum and ``softmax_xent_loss_mutable`` under each of
+its runs' strategies, recording the losses, the final parameters and
+running statistics, and ``ad(state, x)`` with the running statistics
+and with the batch's, and with the gathered parameters as a bare
+mapping; a run marked ``reshard`` saves its state with a
+``ShardedCheckpoint`` and restores it into a fresh ``dp`` state in the
+same group (the buffers whole on every rank), recording whether every
+leaf came back bitwise.
+
 In the world of 4 the job also holds ``reshard``: the resharding chain
 of ``training/shards.py`` — a ``ShardedCheckpoint`` step written under
 dp on 4 ranks restores under fsdp on 2 (ranks 0-1 in a new group of
@@ -103,10 +115,66 @@ def _run(job, run):
            "remat": ad.plan.remat, "local_shapes": local, "params": params,
            "events": events}
     if run.get("inspect"):
-        # the trained state's eval loss on the global batch, and greedy
-        # tokens from the weights gathered on every rank
+        # the trained state's eval loss on the global batch, greedy
+        # tokens from the weights gathered on every rank, and the forward
         out["eval_loss"] = float(ad.eval_step(state, job["batches"][0])["loss"])
         out["generated"] = ad.generate(state, job["prompt"], max_new_tokens=4)
+        out["logits"] = ad(state, job["prompt"])
+    return out
+
+
+def _resnet_ad(rj, strategy):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        sgd,
+        softmax_xent_loss_mutable,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.models.resnet import (
+        ResNet,
+        ResNetConfig,
+    )
+
+    model = ResNet(ResNetConfig(**rj["cfg"]))
+    model.load_state_dict(rj["state_dict"])
+    return AutoDistribute(model, optimizer=sgd(rj["lr"], momentum=0.9),
+                          loss_fn=softmax_xent_loss_mutable, device="cpu",
+                          strategy=strategy)
+
+
+def _resnet_run(rj, run, out_dir):
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards import (
+        ShardedCheckpoint,
+    )
+
+    ad = _resnet_ad(rj, run["strategy"])
+    state = ad.init(None, rj["batches"][0])
+    losses = []
+    for batch in rj["batches"]:
+        state, metrics = ad.step(state, batch)
+        losses.append(float(metrics["loss"]))
+    full = _full_state(state)
+    out = {"losses": losses, "strategy": ad.plan.strategy,
+           "degrees": ad.plan.degrees, "remat": ad.plan.remat,
+           "params": {k[len("params/"):]: v for k, v in full.items()
+                      if k.startswith("params/")},
+           "model_state": {n: t.clone() for n, t in state.model_state.items()},
+           "call": ad(state, rj["x"], train=False),
+           "call_train": ad(state, rj["x"], train=True)}
+    # whole tensors that are not the wrapped module's: an unwrapped copy
+    out["call_gathered"] = ad(out["params"], rj["x"], train=False)
+    if run.get("reshard"):
+        directory = f"{out_dir}/resnet_{run['name']}"
+        with ShardedCheckpoint(directory) as ck:
+            ck.save(len(losses), state)
+            ck.wait()
+        dist.barrier()  # per-process saves: every marker has landed
+        fresh = _resnet_ad(rj, "dp")
+        fstate = ShardedCheckpoint(directory).restore(
+            fresh.init(None, rj["batches"][0]))
+        fresh.adopt_state(fstate)
+        out["resharded"] = _equal(_full_state(fstate), full)
     return out
 
 
@@ -285,6 +353,10 @@ def main(rank, world, init_file, job_path, out_path):
     job = torch.load(job_path, weights_only=False)
     out = {"topology": topology.detect(),
            "runs": {run["name"]: _run(job, run) for run in job["runs"]}}
+    if job.get("resnet"):
+        out["resnet"] = {run["name"]: _resnet_run(
+            job["resnet"], run, str(Path(out_path).parent))
+            for run in job["resnet"]["runs"]}
     got = _collectives(rank, world)
     gathered = [None] * world
     dist.all_gather_object(gathered, got)

@@ -33,7 +33,16 @@ Its slices:
   ViT, the MT Transformer, MoE at expert degree 1 (``parallel.expert``'s
   routing) and the MNIST MLP (``models``), their losses
   (``training.losses``), the synthetic and on-disk datasets (``data``)
-  and one example a family (``examples``).
+  and one example a family (``examples``);
+- ResNet with BatchNorm (``models.resnet``): its running statistics as
+  ``TrainState.model_state`` through the step, eval, checkpoints and the
+  wrappers, global-batch statistics under a plan, SGD with momentum, the
+  mutable losses, and the ResNet/CIFAR and Llama FSDP examples.
+
+The top-level names are the JAX package's (``AutoDistribute``,
+``autodistribute``, the planner's and the topology's), but for
+``enable_compilation_cache`` and the ``obs``/``tune`` subpackages,
+which are later slices.
 
 The kernels are CUDA C++ for Hopper (sources in ``csrc/``).  The package
 imports torch and numpy, never jax.  Entry points run on the card unless
@@ -41,8 +50,23 @@ the caller passes ``device="cpu"``, where each kernel's plain PyTorch
 version runs instead.
 """
 
-from .core import AutoDistribute, ShardPlan, TrainState, mesh_degrees
+from .core import (
+    AutoDistribute,
+    ShardPlan,
+    TrainState,
+    autodistribute,
+    mesh_degrees,
+)
 from . import planner, topology
+from .planner import Rule, TRANSFORMER_RULES, make_plan, param_spec_tree
+from .topology import (
+    MESH_AXES,
+    Topology,
+    build_mesh,
+    detect,
+    initialize_distributed,
+    single_device_mesh,
+)
 from .data import (
     SyntheticClassification,
     SyntheticLM,
@@ -58,6 +82,8 @@ from .models import (
     DecoderLM,
     Llama,
     MoE,
+    ResNet18Thin,
+    ResNet50,
     TransformerConfig,
     TransformerMT,
     ViT,
@@ -70,18 +96,28 @@ from .training import (
     moe_next_token_loss,
     mse_loss,
     next_token_loss,
+    next_token_loss_mutable,
     seq2seq_loss,
+    sgd,
     softmax_xent_loss,
+    softmax_xent_loss_mutable,
 )
 
 __version__ = "0.3.0"
 
 __all__ = [
-    "GPT2", "MLP", "AutoDistribute", "Bert", "DecoderLM", "Llama", "MoE",
-    "ShardPlan", "SyntheticClassification", "SyntheticLM", "SyntheticMLM",
-    "SyntheticSeq2Seq", "TokenFileDataset", "TrainState",
-    "TransformerConfig", "TransformerMT", "ViT", "adamw", "adamw_cosine",
-    "blockwise_next_token_loss", "masked_lm_loss", "mesh_degrees",
-    "moe_next_token_loss", "mse_loss", "next_token_loss", "seq2seq_loss",
-    "softmax_xent_loss", "write_token_file",
+    # the JAX package's names
+    "AutoDistribute", "TrainState", "autodistribute", "Rule", "ShardPlan",
+    "TRANSFORMER_RULES", "make_plan", "param_spec_tree", "MESH_AXES",
+    "Topology", "build_mesh", "detect", "initialize_distributed",
+    "mesh_degrees", "single_device_mesh", "__version__",
+    # the port's shortcuts to its models, data and losses
+    "GPT2", "MLP", "Bert", "DecoderLM", "Llama", "MoE", "ResNet18Thin",
+    "ResNet50", "SyntheticClassification", "SyntheticLM", "SyntheticMLM",
+    "SyntheticSeq2Seq", "TokenFileDataset", "TransformerConfig",
+    "TransformerMT", "ViT", "adamw", "adamw_cosine",
+    "blockwise_next_token_loss", "masked_lm_loss", "moe_next_token_loss",
+    "mse_loss", "next_token_loss", "next_token_loss_mutable",
+    "seq2seq_loss", "sgd", "softmax_xent_loss", "softmax_xent_loss_mutable",
+    "write_token_file",
 ]

@@ -7,6 +7,9 @@
     for batch in data:
         state, metrics = ad.step(state, batch)
 
+``ad(state, x)`` is the forward pass with the state's weights (JAX's
+``__call__``); ``autodistribute(model, ...)`` is JAX's functional alias.
+
 ``loss_fn(model, batch, generator) -> (loss, aux_dict)``
 (``training/losses.py``): the loss reads its family's batch keys
 (``input_ids``, ``x``/``label``, ``src``/``tgt``, ``labels``) and the
@@ -40,11 +43,20 @@ item.
 The step updates the state in place (the JAX step donates its input
 state): ``step`` returns a new :class:`TrainState` whose ``params`` and
 optimizer tensors are the ones it was given, updated.
+
+A stateful model (``ResNet``'s BatchNorm) keeps its running statistics
+in ``TrainState.model_state``, its buffers by name: a ``*_mutable``
+loss returns the new ones in ``aux["model_state"]`` and the step
+commits them into the buffers after each batch slice, so the slices of
+``grad_accum`` thread them in order, a forward that activation
+checkpointing re-runs moves them once, and ``eval_step`` (batch
+statistics, as JAX evaluates) moves them not at all.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from collections.abc import Mapping
 from typing import Any, Callable
@@ -80,19 +92,25 @@ from .utils.device import (
 LossFn = Callable[[nn.Module, dict, "torch.Generator | None"],
                   "tuple[torch.Tensor, dict]"]
 
-__all__ = ["AutoDistribute", "ShardPlan", "TrainState", "mesh_degrees"]
+__all__ = ["AutoDistribute", "ShardPlan", "TrainState", "autodistribute",
+           "mesh_degrees"]
 
 
 @dataclasses.dataclass
 class TrainState:
     """The train state: the step count, the trained parameters by name
-    (in ``precision.param_dtype``), the optimizer state, and the seed the
-    per-step dropout generators are drawn from (the JAX state's rng)."""
+    (in ``precision.param_dtype``), the optimizer state, the seed the
+    per-step dropout generators are drawn from (the JAX state's rng) and
+    ``model_state``, the module's buffers by name (BatchNorm's running
+    statistics, always fp32; empty for a stateless model), JAX's
+    non-trained variable collections."""
 
     step: int
     params: dict[str, torch.Tensor]
     opt_state: Any
     seed: int
+    model_state: dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
 
 def _not_ported(what: str, item: str):
@@ -326,7 +344,7 @@ class AutoDistribute:
             opt_params = zero1_shards(params, **self._zero1_kw())
         return TrainState(step=0, params=params,
                           opt_state=self.optimizer.init(opt_params),
-                          seed=seed)
+                          seed=seed, model_state=dict(model.named_buffers()))
 
     def _zero1_kw(self) -> dict:
         plan = self.plan
@@ -399,7 +417,7 @@ class AutoDistribute:
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = {n: torch.zeros_like(p) if g is None else g
                  for n, p, g in zip(names, params, grads)}
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+        return loss.detach(), _detached(aux), grads
 
     @staticmethod
     def _generator(state: TrainState, i: int) -> torch.Generator:
@@ -422,6 +440,7 @@ class AutoDistribute:
         if k == 1:
             loss, aux, grads = self._value_and_grad(
                 batch, self._generator(state, 0))
+            updates = aux.pop("model_state", None)
         else:
             self._check_batch(batch)
             loss, grads, auxes = None, None, []
@@ -430,6 +449,8 @@ class AutoDistribute:
                       if v.ndim else v for key, v in batch.items()}
                 loss_i, aux_i, g_i = self._value_and_grad(
                     mb, self._generator(state, i))
+                # the next slice starts from this one's statistics
+                _commit(state, aux_i.pop("model_state", None))
                 loss = loss_i if loss is None else loss + loss_i
                 grads = g_i if grads is None else {
                     n: grads[n] + g for n, g in g_i.items()}
@@ -437,11 +458,13 @@ class AutoDistribute:
             grads = {n: g / k for n, g in grads.items()}
             loss = loss / k
             aux = _merge_aux(auxes)
+            updates = None
         with torch.no_grad():
-            updates, opt_state = self.optimizer.update(
+            deltas, opt_state = self.optimizer.update(
                 grads, state.opt_state, self._trained(state.params))
-            apply_updates(state.params, updates)
+            apply_updates(state.params, deltas)
             self._copy_masters(state)
+        _commit(state, updates)
         new_state = dataclasses.replace(state, step=state.step + 1,
                                         opt_state=opt_state)
         return new_state, {"loss": loss, **aux}
@@ -482,7 +505,10 @@ class AutoDistribute:
                 loss_i.backward()
             loss_i = loss_i.detach()
             loss = loss_i if loss is None else loss + loss_i
-            auxes.append({key: v.detach() for key, v in aux_i.items()})
+            aux_i = _detached(aux_i)
+            # every rank computed the same global statistics
+            _commit(state, aux_i.pop("model_state", None))
+            auxes.append(aux_i)
         ex.reduce_grads()
         with torch.no_grad():
             grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
@@ -506,36 +532,48 @@ class AutoDistribute:
 
     # -- inference ------------------------------------------------------------
 
+    @staticmethod
+    def _tree(state_or_params) -> dict[str, torch.Tensor]:
+        """Name -> tensor: a state's parameters and model state, or a bare
+        mapping."""
+        if isinstance(state_or_params, TrainState):
+            return {**state_or_params.params, **state_or_params.model_state}
+        return dict(state_or_params)
+
+    def _own(self) -> dict[str, torch.Tensor]:
+        """The module's parameters and buffers by name."""
+        return {**dict(self.model.named_parameters()),
+                **dict(self.model.named_buffers())}
+
     def _decode_model(self, state_or_params) -> nn.Module:
-        """The decoder holding ``state_or_params``'s weights: the module
-        itself when they are its parameters, else a copy loaded with them
-        (the fp32 masters of a ``mixed`` state, a bare name -> tensor
-        mapping, or under a plan the full weights gathered on this
-        rank, as the JAX ``generate`` replicates them)."""
-        params = (state_or_params.params
-                  if isinstance(state_or_params, TrainState)
-                  else state_or_params)
-        own = dict(self.model.named_parameters())
-        if self._exec is None and all(params.get(n) is p
-                                      for n, p in own.items()):
+        """The model holding ``state_or_params``'s weights: the module
+        itself when they are its own, else an unwrapped copy loaded with
+        them (the fp32 masters of a ``mixed`` state, a bare name -> tensor
+        mapping, the module's own tensors where it names none, or under
+        a plan the full weights gathered on this rank, as the JAX
+        ``generate`` replicates them)."""
+        from .interop import _like
+
+        tree, own = self._tree(state_or_params), self._own()
+        if self._exec is None and all(tree.get(n, t) is t
+                                      for n, t in own.items()):
             return self.model
         spec = getattr(self.model, "lora_spec", None)
         if spec is not None:
             # a plain decoder holding the merged weights
             from .training.lora import is_lora_name, merge_lora
 
-            full = {n: gathered(p).detach() for n, p in params.items()}
+            full = {n: gathered(p).detach() for n, p in tree.items()}
             lora = {n[:-len(".lora_a")] + ".weight":
                     {"a": full[n], "b": full[n[:-1] + "b"]}
                     for n in full if n.endswith(".lora_a")}
-            params = merge_lora({n: t for n, t in full.items()
-                                 if not is_lora_name(n)}, lora, spec)
-        with torch.device("meta"):
-            model = type(self.model)(self.model.cfg)
-        model = model.to_empty(device=self.device)
+            tree = merge_lora({n: t for n, t in full.items()
+                               if not is_lora_name(n)}, lora, spec)
+        full = {**own, **tree}
+        model = _like(self.model, device=self.device)
         with torch.no_grad():
-            for name, p in model.named_parameters():
-                p.data = gathered(params[name]).detach().to(self.device)
+            for name, t in model.state_dict(keep_vars=True).items():
+                t.data = gathered(full[name]).detach().to(self.device)
         return model
 
     @torch.no_grad()
@@ -571,17 +609,53 @@ class AutoDistribute:
     def eval_step(self, state: TrainState, batch: dict
                   ) -> dict[str, torch.Tensor]:
         """The training loss and aux of the global batch with no dropout
-        and no update."""
+        and no update.  A stateful model evaluates with its batch's
+        statistics, as JAX's ``eval_step`` does, and its running ones stay
+        as they were."""
         if self.remat is None:
             raise RuntimeError("call init() first")
         if self._exec is None:
             loss, aux = self._loss_fn(self.model, self._to_device(batch),
                                       None)
+            aux.pop("model_state", None)
             return {"loss": loss, **aux}
         loss, aux = self._loss_fn(self._exec.module, self.shard_batch(batch),
                                   None)
+        aux.pop("model_state", None)
         loss, aux = self._exec.reduce_metrics(loss, aux)
         return {"loss": loss, **aux}
+
+    @torch.no_grad()
+    def __call__(self, state_or_params, *args, **kwargs):
+        """The forward pass with the weights of ``state_or_params``: a
+        ``TrainState`` (its ``params`` and ``model_state``) or a bare name
+        -> tensor mapping (parameters, and buffers where it has them), as
+        JAX's ``ad(state_or_params, x)``.  Array arguments go to this
+        device; ``train=`` reaches a model whose forward takes it (ResNet:
+        ``train=False`` normalizes with the running statistics) and is
+        dropped for one that has no such mode.
+
+        The module's own tensors stay untouched: where the weights are
+        not the module's, ``torch.func.functional_call`` computes with
+        them.  Under a plan the wrapped module computes the whole batch
+        on every rank when the weights are its own; other weights are
+        gathered into an unwrapped copy of the model."""
+        if self.plan is None:
+            raise RuntimeError("call init() or build_plan() first")
+        tree = self._tree(state_or_params)
+        if "train" in kwargs and "train" not in inspect.signature(
+                self.model.forward).parameters:
+            kwargs.pop("train")
+        args = tuple(torch.as_tensor(a).to(self.device)
+                     if isinstance(a, (np.ndarray, torch.Tensor)) else a
+                     for a in args)
+        if all(tree.get(n, t) is t for n, t in self._own().items()):
+            module = self.model if self._exec is None else self._exec.module
+            return module(*args, **kwargs)
+        if self._exec is None:
+            return torch.func.functional_call(self.model, tree, args, kwargs,
+                                              strict=False)
+        return self._decode_model(tree)(*args, **kwargs)
 
 
 def _heads(model: nn.Module) -> tuple[int, int] | None:
@@ -593,6 +667,27 @@ def _heads(model: nn.Module) -> tuple[int, int] | None:
     if cfg is None or not hasattr(cfg, "n_heads"):
         return None
     return cfg.n_heads, getattr(cfg, "kv_heads", cfg.n_heads)
+
+
+def autodistribute(model: nn.Module | None = None, **kwargs
+                   ) -> AutoDistribute:
+    """Functional alias: ``autodistribute(model, optimizer=...,
+    loss_fn=...)``."""
+    return AutoDistribute(model, **kwargs)
+
+
+def _detached(aux: dict) -> dict:
+    """``aux`` detached, the ``model_state`` mapping entry by entry."""
+    return {k: ({n: t.detach() for n, t in v.items()} if isinstance(v, dict)
+                else v.detach()) for k, v in aux.items()}
+
+
+@torch.no_grad()
+def _commit(state: TrainState, updates: dict | None) -> None:
+    """A loss's new running statistics into the state's buffers (the
+    module's own), in place."""
+    for name, t in (updates or {}).items():
+        state.model_state[name].copy_(t)
 
 
 def _merge_aux(auxes: list[dict]) -> dict:

@@ -32,6 +32,13 @@ Gradients come out as the mean over the batch axes: DDP and FSDP2
 average over their groups, and :meth:`Execution.reduce_grads` averages
 what no wrapper reduced (the parameters FSDP ignores, and every
 gradient over ``data`` beside tensor parallelism).
+
+Buffers (BatchNorm's running statistics) stay whole on every rank: each
+module that declares ``stat_groups`` (BatchNorm) gets the groups of the
+batch axes (``data`` and ``fsdp``, at any degree) there and sums its
+statistics over them,
+so every rank computes the global batch's and commits the same
+buffers; DDP therefore broadcasts none (``broadcast_buffers=False``).
 """
 
 from __future__ import annotations
@@ -263,6 +270,10 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
     degree above 1 that is the plan's own spec, and an axis of degree 1
     shards nothing."""
     check_executable(plan)
+    groups = tuple(mesh.get_group(axis) for axis in ("data", "fsdp"))
+    for mod in model.modules():
+        if hasattr(mod, "stat_groups"):
+            mod.stat_groups = groups
     layout = param_spec_tree(abstract_params(model), plan.degrees,
                              plan.strategy, rules, heads=heads, min_degree=1)
     names = [n for n, _ in model.named_parameters()]
@@ -281,7 +292,8 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
         if plan.strategy == "dp" and not plan.zero1:
             module = _DDP(model, process_group=mesh.get_group("data"),
                           device_ids=([device.index or 0]
-                                      if device.type == "cuda" else None))
+                                      if device.type == "cuda" else None),
+                          broadcast_buffers=False)
     return Execution(plan=plan, mesh=mesh, model=model, module=module,
                      reduced=reduced)
 

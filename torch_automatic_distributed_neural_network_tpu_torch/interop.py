@@ -7,7 +7,8 @@ never imports jax) — and returns the port's :class:`DecoderLM` on a
 device.  One function a family does the same for the rest of the zoo:
 :func:`bert_from_jax_params` (and :func:`bert_classifier_from_jax_params`),
 :func:`vit_from_jax_params`, :func:`mt_from_jax_params`,
-:func:`moe_from_jax_params` and :func:`mlp_from_jax_params`;
+:func:`moe_from_jax_params`, :func:`mlp_from_jax_params` and
+:func:`resnet_from_jax_params` (parameters and ``batch_stats``);
 :func:`from_jax_params` picks by a port model's family, and
 :func:`jax_param_path` gives the JAX path of a port name that they follow.
 Layouts mapped:
@@ -18,6 +19,9 @@ Layouts mapped:
   and ``o_proj`` ``[H, hd, d]``, flattened and transposed onto
   ``nn.Linear``'s ``[out, in]``;
 - ``nn.Dense`` MLP kernels ``[in, out]``, transposed the same way;
+- ResNet's ``nn.Conv`` kernels HWIO onto ``nn.Conv2d``'s OIHW, and its
+  BatchNorm ``scale``/``bias`` (parameters) and ``mean``/``var`` (the
+  ``batch_stats`` collection, the port's buffers) under the same names;
 - a tied ``embed.embedding`` ``[V, d]`` or an untied ``lm_head.kernel``
   ``[d, V]`` (kept ``[d, V]``), ``pos_embed``, ``seg_embed`` (BERT's
   token types), and the ``embed_norm`` and ``final_norm`` the config
@@ -36,7 +40,8 @@ The same mapping carries trained JAX parameters, so a port's
 :func:`train_state_from_jax` carries a whole JAX train state (step,
 parameters and the AdamW moments, which have the parameters' tree) into
 the port's ``TrainState``, so a JAX run continues in the port (any
-family of the zoo).
+family of the zoo; the AdamW moments or SGD's momentum trace, and a
+stateful model's ``model_state``).
 
 LoRA factors (:func:`lora_from_jax`): the JAX package's factor tree
 (``init_lora_params``' layout, scan-stacked ``a [L, d_in, r]`` /
@@ -213,12 +218,37 @@ def _fill_mlp(c, params, model):
         c.linear(f"dense.{i}", params[f"dense_{i}"])
 
 
+def _fill_resnet(c, variables, model):
+    """Every entry of the model's ``state_dict`` from its JAX path: a
+    4-d conv kernel HWIO -> OIHW, the classifier's [in, out] -> [out,
+    in]; ``mean``/``var`` from ``batch_stats`` where ``variables`` has
+    it (a parameter-shaped tree, Adam's moments, has not: the model's
+    own buffers stay)."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats")
+    own = model.state_dict()
+    for name, t in own.items():
+        *path, leaf = jax_param_path(name).split("/")
+        if leaf in ("mean", "var"):
+            if stats is None:
+                c.state[name] = t.detach().float().cpu()
+                continue
+            tree = stats
+        else:
+            tree = params
+        for key in path:
+            tree = tree[key]
+        c.put(name, tree[leaf], {4: lambda x: x.transpose(3, 2, 0, 1),
+                                 2: lambda x: x.T}.get(t.dim(), lambda x: x))
+
+
 def _filler(model: torch.nn.Module):
     """The fill function of a port model's family (subclasses first)."""
     from .models import (
         MLP,
         BertClassifier,
         BertEncoder,
+        ResNet,
         Seq2SeqTransformer,
         ViTEncoder,
     )
@@ -226,7 +256,7 @@ def _filler(model: torch.nn.Module):
     for cls, fill in ((BertClassifier, _fill_bert_classifier),
                       (BertEncoder, _fill_bert), (ViTEncoder, _fill_vit),
                       (Seq2SeqTransformer, _fill_mt), (MLP, _fill_mlp),
-                      (DecoderLM, _fill_decoder)):
+                      (ResNet, _fill_resnet), (DecoderLM, _fill_decoder)):
         if isinstance(model, cls):
             return fill
     raise TypeError(f"no JAX parameter map for {type(model).__name__}")
@@ -315,8 +345,19 @@ def mlp_from_jax_params(params: dict, *, device=None):
                      in_features=kernels[0].shape[0]), params, device)
 
 
-def _like(model: torch.nn.Module) -> torch.nn.Module:
-    """A fresh, empty model of ``model``'s family and configuration."""
+def resnet_from_jax_params(variables: dict, cfg, *, device=None):
+    """The port's ``ResNet`` of a JAX ``ResNet``'s ``variables``
+    (``{"params": ..., "batch_stats": ...}``, numpy leaves): conv kernels
+    HWIO -> OIHW, the classifier's kernel transposed, BatchNorm's
+    ``scale``/``bias`` as parameters and ``mean``/``var`` as buffers."""
+    from .models.resnet import ResNet
+
+    return _load(ResNet(cfg), variables, device)
+
+
+def _like(model: torch.nn.Module, device="cpu") -> torch.nn.Module:
+    """A fresh, empty model of ``model``'s family and configuration, on
+    ``device``."""
     from .models import MLP, BertClassifier, BertEncoder
 
     with torch.device("meta"):
@@ -330,7 +371,7 @@ def _like(model: torch.nn.Module) -> torch.nn.Module:
                         in_features=model.dense[0].in_features)
         else:
             fresh = type(model)(model.cfg)
-    return fresh.to_empty(device="cpu")
+    return fresh.to_empty(device=device)
 
 
 def from_jax_params(params: dict, like: torch.nn.Module, *,
@@ -354,7 +395,10 @@ def jax_param_path(name: str) -> str:
     ``layers_3``, a linear layer's ``weight`` its ``kernel``, and a bare
     table its module's leaf, e.g. ``layers.3.attn.q_proj.weight`` ->
     ``layers_3/attn/q_proj/kernel``, ``embed`` -> ``embed/embedding``,
-    ``lm_head`` -> ``lm_head/kernel``."""
+    ``lm_head`` -> ``lm_head/kernel``.  ResNet's names are flax's
+    (``stage1_block0.conv2.weight`` -> ``stage1_block0/conv2/kernel``;
+    BatchNorm's ``scale``/``bias`` and its buffers ``mean``/``var``, the
+    ``batch_stats`` collection's leaves, keep their names)."""
     *mods, leaf = re.sub(r"\.(\d+)\.", r"_\1.", name).split(".")
     if leaf in _TABLES:
         mods, leaf = mods + [leaf], _TABLES[leaf]
@@ -425,10 +469,25 @@ def _adam_state(opt_state: Any) -> Any:
     if inner is not None:
         lora = inner["lora"]
         return _adam_state(getattr(lora, "inner_state", lora))
-    if isinstance(opt_state, (list, tuple)) and not hasattr(opt_state, "mu"):
-        # an empty state (optax's sgd) holds no moments
-        return _adam_state(opt_state[0]) if opt_state else None
-    return opt_state
+    if hasattr(opt_state, "mu") or (isinstance(opt_state, dict)
+                                    and "mu" in opt_state):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)) and opt_state:
+        return _adam_state(opt_state[0])
+    return None  # optax's sgd: no moments (an empty state, or a trace)
+
+
+def _trace_state(opt_state: Any) -> Any:
+    """The ``trace`` tree of optax's ``TraceState`` (``sgd`` with
+    momentum) inside a JAX optimizer state, or None."""
+    if "trace" in getattr(opt_state, "_fields", ()):  # a NamedTuple
+        return opt_state.trace
+    if isinstance(opt_state, (list, tuple)):
+        for s in opt_state:
+            found = _trace_state(s)
+            if found is not None:
+                return found
+    return None
 
 
 def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
@@ -437,14 +496,17 @@ def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
 
     ``jax_state``: the JAX package's state with numpy leaves
     (``jax.tree.map(np.asarray, ...)`` on the JAX side, the rng left out
-    or as key data): its ``step``, ``params`` and ``opt_state``, whose
-    first element is optax's AdamW state (``count``, ``mu``, ``nu``), or
-    holds no state at all (optax's ``sgd``).  ``ad``: a port
+    or as key data): its ``step``, ``params``, ``model_state`` (a
+    stateful model's ``batch_stats``) and ``opt_state``, whose first
+    element is optax's AdamW state (``count``, ``mu``, ``nu``), or
+    optax's ``TraceState`` (``sgd`` with momentum: ``trace``), or holds
+    no state at all (optax's ``sgd``).  ``ad``: a port
     ``AutoDistribute`` not yet initialized, over a model of the JAX
     model's family and config (any of the zoo), with ``adamw`` (or
-    ``sgd``).  The parameters go into ``ad.model`` and the moments into
-    the state through the family's map (:func:`from_jax_params`); every
-    optimizer count becomes AdamW's.  ``seed`` takes the place of the JAX rng (the
+    ``sgd``, with or without momentum).  The parameters and the model
+    state go into ``ad.model`` and the moments or the trace into the
+    state through the family's map (:func:`from_jax_params`); every
+    optimizer count becomes AdamW's, or the step without one.  ``seed`` takes the place of the JAX rng (the
     port draws dropout masks from its own generators).
 
     A LoRA state (parameters ``{"base", "lora"}``, ``lora_optimizer``'s
@@ -459,7 +521,10 @@ def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
         return from_jax_params(tree, ad.model, device="cpu").state_dict()
 
     params = _field(jax_state, "params")
-    adam = _adam_state(_field(jax_state, "opt_state"))
+    model_state = getattr(jax_state, "model_state", None) or {}
+    opt_state = _field(jax_state, "opt_state")
+    adam = _adam_state(opt_state)
+    trace = _trace_state(opt_state)
     if isinstance(params, dict) and set(params) == {"base", "lora"}:
         spec = getattr(ad._loss_fn, "lora_spec", None)
         if spec is None:
@@ -471,15 +536,18 @@ def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
         moments = {key: lora_named(lora_from_jax(
             _field(adam, key)["lora"], n_layers)) for key in ("mu", "nu")}
     else:
-        ad.model.load_state_dict(port_named(params))
+        ad.model.load_state_dict(port_named(
+            {"params": params, **model_state} if model_state else params))
         moments = {} if adam is None else {
             "mu": port_named(_field(adam, "mu")),
             "nu": port_named(_field(adam, "nu"))}
+        if trace is not None:
+            moments["trace"] = port_named(trace)
     state = ad.init(None)
 
     def fill(tree):
         if isinstance(tree, dict):
-            if "mu" in tree and "nu" in tree:
+            if set(moments) & set(tree):
                 with torch.no_grad():
                     for key, named in moments.items():
                         for name, t in tree[key].items():
@@ -491,10 +559,8 @@ def train_state_from_jax(ad: "AutoDistribute", jax_state: Any, *,
                 fill(v)
 
     fill(state.opt_state)
-    opt_state = state.opt_state
-    if adam is not None:
-        opt_state = _with_count(opt_state, int(np.asarray(_field(adam,
-                                                                 "count"))))
+    step = int(np.asarray(_field(jax_state, "step")))
+    count = step if adam is None else int(np.asarray(_field(adam, "count")))
     return dataclasses.replace(
-        state, step=int(np.asarray(_field(jax_state, "step"))),
-        opt_state=opt_state, seed=seed)
+        state, step=step, opt_state=_with_count(state.opt_state, count),
+        seed=seed)

@@ -24,8 +24,10 @@ from .losses import (
     moe_next_token_loss,
     mse_loss,
     next_token_loss,
+    next_token_loss_mutable,
     seq2seq_loss,
     softmax_xent_loss,
+    softmax_xent_loss_mutable,
 )
 from .metrics import MetricsLogger, peak_flops_per_chip, transformer_step_flops
 from .optim import (
@@ -78,8 +80,8 @@ __all__ = [
     "clip_by_global_norm", "decay_mask", "init_lora_params",
     "lora_init_fn", "lora_loss", "lora_optimizer", "masked_lm_loss",
     "merge_lora", "moe_next_token_loss", "mse_loss", "next_token_loss",
-    "peak_flops_per_chip", "resolve", "seq2seq_loss", "sgd",
-    "softmax_xent_loss",
+    "next_token_loss_mutable", "peak_flops_per_chip", "resolve",
+    "seq2seq_loss", "sgd", "softmax_xent_loss", "softmax_xent_loss_mutable",
     "transformer_step_flops", "warmup_cosine", "wrap_optimizer", *_LAZY,
 ]
 

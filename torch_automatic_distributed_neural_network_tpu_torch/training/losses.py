@@ -11,6 +11,11 @@ a dict of tensors on the model's device, ``generator`` a CPU
 - classification (``softmax_xent_loss``): ``x`` (or ``image``) and
   ``label`` (or ``y``) integer labels; regression (``mse_loss``): ``x``
   and ``y`` (or ``label``);
+- stateful models (BatchNorm: ``softmax_xent_loss_mutable``,
+  ``next_token_loss_mutable``): the model runs with ``train=True,
+  mutable=True`` and the loss returns the new running statistics in
+  ``aux["model_state"]``, which the step commits (JAX's mutable
+  collections);
 - MT (``seq2seq_loss``): ``src`` [B, S] and ``tgt`` [B, T+1], target 0
   padding;
 - masked LM (``masked_lm_loss``): ``input_ids``, ``labels`` (-100, any
@@ -64,6 +69,36 @@ def softmax_xent_loss(model, batch, generator):
     loss = _xent(logits, labels).mean()
     acc = (torch.argmax(logits, -1) == labels).to(torch.float32).mean()
     return loss, {"accuracy": acc}
+
+
+def _apply_mutable(model, x, generator):
+    """``(output, new model state)``: a stateful model (``stateful``, e.g.
+    ``ResNet``) in training mode with its state updates, any other with
+    none, as flax's ``apply(..., mutable=[])`` of a stateless model."""
+    if getattr(model, "stateful", False):
+        return model(x, train=True, mutable=True, generator=generator)
+    return model(x, generator=generator), {}
+
+
+def softmax_xent_loss_mutable(model, batch, generator):
+    """Classification loss for stateful models (BatchNorm): the batch's
+    statistics normalize, and the new running ones come back in
+    ``aux["model_state"]``."""
+    labels = _get(batch, "label", "y")
+    logits, updates = _apply_mutable(model, _get(batch, "x", "image"),
+                                     generator)
+    loss = _xent(logits, labels).mean()
+    acc = (torch.argmax(logits, -1) == labels).to(torch.float32).mean()
+    return loss, {"accuracy": acc, "model_state": updates}
+
+
+def next_token_loss_mutable(model, batch, generator):
+    """The causal LM twin of :func:`softmax_xent_loss_mutable`: padding
+    masks work as in :func:`next_token_loss`."""
+    tokens = _tokens(batch)
+    logits, updates = _apply_mutable(model, tokens[:, :-1], generator)
+    loss, denom = _shifted_xent(logits, tokens, batch.get("mask"))
+    return loss, {"tokens": denom, "model_state": updates}
 
 
 def next_token_loss(model, batch, generator):

@@ -158,9 +158,32 @@ def adamw(lr_or_schedule: float | Schedule, b1: float = 0.9,
                  _scale_by_learning_rate(lr_or_schedule))
 
 
-def sgd(lr_or_schedule: float | Schedule) -> GradientTransformation:
-    """``optax.sgd`` without momentum: the update is ``-lr * g``."""
-    return _scale_by_learning_rate(lr_or_schedule)
+def _trace(decay: float, nesterov: bool) -> GradientTransformation:
+    """``optax.trace``: ``t <- g + decay * t``; the update is ``t``, or
+    ``g + decay * t`` with ``nesterov``.  One trace tensor a parameter,
+    under ``"trace"``."""
+
+    def init(params):
+        return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
+
+    def update(updates, state, params=None):
+        trace = {n: g + decay * state["trace"][n] for n, g in updates.items()}
+        out = ({n: g + decay * trace[n] for n, g in updates.items()}
+               if nesterov else trace)
+        return out, {"trace": trace}
+
+    return GradientTransformation(init, update)
+
+
+def sgd(lr_or_schedule: float | Schedule, momentum: float | None = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """``optax.sgd``: the update is ``-lr * g``, or with ``momentum``
+    ``-lr * t`` of :func:`_trace` (optax's ``trace``, then the learning
+    rate)."""
+    if momentum is None:
+        return _scale_by_learning_rate(lr_or_schedule)
+    return chain(_trace(momentum, nesterov),
+                 _scale_by_learning_rate(lr_or_schedule))
 
 
 def _sq_sum(g: torch.Tensor) -> torch.Tensor:
