@@ -214,10 +214,28 @@ card, in phases, one JSON line each; any failure exits non-zero:
    every layer's GQA attention, K and V repeated by the wrapper), step
    ms, tokens/s, MFU, peak memory, and the device ms a step of the K/V
    repeat (``aten::repeat_interleave``) and of its gradient
-   (``ExpandBackward0``) from ``torch.profiler``.
+   (``ExpandBackward0``) from ``torch.profiler``;
+23. MoE past expert degree 1 (``moe``), MoE ``small`` (12 layers, d 768,
+   8 experts top-2, vocab 32000, random weights from a seed): (a)
+   ``ServeEngine(moe_decode="dense")`` on phase 5's request set (fp32
+   compute, bf16 KV, 16 x (256 + 64), 8 slots): K4 once a layer a
+   decode step, tokens equal to the dense engine's, one decode step's
+   logits within 1e-3 of the dense path's, the agreement with
+   ``generate`` one request at a time reported; tokens/s, p99, the mean
+   decode-step ms, and a decode step's busy ms and launches; (b)
+   ``AutoDistribute.generate`` at B 4 x (128 + 64) in bf16, dense,
+   routed and ``quant="int8"`` (the banks and the router left whole):
+   tokens/s; in fp32 at capacity factor 8, routed within 1e-3 of the
+   dense logits (of their largest magnitude) at >= 99 % of the
+   positions, teacher-forced; (c) B 8 x S 1024, 5 steps on one batch,
+   unwrapped and under ``ep``, ``ep_fsdp`` and ``ep_tp`` in a world of
+   one NCCL rank (the dispatch exchanged by NCCL's all-to-all): losses
+   bitwise equal, the all-to-all and K1-K3 launches a step that the
+   remats imply, step ms and peak memory; (d) the first step's dropped
+   fraction, per layer, over the batch and on row 0 alone.
 
-Phases 5 (``serve``), 10 (``trainer``), 16, 17 and 19 write their journals
-with schema validation on (``Journal(validate=True)``): a record that
+Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19 and 23 write their
+journals with schema validation on (``Journal(validate=True)``): a record that
 breaks the event schema fails the run; phase 18 checks every record
 of its merged journal the same way.
 
@@ -2130,10 +2148,16 @@ def _divergences(torch, model, prompts, a_rows, b_rows) -> list[dict]:
     """Where two greedy decodes of one model first differ, row by row:
     the logit gap between the two tokens chosen there (fp32 cache over
     the common prefix), so a failed gate shows whether it fell on a near
-    tie."""
+    tie.  For an MoE model also the router's margin, the top-k-th
+    expert probability less the next one's: the least over the layers at
+    the diverging token, and the least over every layer and position of
+    its context (a choice flipped there changes the keys and values the
+    token reads), with that layer and position."""
     from torch_automatic_distributed_neural_network_tpu_torch.inference \
         .decode import KVCache, forward_cached
 
+    routers = [layer.mlp.router for layer in model.layers
+               if hasattr(layer.mlp, "router")]
     out = []
     for row, (p, a, b) in enumerate(zip(prompts, a_rows, b_rows)):
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -2142,9 +2166,27 @@ def _divergences(torch, model, prompts, a_rows, b_rows) -> list[dict]:
         toks = torch.tensor([list(p) + list(a[:j])], device="cuda")
         cache = KVCache.init(model.cfg, 1, toks.shape[1],
                              dtype=torch.float32, device="cuda")
-        lg = forward_cached(model, toks, cache)[0][0]
-        out.append({"row": row, "position": j, "tokens": [a[j], b[j]],
-                    "gap": float((lg[a[j]] - lg[b[j]]).abs())})
+        probs = []
+        hooks = [r.register_forward_hook(
+            lambda mod, inp, o: probs.append(torch.softmax(o.float(), -1)))
+            for r in routers]
+        try:
+            lg = forward_cached(model, toks, cache)[0][0]
+        finally:
+            for h in hooks:
+                h.remove()
+        rec = {"row": row, "position": j, "tokens": [a[j], b[j]],
+               "gap": float((lg[a[j]] - lg[b[j]]).abs())}
+        if probs:
+            k = model.cfg.top_k
+            top = torch.stack(probs)[:, 0].topk(k + 1, dim=-1).values
+            margin = top[..., k - 1] - top[..., k]  # [layers, positions]
+            at = divmod(int(margin.argmin()), margin.shape[1])
+            rec.update(router_margin_at_token=float(margin[:, -1].min()),
+                       router_margin_min=float(margin.min()),
+                       router_margin_min_layer=at[0],
+                       router_margin_min_position=at[1])
+        out.append(rec)
     return out
 
 
@@ -3555,6 +3597,428 @@ def phase_llama_fsdp(card, *, steps=6) -> dict[str, int]:
     return rec["launches"]
 
 
+# -- phase 23: MoE past expert degree 1 -----------------------------------
+
+# MoE small's decode and expert-parallel cells: the serving request set of
+# phase 5, generate's B 4 x (128 + 64), the zoo's B 8 x S 1024 training
+MOE_SERVE = dict(n_requests=16, prompt_len=256, max_new=64, n_slots=8,
+                 max_len=1024, block_size=16, prefill_chunk=32)
+MOE_EP_STEPS = 5
+MOE_EP_RUNS = ("ep", "ep_fsdp", "ep_tp")
+# MoE's routing turns a small difference into a different function where
+# two expert probabilities are within it: a flipped choice moves that
+# token's logits by ~0.1, where a dense model's move by the difference
+# alone (seen on the CPU at the test preset, top-2 against every expert
+# active).  So the token gates compare like with like (phase 5's paged vs
+# dense engine; the one-slot engine vs generate in bf16), and routed vs
+# dense is held row by row on the same tokens: the share of positions
+# whose logits agree within MOE_ROW_BOUND of their largest magnitude
+MOE_ROW_BOUND = 1e-3
+MOE_ROW_SHARE = 0.99
+# requests of MOE_SERVE's set that the one-slot engine decodes against
+# generate, like with like
+MOE_ALONE = 4
+
+
+def _tf_logits(torch, model, prompt, rows, *, moe_decode, cache_dtype):
+    """The logits at every generated position of each row, teacher-forced:
+    ``forward_cached`` over the prompt and the row's own tokens in one
+    pass (B rows together, ``moe_decode``): [B, N, V]."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import KVCache, forward_cached
+
+    P = prompt.shape[1]
+    toks = torch.cat([prompt, torch.tensor(rows, device=prompt.device)[
+        :, :-1]], dim=1)
+    cache = KVCache.init(model.cfg, toks.shape[0], toks.shape[1],
+                         dtype=cache_dtype, device=prompt.device)
+    return forward_cached(model, toks, cache, moe_decode=moe_decode,
+                          all_logits=True)[0][:, P - 1:]
+
+
+def _moe_small(torch, dtype, *, seed=11, **kw):
+    from torch_automatic_distributed_neural_network_tpu_torch import MoE
+
+    with torch.device("cuda"):
+        m = MoE("small", max_seq_len=1024, dtype=dtype, **kw)
+    return m.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _moe_serve(torch, card) -> tuple[dict, int]:
+    """(a) ``ServeEngine(moe_decode="dense")`` on MoE small, fp32 compute
+    and bf16 KV as phase 5's cell, 16 requests of 256 + 64 on 8 slots,
+    K4 once a layer a decode step; phase 5's gates: its tokens equal to
+    the dense engine's and one decode step's logits within 1e-3 of the
+    dense path's on one pool state; the agreement of the first 8
+    requests with a one-request-at-a-time ``generate(moe_decode=
+    "dense")`` reported beside them, with the logit gap and the router's
+    margins at each row's first divergence (not alike: ``generate``'s
+    bf16 cache rounds the attention probabilities to bf16 where the fp32
+    engine keeps them fp32, its cache is P + N long and its prefill one
+    chunk, and a flipped expert choice moves a token, see
+    ``MOE_ROW_BOUND``); tokens/s, p99, the mean decode-step ms; then a
+    decode step's device time and launches (``phase_profile``); then
+    the gate against ``generate`` like with like
+    (:func:`_moe_engine_vs_generate`)."""
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import generate
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    cfgs = dict(MOE_SERVE)
+    n, P, N = (cfgs.pop(k) for k in ("n_requests", "prompt_len", "max_new"))
+    m32 = _moe_small(torch, torch.float32)
+    rs = np.random.RandomState(0)
+    prompts = [[int(t) for t in rs.randint(1, m32.cfg.vocab_size, size=(P,))]
+               for _ in range(n)]
+    kw = dict(cfgs, moe_decode="dense")
+    _serve(torch, m32, prompts[:1], max_new=2, impl="paged", journal=None,
+           **kw)  # warm-up
+    jnl = Journal(None, host0_only=False, validate=True,
+                  meta={"tool": "chip_smoke"})
+    paged_attention.launches = 0
+    eng, reqs, done, wall = _serve(torch, m32, prompts, max_new=N,
+                                   impl="paged", journal=jnl, **kw)
+    launches = paged_attention.launches
+    steps = [r for r in jnl.records if r.get("name") == "serve.step"]
+    decode_ms = [1e3 * r["decode_s"] for r in steps if r["decode_s"] > 0]
+    totals = [(r.t_done or 0.0) - r.t_submit for r in done]
+    got = [r.out_tokens for r in reqs]
+    _, dense_reqs, _, _ = _serve(torch, m32, prompts, max_new=N,
+                                 impl="dense", journal=None, **kw)
+    vs_dense = _agreement(got, [r.out_tokens for r in dense_reqs])
+    tf_err = _teacher_forced(torch, m32, prompts[:MOE_SERVE["n_slots"]],
+                             **kw)
+    # the reported reference: the first wave's requests, one at a time
+    alone = prompts[:MOE_SERVE["n_slots"]]
+    t0 = time.monotonic()
+    want = [generate(m32, torch.tensor([p], device="cuda"),
+                     max_new_tokens=N, moe_decode="dense")[0, P:].tolist()
+            for p in alone]
+    ref_s = time.monotonic() - t0
+    agree = _agreement(got[:len(alone)], want)
+    rec = {"phase": "moe_serve", "card": card, "model": "moe-small",
+           "compute": "fp32", "kv": "bf16", "moe_decode": eng.moe_decode,
+           **MOE_SERVE, "finished": len(done),
+           "new_tokens": sum(r.n_generated for r in done), "wall_s": wall,
+           "tokens_per_s": sum(r.n_generated for r in done) / wall,
+           "p50_latency_s": _pct(totals, 0.50),
+           "p99_latency_s": _pct(totals, 0.99),
+           "decode_steps": len(decode_ms),
+           "mean_decode_step_ms": statistics.fmean(decode_ms),
+           "paged_kernel_launches": launches,
+           "launches_per_decode_step": launches / max(len(decode_ms), 1),
+           "agreement_vs_dense_engine": vs_dense,
+           "teacher_forced_max_abs_logit_diff": tf_err,
+           "agreement_vs_generate_alone": agree,
+           "generate_alone_seconds": ref_s,
+           "divergences": _divergences(torch, m32, alone, got, want)
+           if agree < 1.0 else []}
+    emit(rec)
+    require(len(done) == n and all(r.n_generated == N for r in reqs),
+            f"moe serve: {len(done)}/{n} requests finished")
+    require(launches == m32.cfg.n_layers * len(decode_ms),
+            f"moe serve: {launches} K4 launches over {len(decode_ms)} decode "
+            f"steps of {m32.cfg.n_layers} layers")
+    require(vs_dense == 1.0, f"moe serve: paged tokens agree with the "
+                             f"dense engine's on only {vs_dense:.4f}")
+    require(tf_err <= 1e-3,
+            f"moe serve: paged vs dense logits differ by {tf_err} > 1e-3")
+    phase_profile(torch, name="moe-small", model=m32, n_slots=8,
+                  prompt_len=P, max_len=1024, block_size=16, seed=2)
+    del m32, eng
+    torch.cuda.empty_cache()
+    _moe_engine_vs_generate(torch, card, prompts[:MOE_ALONE], max_new=N)
+    return rec, launches
+
+
+def _moe_engine_vs_generate(torch, card, prompts, *, max_new) -> None:
+    """The engine's MoE decode against ``generate(moe_decode="dense")``,
+    like with like as phase ``generate`` holds GPT-2: bf16 weights, each
+    prompt alone (``generate`` at B 1) through an engine of one slot
+    whose one prefill chunk is the prompt and whose cache is as long as
+    ``generate``'s, so every product has the same shape on both sides;
+    the dense engine's tokens must equal ``generate``'s.  In fp32 the two
+    are not alike: ``generate``'s bf16 cache rounds the attention
+    probabilities to bf16 and the dense engine, which reads its pool at
+    the model's type, keeps them fp32.  The paged engine (K4 keeps the
+    probabilities fp32) is reported beside it, with the logit gap and
+    the router's margins at each row's first divergence."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import generate
+
+    P, N = len(prompts[0]), max_new
+    m16 = _moe_small(torch, torch.bfloat16).to(torch.bfloat16)
+    want = [generate(m16, torch.tensor([p], device="cuda"),
+                     max_new_tokens=N, moe_decode="dense")[0, P:].tolist()
+            for p in prompts]
+    agree, diverged = {}, {}
+    for impl in ("dense", "paged"):
+        got = _engine_tokens(torch, m16, prompts, max_new=N, n_slots=1,
+                             max_len=P + N, block_size=16, prefill_chunk=P,
+                             attention_impl=impl, moe_decode="dense")
+        agree[impl] = _agreement(want, got)
+        diverged[impl] = _divergences(torch, m16, prompts, want, got)
+    emit({"phase": "moe_serve_vs_generate", "card": card,
+          "model": "moe-small", "compute": "bf16", "kv": "bf16",
+          "requests": len(prompts), "prompt_len": P, "max_new": N,
+          "agreement": agree, "divergences": diverged})
+    del m16
+    torch.cuda.empty_cache()
+    require(agree["dense"] == 1.0,
+            f"moe serve: one-slot dense engine tokens agree with "
+            f"generate's on only {agree['dense']:.4f} (first divergences: "
+            f"{diverged['dense']})")
+
+
+def _moe_generate(torch, card) -> dict:
+    """(b) ``AutoDistribute.generate`` at B 4 x (128 + 64), bf16 weights:
+    tokens/s of ``moe_decode`` dense and routed and of ``quant="int8"``
+    (the banks and the router left in full precision); routed against
+    dense at capacity factor 8 (nothing drops) in fp32, as JAX's
+    ``tests/test_generate.py`` holds them: on the dense run's tokens,
+    teacher-forced, at least ``MOE_ROW_SHARE`` of the positions' logits
+    within ``MOE_ROW_BOUND`` of their largest magnitude, and the
+    free-running token agreement reported."""
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, MoE, moe_next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .decode import generate
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .quant import QuantizedWeight, quantize_for_decode
+
+    B, P, N = 4, 128, 64
+    rs = np.random.RandomState(3)
+    prompt = torch.from_numpy(rs.randint(1, 32000, size=(B, P))).cuda()
+    m16 = _moe_small(torch, torch.bfloat16).to(torch.bfloat16)
+    ad = AutoDistribute(m16, loss_fn=moe_next_token_loss, precision="bf16",
+                        device="cuda")
+    state = ad.init(None)
+    modes = {
+        "dense": lambda: ad.generate(state, prompt, max_new_tokens=N),
+        "routed": lambda: ad.generate(state, prompt, max_new_tokens=N,
+                                      moe_decode="routed"),
+        "int8": lambda: ad.generate(state, prompt, max_new_tokens=N,
+                                    quant="int8")}
+    secs = {name: [] for name in modes}
+    toks = {}
+    for fn in modes.values():
+        fn()  # warm-up
+    for _ in range(2):
+        for name, fn in modes.items():
+            out, sec = _timed(torch, fn)
+            secs[name].append(sec)
+            toks[name] = out[:, P:].tolist()
+    q = quantize_for_decode(m16)
+    whole = all(
+        isinstance(getattr(layer.mlp, b), torch.nn.Parameter)
+        for layer in q.layers for b in ("experts_up", "experts_gate",
+                                        "experts_down")) and not any(
+        isinstance(layer.mlp.router.weight, QuantizedWeight)
+        for layer in q.layers)
+    quantized = isinstance(q.layers[0].attn.q_proj.weight, QuantizedWeight)
+    del ad, state, q, m16
+    torch.cuda.empty_cache()
+    m32 = _moe_small(torch, torch.float32)
+    with torch.device("meta"):
+        m8 = MoE("small", max_seq_len=1024, dtype=torch.float32,
+                 capacity_factor=8.0)
+    m8.load_state_dict(m32.state_dict(), assign=True)
+    fp32 = {mode: generate(m8, prompt, max_new_tokens=N, moe_decode=mode,
+                           cache_dtype=torch.float32)[:, P:].tolist()
+            for mode in ("dense", "routed")}
+    tf = {mode: _tf_logits(torch, m8, prompt, fp32["dense"],
+                           moe_decode=mode, cache_dtype=torch.float32)
+          for mode in ("dense", "routed")}
+    scale = float(tf["dense"].abs().max())
+    row_err = (tf["routed"] - tf["dense"]).abs().amax(-1)  # [B, N]
+    row_share = float((row_err <= MOE_ROW_BOUND * scale).float().mean())
+    del tf
+    rec = {"phase": "moe_generate", "card": card, "model": "moe-small",
+           "batch": B, "prompt_len": P, "max_new": N,
+           **{f"{k}_tokens_per_s": B * N / statistics.median(v)
+              for k, v in secs.items()},
+           **{f"{k}_seconds": v for k, v in secs.items()},
+           "routed_vs_dense_bf16_agreement": _agreement(toks["dense"],
+                                                        toks["routed"]),
+           "int8_vs_bf16_agreement": _agreement(toks["dense"], toks["int8"]),
+           "fp32_capacity_factor_8_routed_vs_dense_agreement": _agreement(
+               fp32["dense"], fp32["routed"]),
+           "fp32_routed_vs_dense_rows_within_bound": row_share,
+           "fp32_routed_vs_dense_max_row_err": float(row_err.max()),
+           "fp32_logit_scale": scale,
+           "row_bound": MOE_ROW_BOUND, "row_share_bound": MOE_ROW_SHARE,
+           "int8_banks_and_router_whole": whole,
+           "int8_attention_quantized": quantized}
+    emit(rec)
+    del m8, m32
+    torch.cuda.empty_cache()
+    require(row_share >= MOE_ROW_SHARE,
+            f"moe generate: routed logits within {MOE_ROW_BOUND} of the "
+            f"scale of the dense path's at only {row_share:.4f} of the "
+            f"positions (capacity factor 8, fp32)")
+    require(whole and quantized, "moe generate: int8 quantized the expert "
+                                 "banks or the router, or nothing")
+    require(all(0 <= t < 32000 for rows in toks.values() for row in rows
+                for t in row), "moe generate: token id out of range")
+    return rec
+
+
+def _moe_expert_parallel(torch, card) -> tuple[dict, dict]:
+    """(c) ``AutoDistribute(MoE small, strategy=...)`` at B 8 x S 1024
+    (bf16 compute, fp32 params, adamw(3e-4)), 5 steps on one batch from
+    the same seeded weights: unwrapped, then ``ep``, ``ep_fsdp`` and
+    ``ep_tp`` in a world of one NCCL rank (the banks ``DTensor`` objects,
+    every dispatch exchanged by NCCL's all-to-all over a group of one):
+    losses bitwise the unwrapped ones; step ms, peak memory, the
+    exchange's launches and K1-K3's a step; (d) the first step's dropped
+    fraction, per layer, over the batch and on row 0 alone."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, SyntheticLM, adamw, moe_next_token_loss, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel \
+        .expert import exchange
+
+    wrappers = [getattr(fa, n) for n in _FLASH_NAMES]
+    batch = SyntheticLM(vocab_size=32000, seq_len=1025,
+                        batch_size=8).batch(0)
+    total = dict.fromkeys(_FLASH_NAMES, 0)
+
+    def run(strategy):
+        from torch_automatic_distributed_neural_network_tpu_torch import MoE
+
+        ad = AutoDistribute(MoE("small", max_seq_len=1024),
+                            optimizer=adamw(3e-4),
+                            loss_fn=moe_next_token_loss, strategy=strategy,
+                            device="cuda")
+        state = ad.init(torch.Generator(device="cuda").manual_seed(0),
+                        batch)
+        rec = {"strategy": ad.plan.strategy, "degrees": {
+            a: d for a, d in ad.plan.degrees.items() if d > 1},
+            "layers": ad.model.cfg.n_layers,
+            "remat": ad.plan.remat, "layer_remat": ad.model.cfg.remat,
+            "world_size": dist.get_world_size() if dist.is_initialized()
+            else 1}
+        if strategy == "auto":
+            # row 0 alone, before any step: the CPU probe's figure
+            with torch.no_grad():
+                ad.model(torch.as_tensor(batch["input_ids"][:1, :-1],
+                                         device="cuda"))
+            rec["row0_dropped_fraction"] = [
+                float(layer.mlp.metrics["dropped_fraction"])
+                for layer in ad.model.layers]
+        for w in wrappers:
+            w.launches = 0
+        exchange.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, first = [], [], None
+        for i in range(MOE_EP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, m = ad.step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            if i == 0:
+                first = [float(layer.mlp.metrics["dropped_fraction"])
+                         for layer in ad.model.layers]
+        launches = {w.__name__: w.launches for w in wrappers}
+        for k, v in launches.items():
+            total[k] += v
+        rec.update(
+            losses=losses, step_ms=step_ms,
+            median_step_ms=statistics.median(step_ms[1:]),
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+            exchanges_per_step=exchange.launches / MOE_EP_STEPS,
+            launches_per_step={k: v / MOE_EP_STEPS
+                               for k, v in launches.items()},
+            first_step_dropped_fraction=statistics.fmean(first),
+            first_step_dropped_per_layer=first)
+        del ad, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+
+    runs = {"unwrapped": run("auto")}
+    pg_dir = tempfile.mkdtemp()
+    topology.initialize_distributed(
+        backend="nccl", init_method=f"file://{os.path.join(pg_dir, 'pg')}",
+        world_size=1, rank=0)
+    try:
+        for strategy in MOE_EP_RUNS:
+            runs[strategy] = run(strategy)
+    finally:
+        dist.destroy_process_group()
+    base = runs["unwrapped"]
+    for label, rec in runs.items():
+        layers = rec["layers"]
+        rec["bitwise_vs_unwrapped"] = rec["losses"] == base["losses"]
+        rec["max_rel_loss_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                base["losses"]))
+        remats = 1 + rec["layer_remat"] + rec["remat"]
+        rec["expected_exchanges_per_step"] = (
+            0 if label == "unwrapped" else layers * (2 * remats + 2))
+        rec["expected_launches_per_step"] = {
+            "flash_forward": layers * remats, "flash_dkv": layers,
+            "flash_dq": layers}
+        emit({"phase": "moe_ep", "run": label, "card": card, **rec,
+              "unwrapped_median_step_ms": base["median_step_ms"]})
+    for label, rec in runs.items():
+        require(all(math.isfinite(x) for x in rec["losses"])
+                and rec["losses"][-1] < rec["losses"][0],
+                f"moe {label}: losses {rec['losses']}")
+        require(rec["bitwise_vs_unwrapped"],
+                f"moe {label}: losses {rec['losses']} are not the unwrapped "
+                f"{base['losses']} bitwise")
+        require(rec["exchanges_per_step"]
+                == rec["expected_exchanges_per_step"],
+                f"moe {label}: {rec['exchanges_per_step']} exchanges a step, "
+                f"expected {rec['expected_exchanges_per_step']}")
+        require(rec["launches_per_step"] == rec["expected_launches_per_step"],
+                f"moe {label}: K1-K3 a step {rec['launches_per_step']}")
+        if label != "unwrapped":
+            require(rec["strategy"] == label and not rec["degrees"],
+                    f"moe {label}: plan {rec['strategy']} {rec['degrees']}")
+    return runs, total
+
+
+def phase_moe(torch, card) -> tuple[int, dict[str, int]]:
+    """MoE small past expert degree 1: (a) serving, (b) ``generate``,
+    (c) expert parallelism on one NCCL rank, (d) the first step's drop
+    rate.  Returns K4's launches in (a) and K1-K3's in (c)."""
+    t0 = time.monotonic()
+    serve, k4 = _moe_serve(torch, card)
+    gen = _moe_generate(torch, card)
+    runs, flash = _moe_expert_parallel(torch, card)
+    emit({"phase": "moe_done", "card": card,
+          "serve_tokens_per_s": serve["tokens_per_s"],
+          "serve_p99_latency_s": serve["p99_latency_s"],
+          "generate_tokens_per_s": {k: gen[f"{k}_tokens_per_s"] for k in (
+              "dense", "routed", "int8")},
+          "ep_median_step_ms": {k: r["median_step_ms"]
+                                for k, r in runs.items()},
+          "first_step_dropped_fraction": runs["unwrapped"][
+              "first_step_dropped_fraction"],
+          "row0_dropped_fraction_mean": statistics.fmean(
+              runs["unwrapped"]["row0_dropped_fraction"]),
+          "k4_launches": k4, "flash_launches": flash,
+          "seconds": time.monotonic() - t0})
+    return k4, flash
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3704,6 +4168,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("llama_fsdp"):
         llama_launches = phase_llama_fsdp(card)
+    if run("moe"):
+        moe_k4_launches, moe_launches = phase_moe(torch, card)
+        torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -3716,7 +4183,7 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
         "replaces": PAGED_REPLACES,
-        "launches": paged_launches + lora_k4_launches,
+        "launches": paged_launches + lora_k4_launches + moe_k4_launches,
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -3726,7 +4193,8 @@ def main(argv=None) -> int:
             "replaces": FLASH_REPLACES[name],
             "launches": (train_launches[name] + dist_launches[name]
                          + lora_launches[name] + sharded_launches[name]
-                         + zoo_launches[name] + llama_launches[name]),
+                         + zoo_launches[name] + llama_launches[name]
+                         + moe_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -3750,7 +4218,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
-          "serve_lora", "zoo", "resnet", "llama_fsdp")
+          "serve_lora", "zoo", "resnet", "llama_fsdp", "moe")
 
 
 if __name__ == "__main__":

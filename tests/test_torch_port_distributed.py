@@ -26,7 +26,17 @@ process) and runs every strategy in turn in that one group:
   process, bitwise at every hop (parameters and Adam moments), and the
   divergence check under HSDP tripping on one perturbed data replica;
 - 1 rank: ``dp``, ``fsdp``, ``tp`` and ``tp_fsdp``, each wrapper applied
-  at degree 1, as on one card.
+  at degree 1, as on one card;
+- expert parallelism, MoE ``test`` (4 SwiGLU experts, top-2, fp32)
+  against JAX's GSPMD plan on as many devices: ``ep`` on 2 ranks
+  (expert 2; with the clip too) and on 4 (expert 4), ``ep_fsdp`` on
+  expert 2 x fsdp 2 and ``ep_tp`` on expert 2 x tensor 2 (the layout
+  JAX's planner picks); each bank's placements name the spec's axes,
+  the exchange runs 4 times a layer a step (2 forward, 2 backward; 6
+  under ep_fsdp's remat); ``ep`` on 2 ranks also checks ``eval_step``,
+  ``ad(state, x)``, the routed ``generate`` and a ``ShardedCheckpoint``
+  restored on one process bitwise; and ``moe_ffn_sharded`` on both
+  worlds against ``moe_ffn`` and JAX's ``moe_ffn_sharded`` (1e-5).
 
 GPT-2 ``test`` in fp32 (dropout 0: each rank would draw its own masks),
 adamw(1e-3), 5 steps on fresh batches.  Tolerances: the 5 losses within
@@ -49,9 +59,12 @@ local values, exactly.
 """
 
 import functools
+import math
 import os
+import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -63,6 +76,7 @@ import torch
 from jax.sharding import Mesh, PartitionSpec as JP
 
 from torch_automatic_distributed_neural_network_tpu import AutoDistribute as JAutoDistribute
+from torch_automatic_distributed_neural_network_tpu import planner as jplanner
 from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
     SyntheticLM as JSyntheticLM,
 )
@@ -70,6 +84,8 @@ from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
     SyntheticClassification as JSyntheticClassification,
 )
 from torch_automatic_distributed_neural_network_tpu.models import GPT2
+from torch_automatic_distributed_neural_network_tpu.models import MoE as JMoE
+from torch_automatic_distributed_neural_network_tpu.parallel import expert as jexpert
 from torch_automatic_distributed_neural_network_tpu.models import resnet as jresnet
 from torch_automatic_distributed_neural_network_tpu.topology import (
     build_mesh as jbuild_mesh,
@@ -81,7 +97,9 @@ from torch_automatic_distributed_neural_network_tpu_torch.interop import (
     decoder_from_jax_params,
     jax_param_path,
     lora_from_jax,
+    moe_from_jax_params,
     resnet_from_jax_params,
+    train_state_from_jax,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.inference.decode import (
     generate,
@@ -89,6 +107,10 @@ from torch_automatic_distributed_neural_network_tpu_torch.inference.decode impor
 from torch_automatic_distributed_neural_network_tpu_torch.models import (
     DecoderLM,
     gpt2_config,
+    moe_config,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.parallel import (
+    expert as texpert,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.models.resnet import (
     ResNet,
@@ -129,6 +151,76 @@ RUNS = {
         dict(name="zero1+tensor2", strategy="auto", zero1=True,
              mesh={"data": 2, "tensor": 2})],
 }
+
+
+MOE_RUNS = {
+    2: [dict(name="ep", strategy="ep", inspect=True, reshard=True),
+        dict(name="ep_clip", strategy="ep", clip=CLIP)],
+    4: [dict(name="ep", strategy="ep"),
+        dict(name="ep_fsdp", strategy="ep_fsdp",
+             mesh={"expert": 2, "fsdp": 2}),
+        dict(name="ep_tp", strategy="ep_tp")],
+}
+MOE_CFG = dict(vocab_size=VOCAB, max_seq_len=64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_moe_model():
+    return JMoE("test", dtype=jnp.float32, **MOE_CFG)
+
+
+def _jax_moe_run(world, run):
+    opt = optax.adamw(1e-3)
+    if run.get("clip"):
+        opt = optax.chain(optax.clip_by_global_norm(run["clip"]), opt)
+    mesh = (jbuild_mesh(**run["mesh"], devices=jax.devices()[:world])
+            if run.get("mesh") else None)
+    ad = JAutoDistribute(_jax_moe_model(), optimizer=opt,
+                         loss_fn=jlosses.moe_next_token_loss,
+                         strategy=run["strategy"],
+                         devices=None if mesh else jax.devices()[:world],
+                         mesh=mesh)
+    batches = _batches()
+    state = ad.init(jax.random.key(0), batches[0])
+    params0 = jax.tree.map(np.asarray, state.params)
+    losses = []
+    for b in batches:
+        state, m = ad.step(state, b)
+        losses.append(float(m["loss"]))
+    out = {"params0": params0, "losses": losses, "plan": ad.plan,
+           "params": jax.tree.map(np.asarray, state.params)}
+    if run.get("inspect"):
+        out["eval_loss"] = float(ad.eval_step(state, batches[0])["loss"])
+        # the state trained under ep, gathered, and one more step's loss
+        out["state"] = types.SimpleNamespace(
+            step=np.asarray(state.step), params=out["params"],
+            opt_state=jax.tree.map(np.asarray, state.opt_state))
+        out["next_loss"] = float(ad.step(state, batches[0])[1]["loss"])
+    return out
+
+
+def _moe_ffn_inputs():
+    """JAX's ``test_moe_ffn_sharded_matches_dense`` inputs: 8 rows of 32
+    tokens, d 16, 4 experts of f 32."""
+    rng = np.random.RandomState(1)
+    return {"x": rng.randn(8, 32, 16).astype(np.float32),
+            "logits": rng.randn(8, 32, 4).astype(np.float32),
+            "w_up": (rng.randn(4, 16, 32) * 0.1).astype(np.float32),
+            "w_down": (rng.randn(4, 32, 16) * 0.1).astype(np.float32)}
+
+
+def _moe_job(world):
+    runs = {run["name"]: _jax_moe_run(world, run) for run in MOE_RUNS[world]}
+    params0 = next(iter(runs.values()))["params0"]
+    for r in runs.values():  # JAX draws the same weights on any mesh
+        jax.tree.map(np.testing.assert_array_equal, r["params0"], params0)
+    cfg = moe_config("test", dtype=torch.float32, **MOE_CFG)
+    job = {"cfg": {f: getattr(cfg, f) for f in cfg.__dataclass_fields__},
+           "state_dict": moe_from_jax_params(params0, cfg,
+                                             device="cpu").state_dict(),
+           "batches": _batches(), "runs": MOE_RUNS[world],
+           "prompt": torch.from_numpy(PROMPT)}
+    return runs, job
 
 
 RESNET_CFG = ResNetConfig(stage_sizes=(2, 2), num_classes=10, width=16,
@@ -274,6 +366,9 @@ def _results(world, tmp_root):
            "reshard": world == 4}
     if world == 2:
         jax_runs["resnet"], job["resnet"] = _resnet_job(world)
+    if world in MOE_RUNS:
+        jax_runs["moe"], job["moe"] = _moe_job(world)
+        job["moe_ffn"] = _moe_ffn_inputs()
     for run in RUNS[world]:
         if run.get("lora"):
             r = jax_runs[run["name"]] = _jax_run(world, run, base=params0)
@@ -477,3 +572,132 @@ def test_divergence_check_trips_under_hsdp(results):
     got = port["hsdp_divergence"]
     assert got["healthy"] is None
     assert "Parameter divergence across hosts at step 1" in got["perturbed"]
+
+
+MOE_CASES = [(w, run["name"]) for w in sorted(MOE_RUNS) for run in MOE_RUNS[w]]
+
+
+@pytest.mark.parametrize("world,name", MOE_CASES,
+                         ids=[f"{w}x-{n}" for w, n in MOE_CASES])
+def test_expert_parallel_step_matches_jax(results, world, name):
+    """MoE ``test`` under an expert strategy on ``world`` gloo ranks
+    against JAX's plan on as many devices: the plan, the 5 losses within
+    2e-5 relative, the final parameters within 1e-4; each bank a
+    ``DTensor`` over the axes of JAX's spec (``expert``, and ``tensor``
+    under ep_tp), of the local shape they give; the exchange's launches
+    a step; the inspected run's eval loss (2e-5), forward (1e-5 of one
+    process's with the gathered weights), routed tokens (a plain routed
+    decode's) and checkpoint (restored on one process, bitwise)."""
+    jax_runs, port = results(world)
+    want, got = jax_runs["moe"][name], port["moe"][name]
+    plan = want["plan"]
+    jdeg = dict(zip(plan.mesh.axis_names, plan.mesh.devices.shape))
+    assert (got["strategy"], got["remat"]) == (plan.strategy, plan.remat)
+    assert got["degrees"] == jdeg
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5,
+                               atol=0)
+    cfg = moe_config("test", dtype=torch.float32, **MOE_CFG)
+    expect = moe_from_jax_params(want["params"], cfg,
+                                 device="cpu").state_dict()
+    assert expect.keys() == got["params"].keys()
+    for pname, p in got["params"].items():
+        np.testing.assert_allclose(p.numpy(), expect[pname].numpy(),
+                                   atol=1e-4, rtol=0, err_msg=pname)
+    jspecs = dict(jplanner._flatten_with_paths(plan.param_specs))
+    banks = [n for n in got["params"] if "experts_" in n]
+    assert len(banks) == 3 * cfg.n_layers
+    for bname in banks:
+        # JAX scans the layers: its bank spec has the layer dim first
+        jpath = re.sub(r"layers_\d+", "layers", jax_param_path(bname))
+        spec = tuple(jspecs[jpath])[1:]
+        axes = {a for e in spec if e
+                for a in (e if isinstance(e, tuple) else (e,))}
+        assert "expert" in axes
+        assert ("tensor" in axes) == (name == "ep_tp")
+        placed = {axis: dim for axis, dim in got["placements"][bname]
+                  if dim is not None}
+        assert placed == {a: d for d, e in enumerate(spec) if e
+                          for a in (e if isinstance(e, tuple) else (e,))}, (
+            bname, placed, spec)
+        full = expect[bname].shape
+        shape = tuple(
+            n // math.prod(jdeg[a] for a in (
+                e if isinstance(e, tuple) else (e,))) if e else n
+            for n, e in zip(full, tuple(spec) + (None,) * len(full)))
+        assert got["local_shapes"][bname] == shape, bname
+    # 2 exchanges a layer forward and their inverses backward; each
+    # recompute runs the forward's again: the layer's own remat
+    # (``cfg.remat``, JAX's default) and the plan's around the loss
+    per_layer = 2 * (1 + cfg.remat + got["remat"]) + 2
+    assert got["exchanges"] == [per_layer * cfg.n_layers] * len(got["losses"])
+    if "eval_loss" in want:
+        np.testing.assert_allclose(got["eval_loss"], want["eval_loss"],
+                                   rtol=2e-5, atol=0)
+    if "logits" in got:
+        model = moe_from_jax_params(want["params"], cfg, device="cpu")
+        model.load_state_dict(got["params"])
+        with torch.no_grad():
+            want_logits = model(torch.from_numpy(PROMPT))[0]
+        np.testing.assert_allclose(got["logits"].numpy(),
+                                   want_logits.numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(
+            got["generated"].numpy(),
+            generate(model, torch.from_numpy(PROMPT), max_new_tokens=4,
+                     cache_dtype=torch.float32, moe_decode="routed"))
+    if MOE_RUNS[world][[r["name"] for r in MOE_RUNS[world]].index(
+            name)].get("reshard"):
+        assert got["resharded"] is True
+
+
+@pytest.mark.parametrize("world", sorted(MOE_RUNS))
+def test_moe_ffn_sharded_matches_moe_ffn(results, world):
+    """``moe_ffn_sharded`` on 2 ranks (expert 2) and 4 (data 2 x expert
+    2) against the unsharded ``moe_ffn`` and JAX's ``moe_ffn_sharded``
+    on as many devices (JAX's ``test_moe_ffn_sharded_matches_dense``):
+    the output within 1e-5, the aux loss within 1e-5 relative."""
+    _, port = results(world)
+    got = port["moe_ffn_sharded"]
+    mf = _moe_ffn_inputs()
+    with torch.no_grad():
+        dense_y, dense_m = texpert.moe_ffn(
+            *(torch.from_numpy(mf[k]) for k in ("x", "logits", "w_up",
+                                                "w_down")), top_k=2)
+    np.testing.assert_allclose(got["y"].numpy(), dense_y.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    degrees = {"expert": 2} if world == 2 else {"data": 2, "expert": 2}
+    jmesh = jbuild_mesh(**degrees, devices=jax.devices()[:world])
+    jy, jm = jax.jit(lambda *a: jexpert.moe_ffn_sharded(
+        *a, mesh=jmesh, top_k=2))(*(jnp.asarray(mf[k]) for k in (
+            "x", "logits", "w_up", "w_down")))
+    np.testing.assert_allclose(got["y"].numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-5)
+    for key in ("aux_loss", "z_loss", "dropped_fraction"):
+        np.testing.assert_allclose(got[key], float(dense_m[key]), rtol=1e-5)
+        np.testing.assert_allclose(got[key], float(jm[key]), rtol=1e-5)
+
+
+def test_train_state_from_jax_trained_under_ep(results):
+    """A JAX MoE state trained under ``ep`` on 2 devices, carried to the
+    port by ``interop.train_state_from_jax`` (the gathered tree is the
+    unsharded one): one more step on one process gives JAX's next loss
+    within 2e-5 relative."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        moe_next_token_loss,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        adamw,
+    )
+
+    jax_runs, _ = results(2)
+    want = jax_runs["moe"]["ep"]
+    cfg = moe_config("test", dtype=torch.float32, **MOE_CFG)
+    ad = AutoDistribute(moe_from_jax_params(want["params"], cfg,
+                                            device="cpu"),
+                        optimizer=adamw(1e-3), loss_fn=moe_next_token_loss,
+                        device="cpu")
+    state = train_state_from_jax(ad, want["state"])
+    assert state.step == STEPS
+    state, m = ad.step(state, _batches()[0])
+    np.testing.assert_allclose(float(m["loss"]), want["next_loss"],
+                               rtol=2e-5, atol=0)

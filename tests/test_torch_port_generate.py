@@ -127,8 +127,14 @@ def test_generate_checks_and_later_slices():
     p = torch.from_numpy(_prompt())
     with pytest.raises(NotImplementedError, match="item 3"):
         tdec.generate(tm, p, max_new_tokens=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tdec.generate(tm, p, max_new_tokens=2, moe_decode="routed")
+    # MoE decoding is ported (tests/test_torch_port_moe_decode.py): on a
+    # dense model ``moe_decode`` changes nothing, as in JAX, and an unknown
+    # mode is refused
+    assert torch.equal(
+        tdec.generate(tm, p, max_new_tokens=2, moe_decode="routed"),
+        tdec.generate(tm, p, max_new_tokens=2))
+    with pytest.raises(ValueError, match="moe_decode"):
+        tdec.generate(tm, p, max_new_tokens=2, moe_decode="sparse")
     with pytest.raises(ValueError, match="eos_id"):
         tdec.generate(tm, p, max_new_tokens=2, early_stop=True)
     with pytest.raises(ValueError, match="learned positions"):

@@ -1,4 +1,4 @@
-"""MoE at expert degree 1 in the PyTorch port: the routing
+"""MoE in the PyTorch port at expert degree 1: the routing
 (``parallel/expert.py``), the expert feed-forward, the MoE LM and its
 loss, the planner and a 5-step ``AutoDistribute`` trajectory, against
 the JAX package on the same numpy inputs and carried weights.
@@ -161,12 +161,21 @@ def test_moe_ffn_matches_jax(gate, capacity):
 
 
 def test_moe_ffn_refuses_an_expert_axis():
-    x = torch.zeros(1, 8, 16)
+    """Expert parallelism is ported (``moe_ffn`` over a ``DeviceMesh``'s
+    expert group: ``tests/test_torch_port_expert_parallel.py`` and the
+    gloo worlds of ``tests/test_torch_port_distributed.py``); a degrees
+    mapping names no process groups, so an expert degree above 1 there
+    is refused, and a mapping of degree 1 is the plain feed-forward."""
+    x = torch.from_numpy(np.random.RandomState(34).randn(1, 8, 16).astype(
+        np.float32))
+    logits = torch.from_numpy(_logits(35, B=1, S=8))
     up, down, _ = (torch.from_numpy(a) if a is not None else None
                    for a in _banks(33, gate=False))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        expert.moe_ffn(x, torch.zeros(1, 8, 4), up, down,
-                       mesh={"expert": 2, "data": 1})
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        expert.moe_ffn(x, logits, up, down, mesh={"expert": 2, "data": 1})
+    plain = expert.moe_ffn(x, logits, up, down)
+    one = expert.moe_ffn(x, logits, up, down, mesh={"expert": 1})
+    assert torch.equal(one[0], plain[0])
 
 
 # -- the MoE LM ------------------------------------------------------------------
@@ -337,8 +346,10 @@ def test_make_plan_on_moe_matches_jax_at_one_device(strategy):
 
 
 def test_moe_decoding_is_refused():
-    """MoE decoding stays a later slice: ``generate`` and the serving
-    engine raise naming it."""
+    """MoE decoding is ported (``tests/test_torch_port_moe_decode.py``
+    holds it to JAX): ``generate`` and the serving engine decode MoE on
+    one device; only decoding over a mesh is still refused, naming
+    ROADMAP item 3."""
     from torch_automatic_distributed_neural_network_tpu_torch.inference import (
         decode,
     )
@@ -347,8 +358,12 @@ def test_moe_decoding_is_refused():
     )
 
     tm = moe_pair()[2]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        decode.generate(tm, torch.zeros(1, 4, dtype=torch.long),
-                        max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServeEngine(tm, device="cpu")
+    prompt = torch.from_numpy(_tokens(42, B=1, S=4)).long()
+    out = decode.generate(tm, prompt, max_new_tokens=2)
+    assert out.shape == (1, 6) and torch.equal(out[:, :4], prompt.int())
+    with pytest.raises(NotImplementedError, match="item 3"):
+        decode.generate(tm, prompt, max_new_tokens=2, mesh=object())
+    eng = ServeEngine(tm, device="cpu", n_slots=1, max_len=16, block_size=8)
+    req = eng.submit(prompt[0].tolist(), max_new_tokens=2)
+    eng.run()
+    assert req.out_tokens == out[0, 4:].tolist()

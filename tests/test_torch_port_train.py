@@ -30,11 +30,19 @@ from torch_automatic_distributed_neural_network_tpu_torch import (
     AutoDistribute,
     SyntheticLM,
 )
+from torch_automatic_distributed_neural_network_tpu_torch.executor import (
+    check_executable,
+)
 from torch_automatic_distributed_neural_network_tpu_torch.interop import (
     decoder_from_jax_params,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.models import (
+    MoE,
     gpt2_config,
+)
+from torch_automatic_distributed_neural_network_tpu_torch.planner import (
+    abstract_params,
+    make_plan,
 )
 from torch_automatic_distributed_neural_network_tpu_torch.training import (
     adamw,
@@ -334,19 +342,34 @@ def test_autodistribute_precision_storage(precision):
 
 def test_autodistribute_refuses_what_is_not_ported():
     """What the port cannot run raises ``NotImplementedError`` naming its
-    ROADMAP item, never a quiet fall to another strategy: expert
-    parallelism (item 6), the tuned and searched strategies (item 7),
-    sequence and pipeline parallelism (item 5) and the export cache
-    (item 4).  Several devices in one process is a ValueError (one device
+    ROADMAP item, never a quiet fall to another strategy: the tuned and
+    searched strategies (item 7), sequence and pipeline parallelism
+    (item 5) and the export cache (item 4).  Expert parallelism is ported
+    (``tests/test_torch_port_expert_parallel.py``): on a model without
+    expert banks ``ep``, ``ep_fsdp`` and ``ep_tp`` get the JAX planner's
+    ValueError.  Several devices in one process is a ValueError (one device
     a process is the port's design, a deliberate difference).  A mesh
     that is not a ``DeviceMesh`` or a mapping is a TypeError, and a plan
     over several devices without a process group a RuntimeError; ZeRO-1
     without a data axis is the JAX planner's no-op."""
     _, params = jax_model_and_params()
     model = port_model(params)
-    for kw, item in ((dict(strategy="ep"), "6"), (dict(strategy="ep_fsdp"), "6"),
-                     (dict(strategy="ep_tp"), "6"),
-                     (dict(strategy="tuned"), "7"),
+    for strategy in ("ep", "ep_fsdp", "ep_tp"):
+        ad = AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
+                            strategy=strategy)
+        with pytest.raises(ValueError, match="needs MoE expert banks"):
+            ad.build_plan()
+    # an expert axis above 1 under another strategy would leave the banks
+    # unexchanged: refused, whatever the model
+    for strategy in ("dp", "fsdp", "tp", "tp_fsdp"):
+        plan = make_plan(abstract_params(MoE("test", vocab_size=256)),
+                         mesh={"expert": 2, "tensor": 2}, strategy=strategy)
+        with pytest.raises(ValueError, match="needs an expert strategy"):
+            check_executable(plan)
+    check_executable(make_plan(
+        abstract_params(MoE("test", vocab_size=256)),
+        mesh={"expert": 2, "tensor": 2}, strategy="ep_tp"))
+    for kw, item in ((dict(strategy="tuned"), "7"),
                      (dict(strategy="search"), "7"),
                      (dict(seq_parallel=2), "5"),
                      (dict(pipeline_stages=2), "5"),

@@ -32,6 +32,18 @@ mapping; a run marked ``reshard`` saves its state with a
 same group (the buffers whole on every rank), recording whether every
 leaf came back bitwise.
 
+In the worlds of 2 and 4 the job also holds ``moe``: MoE ``test`` (fp32)
+from its weights under the expert strategies (``ep``, ``ep_fsdp``,
+``ep_tp``, a run's ``mesh`` and ``clip``), ``moe_next_token_loss``,
+recording what a GPT-2 run records plus each expert bank's placements,
+the expert exchange's launches in one step and, for a run marked
+``inspect``, the eval loss, ``ad(state, prompt)`` and the routed greedy
+tokens; a run marked ``reshard`` saves its state with a
+``ShardedCheckpoint``, and once the group is down rank 0 restores it on
+one process, recording whether every leaf came back bitwise.  Both
+worlds also run ``moe_ffn_sharded`` on the global inputs of
+``job["moe_ffn"]`` (expert 2, and data 2 x expert 2 on 4 ranks).
+
 In the world of 4 the job also holds ``reshard``: the resharding chain
 of ``training/shards.py`` — a ``ShardedCheckpoint`` step written under
 dp on 4 ranks restores under fsdp on 2 (ranks 0-1 in a new group of
@@ -176,6 +188,99 @@ def _resnet_run(rj, run, out_dir):
         fresh.adopt_state(fstate)
         out["resharded"] = _equal(_full_state(fstate), full)
     return out
+
+
+def _moe_ad(mj, run):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        moe_next_token_loss,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        MoEConfig,
+        MoELM,
+    )
+
+    model = MoELM(MoEConfig(**mj["cfg"]))
+    model.load_state_dict(mj["state_dict"])
+    return AutoDistribute(model, optimizer=_optimizer(run.get("clip")),
+                          loss_fn=moe_next_token_loss, device="cpu",
+                          strategy=run["strategy"], mesh=run.get("mesh"))
+
+
+def _moe_run(mj, run, out_dir):
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.expert import (
+        exchange,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards import (
+        ShardedCheckpoint,
+    )
+
+    ad = _moe_ad(mj, run)
+    state = ad.init(None, mj["batches"][0])
+    model = ad.model
+    local = {n: tuple((p.to_local() if hasattr(p, "to_local") else p).shape)
+             for n, p in model.named_parameters()}
+    placements = {n: [(axis, pl.dim if pl.is_shard() else None)
+                      for axis, pl in zip(p.device_mesh.mesh_dim_names,
+                                          p.placements)]
+                  for n, p in model.named_parameters() if "experts_" in n}
+    losses, exchanges = [], []
+    for batch in mj["batches"]:
+        before = exchange.launches
+        state, metrics = ad.step(state, batch)
+        exchanges.append(exchange.launches - before)
+        losses.append(float(metrics["loss"]))
+    full = _full_state(state)
+    out = {"losses": losses, "strategy": ad.plan.strategy,
+           "degrees": ad.plan.degrees, "remat": ad.plan.remat,
+           "local_shapes": local, "placements": placements,
+           "exchanges": exchanges,
+           "params": {k[len("params/"):]: v for k, v in full.items()
+                      if k.startswith("params/")}}
+    if run.get("inspect"):
+        out["eval_loss"] = float(ad.eval_step(state, mj["batches"][0])["loss"])
+        out["logits"] = ad(state, mj["prompt"])[0]
+        out["generated"] = ad.generate(state, mj["prompt"], max_new_tokens=4,
+                                       cache_dtype=torch.float32,
+                                       moe_decode="routed")
+    if run.get("reshard"):
+        directory = f"{out_dir}/moe_{run['name']}"
+        with ShardedCheckpoint(directory) as ck:
+            ck.save(len(losses), state)
+            ck.wait()
+        dist.barrier()  # per-process saves: every marker has landed
+        out["saved"] = (directory, full)
+    return out
+
+
+def _moe_restore_alone(mj, run, saved):
+    """A ``reshard`` run's checkpoint restored on one process (no group):
+    whether every leaf equals the saved state's, gathered, bitwise."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards import (
+        ShardedCheckpoint,
+    )
+
+    directory, full = saved
+    ad = _moe_ad(mj, dict(run, strategy="auto", mesh=None))
+    state = ShardedCheckpoint(directory).restore(
+        ad.init(None, mj["batches"][0]))
+    ad.adopt_state(state)
+    return _equal(_full_state(state), full)
+
+
+def _moe_ffn_sharded(mf, world):
+    from torch_automatic_distributed_neural_network_tpu_torch import topology
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.expert import (
+        moe_ffn_sharded,
+    )
+
+    mesh = (topology.build_mesh(expert=2) if world == 2
+            else topology.build_mesh(data=2, expert=2))
+    y, metrics = moe_ffn_sharded(*(torch.from_numpy(mf[k]) for k in (
+        "x", "logits", "w_up", "w_down")), mesh=mesh, top_k=2)
+    return {"y": y, **{k: float(v) for k, v in metrics.items()}}
 
 
 def _collectives(rank, world):
@@ -357,6 +462,11 @@ def main(rank, world, init_file, job_path, out_path):
         out["resnet"] = {run["name"]: _resnet_run(
             job["resnet"], run, str(Path(out_path).parent))
             for run in job["resnet"]["runs"]}
+    if job.get("moe"):
+        mj = job["moe"]
+        out["moe"] = {run["name"]: _moe_run(
+            mj, run, str(Path(out_path).parent)) for run in mj["runs"]}
+        out["moe_ffn_sharded"] = _moe_ffn_sharded(job["moe_ffn"], world)
     got = _collectives(rank, world)
     gathered = [None] * world
     dist.all_gather_object(gathered, got)
@@ -370,6 +480,11 @@ def main(rank, world, init_file, job_path, out_path):
         dist.barrier()
         dist.destroy_process_group()
     if rank == 0:
+        for run in job.get("moe", {}).get("runs", ()):
+            got = out["moe"][run["name"]]
+            if "saved" in got:
+                got["resharded"] = _moe_restore_alone(
+                    job["moe"], run, got.pop("saved"))
         torch.save(out, out_path)
 
 

@@ -24,14 +24,16 @@ Its slices:
   ``training.lora``), and the journal's event schema (``obs.schema``);
 - training across processes: the planner and its wrappers over a
   ``torch.distributed`` group (``planner``, ``executor``: DDP, FSDP2,
-  tensor parallelism, ZeRO-1 and their hybrids with a data axis), the
+  tensor parallelism, ZeRO-1 and their hybrids with a data axis, and
+  expert parallelism: ``ep``, ``ep_fsdp``, ``ep_tp``), the
   Trainer over a process group, coordinated and per-process sharded
   checkpoints (``training.checkpoint``, ``training.shards``), and the
   launcher (``training.launch``, ``launch`` and ``run`` in the command
   line);
 - the rest of the model zoo on one card: BERT (MLM and classifier),
-  ViT, the MT Transformer, MoE at expert degree 1 (``parallel.expert``'s
-  routing) and the MNIST MLP (``models``), their losses
+  ViT, the MT Transformer, MoE (``parallel.expert``'s routing; decoded
+  by ``generate`` and ``ServeEngine``, densely or routed) and the MNIST
+  MLP (``models``), their losses
   (``training.losses``), the synthetic and on-disk datasets (``data``)
   and one example a family (``examples``);
 - ResNet with BatchNorm (``models.resnet``): its running statistics as

@@ -51,7 +51,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
     import torch
 
     from .inference.serve import ServeEngine, random_adapter
-    from .models import GPT2, Llama
+    from .models import GPT2, MoE, Llama
     from .obs.journal import Journal
     from .utils.device import resolve_device
 
@@ -63,11 +63,9 @@ def cmd_serve(args: argparse.Namespace) -> int:
         args.max_new = args.max_new or 12
         args.prompt_len = args.prompt_len or 10
         args.slots = args.slots or 4
-    if args.family not in ("gpt2", "llama"):
-        print(f"serve needs a decoder family (gpt2/llama), got "
-              f"{args.family!r}" + (" (MoE decoding is a later slice of the "
-                                    "port)" if args.family == "moe" else ""),
-              file=sys.stderr)
+    if args.family not in ("gpt2", "llama", "moe"):
+        print(f"serve needs a decoder family (gpt2/llama/moe), got "
+              f"{args.family!r}", file=sys.stderr)
         return 2
     later = [flag for flag, on in (
         ("--disaggregate", args.disaggregate),
@@ -78,7 +76,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
         return 2
     device = resolve_device(args.device)
 
-    family = {"gpt2": GPT2, "llama": Llama}[args.family]
+    family = {"gpt2": GPT2, "llama": Llama, "moe": MoE}[args.family]
     size = args.size or "test"
     max_len = args.max_len or 256
     vocab = args.vocab or (128 if size == "test" else None)
@@ -396,7 +394,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--smoke", action="store_true",
                    help="CI smoke: test-size model, 8 streams")
     p.add_argument("--family", default="gpt2",
-                   help="decoder family: gpt2 | llama")
+                   help="decoder family: gpt2 | llama | moe")
     p.add_argument("--size", default=None,
                    help="model preset (default: test)")
     p.add_argument("--vocab", type=int, default=None,

@@ -31,14 +31,16 @@ mesh becomes a ``DeviceMesh`` over the world and
 ``executor.apply_plan`` wraps the model by the plan's strategy, even at
 degree 1: ``dp`` (DDP, or ZeRO-1's sharded update), ``fsdp`` (FSDP2;
 HSDP beside a data axis), ``tp`` (``parallelize_module``; beside a data
-axis its gradients averaged over it) or ``tp_fsdp``.  Every rank takes
-the global batch and keeps its rows (``shard_batch``), or its own rows
-only (a ``data.HostBatch`` from ``data.shard_for_host``); the step
-returns the global batch's loss.  ``generate`` gathers the full
-weights on each rank and decodes there, in bf16 or int8.  Expert,
-sequence and pipeline parallelism, the tuned and searched strategies
-and the export cache raise ``NotImplementedError`` naming their ROADMAP
-item.
+axis its gradients averaged over it), ``tp_fsdp``, or the expert
+strategies ``ep``, ``ep_fsdp`` and ``ep_tp`` (the banks sharded over
+``expert``, the dispatched slots exchanged by ``all_to_all``).  Every
+rank takes the global batch and keeps its rows (``shard_batch``), or
+its own rows only (a ``data.HostBatch`` from ``data.shard_for_host``);
+the step returns the global batch's loss.  ``generate`` gathers the
+full weights on each rank and decodes there, in bf16 or int8, an MoE
+model densely or routed (``moe_decode``).  Sequence and pipeline
+parallelism, the tuned and searched strategies and the export cache
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 The step updates the state in place (the JAX step donates its input
 state): ``step`` returns a new :class:`TrainState` whose ``params`` and
@@ -121,7 +123,8 @@ def _not_ported(what: str, item: str):
 
 class AutoDistribute:
     """A model trained by a plan, with the JAX ``AutoDistribute``'s
-    semantics: ``strategy`` ('auto', 'dp', 'fsdp', 'tp', 'tp_fsdp'),
+    semantics: ``strategy`` ('auto', 'dp', 'fsdp', 'tp', 'tp_fsdp', 'ep',
+    'ep_fsdp', 'ep_tp'),
     ``mesh`` (a ``DeviceMesh`` from ``topology.build_mesh`` or a degrees
     mapping), ``rules`` (the planner's name rules), ``zero1`` (the
     optimizer state sharded over ``data``), ``precision`` ('fp32',
@@ -158,9 +161,6 @@ class AutoDistribute:
         if strategy in ("tuned", "search"):
             raise _not_ported(f"strategy={strategy!r} (the tune/ cost-model "
                               f"and measured searches)", "7")
-        if strategy in ("ep", "ep_fsdp", "ep_tp"):
-            raise _not_ported(f"strategy={strategy!r} (expert parallelism; "
-                              f"the port runs MoE at expert degree 1)", "6")
         if strategy not in planner_mod.KNOWN_STRATEGIES:
             raise ValueError(f"Unknown strategy {strategy!r}; expected one "
                              f"of {planner_mod.KNOWN_STRATEGIES}")
@@ -580,10 +580,13 @@ class AutoDistribute:
     def generate(self, state_or_params, prompt, *, max_new_tokens: int,
                  sample=None, generator: torch.Generator | None = None,
                  cache_dtype=torch.bfloat16, eos_id: int | None = None,
-                 moe_decode: str = "dense", quant: str | None = None):
+                 moe_decode: str = "dense", moe_capacity: int | None = None,
+                 quant: str | None = None):
         """Autoregressive generation with the trained weights
         (``inference/decode.py::generate``) on this device: ``prompt``
-        [B, P] -> [B, P + max_new_tokens] int32.
+        [B, P] -> [B, P + max_new_tokens] int32.  An MoE model decodes
+        by ``moe_decode`` ('dense' or 'routed', with ``moe_capacity``
+        pinning the prefill's slots) from its banks gathered whole.
 
         ``quant="int8"`` decodes with int8 weights
         (``quantize_for_decode``), quantized anew on each call as the JAX
@@ -603,7 +606,7 @@ class AutoDistribute:
         return decode.generate(
             model, prompt, max_new_tokens=max_new_tokens, sample=sample,
             generator=generator, cache_dtype=cache_dtype, eos_id=eos_id,
-            moe_decode=moe_decode)
+            moe_decode=moe_decode, moe_capacity=moe_capacity)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict

@@ -1,6 +1,8 @@
 """Train a Mixtral-style MoE LM: the JAX package's
-``examples/train_moe.py`` on the port, at expert degree 1 (expert
-parallelism, ``parallel.strategy=ep*``, raises: not ported yet).
+``examples/train_moe.py`` on the port.  ``parallel.strategy=ep``,
+``ep_fsdp`` or ``ep_tp`` shards the expert banks over an ``expert``
+mesh axis and exchanges the dispatched tokens by ``all_to_all``; run one
+process a device under ``torchrun`` (a single process plans one device).
 
 Usage::
 
@@ -10,6 +12,9 @@ Usage::
         model.size=small model.seq_len=1024
     python -m torch_automatic_distributed_neural_network_tpu_torch.examples.train_moe \\
         model.size=test run.device=cpu run.steps=5
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m torch_automatic_distributed_neural_network_tpu_torch.examples.train_moe \\
+        model.size=test run.device=cpu run.steps=5 parallel.strategy=ep
 
 One field more than the JAX example: ``run.device`` (default ``cuda``;
 ``cpu`` runs the plain PyTorch path).  The MFU takes the active
@@ -69,6 +74,7 @@ def main(argv=None, *, data=None) -> dict:
     cfg: Cfg = cfglib.apply_overrides(
         Cfg(), sys.argv[1:] if argv is None else argv)
     print(cfglib.to_json(cfg))
+    tad.topology.initialize_distributed()  # a no-op outside torchrun
     device = device_of(cfg.run.device)
 
     mcfg = moe_config(cfg.model.size, vocab_size=cfg.model.vocab_size,

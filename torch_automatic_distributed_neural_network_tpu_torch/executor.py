@@ -19,7 +19,15 @@ in place by the plan's strategy, even at degree 1:
   ``mesh["fsdp"]``, each parameter's shard on the dim its spec names; a
   parameter the plan leaves unsharded stays out of FSDP
   (``ignored_params``), never padded;
-- ``tp_fsdp``: the TP wrappers, then ``fully_shard`` on ``mesh["fsdp"]``.
+- ``tp_fsdp``: the TP wrappers, then ``fully_shard`` on ``mesh["fsdp"]``;
+- ``ep``, ``ep_fsdp``, ``ep_tp``: each expert bank (``experts_*``)
+  becomes a ``DTensor``, ``Shard(0)`` over ``mesh["expert"]`` (under
+  ``ep_tp`` over ``mesh["expert", "tensor"]``, the hidden dim also split
+  on ``tensor`` as ``MOE_TP_RULES`` say), and every ``MoEMlp`` gets the
+  mesh, so it exchanges its dispatched slots over the expert group
+  (``parallel/expert.py``), at degree 1 too; the rest of the model
+  takes ``ep_tp``'s TP wrappers, or ``ep_fsdp``'s FSDP2 (on top of the
+  ``DTensor`` banks as on top of TP's); ``ep`` adds no wrapper.
 
 Hybrid meshes, a ``data`` axis beside the others: under ``fsdp`` and
 ``tp_fsdp`` FSDP2 shards on the 2-D ``mesh["data", "fsdp"]`` (HSDP:
@@ -30,8 +38,13 @@ on ``mesh["tensor"]`` and the gradients are averaged over ``data``; with
 
 Gradients come out as the mean over the batch axes: DDP and FSDP2
 average over their groups, and :meth:`Execution.reduce_grads` averages
-what no wrapper reduced (the parameters FSDP ignores, and every
-gradient over ``data`` beside tensor parallelism).
+what no wrapper reduced (the parameters FSDP ignores, every gradient
+over ``data`` beside tensor parallelism, and over ``data`` and
+``expert`` under the expert strategies).  An expert bank's gradient is
+the exception on ``expert``: the backward exchange has already summed
+its experts' contributions from every rank of the expert group, so it
+is divided by that degree, never all-reduced (that would add different
+experts' gradients together).
 
 Buffers (BatchNorm's running statistics) stay whole on every rank: each
 module that declares ``stat_groups`` (BatchNorm) gets the groups of the
@@ -61,20 +74,22 @@ from .planner import (
 from .training.lora import FACTOR_NAMES
 from .utils.device import is_dtensor
 
-EXECUTABLE = ("dp", "fsdp", "tp", "tp_fsdp")
-_AXIS_ITEMS = {"expert": "6", "seq": "5", "pipe": "5"}
+EXECUTABLE = ("dp", "fsdp", "tp", "tp_fsdp", "ep", "ep_fsdp", "ep_tp")
+_AXIS_ITEMS = {"seq": "5", "pipe": "5"}
 
 
 def check_executable(plan: ShardPlan) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a plan
-    this module cannot apply; never run another strategy instead."""
-    if plan.strategy.startswith("ep"):
-        raise NotImplementedError(
-            f"strategy {plan.strategy!r}: expert parallelism is not ported "
-            f"to the PyTorch package yet (ROADMAP Queue 1 item 6)")
+    this module cannot apply, and ``ValueError`` for an expert axis above
+    1 under a strategy that does not shard the expert banks; never run
+    another strategy instead."""
     if plan.strategy not in EXECUTABLE:
         raise ValueError(f"unknown strategy {plan.strategy!r}")
     degrees = plan.degrees
+    if degrees.get("expert", 1) > 1 and not plan.strategy.startswith("ep"):
+        raise ValueError(
+            f"an expert mesh axis of {degrees['expert']} needs an expert "
+            f"strategy (ep, ep_fsdp, ep_tp), not {plan.strategy!r}")
     for axis, item in _AXIS_ITEMS.items():
         if degrees.get(axis, 1) > 1:
             raise NotImplementedError(
@@ -108,7 +123,38 @@ def _set_param(model: nn.Module, name: str, value: torch.Tensor,
     owner.register_parameter(attr, nn.Parameter(value, requires_grad))
 
 
-def _apply_tp(model: nn.Module, layout: dict, mesh) -> None:
+def _apply_ep(model: nn.Module, layout: dict, mesh) -> set[str]:
+    """Each expert bank a ``DTensor`` by its layout over ``expert`` (and
+    ``tensor``), and the mesh on every ``MoEMlp``; returns the banks'
+    names."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    named = dict(model.named_parameters())
+    banks = {n for n in named if _dim_of(layout[n], "expert") is not None}
+    if not banks:
+        raise ValueError("an expert strategy needs MoE expert banks "
+                         "(parameters matching MOE_RULES); none found")
+    axes = ("expert", "tensor") if any(
+        _dim_of(layout[n], "tensor") is not None for n in banks) else (
+        "expert",)
+    sub = mesh[axes] if len(axes) > 1 else mesh[axes[0]]
+    for name in banks:
+        p = named[name]
+        placements = []
+        for axis in axes:
+            dim = _dim_of(layout[name], axis)
+            placements.append(Replicate() if dim is None else Shard(dim))
+        _set_param(model, name, distribute_tensor(
+            p.data, sub, placements, src_data_rank=None), p.requires_grad)
+    for mod in model.modules():
+        if hasattr(mod, "expert_mesh"):
+            mod.expert_mesh = mesh
+            mod.expert_tensor_axis = "tensor" if len(axes) > 1 else None
+    return banks
+
+
+def _apply_tp(model: nn.Module, layout: dict, mesh,
+              skip: set[str] = frozenset()) -> None:
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
@@ -118,6 +164,7 @@ def _apply_tp(model: nn.Module, layout: dict, mesh) -> None:
 
     tp_mesh = mesh["tensor"]
     styles, in_modules, factors = {}, set(), {}
+    # the expert banks (``skip``) are laid out by ``_apply_ep``
     for mod_name, mod in model.named_modules():
         if not isinstance(mod, nn.Linear):
             continue
@@ -142,11 +189,13 @@ def _apply_tp(model: nn.Module, layout: dict, mesh) -> None:
             src_data_rank=None), p.requires_grad)
     for name, p in list(model.named_parameters()):
         dim = _dim_of(layout[name], "tensor")
-        if name not in in_modules and dim is not None:
+        if name not in in_modules and name not in skip and dim is not None:
             _set_param(model, name, distribute_tensor(
                 p.data, tp_mesh, [Shard(dim)], src_data_rank=None),
                 p.requires_grad)
     for name, p in model.named_parameters():
+        if name in skip:
+            continue
         dim = _dim_of(layout[name], "tensor")
         got = (p.placements[0].dim if is_dtensor(p)
                and p.placements[0].is_shard() else None)
@@ -181,13 +230,16 @@ def _apply_fsdp(model: nn.Module, layout: dict, mesh) -> set[str]:
 class Execution:
     """A model wrapped by a plan.  ``module`` is what the loss calls (the
     DDP wrapper, or the model sharded in place); ``reduced`` names, per
-    parameter, the batch axes a wrapper averages its gradient over."""
+    parameter, the batch axes a wrapper averages its gradient over;
+    ``banks``, the expert banks under an expert strategy (their
+    gradient divided by the ``expert`` degree, not averaged over it)."""
 
     plan: ShardPlan
     mesh: Any
     model: nn.Module
     module: nn.Module
     reduced: dict[str, set[str]]
+    banks: set[str] = dataclasses.field(default_factory=set)
 
     @property
     def batch_axes(self) -> list[tuple[str, int]]:
@@ -225,7 +277,7 @@ class Execution:
             with (contextlib.nullcontext() if sync else self.module.no_sync()):
                 yield
             return
-        if self.plan.strategy in ("fsdp", "tp_fsdp"):
+        if self.plan.strategy in ("fsdp", "tp_fsdp", "ep_fsdp"):
             self.model.set_requires_gradient_sync(sync)
         yield
 
@@ -235,13 +287,17 @@ class Execution:
 
     @torch.no_grad()
     def reduce_grads(self) -> None:
-        """Average over the batch axes what no wrapper averaged."""
+        """Average over the batch axes what no wrapper averaged; an
+        expert bank's gradient, summed over ``expert`` by the backward
+        exchange, divided by that degree."""
         for name, p in self.model.named_parameters():
             if p.grad is None:
                 continue
             local = p.grad.to_local() if is_dtensor(p.grad) else p.grad
             for axis, deg in self.batch_axes:
-                if axis not in self.reduced[name]:
+                if axis == "expert" and name in self.banks:
+                    local.div_(deg)
+                elif axis not in self.reduced[name]:
                     self._mean(local, axis, deg)
 
     @torch.no_grad()
@@ -279,9 +335,12 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
     names = [n for n, _ in model.named_parameters()]
     reduced: dict[str, set[str]] = {n: set() for n in names}
     module = model
-    if plan.strategy in ("tp", "tp_fsdp"):
-        _apply_tp(model, layout, mesh)
-    if plan.strategy in ("fsdp", "tp_fsdp"):
+    banks: set[str] = set()
+    if plan.strategy.startswith("ep"):
+        banks = _apply_ep(model, layout, mesh)
+    if plan.strategy in ("tp", "tp_fsdp", "ep_tp"):
+        _apply_tp(model, layout, mesh, skip=banks)
+    if plan.strategy in ("fsdp", "tp_fsdp", "ep_fsdp"):
         for name in _apply_fsdp(model, layout, mesh):
             # HSDP averages over data too
             reduced[name].update(("fsdp", "data"))
@@ -295,7 +354,7 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
                                       if device.type == "cuda" else None),
                           broadcast_buffers=False)
     return Execution(plan=plan, mesh=mesh, model=model, module=module,
-                     reduced=reduced)
+                     reduced=reduced, banks=banks)
 
 
 def like(full: torch.Tensor, param: torch.Tensor) -> torch.Tensor:

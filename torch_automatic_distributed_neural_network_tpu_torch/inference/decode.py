@@ -16,9 +16,14 @@ prompt, then one-token steps, each sampled from an explicit
 Python loop here.  An int8-weight model (``quant.quantize_for_decode``)
 runs through the same code, its weights dequantized at use.
 
-Works for both decoder families (GPT-2: layernorm / learned positions /
-gelu / tied head; Llama: rmsnorm / rope / swiglu / GQA / untied head).
-MoE decoding and sharded decoding are later slices of the port.
+Works for the decoder families (GPT-2: layernorm / learned positions /
+gelu / tied head; Llama: rmsnorm / rope / swiglu / GQA / untied head)
+and MoE, whose expert MLP decodes by ``moe_decode``: ``"dense"`` runs
+every expert on the chunk and combines with the renormalised top-k
+gates (:func:`_moe_mlp_cached`; no capacity, so nothing drops),
+``"routed"`` is the training ``moe_ffn`` on the chunk
+(:func:`_moe_mlp_routed`; ``moe_capacity`` pins the training group's
+slots).  Sharded decoding is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import torch
 
 from ..models.transformer_core import embedding_lookup
 from ..ops.attention import xla_attention
+from ..parallel.expert import expert_mlp, moe_ffn
+
+MOE_DECODE = ("dense", "routed")
 
 
 class KVCache(NamedTuple):
@@ -66,14 +74,68 @@ def _cached_attention(q, k_cache, v_cache, q_pos: int, kv_len: int,
                          mask=mask[None, None])
 
 
+def _moe_mlp_cached(mlp, h: torch.Tensor, cfg) -> torch.Tensor:
+    """Dispatch-free MoE FFN for decode chunks: every expert runs on the
+    chunk (``expert_mlp`` on a broadcast [B, E, T, d]) and the outputs
+    combine with the router's renormalised top-k gates, as
+    ``top_k_routing`` computes them where nothing drops.  E/k times the
+    routed products, nothing at decode sizes."""
+    B, T, d = h.shape
+    up, gate, down = mlp.banks(h.dtype)
+    E = up.shape[0]
+    probs = torch.softmax(mlp.router(h.to(torch.float32)), dim=-1)
+    topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    w = (torch.nn.functional.one_hot(topi, E).to(torch.float32)
+         * gates[..., None]).sum(-2)  # [B, T, E]
+    y = expert_mlp(h[:, None].expand(B, E, T, d), up, gate, down,
+                   mlp.act())  # [B, E, T, d]
+    return torch.einsum("betd,bte->btd", y, w.to(h.dtype))
+
+
+def _moe_mlp_routed(mlp, h: torch.Tensor, cfg,
+                    capacity_override: int | None = None) -> torch.Tensor:
+    """The training ``moe_ffn`` on the decode chunk: each row a group of
+    T tokens with its capacity derived from T, or the training group's
+    (``capacity_override``), so a dropping configuration decodes as it
+    trains; a one-token step has the 8-slot floor and never drops."""
+    up, gate, down = mlp.banks(h.dtype)
+    y, _ = moe_ffn(h, mlp.router(h.to(torch.float32)), up, down,
+                   w_gate=gate, top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor, act=mlp.act(),
+                   capacity=capacity_override)
+    return y
+
+
+def _mlp(layer, h: torch.Tensor, cfg, moe_decode: str,
+         moe_capacity: int | None) -> torch.Tensor:
+    """A layer's MLP on a decode chunk: the dense block, or an MoE bank by
+    ``moe_decode``."""
+    if not hasattr(layer.mlp, "experts_up"):
+        return layer.mlp(h)
+    if moe_decode == "routed":
+        return _moe_mlp_routed(layer.mlp, h, cfg, moe_capacity)
+    return _moe_mlp_cached(layer.mlp, h, cfg)
+
+
+def check_moe_decode(moe_decode: str) -> None:
+    if moe_decode not in MOE_DECODE:
+        raise ValueError(f"unknown moe_decode {moe_decode!r}")
+
+
 @torch.no_grad()
 def forward_cached(model, tokens: torch.Tensor, cache: KVCache, *,
+                   moe_decode: str = "dense",
+                   moe_capacity: int | None = None,
                    all_logits: bool = False
                    ) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder on a [B, T] chunk against the cache; returns
     (logits of the chunk's last position [B, vocab] — or of every
     position [B, T, vocab] with ``all_logits=True`` — and the cache with
-    its cursor advanced).  The cache tensors are updated in place."""
+    its cursor advanced).  The cache tensors are updated in place.
+    ``moe_decode`` / ``moe_capacity``: an MoE model's expert MLP (module
+    docstring); a dense model ignores them."""
+    check_moe_decode(moe_decode)
     cfg = model.cfg
     B, T = tokens.shape
     pos0 = int(cache.length)
@@ -93,7 +155,8 @@ def forward_cached(model, tokens: torch.Tensor, cache: KVCache, *,
         o = _cached_attention(q, k_cache, v_cache, pos0, pos0 + T,
                               window=cfg.sliding_window)
         x = x + layer.attn.out_proj(o.to(dtype))
-        x = x + layer.mlp(layer.mlp_norm(x))
+        x = x + _mlp(layer, layer.mlp_norm(x), cfg, moe_decode,
+                     moe_capacity)
 
     x = model.final_norm(x)
     feats = (x if all_logits else x[:, -1]).to(torch.float32)
@@ -157,6 +220,7 @@ def generate(model, prompt, *, max_new_tokens: int,
              generator: torch.Generator | None = None,
              cache_dtype=torch.bfloat16, mesh=None,
              eos_id: int | None = None, moe_decode: str = "dense",
+             moe_capacity: int | None = None,
              early_stop: bool = False, return_lengths: bool = False):
     """Autoregressive generation: a prefill pass over ``prompt`` [B, P],
     then ``max_new_tokens - 1`` one-token steps.  Returns [B, P +
@@ -172,16 +236,16 @@ def generate(model, prompt, *, max_new_tokens: int,
     int32: the prompt plus the generated tokens up to and including the
     first ``eos_id`` (``P + max_new_tokens`` for a row without one).
 
-    ``mesh`` (sharded decode) and ``moe_decode`` other than ``"dense"``
-    (the routed MoE decode) are later slices of the port."""
+    ``moe_decode`` ('dense' or 'routed') decodes an MoE model's expert
+    MLP (module docstring); ``moe_capacity`` pins the prefill's slots to
+    the training group's, and the one-token steps derive theirs (the
+    8-slot floor: they never drop).  ``mesh`` (sharded decode) is a
+    later slice of the port."""
     if mesh is not None:
         raise NotImplementedError(
             "generate(mesh=...): sharded decode is not ported yet (ROADMAP "
             "Queue 1 item 3); the port decodes on one device")
-    if moe_decode != "dense" or getattr(model.cfg, "n_experts", None):
-        raise NotImplementedError(
-            f"moe_decode={moe_decode!r} on {type(model).__name__}: MoE "
-            f"decoding is not ported yet (ROADMAP Queue 1 item 6)")
+    check_moe_decode(moe_decode)
     if sample is None:
         sample = SampleConfig(temperature=0.0)
     if early_stop and eos_id is None:
@@ -202,7 +266,9 @@ def generate(model, prompt, *, max_new_tokens: int,
             f"the model's {cfg.max_seq_len} learned positions")
 
     cache = KVCache.init(cfg, B, total, dtype=cache_dtype, device=device)
-    logits, cache = forward_cached(model, prompt, cache)
+    logits, cache = forward_cached(model, prompt, cache,
+                                   moe_decode=moe_decode,
+                                   moe_capacity=moe_capacity)
     tok = _sample(logits, generator, sample)
     done = (tok == eos_id if eos_id is not None
             else torch.zeros_like(tok, dtype=torch.bool))
@@ -213,7 +279,7 @@ def generate(model, prompt, *, max_new_tokens: int,
         if early_stop and bool(done.all()):
             break  # the rest of the buffer already holds eos_id
         logits, cache = forward_cached(model, tok[:, None].to(torch.int64),
-                                       cache)
+                                       cache, moe_decode=moe_decode)
         nxt = _sample(logits, generator, sample)
         if eos_id is not None:
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)

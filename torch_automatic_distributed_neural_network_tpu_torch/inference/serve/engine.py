@@ -32,6 +32,10 @@ admission).  In int8 mode each chunk's fresh rows round-trip through the
 pool's (q, scale) form before later chunks attend to them, and the commit
 scatters those exact pairs.
 
+An MoE model (``moe_decode``) prefills its expert MLP densely or
+routed, as ``forward_cached`` does; its decode and verify steps always
+combine every expert densely, as the JAX engine's decode step does.
+
 The kernel takes head dims 32, 64, 96 and 128: on a CUDA device the
 engine raises at construction for another head dim under
 ``attention_impl="paged"`` (``attention_impl="dense"`` is the explicit
@@ -99,7 +103,14 @@ from ...ops.attention import xla_attention
 from ...ops.paged_attention import kernel_takes, paged_attention
 from ...training.lora import LoraSpec, adapted
 from ...utils.device import resolve_device
-from ..decode import KVCache, SampleConfig, _sample, forward_cached
+from ..decode import (
+    KVCache,
+    SampleConfig,
+    _mlp,
+    _sample,
+    check_moe_decode,
+    forward_cached,
+)
 from ..quant import dequantize_kv, quantize_kv
 from ..speculative import accept_length, ngram_propose
 from .adapters import AdapterPool, factor_rows
@@ -207,7 +218,9 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
             ao = _plus_delta(ao, _lora_delta(ad["o"], of, adapter_ids,
                                              scaling), cfg, positions)
         x = x + ao
-        x = x + layer.mlp(layer.mlp_norm(x))
+        # an MoE bank combines densely here, as the JAX engine's decode
+        # and verify steps do
+        x = x + _mlp(layer, layer.mlp_norm(x), cfg, "dense", None)
 
     x = model.final_norm(x)
     return model.logits(x.to(torch.float32))
@@ -234,7 +247,8 @@ def _paged_decode_step(model, pool, tables, ctx_lens, tok, active,
 
 @torch.no_grad()
 def _prefill_chunk_step(model, tokens: torch.Tensor, cache: KVCache,
-                        last_idx: int, *, quantize: bool = False,
+                        last_idx: int, *, moe_decode: str = "dense",
+                        quantize: bool = False,
                         lora: dict | None = None,
                         lora_spec: LoraSpec | None = None):
     """One [1, C] prefill chunk through ``forward_cached`` against the
@@ -246,12 +260,15 @@ def _prefill_chunk_step(model, tokens: torch.Tensor, cache: KVCache,
     rows through the pool's (q, scale) form before later chunks attend
     to them, and returns that quantized chunk so the commit scatters the
     exact same pairs.  ``lora``: a tenant's factors, merged into the
-    targeted weights layer by layer for this chunk's forward.  Returns
+    targeted weights layer by layer for this chunk's forward.
+    ``moe_decode``: an MoE model's expert MLP on the chunk.  Returns
     ``(logits [1, V], cache, qchunk | None)``.
     """
     pos0 = cache.length
     with adapted(model, lora, lora_spec):
-        logits, cache = forward_cached(model, tokens, cache, all_logits=True)
+        logits, cache = forward_cached(model, tokens, cache,
+                                       moe_decode=moe_decode,
+                                       all_logits=True)
     last = logits[:, last_idx]
     if not quantize:
         return last, cache, None
@@ -322,6 +339,7 @@ class ServeEngine:
                  n_adapters: int = 8,
                  quant_adapters: bool = False,
                  speculative: int = 0,
+                 moe_decode: str = "dense",
                  prefix_cache: bool = False,
                  prefix_ttl_s: float | None = None,
                  disaggregate: bool = False,
@@ -337,11 +355,11 @@ class ServeEngine:
         for name, value, item in (
                 ("disaggregate (disaggregated prefill)", disaggregate, "2"),
                 ("mesh (tensor-parallel serving)", mesh, "2"),
-                ("export_cache", export_cache, "4"),
-                (f"serving {type(model).__name__} (MoE decoding)",
-                 getattr(model.cfg, "n_experts", None), "6")):
+                ("export_cache", export_cache, "4")):
             if value:
                 raise NotImplementedError(f"{name} {_LATER.format(item)}")
+        check_moe_decode(moe_decode)
+        self.moe_decode = moe_decode
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = model.cfg
@@ -558,7 +576,8 @@ class ServeEngine:
         cache = KVCache.init(self.cfg, 1, tokens.shape[1],
                              dtype=torch.bfloat16, device=self.device)
         with adapted(self.model, self._req_lora(req), self.lora_spec):
-            logits, cache = forward_cached(self.model, tokens, cache)
+            logits, cache = forward_cached(self.model, tokens, cache,
+                                           moe_decode=self.moe_decode)
         self._first_token(req, logits)
         self._commit_prefill(req, cache.k[:, 0], cache.v[:, 0])
 
@@ -618,6 +637,7 @@ class ServeEngine:
         t0 = time.monotonic()
         logits, st.cache, qchunk = _prefill_chunk_step(
             self.model, tokens, st.cache, n_real - 1,
+            moe_decode=self.moe_decode,
             quantize=self.pool.quantize, lora=st.lora,
             lora_spec=self.lora_spec)
         if qchunk is not None:

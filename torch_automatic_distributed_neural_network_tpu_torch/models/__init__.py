@@ -1,6 +1,6 @@
 """The port's model zoo on the shared core: the decoder families (GPT-2,
-Llama), BERT, ViT, the MT Transformer, MoE (at expert degree 1) and the
-MNIST MLP, and ResNet with BatchNorm."""
+Llama), BERT, ViT, the MT Transformer, MoE and the MNIST MLP, and ResNet
+with BatchNorm."""
 
 from .bert import Bert, BertClassifier, BertEncoder, bert_config
 from .gpt2 import GPT2, gpt2_config

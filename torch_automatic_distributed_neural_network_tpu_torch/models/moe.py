@@ -1,5 +1,5 @@
 """Mixture-of-Experts decoder LM family, the port of the JAX package's
-``models/moe.py`` at expert degree 1.
+``models/moe.py``.
 
 Mixtral-style on the shared decoder core: RMSNorm, rope attention, every
 MLP a top-k routed expert bank (``parallel/expert.py``).  The router is
@@ -9,8 +9,16 @@ planner's ``MOE_RULES`` match them), cast to the compute dtype at use.
 Each layer's router losses (load balance and z, weighted by the
 config's coefficients) are summed through the backbone, and
 :class:`MoELM` returns ``(logits, aux)``: pair it with
-``training.losses.moe_next_token_loss``.  Expert parallelism and MoE
-decoding are later slices of the port.
+``training.losses.moe_next_token_loss``.
+
+Under an expert-parallel plan (``executor.apply_plan``) each
+:class:`MoEMlp` gets the plan's mesh in :attr:`MoEMlp.expert_mesh` (and
+``"tensor"`` in :attr:`MoEMlp.expert_tensor_axis` under ``ep_tp``), as
+BatchNorm gets its ``stat_groups``; its banks are then ``DTensor`` objects
+and it computes with their local blocks, exchanging the dispatched
+slots over the mesh's ``expert`` group (JAX's model passes ``ctx.mesh``
+to ``moe_ffn``).  Decoding reads the banks directly
+(``inference/decode.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.expert import moe_ffn
+from ..utils.device import is_dtensor
 from .transformer_core import (
     DecoderLayer,
     DecoderLM,
@@ -60,11 +69,15 @@ class MoEMlp(nn.Module):
     """Top-k routed expert bank in place of the dense MLP block: returns
     ``(y, aux)``.  The last forward's routing metrics (``aux_loss``,
     ``z_loss``, ``dropped_fraction``, detached, averaged over the batch)
-    stay on :attr:`metrics` for a caller to read."""
+    stay on :attr:`metrics` for a caller to read.  :attr:`expert_mesh`
+    and :attr:`expert_tensor_axis`: the plan's expert parallelism (module
+    docstring), None without one."""
 
     def __init__(self, cfg: MoEConfig):
         super().__init__()
         self.cfg = cfg
+        self.expert_mesh = None
+        self.expert_tensor_axis: str | None = None
         E, d, f = cfg.n_experts, cfg.d_model, cfg.ff_dim
         self.router = Linear(d, E, bias=False)
         self.experts_up = nn.Parameter(torch.empty(E, d, f))
@@ -82,16 +95,25 @@ class MoEMlp(nn.Module):
                 w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]),
                           generator=generator)
 
+    def banks(self, dtype) -> tuple:
+        """``(up, gate or None, down)``: this rank's blocks in ``dtype``."""
+        return tuple(None if w is None else (
+            w.to_local() if is_dtensor(w) else w).to(dtype)
+            for w in (self.experts_up, getattr(self, "experts_gate", None),
+                      self.experts_down))
+
+    def act(self):
+        return (F.silu if self.cfg.act == "swiglu"
+                else (lambda t: F.gelu(t, approximate="tanh")))
+
     def forward(self, x: torch.Tensor):
         cfg = self.cfg
-        gate = getattr(self, "experts_gate", None)
+        up, gate, down = self.banks(cfg.dtype)
         y, metrics = moe_ffn(
-            x, self.router(x.to(torch.float32)),
-            self.experts_up.to(cfg.dtype), self.experts_down.to(cfg.dtype),
-            w_gate=None if gate is None else gate.to(cfg.dtype),
+            x, self.router(x.to(torch.float32)), up, down, w_gate=gate,
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-            act=(F.silu if cfg.act == "swiglu"
-                 else (lambda t: F.gelu(t, approximate="tanh"))))
+            act=self.act(), mesh=self.expert_mesh,
+            tensor_axis=self.expert_tensor_axis)
         self.metrics = {k: v.detach() for k, v in metrics.items()}
         aux = (cfg.aux_loss_coef * metrics["aux_loss"]
                + cfg.router_z_coef * metrics["z_loss"])

@@ -1,7 +1,7 @@
 """Parallel execution over ``torch.distributed``: the named-axis
-collectives (``collectives``) and MoE routing at expert degree 1
-(``expert``).  Sequence, pipeline and expert parallelism are later
-slices of the port (ROADMAP Queue 1 items 5 and 6)."""
+collectives (``collectives``) and MoE routing with expert parallelism
+(``expert``).  Sequence and pipeline parallelism are a later slice of
+the port (ROADMAP Queue 1 item 5)."""
 
 from . import collectives, expert
 

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts routing and the expert feed-forward, unsharded: the
-port of the JAX package's ``parallel/expert.py`` at expert degree 1.
+"""Mixture-of-Experts routing, the expert feed-forward and expert
+parallelism: the port of the JAX package's ``parallel/expert.py``.
 
 GShard-style capacity routing with static shapes: every group (a batch
 row) sends at most ``capacity`` tokens to each expert and drops the
@@ -16,9 +16,22 @@ step, since they decide which tokens drop:
   kept gates are renormalised over the kept choices with a 1e-9 floor.
 
 The products (dispatch, the experts, combine) are ``torch.einsum``: JAX
-computes them outside any Pallas kernel too.  ``moe_ffn_sharded`` and
-``moe_ffn(mesh=...)`` with an expert axis (expert parallelism) are not
-ported yet.
+computes them outside any Pallas kernel too.
+
+Expert parallelism runs on one process a device.  ``moe_ffn`` with a
+``DeviceMesh`` takes this rank's rows and this rank's experts: it routes
+the rows (capacity per row, so the drop decisions do not depend on the
+sharding), an ``all_to_all`` over the mesh's ``expert`` group regroups
+the dispatched slots ``[B_l, E, C, d]`` by owning expert into
+``[B_l * ep, E / ep, C, d]``, the local experts run, and the inverse
+``all_to_all`` returns the slots for the combine.  The exchange is
+differentiable (its backward is the inverse exchange) and runs at any
+expert degree, 1 included, so one card runs the path a fleet runs.  With
+a ``tensor_axis`` each expert is Megatron-split: the up/gate banks hold
+a slice of the hidden dim, the down bank the matching rows, and the
+partial outputs are summed over that axis's group.
+``moe_ffn_sharded`` is JAX's explicit-collective twin: the global arrays
+in, the global output and the metrics averaged over the ranks out.
 
 Terminology: E experts, C capacity slots per group, B groups (batch
 rows), S tokens per group, d model width, f expert hidden width.
@@ -29,6 +42,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 
 
@@ -118,6 +132,104 @@ def expert_mlp(h_in: torch.Tensor, w_up: torch.Tensor,
     return torch.einsum("...ecf,efd->...ecd", h, w_down)
 
 
+def exchange(x: torch.Tensor, group, split_dim: int,
+             concat_dim: int) -> torch.Tensor:
+    """The expert exchange, one ``all_to_all`` over ``group``: chunk ``j``
+    of ``x`` along ``split_dim`` to the group's rank ``j``, the received
+    chunks concatenated along ``concat_dim`` in the senders' order.
+    Counts its launches in ``exchange.launches`` (forward, recompute and
+    backward alike)."""
+    n = group.size()
+    chunks = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
+    got = funcol.wait_tensor(funcol.all_to_all_single(chunks, None, None,
+                                                      group))
+    exchange.launches += 1
+    return torch.cat(got.unbind(0), dim=concat_dim)
+
+
+exchange.launches = 0
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange, differentiated by the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return exchange(g, group, concat_dim, split_dim), None, None, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group (the input of
+    a hidden-dim split: each rank's slice contributes part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return funcol.wait_tensor(funcol.all_reduce(
+            g.contiguous(), "sum", ctx.group)), None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Partial outputs summed over the group; the gradient passes
+    through (every rank's loss reads the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), "sum",
+                                                    group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _local_experts(h: torch.Tensor, w_up, w_gate, w_down, act, group,
+                   tensor_group) -> torch.Tensor:
+    """The dispatched slots ``[B_l, E, C, d]`` through this rank's
+    experts: exchanged over ``group`` (when given), each expert's hidden
+    dim split over ``tensor_group`` (when given), exchanged back."""
+    if group is not None:
+        h = _AllToAll.apply(h, group, 1, 0)  # [B_l * ep, E / ep, C, d]
+    if tensor_group is not None:
+        h = _CopyToGroup.apply(h, tensor_group)
+    h = expert_mlp(h, w_up, w_gate, w_down, act)
+    if tensor_group is not None:
+        h = _SumOverGroup.apply(h, tensor_group)
+    if group is not None:
+        h = _AllToAll.apply(h, group, 0, 1)  # [B_l, E, C, d]
+    return h
+
+
+def _groups(mesh, expert_axis: str, tensor_axis: str | None):
+    """(expert group, tensor group) of a ``DeviceMesh``; None for no
+    mesh.  A degrees mapping has no groups: one of degree 1 is no mesh,
+    one with an expert degree above 1 raises."""
+    if mesh is None:
+        return None, None
+    if not hasattr(mesh, "get_group"):
+        from ..topology import mesh_degrees
+
+        if mesh_degrees(mesh).get(expert_axis, 1) > 1:
+            raise ValueError(
+                f"moe_ffn over an expert axis of degree "
+                f"{mesh_degrees(mesh)[expert_axis]} needs a DeviceMesh "
+                f"(topology.build_mesh): a degrees mapping names no "
+                f"process groups")
+        return None, None
+    return (mesh.get_group(expert_axis),
+            None if tensor_axis is None else mesh.get_group(tensor_axis))
+
+
 def moe_ffn(x: torch.Tensor, router_logits: torch.Tensor,
             w_up: torch.Tensor, w_down: torch.Tensor, *,
             w_gate: torch.Tensor | None = None, top_k: int = 2,
@@ -125,28 +237,83 @@ def moe_ffn(x: torch.Tensor, router_logits: torch.Tensor,
             act: Callable[[torch.Tensor], torch.Tensor] = (
                 lambda t: F.gelu(t, approximate="tanh")),
             mesh=None, expert_axis: str = "expert",
+            tensor_axis: str | None = None,
             capacity: int | None = None):
     """The MoE feed-forward: ``x`` [B, S, d], ``router_logits`` [B, S, E],
-    expert banks ``w_up`` / ``w_gate`` [E, d, f] and ``w_down`` [E, f, d]
-    in ``x``'s dtype -> ``(y [B, S, d], metrics)``.  ``capacity``
-    overrides the slot count derived from S.  ``mesh`` (a ``DeviceMesh``
-    or a degrees mapping) with an ``expert_axis`` of degree > 1 (expert
-    parallelism) raises: this port runs MoE at expert degree 1."""
-    if mesh is not None:
-        from ..topology import mesh_degrees
+    expert banks ``w_up`` / ``w_gate`` [E_l, d, f_l] and ``w_down``
+    [E_l, f_l, d] in ``x``'s dtype -> ``(y [B, S, d], metrics)``.
+    ``capacity`` overrides the slot count derived from S.
 
-        if mesh_degrees(mesh).get(expert_axis, 1) > 1:
-            raise NotImplementedError(
-                "moe_ffn over an expert mesh axis: expert parallelism is "
-                "not ported to the PyTorch package yet (ROADMAP Queue 1 "
-                "item 6)")
+    Without ``mesh`` the banks hold every expert.  With a ``DeviceMesh``
+    ``x`` holds this rank's rows and the banks this rank's experts
+    (E / the degree of ``expert_axis``), exchanged over that axis's group
+    at any degree; with ``tensor_axis`` the banks hold this rank's slice
+    of the hidden dim f.  The metrics are this rank's rows' (a training
+    step averages what its loss reports over the batch axes)."""
+    group, tensor_group = _groups(mesh, expert_axis, tensor_axis)
     B, S, d = x.shape
-    E = w_up.shape[0]
+    E = router_logits.shape[-1]
+    if E % w_up.shape[0]:
+        raise ValueError(f"{E} experts do not divide over banks of "
+                         f"{w_up.shape[0]}")
+    if group is None and w_up.shape[0] != E:
+        raise ValueError(f"{w_up.shape[0]} experts in the banks but {E} "
+                         f"router logits, and no expert group to exchange "
+                         f"over")
     if capacity is None:
         capacity = expert_capacity(S, E, top_k, capacity_factor)
     combine, dispatch, metrics = top_k_routing(router_logits, top_k, capacity)
     dt = x.dtype
     h = torch.einsum("bsec,bsd->becd", dispatch.to(dt), x)
-    h = expert_mlp(h, w_up, w_gate, w_down, act)
+    h = _local_experts(h, w_up, w_gate, w_down, act, group, tensor_group)
     y = torch.einsum("bsec,becd->bsd", combine.to(dt), h)
     return y.to(x.dtype), metrics
+
+
+def moe_ffn_sharded(x: torch.Tensor, router_logits: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, *, mesh,
+                    w_gate: torch.Tensor | None = None, top_k: int = 2,
+                    capacity_factor: float = 1.25,
+                    act: Callable[[torch.Tensor], torch.Tensor] = (
+                        lambda t: F.gelu(t, approximate="tanh")),
+                    expert_axis: str = "expert",
+                    batch_axes: tuple[str, ...] = ("data",)):
+    """JAX's explicit-collective twin of :func:`moe_ffn` on a
+    ``DeviceMesh``: every rank passes the global arrays (``x`` [B, S, d],
+    the logits, the whole banks), keeps its rows (its coordinate over
+    the batch axes of degree > 1, then ``expert_axis``, major first) and
+    its experts, runs :func:`moe_ffn` over the mesh, and returns the
+    global output (the rows gathered back) and the metrics averaged over
+    those axes, as ``shard_map`` does."""
+    from ..topology import mesh_degrees
+
+    degrees = mesh_degrees(mesh)
+    ep = degrees.get(expert_axis, 1)
+    E = w_up.shape[0]
+    if E % ep:
+        raise ValueError(f"{E} experts not divisible by ep={ep}")
+    S = x.shape[1]
+    capacity = expert_capacity(S, E, top_k, capacity_factor)
+    axes = [a for a in batch_axes if degrees.get(a, 1) > 1] + [expert_axis]
+    n = 1
+    idx = 0
+    for a in axes:
+        n *= degrees.get(a, 1)
+        idx = idx * degrees.get(a, 1) + mesh.get_local_rank(a)
+    rows = x.shape[0] // n
+    take = slice(idx * rows, (idx + 1) * rows)
+    e = mesh.get_local_rank(expert_axis)
+    mine = slice(e * (E // ep), (e + 1) * (E // ep))
+    y, metrics = moe_ffn(
+        x[take], router_logits[take], w_up[mine], w_down[mine],
+        w_gate=None if w_gate is None else w_gate[mine], top_k=top_k,
+        act=act, mesh=mesh, expert_axis=expert_axis, capacity=capacity)
+    for a in reversed(axes):
+        y = funcol.wait_tensor(funcol.all_gather_tensor(
+            y.contiguous(), 0, mesh.get_group(a)))
+    for a in axes:
+        deg = degrees.get(a, 1)
+        metrics = {k: funcol.wait_tensor(funcol.all_reduce(
+            v.contiguous(), "sum", mesh.get_group(a))) / deg
+            for k, v in metrics.items()}
+    return y, metrics

@@ -320,7 +320,12 @@ def param_spec_tree(
               and degrees.get("tensor", 1) >= min_degree)
     use_fsdp = (strategy in ("fsdp", "tp_fsdp", "ep_fsdp")
                 and _axis_size(fsdp_axes, degrees) >= min_degree)
-    use_ep = degrees.get("expert", 1) >= min_degree
+    # an expert axis above 1 shards the banks whatever the strategy, as
+    # in the JAX planner (the executor runs it only under ep*); one of
+    # degree 1 only under an expert strategy's wrappers (min_degree 1)
+    expert = degrees.get("expert", 1)
+    use_ep = expert > 1 or (strategy.startswith("ep")
+                            and expert >= min_degree)
 
     def assign(path: str, leaf) -> PartitionSpec:
         shape = _shape(leaf)
