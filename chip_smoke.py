@@ -102,7 +102,8 @@ card, in phases, one JSON line each; any failure exits non-zero:
    goodput buckets, the checkpoint bytes, save-dispatch, write and
    restore ms, and K1-K3's launches over both runs, which must be the
    steps run times 12 layers times 2, 1 and 1;
-11. generation: ``AutoDistribute.generate`` at GPT-2 small (B 4 x 128
+11. generation: ``AutoDistribute.generate`` at GPT-2 small's width,
+   ``CUT_LAYERS`` of its 12 layers (B 4 x 128
    prompt + 64 new, greedy), bf16 weights and ``quant="int8"``: tokens/s,
    int8/bf16 token agreement, weight bytes; each one's tokens (each
    prompt alone, 128 new) equal to those of a one-slot
@@ -149,7 +150,8 @@ card, in phases, one JSON line each; any failure exits non-zero:
    24/12/12 a step, and the merged weights give the adapted loss; median
    step ms, peak memory, optimizer-state bytes and kernels a step beside
    the full fine-tune in the same call;
-17. multi-tenant LoRA serving (``serve_lora``): GPT-2 small, fp32
+17. multi-tenant LoRA serving (``serve_lora``): GPT-2 small's width at
+   ``CUT_LAYERS`` layers, fp32
    compute, bf16 KV, 8 slots, 16 requests of 256 + 64 tokens, four
    rank-16 tenants and every fifth request on the base model; pools of
    5 slots (fp32, then int8 factors) and of 3 (stalls and requeues):
@@ -215,7 +217,8 @@ card, in phases, one JSON line each; any failure exits non-zero:
    ms, tokens/s, MFU, peak memory, and the device ms a step of the K/V
    repeat (``aten::repeat_interleave``) and of its gradient
    (``ExpandBackward0``) from ``torch.profiler``;
-23. MoE past expert degree 1 (``moe``), MoE ``small`` (12 layers, d 768,
+23. MoE past expert degree 1 (``moe``), MoE ``small`` (``CUT_LAYERS`` of
+   its 12 layers, d 768,
    8 experts top-2, vocab 32000, random weights from a seed): (a)
    ``ServeEngine(moe_decode="dense")`` on phase 5's request set (fp32
    compute, bf16 KV, 16 x (256 + 64), 8 slots): K4 once a layer a
@@ -232,7 +235,20 @@ card, in phases, one JSON line each; any failure exits non-zero:
    one NCCL rank (the dispatch exchanged by NCCL's all-to-all): losses
    bitwise equal, the all-to-all and K1-K3 launches a step that the
    remats imply, step ms and peak memory; (d) the first step's dropped
-   fraction, per layer, over the batch and on row 0 alone.
+   fraction, per layer, over the batch and on row 0 alone;
+24. pipeline and context parallelism (``pipeline_cp``), GPT-2 small at B
+   8 x S 1024, bf16 compute, 5 steps on one batch: the unsharded step in
+   this process, then two processes on the one card in a gloo group (NCCL
+   refuses two ranks on one device; sends, rotations and all-to-alls go
+   through host buffers, counted): pipe 2 with microbatches 4 under
+   ``cond``, ``1f1b`` and ``interleaved_1f1b`` (V 2), and seq 2 under
+   ``ring`` and ``ulysses``, each rank's losses within 5e-2 of the
+   unsharded step's, its K1-K3 launches a step equal to what the schedule
+   implies, 1f1b's peak memory below cond's on each rank; step ms, peak
+   memory and the bytes each rank sends; then ``ring_attention`` alone on
+   [8, 1024, 12, 64] bf16 (each rank half the sequence): o, dq, dk, dv
+   within 2e-2 of their largest magnitude of flash on the whole sequence
+   and of fp32 plain attention.
 
 Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19 and 23 write their
 journals with schema validation on (``Journal(validate=True)``): a record that
@@ -260,6 +276,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+# the depth of three host-bound paths, `generate`, `serve_lora` and `moe`
+# (each at its model's full width): with every phase at full depth the
+# whole smoke reached 1,151 s of its 1,200 s on a slow host
+CUT_LAYERS = 6
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 PAGED_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
@@ -2229,7 +2249,8 @@ def phase_generate(torch) -> None:
 
     def gpt2(dtype, seed, **kw):
         with torch.device("cuda"):
-            m = GPT2("small", max_seq_len=1024, dtype=dtype, **kw)
+            m = GPT2("small", max_seq_len=1024, dtype=dtype,
+                     **{"n_layers": CUT_LAYERS, **kw})
         return m.init_weights(torch.Generator(device="cuda").manual_seed(seed))
 
     m16 = gpt2(torch.bfloat16, 5).to(torch.bfloat16)
@@ -2871,7 +2892,8 @@ def phase_serve_lora(torch) -> int:
     from torch_automatic_distributed_neural_network_tpu_torch.training \
         .lora import LoraSpec, merge_lora
 
-    cfg = gpt2_config("small", max_seq_len=1024, dtype=torch.float32)
+    cfg = gpt2_config("small", max_seq_len=1024, dtype=torch.float32,
+                      n_layers=CUT_LAYERS)
     with torch.device("cuda"):
         model = DecoderLM(cfg)
     model.init_weights(torch.Generator(device="cuda").manual_seed(1))
@@ -3640,7 +3662,8 @@ def _moe_small(torch, dtype, *, seed=11, **kw):
     from torch_automatic_distributed_neural_network_tpu_torch import MoE
 
     with torch.device("cuda"):
-        m = MoE("small", max_seq_len=1024, dtype=dtype, **kw)
+        m = MoE("small", max_seq_len=1024, dtype=dtype,
+                **{"n_layers": CUT_LAYERS, **kw})
     return m.init_weights(torch.Generator(device="cuda").manual_seed(seed))
 
 
@@ -3828,7 +3851,7 @@ def _moe_generate(torch, card) -> dict:
     m32 = _moe_small(torch, torch.float32)
     with torch.device("meta"):
         m8 = MoE("small", max_seq_len=1024, dtype=torch.float32,
-                 capacity_factor=8.0)
+                 capacity_factor=8.0, n_layers=CUT_LAYERS)
     m8.load_state_dict(m32.state_dict(), assign=True)
     fp32 = {mode: generate(m8, prompt, max_new_tokens=N, moe_decode=mode,
                            cache_dtype=torch.float32)[:, P:].tolist()
@@ -3899,7 +3922,8 @@ def _moe_expert_parallel(torch, card) -> tuple[dict, dict]:
     def run(strategy):
         from torch_automatic_distributed_neural_network_tpu_torch import MoE
 
-        ad = AutoDistribute(MoE("small", max_seq_len=1024),
+        ad = AutoDistribute(MoE("small", max_seq_len=1024,
+                                n_layers=CUT_LAYERS),
                             optimizer=adamw(3e-4),
                             loss_fn=moe_next_token_loss, strategy=strategy,
                             device="cuda")
@@ -4019,6 +4043,283 @@ def phase_moe(torch, card) -> tuple[int, dict[str, int]]:
     return k4, flash
 
 
+# -- phase 24: pipeline and context parallelism ---------------------------
+
+# GPT-2 small (12 layers, d 768, 12 heads, vocab 50257, S 1024, bf16
+# compute, fp32 parameters, remat "dots") at B 8 on one batch, as phase
+# train; two processes share the one card over a gloo group (NCCL refuses
+# two ranks on one device), so the sends, rotations and all-to-alls go
+# through host buffers, counted
+PIPE_CP_STEPS = 5
+PIPE_CP_SEED = 0
+PIPE_CP_MICROBATCHES = 4
+PIPE_CP_RUNS = (
+    ("cond", dict(pipeline_stages=2, microbatches=PIPE_CP_MICROBATCHES)),
+    ("1f1b", dict(pipeline_stages=2, microbatches=PIPE_CP_MICROBATCHES,
+                  pipeline_schedule="1f1b")),
+    ("interleaved_1f1b", dict(pipeline_stages=2,
+                              microbatches=PIPE_CP_MICROBATCHES,
+                              pipeline_schedule="interleaved_1f1b",
+                              pipeline_virtual=2)),
+    ("ring", dict(seq_parallel=2, seq_impl="ring")),
+    ("ulysses", dict(seq_parallel=2, seq_impl="ulysses")),
+)
+# every step's loss against the unsharded step's on the same weights and
+# batch: bf16 compute whose sums the microbatches and the ring's blocks
+# reorder, over 5 Adam steps; the loss falls by 0.26 to 1.0 a step here
+# (phase train), so a stage or a slice that trained wrongly moves it by
+# more than this
+PIPE_CP_LOSS_BOUND = 5e-2
+# the ring op alone, bf16, against flash on the whole sequence and
+# against fp32 plain attention: the share of each output's largest
+# magnitude (phase zoo's bound for K1-K3 in bf16)
+RING_OP_BOUND = 2e-2
+RING_OP_SHAPE = (8, 1024, 12, 64)
+
+
+def _pipe_cp_expected(name: str, rank: int, layers: int = 12) -> dict:
+    """K1-K3 launches a step on ``rank``.  A pipeline stage runs L/2
+    layers on M microbatches; remat "dots" recomputes each layer's
+    attention, so a forward with gradients is 2 K1 a layer.  cond: the
+    forward and its recompute.  1F1B: a forward without gradients (1), the
+    backward's forward wavefront (1, skipped for a chunk that ends the
+    chain: the last stage's, or its last virtual stage's), and each chunk
+    recomputed with gradients (2).  Ring: rank r attends r + 1 blocks
+    (its own causally, the earlier ones whole), each K1 forward and
+    recompute, K2 and K3 once.  Ulysses: none (its inner attention is
+    ``xla_attention``, as in JAX)."""
+    half, m = layers // 2, PIPE_CP_MICROBATCHES
+    if name == "cond":
+        return {"flash_forward": 2 * half * m, "flash_dkv": half * m,
+                "flash_dq": half * m}
+    if name in ("1f1b", "interleaved_1f1b"):
+        v = 2 if name == "interleaved_1f1b" else 1
+        not_last = v if rank == 0 else v - 1  # chunks that send onward
+        wave = half // v * m * not_last
+        return {"flash_forward": half * m * 3 + wave,
+                "flash_dkv": half * m, "flash_dq": half * m}
+    if name == "ring":
+        blocks = rank + 1
+        return {"flash_forward": 2 * layers * blocks,
+                "flash_dkv": layers * blocks, "flash_dq": layers * blocks}
+    return {"flash_forward": 0, "flash_dkv": 0, "flash_dq": 0}
+
+
+def _pipe_cp_child(out_path: str, rank: int, init_file: str) -> int:
+    """One of the two processes of phase ``pipeline_cp``: every run of
+    ``PIPE_CP_RUNS`` through ``AutoDistribute`` on ``cuda:0`` in a gloo
+    group of 2, then the ring op alone; writes a JSON record."""
+    import torch
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, SyntheticLM, adamw, next_token_loss, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel import \
+        collectives
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.ring \
+        import ring_attention
+
+    torch.cuda.set_device(0)
+    topology.initialize_distributed(
+        backend="gloo", init_method=f"file://{init_file}", world_size=2,
+        rank=rank)
+    wrappers = [getattr(fa, n) for n in _FLASH_NAMES]
+    batch = SyntheticLM(vocab_size=50257, seq_len=1025,
+                        batch_size=8).batch(0)
+    out = {"rank": rank, "runs": {}}
+    for name, kw in PIPE_CP_RUNS:
+        ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                            loss_fn=next_token_loss, device="cuda:0", **kw)
+        state = ad.init(torch.Generator(device="cuda").manual_seed(
+            PIPE_CP_SEED), batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers:
+            w.launches = 0
+        collectives.reset_traffic()
+        losses, step_ms = [], []
+        for _ in range(PIPE_CP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            state, metrics = ad.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+        out["runs"][name] = {
+            "losses": losses, "step_ms": step_ms,
+            "median_step_ms": statistics.median(step_ms[1:]),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {w.__name__: w.launches for w in wrappers},
+            "launches_per_step": {w.__name__: w.launches / PIPE_CP_STEPS
+                                  for w in wrappers},
+            "bytes_per_step": {k: v / PIPE_CP_STEPS
+                               for k, v in collectives.traffic.items()},
+            "degrees": ad.plan.degrees, "remat": ad.plan.remat,
+            "held_layers": sorted({int(n.split(".")[1]) for n, p in
+                                   ad.model.named_parameters()
+                                   if n.startswith("layers.")
+                                   and not p.is_meta})}
+        del ad, state
+        torch.cuda.empty_cache()
+    # the ring op alone: each rank its half of the sequence
+    mesh = topology.build_mesh(seq=2, device_type="cuda")
+    group = mesh.get_group("seq")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(RING_OP_SHAPE, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    width = RING_OP_SHAPE[1] // 2
+    part = slice(rank * width, (rank + 1) * width)
+    ms = []
+    for _ in range(4):
+        ql, kl, vl = (t[:, part].clone().requires_grad_() for t in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        o = ring_attention(ql, kl, vl, causal=True, group=group)
+        o.backward(do[:, part])
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    mine = [t.detach().cpu() for t in (o, ql.grad, kl.grad, vl.grad)]
+    both = [None, None]
+    dist.all_gather_object(both, mine)
+    if rank == 0:
+        got = [torch.cat(parts, dim=1) for parts in zip(*both)]
+        from torch_automatic_distributed_neural_network_tpu_torch.ops \
+            .attention import xla_attention
+
+        refs = {}
+        for ref, fn, dtype in (
+                ("flash", fa.flash_attention, torch.bfloat16),
+                ("plain", xla_attention, torch.float32)):
+            qr, kr, vr = (t.detach().to(dtype).clone().requires_grad_()
+                          for t in (q, k, v))
+            o_ref = fn(qr, kr, vr, causal=True)
+            o_ref.backward(do.to(dtype))
+            refs[ref] = {label: max(
+                float((a.float() - b.detach().float().cpu()).abs().max())
+                / float(b.detach().float().abs().max()), 0.0)
+                for label, a, b in zip(("o", "dq", "dk", "dv"), got,
+                                       (o_ref, qr.grad, kr.grad, vr.grad))}
+        out["ring_op"] = {"shape": list(RING_OP_SHAPE),
+                          "ms_fwd_bwd": ms[1:], "errors": refs,
+                          "bound": RING_OP_BOUND}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_pipeline_cp(torch, card) -> dict[str, int]:
+    """Pipeline and context parallelism at GPT-2 small (B 8 x S 1024,
+    bf16 compute, 5 steps on one batch): the unsharded step in this
+    process, then two processes on the card in a gloo group running pipe
+    2 under cond, 1f1b and interleaved_1f1b (V 2, microbatches 4) and
+    seq 2 under ring and Ulysses, each against the unsharded losses; K1-K3
+    launches a step per rank, step ms, peak memory and the bytes each
+    rank sends; then ring attention alone on [8, 1024, 12, 64] bf16
+    against flash on the whole sequence and the plain fp32 attention.
+    Returns the main path's K1-K3 launches, both ranks summed."""
+    import os
+    import tempfile
+
+    from torch_automatic_distributed_neural_network_tpu_torch import \
+        SyntheticLM
+
+    t0 = time.monotonic()
+    ad, state = _train_setup(torch, seed=PIPE_CP_SEED)
+    batch = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8).batch(0)
+    ref, ref_ms = [], []
+    for _ in range(PIPE_CP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        state, metrics = ad.step(state, batch)
+        torch.cuda.synchronize()
+        ref_ms.append((time.monotonic() - t1) * 1e3)
+        ref.append(float(metrics["loss"]))
+    del ad, state
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="tadnn_pipe_cp_")
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in (0, 1)]
+    # two processes on the host's cores: no oversubscription
+    env = {**os.environ, "OMP_NUM_THREADS": "4"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--pipe-cp-child",
+         paths[r], "--pipe-cp-rank", str(r), "--pipe-cp-init",
+         os.path.join(tmp, "pg")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in (0, 1)]
+    errs = []
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode:
+                errs.append(f"rank {r}: rc {proc.returncode}\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(not errs, "pipeline_cp: a child failed\n" + "\n".join(errs))
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    launches = {n: 0 for n in _FLASH_NAMES}
+    runs = {}
+    for name, _ in PIPE_CP_RUNS:
+        per_rank = [rk["runs"][name] for rk in ranks]
+        diffs = [max(abs(a - b) for a, b in zip(r["losses"], ref))
+                 for r in per_rank]
+        expected = [_pipe_cp_expected(name, r) for r in (0, 1)]
+        runs[name] = {"per_rank": per_rank, "max_loss_diff": max(diffs),
+                      "expected_launches_per_step": expected}
+        for r, rec in enumerate(per_rank):
+            require(all(math.isfinite(x) for x in rec["losses"]),
+                    f"pipeline_cp {name}: rank {r} losses {rec['losses']}")
+            require(rec["launches_per_step"] == {
+                n: float(c) for n, c in expected[r].items()},
+                f"pipeline_cp {name}: rank {r} K1-K3 a step "
+                f"{rec['launches_per_step']} != {expected[r]}")
+            for n in _FLASH_NAMES:
+                launches[n] += rec["launches"][n]
+        require(max(diffs) <= PIPE_CP_LOSS_BOUND,
+                f"pipeline_cp {name}: losses {per_rank[0]['losses']} vs "
+                f"unsharded {ref}: {max(diffs)} > {PIPE_CP_LOSS_BOUND}")
+    for r in (0, 1):
+        cond = runs["cond"]["per_rank"][r]["peak_memory_gib"]
+        ofob = runs["1f1b"]["per_rank"][r]["peak_memory_gib"]
+        require(ofob < cond, f"pipeline_cp: rank {r} 1f1b peak {ofob} GiB "
+                             f"not below cond's {cond} GiB")
+        require(runs["cond"]["per_rank"][r]["held_layers"] == list(
+            range(6 * r, 6 * r + 6)), f"pipeline_cp: rank {r} holds "
+            f"{runs['cond']['per_rank'][r]['held_layers']}")
+    ring_op = ranks[0]["ring_op"]
+    for ref_name, errs_ in ring_op["errors"].items():
+        for label, e in errs_.items():
+            require(e <= RING_OP_BOUND,
+                    f"ring op vs {ref_name}: {label} off by {e} of its "
+                    f"largest magnitude > {RING_OP_BOUND}")
+    for n in _FLASH_NAMES:
+        require(launches[n] > 0, f"pipeline_cp: {n} never launched")
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.pipeline \
+        import bubble_fraction
+
+    emit({"phase": "pipeline_cp", "card": card,
+          "model": "gpt2-small B 8 x S 1024 bf16, 5 steps on one batch",
+          "unsharded": {"losses": ref, "step_ms": ref_ms,
+                        "median_step_ms": statistics.median(ref_ms[1:])},
+          "loss_bound": PIPE_CP_LOSS_BOUND,
+          "bubble_fraction": {
+              "cond": bubble_fraction(2, PIPE_CP_MICROBATCHES),
+              "interleaved_1f1b": bubble_fraction(
+                  2, 2 * PIPE_CP_MICROBATCHES)},
+          "runs": runs, "ring_op": ring_op, "launches": launches,
+          "seconds": time.monotonic() - t0})
+    return launches
+
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4032,6 +4333,11 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--llama-fsdp-steps", type=int, default=6,
                     help=argparse.SUPPRESS)
+    # phase pipeline_cp's two processes
+    ap.add_argument("--pipe-cp-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pipe-cp-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--pipe-cp-init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
@@ -4056,6 +4362,9 @@ def main(argv=None) -> int:
     if args.llama_fsdp_child:
         return _llama_fsdp_child(args.llama_fsdp_child, args.llama_fsdp_batch,
                                  args.llama_fsdp_steps)
+    if args.pipe_cp_child:
+        return _pipe_cp_child(args.pipe_cp_child, args.pipe_cp_rank,
+                              args.pipe_cp_init)
     from torch_automatic_distributed_neural_network_tpu_torch.models import (
         gpt2_config, llama_config)
     from torch_automatic_distributed_neural_network_tpu_torch.models \
@@ -4171,6 +4480,8 @@ def main(argv=None) -> int:
     if run("moe"):
         moe_k4_launches, moe_launches = phase_moe(torch, card)
         torch.cuda.empty_cache()
+    if run("pipeline_cp"):
+        pipe_cp_launches = phase_pipeline_cp(torch, card)
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -4194,7 +4505,7 @@ def main(argv=None) -> int:
             "launches": (train_launches[name] + dist_launches[name]
                          + lora_launches[name] + sharded_launches[name]
                          + zoo_launches[name] + llama_launches[name]
-                         + moe_launches[name]),
+                         + moe_launches[name] + pipe_cp_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -4218,7 +4529,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
-          "serve_lora", "zoo", "resnet", "llama_fsdp", "moe")
+          "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp")
 
 
 if __name__ == "__main__":

@@ -243,11 +243,17 @@ def test_planner_refuses_what_is_not_ported():
     topo = topology.parse_topology("cpu-4")
     with pytest.raises(NotImplementedError, match="item 7"):
         planner.make_plan(pabs, strategy="tuned", topology=topo)
-    for kw in (dict(seq=2), dict(pipe=2)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            planner.make_plan(pabs, topology=topo, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        planner.make_plan(pabs, mesh={"pipe": 2, "data": 2})
+    # sequence and pipeline parallelism are ported: each alone takes its
+    # axis out of the devices first, as JAX's planner does; together
+    # they are its ValueError
+    for kw, axis in ((dict(seq=2), "seq"), (dict(pipe=2), "pipe")):
+        plan = planner.make_plan(pabs, topology=topo, **kw)
+        assert (plan.degrees[axis], plan.degrees["data"]) == (2, 2)
+        assert (plan.stages is None) == (axis == "seq")
+    with pytest.raises(ValueError, match="seq-parallel \\+ pipeline"):
+        planner.make_plan(pabs, topology=topo, seq=2, pipe=2)
+    plan = planner.make_plan(pabs, mesh={"pipe": 2, "data": 2})
+    assert plan.stages["layers.1.mlp.up_proj.weight"] == 1
     with pytest.raises(ValueError, match="Unknown strategy"):
         planner.make_plan(pabs, strategy="bogus", topology=topo)
     with pytest.raises(ValueError, match="MoE"):

@@ -343,8 +343,11 @@ def test_autodistribute_precision_storage(precision):
 def test_autodistribute_refuses_what_is_not_ported():
     """What the port cannot run raises ``NotImplementedError`` naming its
     ROADMAP item, never a quiet fall to another strategy: the tuned and
-    searched strategies (item 7), sequence and pipeline parallelism
-    (item 5) and the export cache (item 4).  Expert parallelism is ported
+    searched strategies (item 7) and the export cache (item 4).
+    Sequence and pipeline parallelism are ported
+    (``tests/test_torch_port_pipeline.py``,
+    ``tests/test_torch_port_context_parallel.py``): each alone is taken,
+    both together are the JAX package's ValueError.  Expert parallelism is ported
     (``tests/test_torch_port_expert_parallel.py``): on a model without
     expert banks ``ep``, ``ep_fsdp`` and ``ep_tp`` get the JAX planner's
     ValueError.  Several devices in one process is a ValueError (one device
@@ -371,11 +374,15 @@ def test_autodistribute_refuses_what_is_not_ported():
         mesh={"expert": 2, "tensor": 2}, strategy="ep_tp"))
     for kw, item in ((dict(strategy="tuned"), "7"),
                      (dict(strategy="search"), "7"),
-                     (dict(seq_parallel=2), "5"),
-                     (dict(pipeline_stages=2), "5"),
                      (dict(export_cache=True), "4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             AutoDistribute(model, loss_fn=next_token_loss, device="cpu", **kw)
+    for kw in (dict(seq_parallel=2), dict(pipeline_stages=2)):
+        AutoDistribute(model, loss_fn=next_token_loss, device="cpu", **kw)
+    with pytest.raises(ValueError, match="cannot be combined with "
+                       "seq_parallel"):
+        AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
+                       seq_parallel=2, pipeline_stages=2)
     with pytest.raises(ValueError, match="one device a process"):
         AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
                        devices=["cpu", "cpu"])

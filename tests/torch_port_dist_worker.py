@@ -204,7 +204,8 @@ def _moe_ad(mj, run):
     model.load_state_dict(mj["state_dict"])
     return AutoDistribute(model, optimizer=_optimizer(run.get("clip")),
                           loss_fn=moe_next_token_loss, device="cpu",
-                          strategy=run["strategy"], mesh=run.get("mesh"))
+                          strategy=run["strategy"], mesh=run.get("mesh"),
+                          **run.get("kw", {}))
 
 
 def _moe_run(mj, run, out_dir):
@@ -446,6 +447,273 @@ def _hsdp_divergence(job, rank):
     return out
 
 
+def _lm_ad(sec, run):
+    """A decoder LM (``sec["cfg"]``, overridden by the run's ``cfg``) from
+    the section's weights, under the run's ``AutoDistribute`` options."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        DecoderLM,
+        TransformerConfig,
+        next_token_loss,
+    )
+
+    model = DecoderLM(TransformerConfig(**{**sec["cfg"],
+                                           **run.get("cfg", {})}))
+    model.load_state_dict(sec["state_dicts"][run.get("weights", "base")])
+    return AutoDistribute(model, optimizer=_optimizer(run.get("clip")),
+                          loss_fn=next_token_loss, device="cpu",
+                          **run.get("kw", {}))
+
+
+def _lm_run(sec, run, out_dir):
+    """One pipeline or context-parallel run (module docstring of the
+    test files): the losses, the gathered parameters, the plan, what
+    each rank holds, the embedding's first-step gradient on every rank,
+    and on request the eval loss, ``ad(state, x)``, greedy tokens and a
+    ``ShardedCheckpoint`` of the trained state."""
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel import (
+        collectives,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards import (
+        ShardedCheckpoint,
+    )
+
+    ad = _lm_ad(sec, run)
+    batches = run.get("batches", sec["batches"])
+    state = ad.init(None, batches[0])
+    held = sorted(n for n, p in ad.model.named_parameters()
+                  if not p.is_meta)
+    grads = {}
+    embed = ad.model.embed
+    def keep(p):
+        g = p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad
+        grads.setdefault("embed", g.detach().clone())
+
+    handle = embed.register_post_accumulate_grad_hook(keep)
+    losses, tokens = [], []
+    collectives.reset_traffic()
+    for batch in batches:
+        state, metrics = ad.step(state, batch)
+        losses.append(float(metrics["loss"]))
+        tokens.append(float(metrics.get("tokens", float("nan"))))
+    handle.remove()
+    traffic = dict(collectives.traffic)
+    params = ad.gathered_params(state)
+    out = {"losses": losses, "tokens": tokens, "strategy": ad.plan.strategy,
+           "degrees": ad.plan.degrees, "remat": ad.plan.remat,
+           "stages": ad.plan.stages, "params": params, "traffic": traffic}
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, {"held": held,
+                                      "embed_grad": grads.get("embed")})
+    out["ranks"] = everyone
+    if run.get("inspect"):
+        out["eval_loss"] = float(ad.eval_step(state, batches[0])["loss"])
+        out["logits"] = ad(state, sec["prompt"])
+        out["generated"] = ad.generate(state, sec["prompt"],
+                                       max_new_tokens=4,
+                                       cache_dtype=torch.float32)
+    if run.get("reshard"):
+        directory = f"{out_dir}/lm_{run['name']}"
+        with ShardedCheckpoint(directory) as ck:
+            ck.save(len(losses), state)
+            ck.wait()
+        dist.barrier()  # per-process saves: every marker has landed
+        full = {k: v for k, v in _full_state_of(ad, state).items()}
+        # the same layout: a fresh state of the same plan, restored
+        fresh = _lm_ad(sec, run)
+        fstate = ShardedCheckpoint(directory).restore(
+            fresh.init(None, sec["batches"][0]))
+        fresh.adopt_state(fstate)
+        out["same_layout"] = _equal(_full_state_of(fresh, fstate), full)
+        # the coordinated DCP format: each leaf from the rank that holds
+        # it, restored into a fresh state of the same plan
+        from torch_automatic_distributed_neural_network_tpu_torch.training.checkpoint import (
+            CheckpointManager,
+        )
+
+        dcp_dir = f"{out_dir}/dcp_{run['name']}"
+        manager = CheckpointManager(dcp_dir, device="cpu")
+        manager.save(len(losses), state)
+        manager.wait()
+        fresh = _lm_ad(sec, run)
+        fstate = CheckpointManager(dcp_dir, device="cpu").restore(
+            fresh.init(None, batches[0]))
+        fresh.adopt_state(fstate)
+        out["dcp_same_layout"] = _equal(_full_state_of(fresh, fstate), full)
+        out["saved"] = (directory, dcp_dir, full)
+    return out
+
+
+def _full_state_of(ad, state):
+    """Every leaf of the state whole, a pipeline's stages gathered: the
+    parameters and the Adam moments by name (``gathered_params``), the
+    rest as it is."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        resilience,
+    )
+
+    out = {}
+    for path, leaf in resilience.flatten_state(state).items():
+        name = path.rsplit("/", 1)[-1]
+        t = resilience.as_tensor(leaf)
+        if name in state.params:
+            t = ad.gathered_params({name: t})[name]
+        out[path] = t.detach().clone()
+    return out
+
+
+def _lm_restore_alone(sec, run, saved):
+    """A run's checkpoints, sharded and DCP, each restored on one process
+    (no group): whether every leaf equals the saved state's, gathered,
+    bitwise."""
+    from torch_automatic_distributed_neural_network_tpu_torch.training.shards import (
+        ShardedCheckpoint,
+    )
+
+    from torch_automatic_distributed_neural_network_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+    )
+
+    directory, dcp_dir, full = saved
+    out = {}
+    for name, manager in (("sharded", ShardedCheckpoint(directory)),
+                          ("dcp", CheckpointManager(dcp_dir, device="cpu"))):
+        ad = _lm_ad(sec, dict(run, kw={}))
+        state = manager.restore(ad.init(None, sec["batches"][0]))
+        ad.adopt_state(state)
+        out[name] = _equal(_full_state_of(ad, state), full)
+    return out
+
+
+def _refusals(sec):
+    """JAX's refusals under a pipe axis, made by ``AutoDistribute`` in a
+    group of 2: each case's error message."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        blockwise_next_token_loss,
+        softmax_xent_loss_mutable,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        MoE,
+        ResNet18Thin,
+    )
+
+    def gpt(**kw):
+        run = {"kw": kw.pop("kw"), "cfg": kw}
+        return _lm_ad(sec, dict(run, weights="base")) if not kw else (
+            _lm_ad(sec, dict(run, weights="deep")))
+
+    cases = {
+        "stateful": lambda: AutoDistribute(
+            ResNet18Thin(), loss_fn=softmax_xent_loss_mutable, device="cpu",
+            pipeline_stages=2).build_plan(),
+        "blockwise": lambda: AutoDistribute(
+            gpt(kw={}).model, loss_fn=blockwise_next_token_loss(16),
+            device="cpu", pipeline_stages=2).build_plan(),
+        "microbatches": lambda: gpt(kw=dict(
+            pipeline_stages=2, microbatches=3)).init(None, sec["batches"][0]),
+        "virtual": lambda: gpt(kw=dict(
+            pipeline_stages=2, pipeline_virtual=2)).build_plan(),
+        "interleaved_m": lambda: gpt(n_layers=4, kw=dict(
+            pipeline_stages=2, microbatches=3,
+            pipeline_schedule="interleaved", pipeline_virtual=2)).build_plan(),
+        "layers": lambda: gpt(kw=dict(
+            pipeline_stages=2, microbatches=4,
+            pipeline_schedule="interleaved", pipeline_virtual=2)).build_plan(),
+        "seq": lambda: gpt(kw=dict(pipeline_stages=2, seq_parallel=2)),
+        "ep": lambda: AutoDistribute(
+            MoE("test", vocab_size=256), device="cpu", strategy="ep",
+            pipeline_stages=2).build_plan(),
+    }
+    out = {}
+    for name, call in cases.items():
+        try:
+            call()
+            out[name] = None
+        except (ValueError, TypeError) as e:
+            out[name] = str(e)
+    return out
+
+
+def _cp_ops(cj, world):
+    """``ring_attention`` and ``ulysses_attention`` over a seq axis of
+    the whole world on the global q, k, v of ``cj["ops"]``: each rank's
+    output slice and its q, k, v gradients of ``sum(o * w)``, gathered;
+    and the attention dispatcher's refusals under the axis."""
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import topology
+    from torch_automatic_distributed_neural_network_tpu_torch.ops.attention import (
+        attention,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel import (
+        context as pctx,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.ring import (
+        ring_attention,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.ulysses import (
+        ulysses_attention,
+    )
+
+    mesh = topology.build_mesh(seq=world)
+    group, r = mesh.get_group("seq"), mesh.get_local_rank("seq")
+    out = {}
+    for case in cj["ops"]:
+        fn = ring_attention if case["impl"] == "ring" else ulysses_attention
+        ts = [torch.from_numpy(case[k]) for k in ("q", "k", "v", "w")]
+        width = ts[0].shape[1] // world
+        q, k, v, w = (t[:, r * width:(r + 1) * width].clone() for t in ts)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        o = fn(q, k, v, causal=case["causal"], group=group)
+        (o * w).sum().backward()
+        got = [None] * world
+        dist.all_gather_object(got, [t.detach() for t in
+                                     (o, q.grad, k.grad, v.grad)])
+        out[case["name"]] = [torch.cat(parts, dim=1)
+                             for parts in zip(*got)]
+    # the differentiable moves: one ring step and the gather of slices,
+    # each rank's value and gradient of sum(out * (rank + 1))
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.collectives import (
+        gather_slices,
+        ppermute_ring,
+    )
+
+    moves = {}
+    for name, fn in (("ppermute_ring",
+                      lambda t: ppermute_ring(t, "seq", mesh=mesh)),
+                     ("gather_slices", lambda t: gather_slices(t, group))):
+        x = (torch.arange(6.0).reshape(1, 3, 2) + 10 * r).requires_grad_()
+        y = fn(x)
+        (y * (r + 1)).sum().backward()
+        got = [None] * world
+        dist.all_gather_object(got, (y.detach(), x.grad))
+        moves[name] = got
+    out["moves"] = moves
+    refusals = {}
+    ctx = pctx.ParallelContext(mesh=mesh)
+    x = torch.zeros(1, 8, 2, 16)
+    with pctx.use(ctx):
+        for name, call in (
+                ("mask", lambda: attention(x, x, x, causal=True,
+                                           mask=torch.ones(1, 1, 8, 8,
+                                                           dtype=torch.bool),
+                                           impl="ring")),
+                ("window", lambda: attention(x, x, x, causal=True, window=4,
+                                             impl="ulysses")),
+                ("flash", lambda: attention(x, x, x, causal=True,
+                                            impl="flash"))):
+            try:
+                call()
+                refusals[name] = None
+            except NotImplementedError as e:
+                refusals[name] = str(e)
+    out["refusals"] = refusals
+    return out
+
+
 def main(rank, world, init_file, job_path, out_path):
     import torch.distributed as dist
 
@@ -457,7 +725,18 @@ def main(rank, world, init_file, job_path, out_path):
         rank=rank)
     job = torch.load(job_path, weights_only=False)
     out = {"topology": topology.detect(),
-           "runs": {run["name"]: _run(job, run) for run in job["runs"]}}
+           "runs": {run["name"]: _run(job, run)
+                    for run in job.get("runs", ())}}
+    for key in ("pipeline", "cp"):
+        if job.get(key):
+            sec = job[key]
+            out[key] = {run["name"]: _lm_run(sec, run,
+                                             str(Path(out_path).parent))
+                        for run in sec["runs"]}
+    if job.get("cp_ops"):
+        out["cp_ops"] = _cp_ops(job["cp_ops"], world)
+    if job.get("refusals"):
+        out["refusals"] = _refusals(job["pipeline"])
     if job.get("resnet"):
         out["resnet"] = {run["name"]: _resnet_run(
             job["resnet"], run, str(Path(out_path).parent))
@@ -466,7 +745,20 @@ def main(rank, world, init_file, job_path, out_path):
         mj = job["moe"]
         out["moe"] = {run["name"]: _moe_run(
             mj, run, str(Path(out_path).parent)) for run in mj["runs"]}
+    if job.get("moe_ffn"):
         out["moe_ffn_sharded"] = _moe_ffn_sharded(job["moe_ffn"], world)
+    if job.get("only_lm"):
+        dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:
+            for key in ("pipeline", "cp"):
+                for run in job.get(key, {}).get("runs", ()):
+                    got = out[key][run["name"]]
+                    if "saved" in got:
+                        got["resharded"] = _lm_restore_alone(
+                            job[key], run, got.pop("saved"))
+            torch.save(out, out_path)
+        return
     got = _collectives(rank, world)
     gathered = [None] * world
     dist.all_gather_object(gathered, got)

@@ -38,9 +38,20 @@ rank takes the global batch and keeps its rows (``shard_batch``), or
 its own rows only (a ``data.HostBatch`` from ``data.shard_for_host``);
 the step returns the global batch's loss.  ``generate`` gathers the
 full weights on each rank and decodes there, in bf16 or int8, an MoE
-model densely or routed (``moe_decode``).  Sequence and pipeline
-parallelism, the tuned and searched strategies and the export cache
-raise ``NotImplementedError`` naming their ROADMAP item.
+model densely or routed (``moe_decode``).  The tuned and searched
+strategies and the export cache raise ``NotImplementedError`` naming
+their ROADMAP item.
+
+Pipeline parallelism (``pipeline_stages=S``, ``microbatches``,
+``pipeline_schedule``, ``pipeline_virtual``): each rank of the ``pipe``
+axis keeps, trains and holds optimizer state for its stage's layers
+only (the other stages' are meta tensors on it), and the loss runs on a
+stand-in for the model whose layer stack is the schedule
+(``parallel/pipeline.py``).  Context parallelism (``seq_parallel=n``,
+``seq_impl``): each rank of the ``seq`` axis takes its slice of every
+row's tokens, attention runs ring or Ulysses over the axis
+(``parallel/context.py``), each rank's loss counts by its share of the
+global token count, and the gradients are summed over ``seq``.
 
 The step updates the state in place (the JAX step donates its input
 state): ``step`` returns a new :class:`TrainState` whose ``params`` and
@@ -73,8 +84,10 @@ from . import topology as topo_mod
 from .models.transformer_core import gathered
 from .models.transformer_core import remat as remat_fn
 from .obs import journal as obs_journal
+from .parallel import context as pctx
 from .planner import ShardPlan
 from .topology import mesh_degrees
+from .training import optim as optim_mod
 from .training import precision as precision_mod
 from .training.optim import (
     GradientTransformation,
@@ -126,7 +139,11 @@ class AutoDistribute:
     semantics: ``strategy`` ('auto', 'dp', 'fsdp', 'tp', 'tp_fsdp', 'ep',
     'ep_fsdp', 'ep_tp'),
     ``mesh`` (a ``DeviceMesh`` from ``topology.build_mesh`` or a degrees
-    mapping), ``rules`` (the planner's name rules), ``zero1`` (the
+    mapping), ``rules`` (the planner's name rules), ``seq_parallel`` and
+    ``seq_impl`` ('auto', 'ring' or 'ulysses'), ``pipeline_stages``,
+    ``microbatches``, ``pipeline_schedule`` ('cond', 'dense', '1f1b',
+    'interleaved', 'interleaved_1f1b') and ``pipeline_virtual`` (V >= 2
+    for the interleaved ones), ``zero1`` (the
     optimizer state sharded over ``data``), ``precision`` ('fp32',
     'mixed', 'bf16' or a ``Precision``), ``grad_accum`` (sequential
     batch slices, gradients averaged in the compute dtype,
@@ -150,7 +167,11 @@ class AutoDistribute:
         remat: bool | None = None,
         devices=None,
         seq_parallel: int = 1,
+        seq_impl: str = "auto",
         pipeline_stages: int = 1,
+        microbatches: int = 8,
+        pipeline_schedule: str = "cond",
+        pipeline_virtual: int = 1,
         precision: str | precision_mod.Precision = "fp32",
         grad_accum: int = 1,
         zero1: bool = False,
@@ -169,10 +190,18 @@ class AutoDistribute:
             raise TypeError(f"mesh must be a DeviceMesh "
                             f"(topology.build_mesh) or a degrees mapping, "
                             f"got {type(mesh).__name__}")
-        if seq_parallel > 1:
-            raise _not_ported("seq_parallel > 1", "5")
-        if pipeline_stages > 1:
-            raise _not_ported("pipeline_stages > 1", "5")
+        if seq_impl not in ("auto", "ring", "ulysses"):
+            raise ValueError(f"seq_impl must be 'auto', 'ring' or "
+                             f"'ulysses', got {seq_impl!r}")
+        if pipeline_stages > 1 and seq_parallel > 1:
+            raise ValueError(
+                "pipeline_stages > 1 cannot be combined with seq_parallel "
+                "> 1: context parallelism (ring/Ulysses) and the pipeline "
+                "trunk are both manual-collective regions. For long "
+                "sequences under a pipeline, raise `microbatches` (bounds "
+                "per-stage activation memory the same way CP would) or "
+                "drop the pipeline and use seq_parallel with fsdp/tensor. "
+                "See the strategy-composition matrix in README.md.")
         if export_cache:
             raise _not_ported("export_cache", "4")
         if grad_accum < 1:
@@ -205,6 +234,13 @@ class AutoDistribute:
         self.comm_profile: dict | None = None
         self._exec: executor_mod.Execution | None = None
         self._grad_accum = grad_accum
+        self._seq_parallel, self._seq_impl = seq_parallel, seq_impl
+        self._pipeline_stages = pipeline_stages
+        self._microbatches = microbatches
+        self._pipeline_schedule = pipeline_schedule
+        self._pipeline_virtual = pipeline_virtual
+        self._pipelined = None  # the loss's stand-in model under a pipeline
+        self._ctx: pctx.ParallelContext | None = None
         self._masters_apart = False
         self._init_fn = init_fn
         self._prepared = init_fn is None
@@ -233,7 +269,12 @@ class AutoDistribute:
             rules=self._rules, remat=self._remat_arg,
             state_factor=prec.bytes_per_param / prec.param_dtype.itemsize,
             zero1=self._zero1,
-            heads=_heads(self.model))
+            heads=_heads(self.model), seq=self._seq_parallel,
+            pipe=self._pipeline_stages,
+            pipe_virtual=(self._pipeline_virtual if self._pipeline_schedule
+                          in ("interleaved", "interleaved_1f1b") else 1))
+        if plan.degrees.get("pipe", 1) > 1:
+            self._check_pipeline(plan)
         if group_up():
             executor_mod.check_executable(plan)
             if isinstance(plan.mesh, Mapping):
@@ -250,6 +291,36 @@ class AutoDistribute:
         if sample_batch is not None:
             self._check_batch(sample_batch)
         return plan
+
+    def _check_pipeline(self, plan: ShardPlan) -> None:
+        """JAX's refusals under a pipe axis; the loss-level remat off (each
+        stage recomputes its own layers)."""
+        from .models.transformer_core import DecoderLayer, DecoderLM
+        from .parallel.pipeline import check_schedule
+
+        model = self.model
+        if getattr(model, "stateful", False):
+            raise ValueError("pipeline parallelism does not support "
+                             "stateful models (batch stats) yet")
+        if getattr(self._loss_fn, "requires_features", False):
+            raise ValueError(
+                "blockwise_next_token_loss cannot run under pipeline "
+                "parallelism: the pipelined apply applies the lm_head "
+                "itself and has no return_features path — use "
+                "next_token_loss (the [B,S,V] logits are per-microbatch "
+                "there, already 1/M the size)")
+        if not isinstance(model, DecoderLM) or model.layer_cls is not (
+                DecoderLayer):
+            raise TypeError(f"pipeline parallelism needs a DecoderLM-family "
+                            f"model (GPT2/Llama); got {type(model).__name__}")
+        if plan.zero1:
+            raise NotImplementedError(
+                "zero1 beside pipeline_stages > 1 is not ported to the "
+                "PyTorch package")
+        check_schedule(model.cfg.n_layers, plan.degrees["pipe"],
+                       self._microbatches, self._pipeline_schedule,
+                       self._pipeline_virtual)
+        plan.remat = False
 
     def _prepare(self, generator) -> None:
         """Run ``init_fn`` on the model, once."""
@@ -332,6 +403,15 @@ class AutoDistribute:
             self._exec = executor_mod.apply_plan(
                 model, self.plan, self.plan.mesh, self.device,
                 rules=self._rules, heads=_heads(model))
+            self._ctx = pctx.ParallelContext(mesh=self.plan.mesh,
+                                             seq_impl=self._seq_impl)
+            if self._exec.degree("pipe") > 1:
+                from .parallel.pipeline import Pipeline, PipelinedModel
+
+                self._pipelined = PipelinedModel(model, Pipeline(
+                    model, self.plan.mesh, n_microbatches=self._microbatches,
+                    schedule=self._pipeline_schedule,
+                    virtual=self._pipeline_virtual, remat=self._remat_arg))
         params = {name: executor_mod.like(masters[name], p)
                   if name in masters else p
                   for name, p in model.named_parameters()}
@@ -342,9 +422,36 @@ class AutoDistribute:
         opt_params = self._trained(params)
         if self.plan.zero1 and self._exec is not None:
             opt_params = zero1_shards(params, **self._zero1_kw())
-        return TrainState(step=0, params=params,
-                          opt_state=self.optimizer.init(opt_params),
-                          seed=seed, model_state=dict(model.named_buffers()))
+        state = TrainState(step=0, params=params,
+                           opt_state=self.optimizer.init(opt_params),
+                           seed=seed, model_state=dict(model.named_buffers()))
+        self._mark_writers(state)
+        return state
+
+    def _mark_writers(self, state: TrainState) -> None:
+        """Under a pipe axis, mark each held leaf of ``state`` with
+        whether this process persists it in a ``ShardedCheckpoint``
+        (``_tadnn_persist``): a layer's leaves on the stage that owns
+        them, the replicated ones on stage 0, a plain tensor by the
+        process whose other mesh coordinates are all 0 (a ``DTensor``'s
+        replica-0 shards by each process holding one)."""
+        ex = self._exec
+        if ex is None or ex.degree("pipe") <= 1:
+            return
+        from .training import resilience
+        from .utils.device import is_dtensor
+
+        stages = self.plan.stages
+        mesh = self.plan.mesh
+        corner = all(mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names
+                     if a != "pipe")
+        for path, leaf in resilience.flatten_state(state).items():
+            if not isinstance(leaf, torch.Tensor) or leaf.is_meta:
+                continue
+            owner = next((stages[k] for k in path.split("/") if k in stages),
+                         0)
+            leaf._tadnn_persist = owner == ex.stage and (
+                corner or is_dtensor(leaf))
 
     def _zero1_kw(self) -> dict:
         plan = self.plan
@@ -380,6 +487,18 @@ class AutoDistribute:
                     + (f" / grad_accum={k} = {n // k}" if k > 1 else "")
                     + f" is not divisible by the data-parallel degree {dp} "
                     f"(mesh {self.plan.degrees}).")
+            if (self.plan.degrees.get("pipe", 1) > 1
+                    and (n // k // dp) % self._microbatches):
+                raise ValueError(
+                    f"Per-device batch {n // k // dp} is not divisible by "
+                    f"microbatches={self._microbatches} (pipeline). Adjust "
+                    f"batch size or microbatches.")
+        cp = self.plan.degrees.get("seq", 1)
+        tokens = batch.get("input_ids", batch.get("tokens"))
+        if cp > 1 and tokens is not None and (np.shape(tokens)[1] - 1) % cp:
+            raise ValueError(
+                f"sequence length {np.shape(tokens)[1] - 1} is not divisible "
+                f"by seq_parallel={cp}")
 
     # -- the train step -------------------------------------------------------
 
@@ -389,10 +508,12 @@ class AutoDistribute:
         return HostBatch(out) if isinstance(batch, HostBatch) else out
 
     def _local_rows(self, batch: dict) -> dict:
-        """This rank's rows: a ``HostBatch`` holds them already."""
-        if self._exec is None or isinstance(batch, HostBatch):
+        """This rank's rows (a ``HostBatch`` holds them already) and,
+        under a ``seq`` axis, its slice of the sequence."""
+        if self._exec is None:
             return batch
-        return self._exec.local_rows(batch)
+        return self._exec.local_rows(batch,
+                                     rows=not isinstance(batch, HostBatch))
 
     def shard_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch, on its device: its
@@ -469,6 +590,26 @@ class AutoDistribute:
                                         opt_state=opt_state)
         return new_state, {"loss": loss, **aux}
 
+    def _norm_reduce(self):
+        """Under a pipe axis, the global squared norm from this rank's
+        per-leaf ones (``training/optim.py::norm_over``): the stage's own
+        layers summed over ``pipe``, the replicated leaves once, the
+        other stages' (meta here) left out; None otherwise."""
+        ex = self._exec
+        if ex is None or ex.degree("pipe") <= 1:
+            return None
+        stages, group = self.plan.stages, ex.mesh.get_group("pipe")
+
+        def total(sq: dict) -> torch.Tensor:
+            own = [v for n, v in sq.items() if n in stages]
+            rest = [v for n, v in sq.items() if n not in stages]
+            s_own = torch.stack(own).sum() if own else torch.zeros(
+                (), device=self.device)
+            torch.distributed.all_reduce(s_own, group=group)
+            return s_own + (torch.stack(rest).sum() if rest else 0.0)
+
+        return total
+
     @torch.no_grad()
     def _copy_masters(self, state: TrainState) -> None:
         """The module's compute-dtype copies of the trained parameters
@@ -496,21 +637,25 @@ class AutoDistribute:
                 {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
                  if v.ndim else v for key, v in batch.items()}))
             gen = self._generator(state, i)
-            with ex.sync(i == k - 1), torch.enable_grad():
+            module = self._pipelined or ex.module
+            if self._pipelined is not None:
+                self._pipelined.pipeline.sync = i == k - 1
+            with ex.sync(i == k - 1), torch.enable_grad(), \
+                    pctx.use(self._ctx):
                 if self.remat:
-                    loss_i, aux_i = remat_fn(self._loss_fn, ex.module, mb,
-                                             gen)
+                    loss_i, aux_i = remat_fn(self._loss_fn, module, mb, gen)
                 else:
-                    loss_i, aux_i = self._loss_fn(ex.module, mb, gen)
-                loss_i.backward()
-            loss_i = loss_i.detach()
+                    loss_i, aux_i = self._loss_fn(module, mb, gen)
+                share = self._seq_share(aux_i)
+                (loss_i if share is None else loss_i * share).backward()
+            loss_i, aux_i = self._seq_reduce(loss_i.detach(), share,
+                                             _detached(aux_i))
             loss = loss_i if loss is None else loss + loss_i
-            aux_i = _detached(aux_i)
             # every rank computed the same global statistics
             _commit(state, aux_i.pop("model_state", None))
             auxes.append(aux_i)
         ex.reduce_grads()
-        with torch.no_grad():
+        with torch.no_grad(), optim_mod.norm_over(self._norm_reduce()):
             grads = {n: (torch.zeros_like(p) if p.grad is None else p.grad)
                      / k for n, p in self._trained(
                          dict(self.model.named_parameters())).items()}
@@ -528,7 +673,46 @@ class AutoDistribute:
         loss, aux = ex.reduce_metrics(loss / k, _merge_aux(auxes))
         new_state = dataclasses.replace(state, step=state.step + 1,
                                         opt_state=opt_state)
+        self._mark_writers(new_state)
         return new_state, {"loss": loss, **aux}
+
+    def _seq_share(self, aux: dict) -> torch.Tensor | None:
+        """Under a ``seq`` axis, this rank's share of the global token
+        count (``aux["tokens"]``, summed over the axis; an equal share
+        when the loss counts none), so that the weighted losses sum to
+        the global mean whatever a mask leaves on each slice; None
+        without one."""
+        ex = self._exec
+        if ex is None or ex.degree("seq") <= 1:
+            return None
+        cp = ex.degree("seq")
+        if "tokens" not in aux:
+            return torch.tensor(1.0 / cp, device=self.device)
+        n = aux["tokens"].detach().to(torch.float32)
+        total = n.clone()
+        torch.distributed.all_reduce(total, group=ex.mesh.get_group("seq"))
+        return n / total
+
+    def _seq_reduce(self, loss, share, aux) -> tuple:
+        """The loss and aux of the whole sequence from each ``seq``
+        rank's: the weighted losses summed, ``tokens`` and counts summed,
+        the rest averaged."""
+        if share is None:
+            return loss, aux
+        ex = self._exec
+        group, cp = ex.mesh.get_group("seq"), ex.degree("seq")
+        loss = loss * share
+        torch.distributed.all_reduce(loss, group=group)
+        out = {}
+        for key, v in aux.items():
+            if isinstance(v, dict):
+                out[key] = v
+                continue
+            v = v.clone()
+            torch.distributed.all_reduce(v, group=group)
+            out[key] = v if key in ("tokens", "items") or key.endswith(
+                "_count") else v / cp
+        return loss, out
 
     # -- inference ------------------------------------------------------------
 
@@ -563,7 +747,7 @@ class AutoDistribute:
             # a plain decoder holding the merged weights
             from .training.lora import is_lora_name, merge_lora
 
-            full = {n: gathered(p).detach() for n, p in tree.items()}
+            full = {n: self._whole(n, p) for n, p in tree.items()}
             lora = {n[:-len(".lora_a")] + ".weight":
                     {"a": full[n], "b": full[n[:-1] + "b"]}
                     for n in full if n.endswith(".lora_a")}
@@ -573,8 +757,25 @@ class AutoDistribute:
         model = _like(self.model, device=self.device)
         with torch.no_grad():
             for name, t in model.state_dict(keep_vars=True).items():
-                t.data = gathered(full[name]).detach().to(self.device)
+                t.data = self._whole(name, full[name]).to(self.device)
         return model
+
+    @torch.no_grad()
+    def gathered_params(self, state_or_params) -> dict[str, torch.Tensor]:
+        """Every parameter of ``state_or_params`` (a ``TrainState`` or a
+        name -> tensor mapping) whole on this rank: gathered over the
+        plan's shards and, under a pipeline, from the stage that holds
+        it.  A collective under a plan: every rank calls it."""
+        if isinstance(state_or_params, TrainState):
+            state_or_params = state_or_params.params
+        return {n: self._whole(n, t) for n, t in state_or_params.items()}
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` whole on this rank: gathered over the plan's shards and,
+        under a pipe axis, from the stage that holds it."""
+        if self._exec is None:
+            return gathered(t).detach()
+        return self._exec.full(name, t)
 
     @torch.no_grad()
     def generate(self, state_or_params, prompt, *, max_new_tokens: int,
@@ -622,9 +823,11 @@ class AutoDistribute:
                                       None)
             aux.pop("model_state", None)
             return {"loss": loss, **aux}
-        loss, aux = self._loss_fn(self._exec.module, self.shard_batch(batch),
-                                  None)
-        aux.pop("model_state", None)
+        with pctx.use(self._ctx):
+            loss, aux = self._loss_fn(self._pipelined or self._exec.module,
+                                      self.shard_batch(batch), None)
+            aux.pop("model_state", None)
+            loss, aux = self._seq_reduce(loss, self._seq_share(aux), aux)
         loss, aux = self._exec.reduce_metrics(loss, aux)
         return {"loss": loss, **aux}
 
@@ -642,7 +845,9 @@ class AutoDistribute:
         not the module's, ``torch.func.functional_call`` computes with
         them.  Under a plan the wrapped module computes the whole batch
         on every rank when the weights are its own; other weights are
-        gathered into an unwrapped copy of the model."""
+        gathered into an unwrapped copy of the model, as they always are
+        under a pipeline (each rank holds its stage's layers only); the
+        whole sequence runs on every rank under context parallelism."""
         if self.plan is None:
             raise RuntimeError("call init() or build_plan() first")
         tree = self._tree(state_or_params)
@@ -652,7 +857,8 @@ class AutoDistribute:
         args = tuple(torch.as_tensor(a).to(self.device)
                      if isinstance(a, (np.ndarray, torch.Tensor)) else a
                      for a in args)
-        if all(tree.get(n, t) is t for n, t in self._own().items()):
+        if self._pipelined is None and all(
+                tree.get(n, t) is t for n, t in self._own().items()):
             module = self.model if self._exec is None else self._exec.module
             return module(*args, **kwargs)
         if self._exec is None:

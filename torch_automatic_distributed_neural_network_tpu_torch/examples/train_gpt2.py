@@ -18,9 +18,18 @@ path).  ``parallel.strategy`` reaches ``AutoDistribute``: under
 run``) the process group comes up, the step runs wrapped by the plan
 (DDP, FSDP2, tensor parallelism, their hybrids with a data axis), every
 rank takes the global batch and keeps its rows, and the checkpoints
-are coordinated across the ranks; ``parallel.seq`` / ``parallel.pipe``
-raise (ROADMAP Queue 1 item 5).  ``main`` returns the final state, the
-trainer and the data source, so a caller can check the run.
+are coordinated across the ranks.  ``parallel.pipe`` trains in pipeline
+stages (``parallel.microbatches``, ``parallel.schedule``: cond, dense,
+1f1b, interleaved, interleaved_1f1b; ``parallel.virtual`` for the
+interleaved ones) and ``parallel.seq`` with context parallelism
+(``parallel.seq_impl``: auto, ring, ulysses), one process a rank::
+
+    torchrun --nproc-per-node 2 -m \\
+        torch_automatic_distributed_neural_network_tpu_torch.examples.train_gpt2 \\
+        model.size=test run.device=cpu parallel.pipe=2 parallel.schedule=1f1b
+
+``main`` returns the final state, the trainer and the data source, so a
+caller can check the run.
 """
 
 import dataclasses
@@ -76,7 +85,11 @@ class ParallelCfg:
     seq: int = 1  # context-parallel degree (ring/Ulysses attention)
     pipe: int = 1  # pipeline stages (1 = no pipeline)
     microbatches: int = 8
-    schedule: str = "cond"  # cond | dense | 1f1b (parallel/pipeline.py)
+    # cond | dense | 1f1b | interleaved | interleaved_1f1b
+    # (parallel/pipeline.py)
+    schedule: str = "cond"
+    virtual: int = 1  # virtual stages a rank (the interleaved schedules)
+    seq_impl: str = "auto"  # auto | ring | ulysses
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,7 +140,11 @@ def main(argv=None, *, callbacks=None) -> dict:
         loss_fn=next_token_loss,
         strategy=cfg.parallel.strategy,
         seq_parallel=cfg.parallel.seq,
+        seq_impl=cfg.parallel.seq_impl,
         pipeline_stages=cfg.parallel.pipe,
+        microbatches=cfg.parallel.microbatches,
+        pipeline_schedule=cfg.parallel.schedule,
+        pipeline_virtual=cfg.parallel.virtual,
         device=device,
     )
 

@@ -75,14 +75,13 @@ from .training.lora import FACTOR_NAMES
 from .utils.device import is_dtensor
 
 EXECUTABLE = ("dp", "fsdp", "tp", "tp_fsdp", "ep", "ep_fsdp", "ep_tp")
-_AXIS_ITEMS = {"seq": "5", "pipe": "5"}
 
 
 def check_executable(plan: ShardPlan) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a plan
-    this module cannot apply, and ``ValueError`` for an expert axis above
-    1 under a strategy that does not shard the expert banks; never run
-    another strategy instead."""
+    """Raise ``ValueError`` for a plan this module cannot apply: an
+    unknown strategy, an expert axis above 1 under a strategy that does
+    not shard the expert banks, a pipe axis beside an expert strategy
+    or beside a seq axis; never run another strategy instead."""
     if plan.strategy not in EXECUTABLE:
         raise ValueError(f"unknown strategy {plan.strategy!r}")
     degrees = plan.degrees
@@ -90,11 +89,10 @@ def check_executable(plan: ShardPlan) -> None:
         raise ValueError(
             f"an expert mesh axis of {degrees['expert']} needs an expert "
             f"strategy (ep, ep_fsdp, ep_tp), not {plan.strategy!r}")
-    for axis, item in _AXIS_ITEMS.items():
-        if degrees.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"a {axis} mesh axis of {degrees[axis]} is not ported to "
-                f"the PyTorch package yet (ROADMAP Queue 1 item {item})")
+    if degrees.get("pipe", 1) > 1 and (plan.strategy.startswith("ep")
+                                       or degrees.get("seq", 1) > 1):
+        raise ValueError(f"a pipe axis composes with dp/fsdp/tp only, not "
+                         f"{plan.strategy!r} with mesh {degrees}")
 
 
 def _dim_of(spec, axis: str) -> int | None:
@@ -166,7 +164,7 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
     styles, in_modules, factors = {}, set(), {}
     # the expert banks (``skip``) are laid out by ``_apply_ep``
     for mod_name, mod in model.named_modules():
-        if not isinstance(mod, nn.Linear):
+        if not isinstance(mod, nn.Linear) or f"{mod_name}.weight" in skip:
             continue
         in_modules.update(f"{mod_name}.{p}" for p, _ in
                           mod.named_parameters(recurse=False))
@@ -205,22 +203,27 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
                 f"wrappers split {got}")
 
 
-def _apply_fsdp(model: nn.Module, layout: dict, mesh) -> set[str]:
+def _apply_fsdp(model: nn.Module, layout: dict, mesh,
+                skip: set[str] = frozenset()) -> set[str]:
     """``fully_shard`` per layer and at the root (HSDP on
     ``mesh["data", "fsdp"]`` beside a data axis); returns the names of
-    the parameters FSDP manages."""
+    the parameters FSDP manages.  The parameters in ``skip`` (another
+    pipeline stage's layers) stay out."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     named = dict(model.named_parameters())
     dims = {id(p): _dim_of(layout[n], "fsdp")
             for n, p in named.items()}
-    ignored = {p for p in named.values() if dims[id(p)] is None}
+    ignored = {p for n, p in named.items()
+               if dims[id(p)] is None or n in skip}
     hybrid = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"] > 1
     kw = dict(mesh=mesh["data", "fsdp"] if hybrid else mesh["fsdp"],
               ignored_params=ignored,
               shard_placement_fn=lambda p: Shard(dims[id(p)]))
     for layer in getattr(model, "layers", ()):
+        if not any(p not in ignored for p in layer.parameters()):
+            continue
         fully_shard(layer, **kw)
     fully_shard(model, **kw)
     return {n for n, p in named.items() if p not in ignored}
@@ -240,6 +243,10 @@ class Execution:
     module: nn.Module
     reduced: dict[str, set[str]]
     banks: set[str] = dataclasses.field(default_factory=set)
+    # under a pipe axis: this rank's stage, and the parameters of the
+    # other stages' layers (meta tensors here: their owners hold them)
+    stage: int = 0
+    foreign: set[str] = dataclasses.field(default_factory=set)
 
     @property
     def batch_axes(self) -> list[tuple[str, int]]:
@@ -250,24 +257,44 @@ class Execution:
                  for a in (e if isinstance(e, tuple) else (e,))]
         return [(a, degrees[a]) for a in order if degrees.get(a, 1) > 1]
 
-    def local_rows(self, batch: dict) -> dict:
-        """This rank's rows of a global batch: its coordinate on the batch
+    def degree(self, axis: str) -> int:
+        return self.plan.degrees.get(axis, 1)
+
+    def local_rows(self, batch: dict, rows: bool = True) -> dict:
+        """This rank's rows of a global batch (``rows``: a
+        ``HostBatch`` holds them already): its coordinate on the batch
         axes, data-major (the JAX batch spec's order); every tensor rank
-        holds the same rows."""
-        axes = self.batch_axes
-        if not axes:
-            return batch
+        holds the same rows.  Under a ``seq`` axis also its slice of the
+        sequence (:meth:`seq_slice`)."""
+        axes = self.batch_axes if rows else []
         n = math.prod(d for _, d in axes)
         idx = 0
         for axis, deg in axes:
             idx = idx * deg + self.mesh.get_local_rank(axis)
         out = {}
         for key, v in batch.items():
-            if v.ndim:
-                rows = v.shape[0] // n
-                v = v[idx * rows:(idx + 1) * rows]
+            if v.ndim and n > 1:
+                r = v.shape[0] // n
+                v = v[idx * r:(idx + 1) * r]
             out[key] = v
-        return out
+        # a HostBatch stays one: a step given it back keeps its rows
+        return type(batch)(self.seq_slice(out))
+
+    def seq_slice(self, batch: dict) -> dict:
+        """This ``seq`` rank's slice of a causal-LM batch: of the
+        ``S + 1`` tokens, ``[r S/cp, (r + 1) S/cp + 1)``, the one token of
+        overlap giving the loss its label across the boundary; every
+        leaf whose dim 1 is the tokens' length is sliced alike."""
+        cp = self.degree("seq")
+        tokens = batch.get("input_ids", batch.get("tokens"))
+        if cp <= 1 or tokens is None:
+            return batch
+        length = tokens.shape[1]
+        width = (length - 1) // cp
+        r = self.mesh.get_local_rank("seq")
+        return {k: v[:, r * width:(r + 1) * width + 1]
+                if v.ndim >= 2 and v.shape[1] == length else v
+                for k, v in batch.items()}
 
     @contextlib.contextmanager
     def sync(self, sync: bool):
@@ -289,7 +316,10 @@ class Execution:
     def reduce_grads(self) -> None:
         """Average over the batch axes what no wrapper averaged; an
         expert bank's gradient, summed over ``expert`` by the backward
-        exchange, divided by that degree."""
+        exchange, divided by that degree.  Over ``seq`` every gradient
+        is summed: each rank's loss already carries its share of the
+        global token count (``core.AutoDistribute``)."""
+        seq = self.degree("seq")
         for name, p in self.model.named_parameters():
             if p.grad is None:
                 continue
@@ -299,6 +329,32 @@ class Execution:
                     local.div_(deg)
                 elif axis not in self.reduced[name]:
                     self._mean(local, axis, deg)
+            if seq > 1:
+                dist.all_reduce(local, group=self.mesh.get_group("seq"))
+
+    @torch.no_grad()
+    def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``name`` whole on this rank: a ``DTensor``
+        gathered and, under a pipe axis, a layer's parameter broadcast
+        from the stage that owns it (every pipe rank calls this for the
+        same names in the same order)."""
+        from .models.transformer_core import gathered
+        from .parallel.collectives import broadcast_from
+
+        stages = self.plan.stages or {}
+        if name not in stages:
+            return gathered(t).detach()
+        owner = stages[name]
+        mine = owner == self.stage
+        return broadcast_from(
+            gathered(t).detach() if mine else None, owner,
+            self.mesh.get_group("pipe"), shape=t.shape, dtype=t.dtype,
+            device=self.device)
+
+    @property
+    def device(self) -> torch.device:
+        return next(p.device for p in self.model.parameters()
+                    if p.device.type != "meta")
 
     @torch.no_grad()
     def reduce_metrics(self, loss: torch.Tensor, aux: dict) -> tuple:
@@ -326,6 +382,14 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
     degree above 1 that is the plan's own spec, and an axis of degree 1
     shards nothing."""
     check_executable(plan)
+    stage = mesh.get_local_rank("pipe") if plan.degrees.get("pipe", 1) > 1 \
+        else 0
+    foreign = {n for n, s in (plan.stages or {}).items() if s != stage}
+    for name, p in list(model.named_parameters()):
+        if name in foreign:
+            # another stage's layer: its owner holds it
+            _set_param(model, name, torch.empty(
+                p.shape, dtype=p.dtype, device="meta"), p.requires_grad)
     groups = tuple(mesh.get_group(axis) for axis in ("data", "fsdp"))
     for mod in model.modules():
         if hasattr(mod, "stat_groups"):
@@ -339,12 +403,14 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
     if plan.strategy.startswith("ep"):
         banks = _apply_ep(model, layout, mesh)
     if plan.strategy in ("tp", "tp_fsdp", "ep_tp"):
-        _apply_tp(model, layout, mesh, skip=banks)
+        _apply_tp(model, layout, mesh, skip=banks | foreign)
     if plan.strategy in ("fsdp", "tp_fsdp", "ep_fsdp"):
-        for name in _apply_fsdp(model, layout, mesh):
+        for name in _apply_fsdp(model, layout, mesh, skip=foreign):
             # HSDP averages over data too
             reduced[name].update(("fsdp", "data"))
-    if plan.strategy == "dp" or plan.zero1:
+    # under a pipe axis no DDP: the schedule runs M microbatches before
+    # the last backward, and reduce_grads averages over data once, after
+    if (plan.strategy == "dp" or plan.zero1) and not foreign:
         # DDP averages over data, and ZeRO-1's update reduces over it
         for name in names:
             reduced[name].add("data")
@@ -354,13 +420,17 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
                                       if device.type == "cuda" else None),
                           broadcast_buffers=False)
     return Execution(plan=plan, mesh=mesh, model=model, module=module,
-                     reduced=reduced, banks=banks)
+                     reduced=reduced, banks=banks, stage=stage,
+                     foreign=foreign)
 
 
 def like(full: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
     """``full`` laid out as ``param``: a ``DTensor`` with its mesh and
     placements (the fp32 masters of a sharded ``mixed`` plan), else
     ``full`` itself."""
+    if param.device.type == "meta":
+        # another pipeline stage holds it
+        return torch.empty(full.shape, dtype=full.dtype, device="meta")
     if not is_dtensor(param):
         return full
     from torch.distributed.tensor import distribute_tensor

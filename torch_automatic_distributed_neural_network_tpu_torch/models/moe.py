@@ -30,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import context as pctx
+from ..parallel.collectives import gather_slices
 from ..parallel.expert import moe_ffn
 from ..utils.device import is_dtensor
 from .transformer_core import (
@@ -71,7 +73,10 @@ class MoEMlp(nn.Module):
     ``z_loss``, ``dropped_fraction``, detached, averaged over the batch)
     stay on :attr:`metrics` for a caller to read.  :attr:`expert_mesh`
     and :attr:`expert_tensor_axis`: the plan's expert parallelism (module
-    docstring), None without one."""
+    docstring), None without one.  Under context parallelism each rank
+    gathers the whole rows over the ``seq`` axis and routes them (the
+    capacity and the load-balance loss are the row's), keeping its
+    slice of the output."""
 
     def __init__(self, cfg: MoEConfig):
         super().__init__()
@@ -107,6 +112,19 @@ class MoEMlp(nn.Module):
                 else (lambda t: F.gelu(t, approximate="tanh")))
 
     def forward(self, x: torch.Tensor):
+        cfg = self.cfg
+        ctx = pctx.current()
+        if ctx is not None and ctx.seq_degree > 1:
+            # context parallelism: route each whole row, as the unsharded
+            # layer (and JAX's under GSPMD) does, then keep this rank's
+            # slice; every seq rank computes the row's experts
+            width = x.shape[1]
+            y, aux = self._route(gather_slices(x, ctx.seq_group))
+            r = ctx.seq_rank
+            return y[:, r * width:(r + 1) * width], aux
+        return self._route(x)
+
+    def _route(self, x: torch.Tensor):
         cfg = self.cfg
         up, gate, down = self.banks(cfg.dtype)
         y, metrics = moe_ffn(

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import attention
+from ..parallel.context import seq_offset
 from ..utils.device import is_dtensor
 
 
@@ -403,9 +404,42 @@ def init_parameters(mod: nn.Module, generator: torch.Generator,
                 sub.bias.zero_()
 
 
+def layer_seeds(cfg: TransformerConfig, generator, n: int):
+    """The two dropout seeds of each of ``n`` layers, drawn in order from
+    ``generator``; None without dropout or without a generator."""
+    if not cfg.dropout_rate or generator is None:
+        return [None] * n
+    return [tuple(int(s) for s in torch.randint(0, 2**62, (2,),
+                                                generator=generator))
+            for _ in range(n)]
+
+
+def run_layers(layers, cfg: TransformerConfig, x, positions, seeds, mask,
+               remat_layers: bool | None = None):
+    """``x`` through ``layers`` in order (all of a model's, or one
+    pipeline stage's), each recomputed in the backward under
+    ``remat_layers`` (default ``cfg.remat``) when gradients are on.
+    ``seeds``: each layer's dropout seeds (or None).  Returns ``(x,
+    aux)``, aux the fp32 sum of the layers' aux losses."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    use_remat = cfg.remat if remat_layers is None else remat_layers
+    for layer, layer_seeds_ in zip(layers, seeds):
+        if use_remat and torch.is_grad_enabled():
+            out = remat(layer, x, positions, layer_seeds_, mask,
+                        policy=cfg.remat_policy)
+        else:
+            out = layer(x, positions, layer_seeds_, mask)
+        if isinstance(out, tuple):
+            x, layer_aux = out
+            aux = aux + layer_aux
+        else:
+            x = out
+    return x, aux
+
+
 def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
                      positions=None, *, generator=None, segment_ids=None,
-                     inputs_embeds=None, mask=None):
+                     inputs_embeds=None, mask=None, trunk=None):
     """The shared body (JAX ``apply_decoder_backbone`` up to the head):
     embed -> layer stack (each layer recomputed in the backward under
     ``cfg.remat``) -> final norm.  Returns ``(features, aux)``: the
@@ -416,7 +450,13 @@ def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
     > 0``; zeros when None); ``inputs_embeds`` [B, S, d] take the token
     embedding's place (ViT's patches); ``mask`` is the attention's key
     mask (BERT's padding, [B, 1, 1, S]); ``generator`` (a CPU
-    generator) draws the dropout seeds, None is deterministic."""
+    generator) draws the dropout seeds, None is deterministic.
+    ``trunk(x, positions, generator, mask)`` replaces the layer stack
+    (the pipeline's stages, ``parallel/pipeline.py``).
+
+    Under context parallelism (``parallel/context.py``) the tokens are
+    this rank's slice of the sequence: the default positions, and the
+    learned position rows, start at its offset."""
     if inputs_embeds is not None:
         if tokens is not None:
             raise ValueError("pass tokens or inputs_embeds, not both")
@@ -424,10 +464,12 @@ def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
     else:
         x = embedding_lookup(gathered(mod.embed), tokens, cfg.dtype)
     B, S = x.shape[:2]
+    offset = seq_offset(S)
     if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        positions = (offset + torch.arange(S, device=x.device))[None].expand(
+            B, S)
     if cfg.pos == "learned":
-        x = x + mod.pos_embed[:S].to(cfg.dtype)[None]
+        x = x + mod.pos_embed[offset:offset + S].to(cfg.dtype)[None]
     if cfg.type_vocab_size:
         if segment_ids is None:
             segment_ids = torch.zeros((B, S), dtype=torch.long,
@@ -436,22 +478,13 @@ def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
                                  cfg.dtype)
     if cfg.embed_norm:
         x = mod.embed_norm(x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in mod.layers:
-        seeds = None
-        if cfg.dropout_rate and generator is not None:
-            seeds = tuple(int(s) for s in torch.randint(
-                0, 2**62, (2,), generator=generator))
-        if cfg.remat and torch.is_grad_enabled():
-            out = remat(layer, x, positions, seeds, mask,
-                        policy=cfg.remat_policy)
-        else:
-            out = layer(x, positions, seeds, mask)
-        if isinstance(out, tuple):
-            x, layer_aux = out
-            aux = aux + layer_aux
-        else:
-            x = out
+    if trunk is not None:
+        x = trunk(x, positions, generator, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = run_layers(mod.layers, cfg, x, positions,
+                            layer_seeds(cfg, generator, len(mod.layers)),
+                            mask)
     if cfg.final_norm:
         x = mod.final_norm(x)
     return x, aux
@@ -518,15 +551,17 @@ class DecoderLM(nn.Module):
                 return_features: bool = False, *,
                 generator: torch.Generator | None = None,
                 segment_ids=None, inputs_embeds=None, head=None,
-                mask=None) -> torch.Tensor:
+                mask=None, trunk=None) -> torch.Tensor:
         """Logits [B, S, V] fp32 of tokens [B, S], or with
         ``return_features`` the final-norm features [B, S, d] in
-        ``cfg.dtype``.  ``segment_ids``, ``inputs_embeds`` and ``mask``
-        go to :func:`backbone_forward`; ``head(features, embed)``
-        replaces the tied or untied head (``embed`` the token table)."""
+        ``cfg.dtype``.  ``segment_ids``, ``inputs_embeds``, ``mask`` and
+        ``trunk`` go to :func:`backbone_forward`; ``head(features,
+        embed)`` replaces the tied or untied head (``embed`` the token
+        table)."""
         x, _ = backbone_forward(self, self.cfg, tokens, positions,
                                 generator=generator, segment_ids=segment_ids,
-                                inputs_embeds=inputs_embeds, mask=mask)
+                                inputs_embeds=inputs_embeds, mask=mask,
+                                trunk=trunk)
         if return_features:
             return x
         if head is not None:

@@ -8,9 +8,11 @@ Implementations, as in the JAX package's ``ops/attention.py``:
   recomputed in the backward (``torch.utils.checkpoint``), so the score
   memory is O(block_q * S) instead of O(S^2);
 - ``flash``: the hand-written CUDA kernels (``ops/flash_attention.py``);
-- ``ring`` / ``ulysses``: context parallelism, which needs a sequence
-  axis; without one (this port has no parallel context yet) they are
-  plain attention, as the JAX package's degenerate case is.
+- ``ring`` / ``ulysses``: context parallelism over the ``seq`` axis of
+  the active plan (``parallel/context.py``): ``parallel/ring.py`` (the
+  flash kernels per block) and ``parallel/ulysses.py``; without a
+  ``seq`` axis they are plain attention, as the JAX package's
+  degenerate case is.
 
 The ``xla`` numerics are kept exactly:
 
@@ -179,22 +181,63 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               impl: Impl = "auto") -> torch.Tensor:
     """Dispatching attention entry point used by the models.
 
-    ``impl="auto"`` takes flash where :func:`_flash_ok` holds (decided
-    by the shape and the device alone: a kernel that fails to build or
-    launch raises; a head dim the kernels have no instance for is
-    zero-padded to one, see ``flash_attention._prep_bshd``), ``chunked`` for other self-attention of at least
-    ``CHUNKED_MIN_SEQ``, else ``xla``.  ``ring`` / ``ulysses`` need a
-    sequence-parallel axis, which this port does not have yet (ROADMAP
-    Queue 1 item 5): with none they are plain attention, as in the JAX
-    package."""
+    ``impl="auto"`` with a ``seq`` axis above 1 in the active context
+    (context parallelism: q, k, v are this rank's slice of the
+    sequence) takes the context's ``seq_impl`` when it names one, else
+    Ulysses when the local heads divide the ``seq`` degree and the
+    whole sequence is at most 8192, else ring, as in JAX.  Without one
+    it takes flash where :func:`_flash_ok` holds (decided by the shape
+    and the device alone: a kernel that fails to build or launch raises;
+    a head dim the kernels have no instance for is zero-padded to one,
+    see ``flash_attention._prep_bshd``), ``chunked`` for other
+    self-attention of at least ``CHUNKED_MIN_SEQ``, else ``xla``.
+    ``ring`` / ``ulysses`` without a ``seq`` axis are plain attention;
+    with one they refuse a mask or a window, and flash refuses a
+    sharded sequence."""
+    from ..parallel import context as pctx
+
     _check_window(window, causal)
+    ctx = pctx.current()
+    cp = ctx.seq_degree if ctx is not None else 1
     if impl == "auto":
-        if _flash_ok(q, k, mask):
+        if cp > 1:
+            if ctx.seq_impl in ("ring", "ulysses"):
+                impl = ctx.seq_impl
+            elif q.shape[2] % cp == 0 and q.shape[1] * cp <= 8192:
+                impl = "ulysses"
+            else:
+                impl = "ring"
+        elif _flash_ok(q, k, mask):
             impl = "flash"
         elif q.shape[1] >= CHUNKED_MIN_SEQ and q.shape[1] == k.shape[1]:
             impl = "chunked"
         else:
             impl = "xla"
+    if impl in ("ring", "ulysses") and cp > 1:
+        if mask is not None:
+            raise NotImplementedError(
+                f"{impl} attention does not take explicit masks (causal "
+                f"only)")
+        if window is not None:
+            raise NotImplementedError(
+                "sliding-window attention is not supported under context "
+                "parallelism (ring/ulysses): train windowed models with "
+                "dp/fsdp/tp, or drop seq_parallel")
+        if impl == "ring":
+            from ..parallel.ring import ring_attention
+
+            return ring_attention(q, k, v, causal=causal,
+                                  group=ctx.seq_group)
+        from ..parallel.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, causal=causal, group=ctx.seq_group)
+    if cp > 1:
+        # each rank holds a slice of the sequence: a local path would
+        # attend within it only
+        raise NotImplementedError(
+            f"impl={impl!r} cannot span a sharded sequence axis: use "
+            f"impl='ring' or 'ulysses' (or 'auto') under context "
+            f"parallelism")
     if impl in ("xla", "ring", "ulysses"):
         return xla_attention(q, k, v, causal=causal, window=window,
                              mask=mask)

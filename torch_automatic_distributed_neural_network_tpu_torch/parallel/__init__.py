@@ -1,8 +1,10 @@
 """Parallel execution over ``torch.distributed``: the named-axis
-collectives (``collectives``) and MoE routing with expert parallelism
-(``expert``).  Sequence and pipeline parallelism are a later slice of
-the port (ROADMAP Queue 1 item 5)."""
+collectives (``collectives``), MoE routing with expert parallelism
+(``expert``), pipeline parallelism (``pipeline``), and context
+parallelism: the active plan's axes (``context``), ring attention
+(``ring``) and Ulysses attention (``ulysses``)."""
 
-from . import collectives, expert
+from . import collectives, context, expert, pipeline, ring, ulysses
 
-__all__ = ["collectives", "expert"]
+__all__ = ["collectives", "context", "expert", "pipeline", "ring",
+           "ulysses"]

@@ -45,6 +45,8 @@ import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 
+from . import collectives
+
 
 def expert_capacity(tokens_per_group: int, n_experts: int, top_k: int,
                     capacity_factor: float) -> int:
@@ -138,11 +140,11 @@ def exchange(x: torch.Tensor, group, split_dim: int,
     of ``x`` along ``split_dim`` to the group's rank ``j``, the received
     chunks concatenated along ``concat_dim`` in the senders' order.
     Counts its launches in ``exchange.launches`` (forward, recompute and
-    backward alike)."""
+    backward alike); a CUDA tensor on a gloo group goes through a host
+    buffer (``collectives.all_to_all_single``)."""
     n = group.size()
     chunks = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
-    got = funcol.wait_tensor(funcol.all_to_all_single(chunks, None, None,
-                                                      group))
+    got = collectives.all_to_all_single(chunks, group)
     exchange.launches += 1
     return torch.cat(got.unbind(0), dim=concat_dim)
 

@@ -145,6 +145,10 @@ class ShardPlan:
     remat: bool = False
     zero1: bool = False
     opt_spec_tree: dict[str, PartitionSpec] | None = None
+    # under a pipe axis: the stage that owns each layer's parameter (the
+    # JAX plan puts ``pipe`` on the stacked layer dim; the port's layers
+    # are separate modules); None without one
+    stages: dict[str, int] | None = None
 
     @property
     def degrees(self) -> dict[str, int]:
@@ -158,6 +162,8 @@ class ShardPlan:
             if self.opt_spec_tree is not None and (
                     self.opt_spec_tree[name] != spec):
                 line += f"  [opt: {self.opt_spec_tree[name]}]"
+            if self.stages and name in self.stages:
+                line += f"  [stage {self.stages[name]}]"
             lines.append(line)
         return "\n".join(lines)
 
@@ -312,10 +318,6 @@ def param_spec_tree(
     layout the strategy's wrappers take on a world of one
     (``executor.apply_plan``)."""
     degrees = topo_mod.mesh_degrees(mesh)
-    if degrees.get("pipe", 1) > 1:
-        raise NotImplementedError(
-            "a pipe axis (pipeline parallelism) is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 5)")
     use_tp = (strategy in ("tp", "tp_fsdp", "ep_tp")
               and degrees.get("tensor", 1) >= min_degree)
     use_fsdp = (strategy in ("fsdp", "tp_fsdp", "ep_fsdp")
@@ -645,6 +647,7 @@ def make_plan(
     state_factor: float = 4.0,
     zero1: bool = False,
     heads: tuple[int, int] | None = None,
+    pipe_virtual: int = 1,
 ) -> ShardPlan:
     """The planner: abstract params + topology -> :class:`ShardPlan`.
 
@@ -655,23 +658,53 @@ def make_plan(
     the degrees come from the strategy and the plan's mesh is their
     mapping over every axis.  ``zero1`` shards the optimizer state over
     ``data`` (a no-op without a nontrivial ``data`` axis).  ``heads``
-    ``(n_heads, kv_heads)`` checks that a tensor degree divides them."""
+    ``(n_heads, kv_heads)`` checks that a tensor degree divides them.
+
+    ``seq`` > 1 adds a context-parallel axis and ``pipe`` > 1 a pipeline
+    axis, each taken out of the device count before the strategy's
+    degrees (JAX's composition rules: neither beside the other, no
+    pipeline beside an expert strategy).  Under a pipe axis the plan's
+    ``stages`` name the stage that owns each layer's parameters: layer
+    ``i`` of ``L`` on stage ``i // (L / pipe)``, or, with
+    ``pipe_virtual`` V > 1 (the interleaved schedules), the
+    ``(v pipe + s)``-th run of ``L / (pipe V)`` layers on stage ``s``;
+    the layers keep their tensor and fsdp specs."""
     if strategy not in KNOWN_STRATEGIES:
         raise ValueError(f"Unknown strategy {strategy!r}; expected one of "
                          f"{KNOWN_STRATEGIES}")
     if strategy == "tuned":
         raise _not_ported("strategy='tuned' (the tune/ cost-model search)",
                           "7")
-    if seq > 1 or pipe > 1:
-        raise _not_ported("seq > 1 / pipe > 1 (sequence and pipeline "
-                          "parallelism)", "5")
+    if pipe > 1 and strategy in ("ep", "ep_fsdp", "ep_tp"):
+        raise ValueError(
+            "pipeline parallelism composes with dp/fsdp/tp; strategy "
+            f"{strategy!r} + pipe={pipe} is not supported")
     topo = topology if topology is not None else topo_mod.detect()
     resolved = strategy
     if mesh is None:
-        n = topo.num_devices
+        n_all = n = topo.num_devices
+        if seq > 1 and pipe > 1:
+            raise ValueError(
+                "seq-parallel + pipeline in one plan is a design "
+                "constraint (both are manual-collective regions); raise "
+                "microbatches for per-stage memory, or use seq without "
+                "pipe — README strategy-composition matrix")
+        for axis, deg in (("pipeline", pipe), ("seq-parallel", seq)):
+            if deg > 1:
+                if n % deg:
+                    raise ValueError(f"{axis} degree {deg} does not divide "
+                                     f"{n} devices")
+                n //= deg
         if strategy == "auto":
             resolved, degrees = choose_strategy(
-                abstract_params, topo, rules, state_factor=state_factor)
+                abstract_params, dataclasses.replace(topo, num_devices=n),
+                rules, state_factor=state_factor)
+            if pipe > 1 and resolved in ("ep", "ep_fsdp"):
+                warnings.warn(
+                    f"auto strategy chose {resolved!r} but pipeline "
+                    f"parallelism does not compose with expert parallelism; "
+                    f"falling back to 'fsdp'", stacklevel=2)
+                resolved, degrees = "fsdp", {"fsdp": n}
         elif strategy == "dp":
             degrees = {"data": n}
         elif strategy == "fsdp":
@@ -711,8 +744,18 @@ def make_plan(
             else:
                 degrees = {"expert": e,
                            ("data" if strategy == "ep" else "fsdp"): n // e}
-        mesh = topo_mod._resolve_degrees(n, degrees)
-    elif strategy == "auto":
+        degrees = {**degrees, **({"seq": seq} if seq > 1 else {}),
+                   **({"pipe": pipe} if pipe > 1 else {})}
+        mesh = topo_mod._resolve_degrees(n_all, degrees)
+    else:
+        have = topo_mod.mesh_degrees(mesh)
+        for axis, deg, arg in (("pipe", pipe, "pipe"),
+                               ("seq", seq, "seq_parallel")):
+            if deg > 1 and have.get(axis, 1) != deg:
+                raise ValueError(
+                    f"{arg}={deg} conflicts with the explicit mesh (its "
+                    f"{axis!r} axis is {have.get(axis, 1)})")
+    if mesh is not None and strategy == "auto" and resolved == "auto":
         # an explicit mesh fixes every degree
         d = topo_mod.mesh_degrees(mesh)
         if d.get("expert", 1) > 1:
@@ -729,8 +772,15 @@ def make_plan(
         else:
             resolved = "dp"
     degrees_final = topo_mod.mesh_degrees(mesh)
-    if degrees_final.get("seq", 1) > 1 or degrees_final.get("pipe", 1) > 1:
-        raise _not_ported("a seq or pipe mesh axis", "5")
+    if degrees_final.get("seq", 1) > 1 and degrees_final.get("pipe", 1) > 1:
+        raise ValueError("a plan cannot hold both a seq and a pipe axis "
+                         "above 1 (README strategy-composition matrix)")
+    if degrees_final.get("pipe", 1) > 1 and resolved.startswith("ep"):
+        raise ValueError(
+            "pipeline parallelism composes with dp/fsdp/tp; strategy "
+            f"{resolved!r} + pipe={degrees_final['pipe']} is not supported")
+    stages = _pipe_stages(abstract_params, degrees_final.get("pipe", 1),
+                          pipe_virtual)
     if resolved in ("tp", "tp_fsdp", "ep_tp"):
         _check_heads(heads, degrees_final.get("tensor", 1))
     param_specs = param_spec_tree(abstract_params, mesh, resolved, rules,
@@ -756,6 +806,7 @@ def make_plan(
                          for _, leaf in _expert_banks(abstract_params))
                 pb = (pb - eb) + eb // e_deg
             pb //= max(1, degrees_final.get("tensor", 1))
+            pb //= max(1, degrees_final.get("pipe", 1))
             remat = state_factor * pb > 0.5 * topo.chip.hbm_bytes
     opt_spec_tree = None
     if zero1:
@@ -766,4 +817,26 @@ def make_plan(
                                             param_specs)
     return ShardPlan(mesh=mesh, strategy=resolved, param_specs=param_specs,
                      batch_spec=batch_partition_spec(mesh), remat=remat,
-                     zero1=zero1, opt_spec_tree=opt_spec_tree)
+                     zero1=zero1, opt_spec_tree=opt_spec_tree, stages=stages)
+
+
+_LAYER = re.compile(r"(?:^|\.)layers\.(\d+)\.")
+
+
+def _pipe_stages(abstract_params: Mapping[str, Any], pipe: int,
+                 virtual: int) -> dict[str, int] | None:
+    """Each layer parameter's stage under a pipe axis (see
+    :func:`make_plan`; empty for a model without a layer stack, which
+    ``AutoDistribute`` refuses), or None without one."""
+    if pipe <= 1:
+        return None
+    from .parallel.pipeline import stage_of_layer
+
+    index = {name: int(m.group(1)) for name in abstract_params
+             if (m := _LAYER.search(name))}
+    n_layers = max(index.values(), default=-1) + 1
+    if n_layers % (pipe * virtual):
+        raise ValueError(f"n_layers={n_layers} not divisible by {pipe} "
+                         f"stages x {virtual} virtual")
+    return {name: stage_of_layer(i, n_layers, pipe, virtual)
+            for name, i in index.items()}

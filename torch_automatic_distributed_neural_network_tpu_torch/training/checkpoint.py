@@ -203,6 +203,8 @@ class CheckpointManager:
         out = {}
         for name, leaf in resilience.flatten_state(state).items():
             t = resilience.as_tensor(leaf)
+            if t.is_meta:
+                continue  # another pipeline stage's layer: its owner saves
             local = t.to_local() if is_dtensor(t) else t
             host = torch.empty(local.shape, dtype=t.dtype, pin_memory=pin)
             host.copy_(local, non_blocking=pin)

@@ -207,4 +207,5 @@ def blockwise_next_token_loss(block_size: int = 512):
             return xent + aux_loss, {"xent": xent, "router_loss": aux_loss}
         return xent, {}
 
+    loss_fn.requires_features = True  # refused under a pipeline, as in JAX
     return loss_fn

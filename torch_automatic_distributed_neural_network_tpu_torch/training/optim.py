@@ -14,6 +14,8 @@ learning-rate schedule read at the count before the step (step 0 uses
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Callable
@@ -193,16 +195,44 @@ def _sq_sum(g: torch.Tensor) -> torch.Tensor:
     return s.full_tensor() if is_dtensor(s) else s
 
 
+_NORM_TOTAL = contextvars.ContextVar("tadnn_norm_total", default=None)
+
+
+@contextlib.contextmanager
+def norm_over(total: Callable[[dict], torch.Tensor] | None):
+    """Within this context a global norm (``clip_by_global_norm``) is
+    ``sqrt(total(squares))`` of the per-leaf squared norms by name,
+    where the leaves are split over more than a ``DTensor`` shows: a
+    pipeline's stages (``core.AutoDistribute``).  None: their plain
+    sum."""
+    token = _NORM_TOTAL.set(total)
+    try:
+        yield
+    finally:
+        _NORM_TOTAL.reset(token)
+
+
+def global_sq_norm(updates: Params) -> torch.Tensor:
+    """The squared global norm of ``updates``; a leaf held elsewhere (a
+    meta tensor: another pipeline stage's layer) counts where it is
+    held."""
+    sq = {n: _sq_sum(g) for n, g in updates.items() if not g.is_meta}
+    total = _NORM_TOTAL.get()
+    return total(sq) if total is not None else sum(sq.values())
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """``optax.clip_by_global_norm``: every update scaled by
     max_norm / ||updates|| when that norm is at least ``max_norm``.  The
     norm is the global one under a sharded plan (``DTensor`` updates
-    beside plain replicated ones)."""
+    beside plain replicated ones, and a pipeline's stages through
+    :func:`norm_over`)."""
 
     def update(updates, state, params=None):
-        g_norm = torch.sqrt(sum(_sq_sum(g) for g in updates.values()))
+        g_norm = torch.sqrt(global_sq_norm(updates))
         trigger = g_norm < max_norm
-        return {n: torch.where(trigger, g, (g / g_norm.to(g.dtype)) * max_norm)
+        return {n: g if g.is_meta else torch.where(
+            trigger, g, (g / g_norm.to(g.dtype)) * max_norm)
                 for n, g in updates.items()}, state
 
     return GradientTransformation(lambda params: (), update)

@@ -23,7 +23,10 @@ committed.  This module implements that format:
 A process's shards of a leaf are read off the leaf itself: a plain
 tensor is replicated (process 0 writes it whole); a ``DTensor`` of a
 plan writes its local shard where its coordinate is 0 on every mesh dim
-that replicates it, at the global offset its placements give.  The
+that replicates it, at the global offset its placements give.  Under a
+pipeline a process holds another stage's layers as meta tensors (never
+written), and the state marks which of its leaves it persists
+(``_tadnn_persist``: the owning stage's, the replicated ones on stage 0).  The
 spec recorded in ``meta.json`` names, per dim, the mesh axes of degree
 above 1 that shard it.
 
@@ -434,9 +437,15 @@ class ShardedCheckpoint:
                                      "spec": _spec_of(t)}
                 if logical and _leaf_owner(path, world) != host:
                     continue  # another logical host persists this leaf
+                # under a pipeline the state marks what this process
+                # persists (core.AutoDistribute._mark_writers); another
+                # stage's layer is a meta tensor here
+                persist = getattr(leaf, "_tadnn_persist", None)
+                if t.is_meta or persist is False:
+                    continue
                 local, offsets, replica0 = local_shard(t)
                 if not replica0 or (not is_dtensor(t) and not logical
-                                    and host != 0):
+                                    and host != 0 and not persist):
                     continue  # another replica persists these bytes
                 pending.append((path, local, offsets, t.dtype))
             # copy to host NOW: the next step updates these tensors in
