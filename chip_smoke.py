@@ -248,9 +248,32 @@ card, in phases, one JSON line each; any failure exits non-zero:
    memory and the bytes each rank sends; then ``ring_attention`` alone on
    [8, 1024, 12, 64] bf16 (each rank half the sequence): o, dq, dk, dv
    within 2e-2 of their largest magnitude of flash on the whole sequence
-   and of fp32 plain attention.
+   and of fp32 plain attention;
+25. the migration path from torch (``bridges``; nothing imports
+   ``transformers``): (a) a seeded GPT-2 small through ``export_hf_gpt2``
+   and ``import_hf_gpt2`` (the parameters bitwise), then the imported
+   and the unexported model each through ``Trainer.fit`` on a
+   ``TorchDatasetAdapter`` (B 8 x S 1024, bf16 compute, 6 steps): losses
+   and trained parameters bitwise equal, K1-K3 24/12/12 a step; both
+   served (16 x (256 + 64), 8 slots): greedy agreement 1.0, K4 once a
+   layer a decode step; (b) Llama at 1b width, 2 of 16 layers (GQA
+   32/8, vocab 128256, untied head) as the raw state dict of
+   ``export_hf_llama`` re-imported with its head counts (bitwise), both
+   served on K4's GQA path (4 x (128 + 32)): agreement 1.0; (c) BERT
+   base through ``export_hf_bert`` / ``import_hf_bert`` (bitwise), one
+   forward at B 8 x S 512 on non-causal K1 (12 launches) within 2e-2 of
+   the plain attention's logits (of their largest magnitude, bf16); (d)
+   ``from_torch`` of the ``finetune_from_torch`` example's hand-written
+   LM at d 768, 12 heads, vocab 50257, S 1024: the bridged forward
+   within 1e-6 of the source module's (of the logits' largest
+   magnitude, fp32, TF32 off), 5 ``AutoDistribute`` steps with a falling
+   loss (plain attention: the bridge reaches no ported kernel), then the
+   example's ``main`` with ``model.source=torch`` as written; (e)
+   ``tokenize`` (the CLI, byte tokenizer) on a generated 1 Mi-character
+   UTF-8 file, read back by ``TokenFileDataset``: the same ids.  Each
+   part's seconds, launches and errors are printed.
 
-Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19 and 23 write their
+Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23 and 25 write their
 journals with schema validation on (``Journal(validate=True)``): a record that
 breaks the event schema fails the run; phase 18 checks every record
 of its merged journal the same way.
@@ -4320,6 +4343,392 @@ def phase_pipeline_cp(torch, card) -> dict[str, int]:
 
 
 
+BRIDGE_SEED = 14
+BRIDGE_STEPS = 6
+BRIDGE_SERVE = dict(n_requests=16, prompt_len=256, max_new=64, n_slots=8,
+                    max_len=512, block_size=16, prefill_chunk=32)
+# the bridged forward against its source module (fp32 on the card, TF32
+# off), of the logits' largest magnitude
+BRIDGE_FORWARD_BOUND = 1e-6
+# BERT base's logits with non-causal K1 against the plain attention
+# (bf16 compute), of their largest magnitude
+BRIDGE_BERT_BOUND = 2e-2
+
+
+def _params_bitwise(torch, a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def _same_config(a, b) -> bool:
+    """Equal configs, an explicit ``d_ff`` equal to the default it names."""
+    import dataclasses
+
+    return (dataclasses.replace(a, d_ff=a.ff_dim)
+            == dataclasses.replace(b, d_ff=b.ff_dim))
+
+
+def _bridge_gpt2(torch, wrappers) -> dict:
+    """(a) GPT-2 small through an HF-layout state dict: export, import
+    (bitwise), ``Trainer.fit`` on a ``TorchDatasetAdapter`` for the
+    imported and the unexported model (losses bitwise, K1-K3 each step),
+    then both served on 8 slots (agreement 1.0, K4 once a layer a decode
+    step)."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, adamw, next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.data import \
+        TorchDatasetAdapter
+    from torch_automatic_distributed_neural_network_tpu_torch.examples \
+        .finetune_from_torch import TokenDataset
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        GPT2, export_hf_gpt2, import_hf_gpt2)
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+    from torch_automatic_distributed_neural_network_tpu_torch.training \
+        import Trainer, TrainerConfig
+    import numpy as np
+
+    with torch.device("cuda"):
+        src = GPT2("small")
+    src.init_weights(torch.Generator(device="cuda").manual_seed(BRIDGE_SEED))
+    sd, export_s = _timed(torch, lambda: export_hf_gpt2(src))
+    (model, params), import_s = _timed(
+        torch, lambda: import_hf_gpt2(sd, device="cuda"))
+    require(_same_config(model.cfg, src.cfg),
+            f"imported config {model.cfg} != {src.cfg}")
+    require(_params_bitwise(torch, params, dict(src.named_parameters())),
+            "GPT-2 small: export -> import is not bitwise")
+    hf_bytes = sum(t.numel() * t.element_size() for n, t in sd.items()
+                   if n != "lm_head.weight")  # tied: the embedding again
+    del sd
+
+    data = TorchDatasetAdapter(TokenDataset(50257, 1024, n=64), batch_size=8)
+    runs = {}
+    for name, m in (("unexported", src), ("imported", model)):
+        ad = AutoDistribute(m, optimizer=adamw(1e-4),
+                            loss_fn=next_token_loss, device="cuda",
+                            init_fn=lambda mod, gen: None)
+        losses = []
+        trainer = Trainer(ad, TrainerConfig(steps=BRIDGE_STEPS,
+                                            log_every=BRIDGE_STEPS),
+                          callbacks=[lambda i, s, mt: losses.append(
+                              float(mt["loss"]))])
+        for w in wrappers:
+            w.launches = 0
+        state, fit_s = _timed(torch, lambda: trainer.fit(data))
+        runs[name] = {"losses": losses, "fit_s": fit_s, "ad": ad,
+                      "state": state,
+                      "launches": {w.__name__: w.launches for w in wrappers}}
+    want, got = runs["unexported"], runs["imported"]
+    per_layer = {"flash_forward": 2, "flash_dkv": 1, "flash_dq": 1}
+    expected = {n: BRIDGE_STEPS * model.cfg.n_layers * c
+                for n, c in per_layer.items()}
+    require(got["losses"] == want["losses"],
+            f"imported losses {got['losses']} != unexported {want['losses']}")
+    require(_params_bitwise(torch, got["state"].params, want["state"].params),
+            "the trained imported parameters differ from the unexported")
+    for name, count in got["launches"].items():
+        require(count == expected[name],
+                f"imported GPT-2: {name} {count} launches, remat implies "
+                f"{expected[name]}")
+
+    rs = np.random.RandomState(BRIDGE_SEED)
+    prompts = [[int(t) for t in rs.randint(1, 50257, size=(256,))]
+               for _ in range(BRIDGE_SERVE["n_requests"])]
+    kw = {k: BRIDGE_SERVE[k] for k in ("n_slots", "max_len", "block_size",
+                                       "prefill_chunk")}
+    tokens = {}
+    for name in ("unexported", "imported"):
+        jnl = Journal(None, host0_only=False, validate=True,
+                      meta={"tool": "chip_smoke"})
+        paged_attention.launches = 0
+        _, reqs, done, wall = _serve(
+            torch, runs[name]["ad"].model, prompts,
+            max_new=BRIDGE_SERVE["max_new"], impl="paged", journal=jnl, **kw)
+        steps = [r for r in jnl.records if r.get("name") == "serve.step"
+                 and r["decode_s"] > 0]
+        require(len(done) == len(prompts), f"{name}: {len(done)} finished")
+        require(paged_attention.launches == model.cfg.n_layers * len(steps),
+                f"{name}: {paged_attention.launches} K4 launches over "
+                f"{len(steps)} decode steps")
+        tokens[name] = [r.out_tokens for r in reqs]
+        runs[name].update(serve_s=wall, decode_steps=len(steps),
+                          k4=paged_attention.launches,
+                          tokens_per_s=sum(r.n_generated for r in done)
+                          / wall)
+    agree = _agreement(tokens["imported"], tokens["unexported"])
+    emit({"phase": "bridges", "part": "a_gpt2_small",
+          "params": sum(p.numel() for p in params.values()),
+          "hf_state_dict_bytes": hf_bytes, "export_s": export_s,
+          "import_s": import_s, "round_trip_bitwise": True,
+          "batch": data.batch_size, "seq": data.batch(0)["tokens"].shape[1] - 1,
+          "steps": BRIDGE_STEPS,
+          "losses": got["losses"], "unexported_losses": want["losses"],
+          "losses_bitwise": True,
+          "fit_s": {n: r["fit_s"] for n, r in runs.items()},
+          "flash_launches": got["launches"],
+          "flash_launches_per_step": {n: c / BRIDGE_STEPS for n, c in
+                                      got["launches"].items()},
+          "serve": {n: {k: runs[n][k] for k in ("serve_s", "tokens_per_s",
+                                                 "decode_steps", "k4")}
+                    for n in runs},
+          "k4_per_decode_step": got["k4"] / got["decode_steps"],
+          "greedy_agreement": agree})
+    require(agree == 1.0, f"imported GPT-2 serves {agree:.4f} of the "
+                          f"unexported model's tokens")
+    launches = {n: want["launches"][n] + got["launches"][n]
+                for n in got["launches"]}
+    launches["paged_attention"] = want["k4"] + got["k4"]
+    del runs, model, params, src
+    return launches
+
+
+def _bridge_llama(torch) -> int:
+    """(b) Llama at 1b width, 2 of 16 layers, untied head, GQA 32/8: the
+    raw state dict of ``export_hf_llama`` re-imported with the head
+    counts (bitwise), then a short serve of both on K4's GQA path."""
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        Llama, export_hf_llama, import_hf_llama)
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+    import numpy as np
+
+    with torch.device("cuda"):
+        src = Llama("1b", n_layers=2, dtype=torch.float32)
+    src.init_weights(torch.Generator(device="cuda").manual_seed(BRIDGE_SEED))
+    sd, export_s = _timed(torch, lambda: export_hf_llama(src))
+    cfg = src.cfg
+    (model, params), import_s = _timed(torch, lambda: import_hf_llama(
+        sd, n_heads=cfg.n_heads, n_kv_heads=cfg.kv_heads,
+        rope_theta=cfg.rope_theta, max_seq_len=cfg.max_seq_len,
+        dtype=torch.float32, device="cuda"))
+    require(_same_config(model.cfg, cfg),
+            f"imported Llama config {model.cfg} != {cfg}")
+    require(_params_bitwise(torch, params, dict(src.named_parameters())),
+            "Llama 1b width: export -> import is not bitwise")
+    hf_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    del sd
+    rs = np.random.RandomState(BRIDGE_SEED + 1)
+    prompts = [[int(t) for t in rs.randint(1, cfg.vocab_size, size=(128,))]
+               for _ in range(4)]
+    kw = dict(n_slots=4, max_len=256, block_size=16, prefill_chunk=32)
+    tokens, k4, steps = {}, 0, 0
+    for name, m in (("unexported", src), ("imported", model)):
+        jnl = Journal(None, host0_only=False, validate=True,
+                      meta={"tool": "chip_smoke"})
+        paged_attention.launches = 0
+        _, reqs, done, _ = _serve(torch, m, prompts, max_new=32,
+                                  impl="paged", journal=jnl, **kw)
+        n = sum(1 for r in jnl.records if r.get("name") == "serve.step"
+                and r["decode_s"] > 0)
+        require(len(done) == len(prompts), f"llama {name}: unfinished")
+        require(paged_attention.launches == cfg.n_layers * n,
+                f"llama {name}: {paged_attention.launches} K4 launches over "
+                f"{n} decode steps")
+        tokens[name] = [r.out_tokens for r in reqs]
+        k4 += paged_attention.launches
+        steps = n
+    agree = _agreement(tokens["imported"], tokens["unexported"])
+    emit({"phase": "bridges", "part": "b_llama_1b_width",
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.kv_heads,
+          "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings,
+          "hf_state_dict_bytes": hf_bytes, "export_s": export_s,
+          "import_s": import_s, "round_trip_bitwise": True,
+          "serve_requests": len(prompts), "decode_steps": steps,
+          "k4_launches": k4, "greedy_agreement": agree})
+    require(agree == 1.0, f"imported Llama serves {agree:.4f} of the "
+                          f"unexported model's tokens")
+    del model, params, src
+    return k4
+
+
+def _bridge_bert(torch) -> int:
+    """(c) BERT base through ``export_hf_bert`` / ``import_hf_bert``
+    (bitwise), then one forward at B 8 x S 512 on non-causal K1 against
+    the plain attention's logits (bf16)."""
+    import dataclasses
+
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        Bert, BertEncoder, export_hf_bert, import_hf_bert)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    with torch.device("cuda"):
+        src = Bert("base")
+    src.init_weights(torch.Generator(device="cuda").manual_seed(BRIDGE_SEED))
+    sd, export_s = _timed(torch, lambda: export_hf_bert(src))
+    (model, params), import_s = _timed(
+        torch, lambda: import_hf_bert(sd, n_heads=src.cfg.n_heads,
+                                      device="cuda"))
+    require(_same_config(model.cfg, src.cfg),
+            f"imported BERT config {model.cfg} != {src.cfg}")
+    require(_params_bitwise(torch, params, dict(src.named_parameters())),
+            "BERT base: export -> import is not bitwise")
+    del sd
+    g = torch.Generator(device="cuda").manual_seed(BRIDGE_SEED)
+    tokens = torch.randint(0, model.cfg.vocab_size, (8, 512), device="cuda",
+                           generator=g)
+    segments = torch.randint(0, 2, (8, 512), device="cuda", generator=g)
+    with torch.device("meta"):
+        plain = BertEncoder(dataclasses.replace(model.cfg,
+                                                attention_impl="xla"))
+    plain.load_state_dict(params, assign=True)
+    fa.flash_forward.launches = 0
+    with torch.no_grad():
+        logits, fwd_s = _timed(torch, lambda: model(tokens, segments))
+        k1 = fa.flash_forward.launches
+        want = plain(tokens, segments)
+    err = float((logits - want).abs().max() / want.abs().max())
+    emit({"phase": "bridges", "part": "c_bert_base",
+          "export_s": export_s, "import_s": import_s,
+          "round_trip_bitwise": True, "batch": tokens.shape[0],
+          "seq": tokens.shape[1],
+          "forward_s": fwd_s, "k1_launches": k1,
+          "logits_err_vs_plain": err, "bound": BRIDGE_BERT_BOUND})
+    require(k1 == model.cfg.n_layers,
+            f"BERT forward: {k1} K1 launches, {model.cfg.n_layers} expected")
+    require(err <= BRIDGE_BERT_BOUND,
+            f"BERT flash vs plain logits {err} > {BRIDGE_BERT_BOUND}")
+    del model, params, plain, src
+    return k1
+
+
+def _bridge_from_torch(torch) -> None:
+    """(d) ``from_torch`` at GPT-2 small's width: the example's
+    hand-written LM at d 768, 12 heads, vocab 50257, S 1024; the bridged
+    forward against the source's in fp32, five ``AutoDistribute`` steps
+    (a falling loss), then the example's ``main`` as written."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, adamw, next_token_loss_mutable)
+    from torch_automatic_distributed_neural_network_tpu_torch.data import \
+        TorchDatasetAdapter
+    from torch_automatic_distributed_neural_network_tpu_torch.examples \
+        import finetune_from_torch as example
+    from torch_automatic_distributed_neural_network_tpu_torch.models import \
+        from_torch
+
+    net = example.build_handwritten_torch_lm(50257, 1024, d=768, heads=12)
+    shape = {"d_model": net.emb.embedding_dim, "heads": net.heads,
+             "vocab": net.emb.num_embeddings, "seq": net.mask.shape[0]}
+    (model, params), convert_s = _timed(torch, lambda: from_torch(net))
+    net, model = net.to("cuda"), model.to("cuda")
+    data = TorchDatasetAdapter(example.TokenDataset(50257, 1024, n=64),
+                               batch_size=8)
+    batch = data.batch(0)
+    x = torch.as_tensor(batch["tokens"][:, :-1], device="cuda")
+    with torch.no_grad():
+        want = net(x)
+        got, fwd_s = _timed(torch, lambda: model(x))
+    err = float((got - want).abs().max() / want.abs().max())
+    del want, got
+    ad = AutoDistribute(model, optimizer=adamw(1e-3),
+                        loss_fn=next_token_loss_mutable, device="cuda",
+                        init_fn=lambda m, g: None)
+    state = ad.init(None, batch)
+    losses, step_ms = [], []
+    for _ in range(5):
+        (state, m), s = _timed(torch, lambda: ad.step(state, batch))
+        losses.append(float(m["loss"]))
+        step_ms.append(s * 1e3)
+    del ad, state, model, net
+    torch.cuda.empty_cache()
+    out, example_s = _timed(torch, lambda: example.main(
+        ["model.source=torch"]))
+    emit({"phase": "bridges", "part": "d_from_torch", **shape,
+          "params": sum(p.numel() for p in params.values()
+                        if p.requires_grad),
+          "convert_s": convert_s, "forward_s": fwd_s,
+          "forward_err_vs_source": err, "bound": BRIDGE_FORWARD_BOUND,
+          "batch": x.shape[0], "losses": losses, "step_ms": step_ms,
+          "example_s": example_s,
+          "example_final_step": int(out["state"].step),
+          "example_generated": out["generated"][0].tolist()})
+    require(err <= BRIDGE_FORWARD_BOUND,
+            f"bridged forward {err} from the source's > "
+            f"{BRIDGE_FORWARD_BOUND}")
+    require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+            f"bridged loss did not fall: {losses}")
+    require(int(out["state"].step) == 30 and out["generated"].shape == (1, 16),
+            "the finetune_from_torch example did not run to its end")
+
+
+def _bridge_tokenize(torch) -> None:
+    """(e) ``tadnn tokenize`` with the byte tokenizer on a generated UTF-8
+    file, read back by ``TokenFileDataset``."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch.data import (
+        ByteTokenizer, TokenFileDataset)
+
+    tmp = tempfile.mkdtemp(prefix="tadnn_tokenize_")
+    try:
+        rs = np.random.RandomState(BRIDGE_SEED)
+        alphabet = list("abcdefghij klmnop.,\n") + ["é", "ü", "—", "日", "✓"]
+        text = "".join(rs.choice(alphabet, size=1 << 20))
+        src = os.path.join(tmp, "corpus.txt")
+        with open(src, "w", encoding="utf-8") as f:
+            f.write(text)
+        out = os.path.join(tmp, "corpus.tadn")
+        t0 = time.monotonic()
+        subprocess.run([sys.executable, "-m",
+                        "torch_automatic_distributed_neural_network_tpu_torch",
+                        "tokenize", src, out], check=True)
+        tokenize_s = time.monotonic() - t0
+        want = ByteTokenizer().encode(text) + [ByteTokenizer.eos_id]
+        ds = TokenFileDataset(out, seq_len=len(want) - 1, batch_size=1,
+                              device="cuda")
+        got = ds.batch(0)["input_ids"][0]
+        ds.close()
+        same = bool(np.array_equal(np.asarray(got), want))
+        emit({"phase": "bridges", "part": "e_tokenize",
+              "chars": len(text), "tokens": len(want),
+              "file_bytes": os.path.getsize(out), "tokenize_s": tokenize_s,
+              "read_back_equal": same})
+        require(same, "tokenize: the token file does not read back the ids")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_bridges(torch) -> dict[str, int]:
+    """The migration path (see the module docstring, phase 25); returns
+    the launches of K1-K4 on it."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    seconds = {}
+    t0 = time.monotonic()
+    launches = _bridge_gpt2(torch, wrappers)
+    seconds["a_gpt2_small"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    launches["paged_attention"] += _bridge_llama(torch)
+    seconds["b_llama_1b_width"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    launches["flash_forward"] += _bridge_bert(torch)
+    seconds["c_bert_base"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    _bridge_from_torch(torch)
+    seconds["d_from_torch"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    _bridge_tokenize(torch)
+    seconds["e_tokenize"] = time.monotonic() - t0
+    emit({"phase": "bridges", "part": "summary", "seconds": seconds,
+          "launches": launches})
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4482,6 +4891,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if run("pipeline_cp"):
         pipe_cp_launches = phase_pipeline_cp(torch, card)
+    if run("bridges"):
+        bridges_launches = phase_bridges(torch)
+        torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -4494,7 +4906,8 @@ def main(argv=None) -> int:
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
         "replaces": PAGED_REPLACES,
-        "launches": paged_launches + lora_k4_launches + moe_k4_launches,
+        "launches": (paged_launches + lora_k4_launches + moe_k4_launches
+                     + bridges_launches["paged_attention"]),
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -4505,7 +4918,8 @@ def main(argv=None) -> int:
             "launches": (train_launches[name] + dist_launches[name]
                          + lora_launches[name] + sharded_launches[name]
                          + zoo_launches[name] + llama_launches[name]
-                         + moe_launches[name] + pipe_cp_launches[name]),
+                         + moe_launches[name] + pipe_cp_launches[name]
+                         + bridges_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -4529,7 +4943,8 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "flash_kernel_cases", "flash_timing", "serve", "train",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
-          "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp")
+          "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
+          "bridges")
 
 
 if __name__ == "__main__":

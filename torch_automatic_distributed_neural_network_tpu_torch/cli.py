@@ -1,5 +1,5 @@
 """Command line for the PyTorch port: the ``serve``, ``doctor``,
-``devices``, ``run`` and ``launch`` subcommands.
+``devices``, ``run``, ``launch`` and ``tokenize`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
@@ -10,6 +10,8 @@
         run train.py -- ARGS
     python -m torch_automatic_distributed_neural_network_tpu_torch launch \\
         --smoke --hosts 2 --launch-dir DIR
+    python -m torch_automatic_distributed_neural_network_tpu_torch tokenize \
+        corpus.txt corpus.tadn --tokenizer byte
 
 Mirrors the JAX package's ``tadnn serve``: the same flags and the same
 JSON summary line, plus ``--device`` (default ``cuda``; ``cpu`` runs the
@@ -29,6 +31,8 @@ supervises a worker cohort (``training/launch.py``), and ``launch
 --smoke`` runs a clean and a SIGKILLed launch and exits 0 only when
 their per-step losses are bitwise equal.  The cohort forms over NCCL,
 one card a worker, unless ``--simulate`` asks for gloo on the CPU.
+``tokenize`` writes a UTF-8 text file as a TADN token file
+(``data/text.py``) with the JAX package's arguments.
 """
 
 from __future__ import annotations
@@ -381,6 +385,16 @@ def cmd_launch(args: argparse.Namespace) -> int:
     return 0 if result["ok"] else 1
 
 
+def cmd_tokenize(args: argparse.Namespace) -> int:
+    """Text -> TADN token file (``data/text.py``)."""
+    from .data.text import load_tokenizer, tokenize_file
+
+    tokenize_file(args.input, args.output,
+                  tokenizer=load_tokenizer(args.tokenizer),
+                  append_eos=not args.no_eos)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m torch_automatic_distributed_neural_network_tpu_torch",
@@ -527,6 +541,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "unless resumed losses match bitwise")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_launch)
+
+    p = sub.add_parser(
+        "tokenize",
+        help="tokenize a UTF-8 text file into a native TADN token file "
+             "(data/loader.py) for the LM examples")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--tokenizer", default="byte",
+                   help="'byte' (offline, vocab 258) or a transformers "
+                        "tokenizer name/path (tried local-first)")
+    p.add_argument("--no-eos", action="store_true")
+    p.set_defaults(fn=cmd_tokenize)
     return ap
 
 

@@ -7,8 +7,10 @@ never imports jax) — and returns the port's :class:`DecoderLM` on a
 device.  One function a family does the same for the rest of the zoo:
 :func:`bert_from_jax_params` (and :func:`bert_classifier_from_jax_params`),
 :func:`vit_from_jax_params`, :func:`mt_from_jax_params`,
-:func:`moe_from_jax_params`, :func:`mlp_from_jax_params` and
-:func:`resnet_from_jax_params` (parameters and ``batch_stats``);
+:func:`moe_from_jax_params`, :func:`mlp_from_jax_params`,
+:func:`resnet_from_jax_params` (parameters and ``batch_stats``) and
+:func:`bridge_from_jax_variables` (a ``from_torch`` bridge's
+``params``, ``batch_stats`` and ``constants``, by name);
 :func:`from_jax_params` picks by a port model's family, and
 :func:`jax_param_path` gives the JAX path of a port name that they follow.
 Layouts mapped:
@@ -242,6 +244,30 @@ def _fill_resnet(c, variables, model):
                                  2: lambda x: x.T}.get(t.dim(), lambda x: x))
 
 
+_BRIDGE_COLLECTIONS = ("params", "batch_stats", "constants")
+
+
+def _fill_bridge(c, variables, model):
+    """Every entry of a ``TorchBridge``'s ``state_dict`` from the JAX
+    bridge's variables by name (the two share names and layouts):
+    ``params["{scope}//{name}"]`` (``qkv//kernel`` [in, out],
+    ``conv1//kernel`` OIHW, ``pos//value``, ``tf//enc.l0.sa.in_w``) the
+    parameters, ``batch_stats["{scope}//mean"]`` / ``"//var"`` and
+    ``constants["{scope}"]`` (a traced buffer) the buffers.  A bare
+    parameter-shaped tree (the Adam moments) fills the parameters; a
+    buffer it lacks keeps the model's own value."""
+    if "params" in variables and set(variables) <= set(_BRIDGE_COLLECTIONS):
+        trees = [variables.get(k, {}) for k in _BRIDGE_COLLECTIONS]
+    else:
+        trees = [variables]
+    for name, t in model.state_dict().items():
+        leaf = next((tree[name] for tree in trees if name in tree), None)
+        if leaf is None:
+            c.state[name] = t.detach().cpu()
+        else:
+            c.put(name, leaf)
+
+
 def _filler(model: torch.nn.Module):
     """The fill function of a port model's family (subclasses first)."""
     from .models import (
@@ -250,13 +276,15 @@ def _filler(model: torch.nn.Module):
         BertEncoder,
         ResNet,
         Seq2SeqTransformer,
+        TorchBridge,
         ViTEncoder,
     )
 
     for cls, fill in ((BertClassifier, _fill_bert_classifier),
                       (BertEncoder, _fill_bert), (ViTEncoder, _fill_vit),
                       (Seq2SeqTransformer, _fill_mt), (MLP, _fill_mlp),
-                      (ResNet, _fill_resnet), (DecoderLM, _fill_decoder)):
+                      (ResNet, _fill_resnet), (TorchBridge, _fill_bridge),
+                      (DecoderLM, _fill_decoder)):
         if isinstance(model, cls):
             return fill
     raise TypeError(f"no JAX parameter map for {type(model).__name__}")
@@ -358,10 +386,12 @@ def resnet_from_jax_params(variables: dict, cfg, *, device=None):
 def _like(model: torch.nn.Module, device="cpu") -> torch.nn.Module:
     """A fresh, empty model of ``model``'s family and configuration, on
     ``device``."""
-    from .models import MLP, BertClassifier, BertEncoder
+    from .models import MLP, BertClassifier, BertEncoder, TorchBridge
 
     with torch.device("meta"):
-        if isinstance(model, BertClassifier):
+        if isinstance(model, TorchBridge):
+            fresh = TorchBridge(model.spec, model.layout)
+        elif isinstance(model, BertClassifier):
             fresh = BertClassifier(model.cfg, model.num_classes)
         elif isinstance(model, BertEncoder):
             fresh = BertEncoder(model.cfg,
@@ -372,6 +402,15 @@ def _like(model: torch.nn.Module, device="cpu") -> torch.nn.Module:
         else:
             fresh = type(model)(model.cfg)
     return fresh.to_empty(device=device)
+
+
+def bridge_from_jax_variables(variables: dict, like: torch.nn.Module, *,
+                              device=None) -> torch.nn.Module:
+    """A new ``TorchBridge`` of ``like``'s graph (``models.from_torch`` of
+    the same torch module) holding the JAX bridge's ``variables`` (numpy
+    leaves): ``params``, ``batch_stats`` and ``constants`` by name, each
+    JAX key the port's name (:func:`_fill_bridge`), on ``device``."""
+    return from_jax_params(variables, like, device=device)
 
 
 def from_jax_params(params: dict, like: torch.nn.Module, *,
