@@ -237,7 +237,7 @@ card, in phases, one JSON line each; any failure exits non-zero:
    remats imply, step ms and peak memory; (d) the first step's dropped
    fraction, per layer, over the batch and on row 0 alone;
 24. pipeline and context parallelism (``pipeline_cp``), GPT-2 small at B
-   8 x S 1024, bf16 compute, 5 steps on one batch: the unsharded step in
+   8 x S 1024, bf16 compute, 3 steps on one batch: the unsharded step in
    this process, then two processes on the one card in a gloo group (NCCL
    refuses two ranks on one device; sends, rotations and all-to-alls go
    through host buffers, counted): pipe 2 with microbatches 4 under
@@ -271,7 +271,32 @@ card, in phases, one JSON line each; any failure exits non-zero:
    example's ``main`` with ``model.source=torch`` as written; (e)
    ``tokenize`` (the CLI, byte tokenizer) on a generated 1 Mi-character
    UTF-8 file, read back by ``TokenFileDataset``: the same ids.  Each
-   part's seconds, launches and errors are printed.
+   part's seconds, launches and errors are printed;
+26. serving and decoding across devices (``sharded_serve``): (a) K4 on
+   a tensor rank's whole-head shard (``local_heads``) at GPT-2 small's
+   decode shape (8 slots at ctx 1023, 12 heads -> 6, bf16 pool) and
+   Llama 3.2 1B's width (32 / 8 -> 16 / 4, int8 pool): bitwise equal to
+   the full launch's heads with the split count pinned to the full
+   launch's, and the plain version within 1e-4 / 2e-2 with its own;
+   then two processes on the one card in a gloo group (NCCL refuses two
+   ranks on one device; every collective goes through the host): (b)
+   ``ServeEngine(mesh=)`` at tensor 2 on GPT-2 small (full width and
+   depth, fp32 compute, bf16 KV, 16 x (256 + 64) on 8 slots): both
+   ranks' tokens equal, at least 0.99 agreement with the unsharded
+   engine, K4 once a layer a decode step on each rank, 24 all-reduces
+   a decode step, tokens/s, p99 and the decode step; (d)
+   ``AutoDistribute.generate`` under ``tp`` (B 4 x (128 + 64), fp32):
+   both ranks equal, at least 0.99 agreement with the unsharded
+   ``generate``, q_proj held [384, 768] a rank; (e) the train cell (B 8
+   x S 1024, bf16, 3 steps) under ``tp`` 2 with Megatron-SP on and off:
+   the loss gap (within 1e-2), a reduce-scatter in every step with it on
+   and none with it off, each rank's peak memory; in this process (c)
+   ``disaggregate=True`` against colocated on (b)'s requests: identical
+   tokens, every prefill shipped at 589,824 B a block, the modelled
+   overlapped wall beside the busy sum; and (f) LoRA on Llama 3.2 1B's
+   untied head (``HEAD_LIKE``) beside q/v at 2 layers, B 4 x S 512, 5
+   steps: the base loss first, then falling, the head bitwise, its
+   factors trained.
 
 Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23 and 25 write their
 journals with schema validation on (``Journal(validate=True)``): a record that
@@ -301,8 +326,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the depth of three host-bound paths, `generate`, `serve_lora` and `moe`
 # (each at its model's full width): with every phase at full depth the
-# whole smoke reached 1,151 s of its 1,200 s on a slow host
-CUT_LAYERS = 6
+# whole smoke reached 1,151 s of its 1,200 s on a slow host; at 6 layers,
+# with `sharded_serve` added, 1,016.8 s on another
+CUT_LAYERS = 3
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 PAGED_SOURCE = ("torch_automatic_distributed_neural_network_tpu_torch/"
@@ -4073,7 +4099,7 @@ def phase_moe(torch, card) -> tuple[int, dict[str, int]]:
 # train; two processes share the one card over a gloo group (NCCL refuses
 # two ranks on one device), so the sends, rotations and all-to-alls go
 # through host buffers, counted
-PIPE_CP_STEPS = 5
+PIPE_CP_STEPS = 3
 PIPE_CP_SEED = 0
 PIPE_CP_MICROBATCHES = 4
 PIPE_CP_RUNS = (
@@ -4236,7 +4262,7 @@ def _pipe_cp_child(out_path: str, rank: int, init_file: str) -> int:
 
 def phase_pipeline_cp(torch, card) -> dict[str, int]:
     """Pipeline and context parallelism at GPT-2 small (B 8 x S 1024,
-    bf16 compute, 5 steps on one batch): the unsharded step in this
+    bf16 compute, 3 steps on one batch): the unsharded step in this
     process, then two processes on the card in a gloo group running pipe
     2 under cond, 1f1b and interleaved_1f1b (V 2, microbatches 4) and
     seq 2 under ring and Ulysses, each against the unsharded losses; K1-K3
@@ -4329,7 +4355,7 @@ def phase_pipeline_cp(torch, card) -> dict[str, int]:
         import bubble_fraction
 
     emit({"phase": "pipeline_cp", "card": card,
-          "model": "gpt2-small B 8 x S 1024 bf16, 5 steps on one batch",
+          "model": "gpt2-small B 8 x S 1024 bf16, 3 steps on one batch",
           "unsharded": {"losses": ref, "step_ms": ref_ms,
                         "median_step_ms": statistics.median(ref_ms[1:])},
           "loss_bound": PIPE_CP_LOSS_BOUND,
@@ -4729,6 +4755,504 @@ def phase_bridges(torch) -> dict[str, int]:
     return launches
 
 
+# -- phase 26: serving and decoding across devices -----------------------------
+
+
+SHARDED_SEED = 1
+SHARDED_SERVE = dict(n_slots=8, max_len=1024, block_size=16,
+                     prefill_chunk=32)
+SHARDED_REQUESTS = (16, 256, 64)  # requests, prompt tokens, new tokens
+SHARDED_GEN = (4, 128, 64)        # (d): B, prompt, new tokens
+SHARDED_SP_STEPS = 3
+# (a) with the shard's own split count, against the plain version: the
+# kernel-case bounds (fp32 q: sums in another order; bf16 q: one ulp)
+SHARDED_K4_BOUNDS = {"float32": 1e-4, "bfloat16": 2e-2}
+# greedy agreement of the TP 2 engine and sharded generate with the
+# unsharded run (fp32: the all-reduce sums two partial products where
+# one device sums once; a near-tie may flip a token and the rest of
+# its row)
+SHARDED_AGREEMENT = 0.99
+# Megatron-SP on against off, bf16 compute: the same sums in the same
+# order (a reduce-scatter adds what the all-reduce adds)
+SHARDED_SP_LOSS_BOUND = 1e-2
+GPT2_SMALL_BLOCK_BYTES = 2 * 12 * 16 * 12 * 64 * 2  # bf16, block 16
+
+
+def _sharded_prompts(vocab: int) -> list:
+    import numpy as np
+
+    n, length, _ = SHARDED_REQUESTS
+    rs = np.random.RandomState(SHARDED_SEED)
+    return [[int(t) for t in rs.randint(1, vocab, size=(length,))]
+            for _ in range(n)]
+
+
+def _sharded_gpt2(torch, dtype):
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        GPT2)
+
+    with torch.device("cuda"):
+        model = GPT2("small", dtype=dtype)
+    return model.init_weights(
+        torch.Generator(device="cuda").manual_seed(SHARDED_SEED))
+
+
+def _k4_head_slices(torch) -> dict:
+    """(a) K4 on a rank's whole-head shard (tensor degree 2): GPT-2
+    small's decode shape (8 slots at ctx 1023, 12 heads -> 6, bf16 pool,
+    fp32 q) and Llama 3.2 1B's width (32 / 8 heads -> 16 / 4, int8 pool,
+    bf16 q).  With the split count pinned to the full launch's, each
+    shard equals the full launch's heads bitwise; with the shard's own
+    split count, the plain version within the kernel-case bound."""
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        paged_attention as pa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (Hq, kvH, hd, pool, q_dtype) in {
+            "gpt2-small": (12, 12, 64, torch.bfloat16, torch.float32),
+            "llama-1b-int8": (32, 8, 64, torch.int8, torch.bfloat16)}.items():
+        q, k, v, tables, ctx = _pool_case(
+            torch, S=8, Hq=Hq, kvH=kvH, hd=hd, bs=16, ctx_lens=[1023] * 8,
+            pool_dtype=pool, q_dtype=q_dtype, null_slot=None, seed=26)
+        MB = tables.shape[1]
+
+        def splits(heads, kv):
+            kv_dtype = pa._KV_DTYPES[torch.int8 if pool == torch.int8
+                                     else pool]
+            groups = pa._launch_sizes(kv_dtype, 8, kv, heads // kv, hd, MB,
+                                      1)[2]
+            return pa.split_count(groups, MB, 16, n_sm)
+
+        full_splits = splits(Hq, kvH)
+        full = pa._paged_attention_cuda(q, k, v, tables, ctx, window=None,
+                                        splits=full_splits)
+        ranks = []
+        for r in (0, 1):
+            ql = pa.local_heads(q, 2, r, 1)
+            kl, vl = (pa.local_heads(x, 2, r, 2) for x in (k, v))
+            pinned = pa._paged_attention_cuda(ql, kl, vl, tables, ctx,
+                                              window=None, splits=full_splits)
+            own = pa.paged_attention(ql, kl, vl, tables, ctx,
+                                     mesh={"tensor": 2})
+            want = pa.paged_attention_reference(ql, kl, vl, tables, ctx)
+            torch.cuda.synchronize()
+            heads = slice(r * Hq // 2, (r + 1) * Hq // 2)
+            bitwise = torch.equal(pinned, full[:, heads])
+            err = float((own.float() - want.float()).abs().max())
+            bound = SHARDED_K4_BOUNDS[str(q_dtype).replace("torch.", "")]
+            ranks.append({"heads": [heads.start, heads.stop - 1],
+                          "pinned_bitwise": bitwise,
+                          "own_splits": splits(Hq // 2, kvH // 2),
+                          "max_abs_err_vs_plain": err, "bound": bound})
+            require(bitwise, f"sharded_serve (a) {name} rank {r}: K4 on "
+                             f"its heads with {full_splits} splits differs "
+                             f"from the full launch's")
+            require(err <= bound, f"sharded_serve (a) {name} rank {r}: "
+                                  f"{err} > {bound} against the plain version")
+        out[name] = {"full_splits": full_splits, "ranks": ranks}
+    return out
+
+
+def _sharded_serve_child(out_path: str, rank: int, init_file: str) -> int:
+    """One of phase ``sharded_serve``'s two processes on ``cuda:0`` in a
+    gloo group of 2: (b) the tensor-parallel ``ServeEngine``, (d)
+    ``AutoDistribute.generate`` under ``tp``, (e) the train cell under
+    ``tp`` with Megatron-SP on and off; writes a JSON record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, SyntheticLM, adamw, next_token_loss, sgd,
+        topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel \
+        .collectives import CollectiveCounter
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    topology.initialize_distributed(
+        backend="gloo", init_method=f"file://{init_file}", world_size=2,
+        rank=rank)
+    mesh = topology.build_mesh(tensor=2, device_type="cuda")
+    out = {"rank": rank}
+
+    # (b) the engine: GPT-2 small, fp32 compute, bf16 KV
+    t0 = time.monotonic()
+    model = _sharded_gpt2(torch, torch.float32)
+    prompts = _sharded_prompts(model.cfg.vocab_size)
+    eng = ServeEngine(model, mesh=mesh, device="cuda:0", **SHARDED_SERVE)
+    eng.submit(prompts[0], max_new_tokens=2, eos_id=None)  # warm-up
+    eng.run()
+    eng.journal = Journal(None, host0_only=False, validate=True,
+                          meta={"tool": "chip_smoke"})
+    comms = []
+    decode_all = eng._decode_all
+
+    def counted():
+        with CollectiveCounter() as c:
+            decode_all()
+        comms.append(c.counts)
+
+    eng._decode_all = counted
+    reqs = [eng.submit(p, max_new_tokens=SHARDED_REQUESTS[2], eos_id=None)
+            for p in prompts]
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t1
+    steps = [r for r in eng.journal.records if r["name"] == "serve.step"
+             and r["decode_s"] > 0]
+    totals = [(r.t_done or 0.0) - r.t_submit for r in reqs]
+    new = sum(r.n_generated for r in reqs)
+    out["serve"] = {
+        "tokens": [r.out_tokens for r in reqs],
+        "finished": sum(r in done for r in reqs),
+        "launches": paged_attention.launches, "decode_steps": len(comms),
+        "collectives_per_decode_step": sorted(
+            {json.dumps(c, sort_keys=True) for c in comms}),
+        "kv_heads": eng.pool.kv_heads, "new_tokens": new, "wall_s": wall,
+        "tokens_per_s": new / wall, "p99_latency_s": _pct(totals, 0.99),
+        "mean_decode_step_ms": statistics.fmean(
+            1e3 * r["decode_s"] for r in steps),
+        "seconds": time.monotonic() - t0}
+    del eng, model
+    torch.cuda.empty_cache()
+
+    # (d) AutoDistribute.generate under tp, fp32 compute
+    t0 = time.monotonic()
+    B, P, N = SHARDED_GEN
+    prompt = torch.from_numpy(np.random.RandomState(SHARDED_SEED).randint(
+        0, 50257, (B, P))).cuda()
+    ad = AutoDistribute(GPT2("small", dtype=torch.float32),
+                        optimizer=sgd(0.1), loss_fn=next_token_loss,
+                        strategy="tp", device="cuda:0")
+    state = ad.init(torch.Generator(device="cuda").manual_seed(SHARDED_SEED),
+                    {"input_ids": np.zeros((B, P + 1), np.int64)})
+    ad.generate(state, prompt[:, :8], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    got = ad.generate(state, prompt, max_new_tokens=N)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t1
+    q = dict(ad.model.named_parameters())["layers.0.attn.q_proj.weight"]
+    out["generate"] = {"tokens": got.cpu().tolist(), "seconds_timed": dt,
+                       "tokens_per_s": B * N / dt,
+                       "q_proj_local_shape": list(q.to_local().shape),
+                       "degrees": ad.plan.degrees,
+                       "seconds": time.monotonic() - t0}
+    del ad, state
+    torch.cuda.empty_cache()
+
+    # (e) the train cell under tp 2, Megatron-SP on and off
+    batch = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8).batch(0)
+    wrappers = [getattr(fa, n) for n in _FLASH_NAMES]
+    out["sp"] = {}
+    for sp in (True, False):
+        t0 = time.monotonic()
+        ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                            loss_fn=next_token_loss, strategy="tp",
+                            device="cuda:0", megatron_sp=sp)
+        state = ad.init(torch.Generator(device="cuda").manual_seed(0), batch)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers:
+            w.launches = 0
+        losses, step_ms, comms = [], [], []
+        for _ in range(SHARDED_SP_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            with CollectiveCounter() as c:
+                state, metrics = ad.step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t1) * 1e3)
+            comms.append(c.counts)
+            losses.append(float(metrics["loss"]))
+        out["sp"]["on" if sp else "off"] = {
+            "losses": losses, "step_ms": step_ms,
+            "median_step_ms": statistics.median(step_ms[1:]),
+            "collectives_per_step": comms,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {w.__name__: w.launches for w in wrappers},
+            "seconds": time.monotonic() - t0}
+        del ad, state
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _lora_head_step(torch, wrappers) -> dict:
+    """(f) LoRA on Llama 3.2 1B's untied head (``HEAD_LIKE``, a bare
+    [2048, 128256] parameter) beside q/v, 2 of its 16 layers, B 4 x S
+    512, bf16 compute, 5 steps on one batch: the first loss is the base
+    model's (b = 0), the loss falls, the head's factors train and the
+    head itself stays bitwise."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute, SyntheticLM, adamw, next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        Llama)
+    from torch_automatic_distributed_neural_network_tpu_torch.training \
+        .lora import (HEAD_LIKE, LoraSpec, LoraTarget, lora_init_fn,
+                      lora_loss, lora_optimizer)
+
+    t0 = time.monotonic()
+    spec = LoraSpec(rank=16, alpha=32.0, targets=(
+        LoraTarget(r"q_proj\.weight$", 1, 1, True),
+        LoraTarget(r"v_proj\.weight$", 1, 1, True), HEAD_LIKE))
+    batch = SyntheticLM(vocab_size=128256, seq_len=513,
+                        batch_size=4).batch(0)
+    with torch.device("cuda"):
+        base_model = Llama("1b", n_layers=2)
+    base_model.init_weights(torch.Generator(device="cuda").manual_seed(16))
+    with torch.no_grad():
+        base_loss = float(next_token_loss(
+            base_model, {k: torch.as_tensor(v).cuda()
+                         for k, v in batch.items()}, None)[0])
+    base = {n: t.detach().clone() for n, t in base_model.state_dict().items()}
+    del base_model
+    ad = AutoDistribute(Llama("1b", n_layers=2),
+                        optimizer=lora_optimizer(adamw(3e-3)),
+                        loss_fn=lora_loss(next_token_loss, spec),
+                        init_fn=lora_init_fn(base, spec))
+    state = ad.init(torch.Generator(device="cuda").manual_seed(17), batch)
+    for w in wrappers:
+        w.launches = 0
+    losses, step_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        state, metrics = ad.step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+    b_norm = float(state.params["lm_head_lora_b"].detach().norm())
+    head_same = torch.equal(state.params["lm_head"], base["lm_head"])
+    rec = {"losses": losses, "base_loss": base_loss, "step_ms": step_ms,
+           "lm_head_lora_b_norm": b_norm, "lm_head_bitwise": head_same,
+           "launches": {w.__name__: w.launches for w in wrappers},
+           "seconds": time.monotonic() - t0}
+    require(abs(losses[0] - base_loss) <= 1e-6 * abs(base_loss),
+            f"sharded_serve (f): first loss {losses[0]} != base {base_loss}")
+    require(losses[-1] < losses[0], f"sharded_serve (f): losses {losses}")
+    require(b_norm > 0 and head_same,
+            f"sharded_serve (f): head factor b norm {b_norm}, head "
+            f"bitwise {head_same}")
+    del ad, state
+    return rec
+
+
+def phase_sharded_serve(torch, card) -> dict[str, int]:
+    """Serving and decoding across devices on the one card: (a) K4 on
+    head shards; (b) the TP 2 ``ServeEngine`` in two processes (gloo:
+    NCCL refuses two ranks on one device; the all-reduces go through the
+    host) on GPT-2 small at full width and depth, 16 x (256 + 64) on 8
+    slots, fp32 compute, bf16 KV: both ranks' tokens equal, their
+    agreement with the unsharded engine, K4 once a layer a decode step
+    on each rank, the collectives of a decode step, tokens/s, p99 and
+    the decode step; (c) disaggregated against colocated in this
+    process: identical tokens, the shipped bytes 589,824 a block, the
+    modelled overlapped wall beside the sum; (d) ``AutoDistribute
+    .generate`` under ``tp`` in the two processes, B 4 x (128 + 64),
+    fp32, against the unsharded ``generate``; (e) the train cell (B 8 x
+    S 1024, bf16) under ``tp`` 2 with Megatron-SP on and off: the loss
+    gap, the reduce-scatters a step, each rank's peak memory; (f) LoRA
+    on Llama 3.2 1B's untied head.  Returns the main path's launches:
+    K4 in (b) on both ranks and in (c), K1-K3 in (e) on both ranks and
+    in (f)."""
+    import os
+    import tempfile
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        import decode
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    t_phase = time.monotonic()
+    parts = {}
+    t0 = time.monotonic()
+    parts["a"] = {**_k4_head_slices(torch),
+                  "seconds": time.monotonic() - t0}
+
+    # (b), (d), (e) in two processes, with the card to themselves
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="tadnn_sharded_")
+    paths = [os.path.join(tmp, f"rank{r}.json") for r in (0, 1)]
+    env = {**os.environ, "OMP_NUM_THREADS": "4"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sharded-child",
+         paths[r], "--sharded-rank", str(r), "--sharded-init",
+         os.path.join(tmp, "pg")], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env) for r in (0, 1)]
+    errs = []
+    try:
+        for r, proc in enumerate(procs):
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode:
+                errs.append(f"rank {r}: rc {proc.returncode}\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(not errs, "sharded_serve: a child failed\n" + "\n".join(errs))
+    children_seconds = time.monotonic() - t0
+    # (c) disaggregated against colocated, and the unsharded tokens
+    t0 = time.monotonic()
+    model = _sharded_gpt2(torch, torch.float32)
+    prompts = _sharded_prompts(model.cfg.vocab_size)
+    _engine_tokens(torch, model, prompts[:1], max_new=2,
+                   **SHARDED_SERVE)  # warm-up
+    runs, k4 = {}, 0
+    for dis in (False, True):
+        eng = ServeEngine(model, device="cuda", disaggregate=dis,
+                          **SHARDED_SERVE)
+        reqs = [eng.submit(p, max_new_tokens=SHARDED_REQUESTS[2],
+                           eos_id=None) for p in prompts]
+        paged_attention.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        eng.run()
+        torch.cuda.synchronize()
+        k4 += paged_attention.launches
+        runs[dis] = {
+            "tokens": [r.out_tokens for r in reqs],
+            "wall_s": time.monotonic() - t1,
+            "kv_ships": eng.scheduler.n_kv_ships,
+            "shipped_blocks": eng.scheduler.shipped_blocks,
+            "transferred_bytes": eng.pool.transferred_bytes,
+            "bytes_per_block": eng.pool.bytes_per_block,
+            "prefill_busy_s": eng.prefill_busy_s,
+            "decode_busy_s": eng.decode_busy_s,
+            "overlapped_wall_s": eng.overlapped_wall_s}
+        del eng
+    colocated, dis = runs[False], runs[True]
+    require(dis["tokens"] == colocated["tokens"],
+            "sharded_serve (c): disaggregated tokens differ from "
+            "colocated")
+    require(dis["kv_ships"] == len(prompts)
+            and dis["bytes_per_block"] == GPT2_SMALL_BLOCK_BYTES
+            and dis["transferred_bytes"]
+            == dis["shipped_blocks"] * GPT2_SMALL_BLOCK_BYTES,
+            f"sharded_serve (c): shipped {dis['kv_ships']} prefills, "
+            f"{dis['shipped_blocks']} blocks, "
+            f"{dis['transferred_bytes']} B")
+    parts["c"] = {
+        "colocated": {k: v for k, v in colocated.items()
+                      if k != "tokens"},
+        "disaggregated": {k: v for k, v in dis.items() if k != "tokens"},
+        "busy_sum_s": dis["prefill_busy_s"] + dis["decode_busy_s"],
+        "seconds": time.monotonic() - t0}
+    del model
+    torch.cuda.empty_cache()
+    # (d)'s reference: the unsharded generate on the same weights
+    t0 = time.monotonic()
+    import numpy as np
+
+    B, P, N = SHARDED_GEN
+    prompt = torch.from_numpy(np.random.RandomState(
+        SHARDED_SEED).randint(0, 50257, (B, P))).cuda()
+    gen_model = _sharded_gpt2(torch, torch.float32)
+    plain = decode.generate(gen_model, prompt, max_new_tokens=N).cpu()
+    del gen_model
+    torch.cuda.empty_cache()
+    gen_seconds = time.monotonic() - t0
+    # (f) LoRA on the untied head
+    wrappers = [getattr(fa, n) for n in _FLASH_NAMES]
+    parts["f"] = _lora_head_step(torch, wrappers)
+    torch.cuda.empty_cache()
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+
+    # (b)
+    serve = [rk["serve"] for rk in ranks]
+    layers = 12
+    require(serve[0]["tokens"] == serve[1]["tokens"],
+            "sharded_serve (b): the two ranks' tokens differ")
+    agree = _agreement(serve[0]["tokens"], colocated["tokens"])
+    for r, s in enumerate(serve):
+        require(s["finished"] == SHARDED_REQUESTS[0],
+                f"sharded_serve (b): rank {r} finished {s['finished']}")
+        require(s["launches"] == layers * s["decode_steps"] > 0,
+                f"sharded_serve (b): rank {r} K4 {s['launches']} over "
+                f"{s['decode_steps']} decode steps")
+        require(s["collectives_per_decode_step"] == [json.dumps(
+            {"all_reduce": 2 * layers})],
+            f"sharded_serve (b): rank {r} collectives a decode step "
+            f"{s['collectives_per_decode_step']}")
+        require(s["kv_heads"] == 6, f"sharded_serve (b): rank {r} holds "
+                                    f"{s['kv_heads']} kv heads")
+    require(agree >= SHARDED_AGREEMENT,
+            f"sharded_serve (b): agreement {agree} with the unsharded "
+            f"engine < {SHARDED_AGREEMENT}")
+    parts["b"] = {"per_rank": [{k: v for k, v in s.items() if k != "tokens"}
+                               for s in serve],
+                  "ranks_identical": True,
+                  "agreement_vs_unsharded": agree}
+    # (d)
+    gen = [rk["generate"] for rk in ranks]
+    require(gen[0]["tokens"] == gen[1]["tokens"],
+            "sharded_serve (d): the two ranks' tokens differ")
+    gen_agree = _agreement([row[P:] for row in gen[0]["tokens"]],
+                           plain[:, P:].tolist())
+    require(gen_agree >= SHARDED_AGREEMENT,
+            f"sharded_serve (d): agreement {gen_agree} with the unsharded "
+            f"generate < {SHARDED_AGREEMENT}")
+    require(gen[0]["q_proj_local_shape"] == [384, 768],
+            f"sharded_serve (d): q_proj local {gen[0]['q_proj_local_shape']}")
+    parts["d"] = {"per_rank": [{k: v for k, v in g.items() if k != "tokens"}
+                               for g in gen],
+                  "agreement_vs_unsharded": gen_agree,
+                  "unsharded_seconds": gen_seconds}
+    # (e)
+    sp = [rk["sp"] for rk in ranks]
+    gap = max(abs(a - b) for r in sp
+              for a, b in zip(r["on"]["losses"], r["off"]["losses"]))
+    for r, rec in enumerate(sp):
+        require(all(math.isfinite(x) for x in rec["on"]["losses"]),
+                f"sharded_serve (e): rank {r} losses {rec['on']['losses']}")
+        require(all(c.get("reduce_scatter", 0) >= 1
+                    for c in rec["on"]["collectives_per_step"])
+                and all(c.get("reduce_scatter", 0) == 0
+                        for c in rec["off"]["collectives_per_step"]),
+                f"sharded_serve (e): rank {r} reduce-scatters "
+                f"{rec['on']['collectives_per_step']} / "
+                f"{rec['off']['collectives_per_step']}")
+    require(gap <= SHARDED_SP_LOSS_BOUND,
+            f"sharded_serve (e): Megatron-SP on/off loss gap {gap}")
+    parts["e"] = {"per_rank": sp, "loss_gap": gap,
+                  "bound": SHARDED_SP_LOSS_BOUND}
+    launches = {"paged_attention": k4 + sum(s["launches"] for s in serve)}
+    for n in _FLASH_NAMES:
+        launches[n] = parts["f"]["launches"][n] + sum(
+            rec[mode]["launches"][n] for rec in sp for mode in ("on", "off"))
+    for name, count in launches.items():
+        require(count > 0, f"sharded_serve: {name} never launched")
+    emit({"phase": "sharded_serve", "card": card, "parts": parts,
+          "launches": launches, "children_seconds": children_seconds,
+          "seconds": time.monotonic() - t_phase})
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4747,6 +5271,11 @@ def main(argv=None) -> int:
     ap.add_argument("--pipe-cp-rank", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--pipe-cp-init", default=None, help=argparse.SUPPRESS)
+    # phase sharded_serve's two processes
+    ap.add_argument("--sharded-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-rank", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-init", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
@@ -4774,6 +5303,9 @@ def main(argv=None) -> int:
     if args.pipe_cp_child:
         return _pipe_cp_child(args.pipe_cp_child, args.pipe_cp_rank,
                               args.pipe_cp_init)
+    if args.sharded_child:
+        return _sharded_serve_child(args.sharded_child, args.sharded_rank,
+                                    args.sharded_init)
     from torch_automatic_distributed_neural_network_tpu_torch.models import (
         gpt2_config, llama_config)
     from torch_automatic_distributed_neural_network_tpu_torch.models \
@@ -4894,6 +5426,9 @@ def main(argv=None) -> int:
     if run("bridges"):
         bridges_launches = phase_bridges(torch)
         torch.cuda.empty_cache()
+    if run("sharded_serve"):
+        sharded_serve_launches = phase_sharded_serve(torch, card)
+        torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -4907,7 +5442,8 @@ def main(argv=None) -> int:
         "name": "paged_attention", "route": "cuda", "source": PAGED_SOURCE,
         "replaces": PAGED_REPLACES,
         "launches": (paged_launches + lora_k4_launches + moe_k4_launches
-                     + bridges_launches["paged_attention"]),
+                     + bridges_launches["paged_attention"]
+                     + sharded_serve_launches["paged_attention"]),
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -4919,7 +5455,8 @@ def main(argv=None) -> int:
                          + lora_launches[name] + sharded_launches[name]
                          + zoo_launches[name] + llama_launches[name]
                          + moe_launches[name] + pipe_cp_launches[name]
-                         + bridges_launches[name]),
+                         + bridges_launches[name]
+                         + sharded_serve_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -4944,7 +5481,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
           "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
-          "bridges")
+          "bridges", "sharded_serve")
 
 
 if __name__ == "__main__":

@@ -198,8 +198,18 @@ def test_pool_register_validates_sites_and_shapes():
         pool.register("missing-v", partial)
     with pytest.raises(NotImplementedError, match="attention projections"):
         AdapterPool(tm, LoraSpec(targets=(MLP_LIKE,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        AdapterPool(tm, SPEC, mesh=object(), device="cpu")
+    # tensor-parallel serving is ported (tests/test_torch_port_serve_tp.py):
+    # a mesh of tensor degree 1 leaves every factor whole
+    from torch_automatic_distributed_neural_network_tpu_torch.topology import (
+        single_device_mesh,
+    )
+
+    whole = AdapterPool(tm, SPEC, device="cpu")
+    meshed = AdapterPool(tm, SPEC, mesh=single_device_mesh(), device="cpu")
+    assert meshed.tensor_group is None
+    for key, fac in whole.factors.items():
+        for side in ("a", "b"):
+            assert fac[side].shape == meshed.factors[key][side].shape
     with pytest.raises(KeyError, match="unknown adapter"):
         pool.acquire("nobody")
 

@@ -162,12 +162,16 @@ def test_engine_checks_and_later_slices():
         eng.submit([], max_new_tokens=2)
     with pytest.raises(ValueError, match="learned positions"):
         ServeEngine(tm, device="cpu", max_len=128)
-    for kw, item in ((dict(disaggregate=True), "2"),
-                     (dict(mesh=object()), "2"),
-                     (dict(export_cache="dir"), "4")):
-        with pytest.raises(NotImplementedError,
-                           match=f"later slice .*item {item}"):
-            ServeEngine(tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="later slice .*item 4"):
+        ServeEngine(tm, device="cpu", export_cache="dir")
+    # disaggregated and tensor-parallel serving are ported
+    # (tests/test_torch_port_serve_tp.py); a mesh with another axis above
+    # 1 is refused
+    assert ServeEngine(tm, device="cpu", max_len=64,
+                       disaggregate=True).disaggregate
+    with pytest.raises(ValueError, match="other than 'tensor'"):
+        ServeEngine(tm, device="cpu", max_len=64,
+                    mesh={"data": 2, "tensor": 1})
     # LoRA serving is ported (tests/test_torch_port_adapters.py): an
     # engine without a spec refuses a named adapter as the JAX engine does
     with pytest.raises(ValueError, match="without lora_spec"):
@@ -208,7 +212,13 @@ def test_cli_serve_smoke_on_cpu(capsys):
     assert summary["spec_accept_rate"] is not None
     assert summary["decode_routes"]["paged"] == 0
     assert main(["serve", "--smoke", "--device", "cpu",
-                 "--disaggregate"]) == 2
+                 "--disaggregate"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["disaggregate"] is True and summary["n_requests"] == 8
+    assert summary["kv_ships"] == 8 and summary["shipped_bytes"] > 0
+    # --serve-tp N takes N processes (torchrun); one process is refused
+    assert main(["serve", "--smoke", "--device", "cpu",
+                 "--serve-tp", "2"]) == 2
 
 
 def test_head_dim_96_decoder_serves_by_the_paged_path():

@@ -125,8 +125,15 @@ def test_eos_fill_and_lengths_match_jax(early_stop):
 def test_generate_checks_and_later_slices():
     _, _, tm = model_pair("gpt2")
     p = torch.from_numpy(_prompt())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tdec.generate(tm, p, max_new_tokens=2, mesh=object())
+    # sharded decode is ported (tests/test_torch_port_sharded_decode.py): a
+    # mesh of one device decodes as no mesh
+    from torch_automatic_distributed_neural_network_tpu_torch.topology import (
+        single_device_mesh,
+    )
+
+    assert torch.equal(
+        tdec.generate(tm, p, max_new_tokens=2, mesh=single_device_mesh()),
+        tdec.generate(tm, p, max_new_tokens=2))
     # MoE decoding is ported (tests/test_torch_port_moe_decode.py): on a
     # dense model ``moe_decode`` changes nothing, as in JAX, and an unknown
     # mode is refused
@@ -291,5 +298,10 @@ def test_generate_text_example_on_cpu(capsys):
     want = tdec.generate(res["model"], res["prompt"], max_new_tokens=8)
     np.testing.assert_array_equal(res["tokens"], want.numpy())
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 3"):
-        generate_text.main(base + ["run.strategy=tp"])
+    # the plan-aware decode (one process here: the plan's one device)
+    res = generate_text.main(base + ["run.strategy=tp", "run.batch_size=2"])
+    want = tdec.generate(
+        res["model"], res["prompt"], max_new_tokens=8,
+        sample=tdec.SampleConfig(temperature=0.8, top_k=40),
+        generator=torch.Generator().manual_seed(2))
+    np.testing.assert_array_equal(res["tokens"], want.numpy())

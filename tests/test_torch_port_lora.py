@@ -348,3 +348,72 @@ def test_lora_checkpoint_resume_is_bitwise(tmp_path):
     ckpt.close()
     for name, t in straight.items():
         assert torch.equal(s2.params[name], t), name
+
+
+# -- a bare parameter: HEAD_LIKE ---------------------------------------------------
+
+
+HEAD_SPECS = (jlora.LoraSpec(rank=4, alpha=8.0, targets=(
+    jlora.LoraTarget(r"q_proj/kernel", 1, 2), jlora.HEAD_LIKE)),
+    tlora.LoraSpec(rank=4, alpha=8.0, targets=(
+        tlora.LoraTarget(r"q_proj\.weight$", 1, 1, True), tlora.HEAD_LIKE)))
+
+
+def test_lora_head_like_matches_jax():
+    """LoRA on Llama ``test``'s untied head (a bare ``[d, V]`` parameter,
+    JAX's ``[in, out]`` view) beside q_proj: the loss and every factor's
+    gradient within 2e-5 of JAX's (fp32: the same products summed in
+    another order), the factors named ``lm_head_lora_a/b`` beside the
+    head, only they and q's training; the adapted model computes what a
+    plain decoder with the merged weights computes (1e-5), and
+    ``adapted`` leaves the module as it was."""
+    jm, params, cfg = jax_base("llama")
+    jspec, tspec = HEAD_SPECS
+    lora = _jax_factors(params, jspec)
+    batch = _batch(0)
+
+    def jloss(lo):
+        return jlora.lora_loss(jlosses.next_token_loss, jspec)(
+            {"base": params, "lora": lo}, batch, None,
+            lambda p, *a, **k: jm.apply({"params": p}, *a, **k))[0]
+
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jloss))(lora)
+    want_grads = lora_from_jax(jax.tree.map(np.asarray, want_grads),
+                               cfg.n_layers)
+    base = decoder_from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                                   device="cpu")
+    tl = lora_from_jax(jax.tree.map(np.asarray, lora), cfg.n_layers)
+    assert "lm_head" in tl
+    model = decoder_from_jax_params(jax.tree.map(np.asarray, params), cfg,
+                                    device="cpu")
+    tlora.apply_lora(model, tspec, tl)
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    assert {"lm_head_lora_a", "lm_head_lora_b"} <= trainable
+    assert all(tlora.is_lora_name(n) for n in trainable)
+    assert tlora.factor_site("lm_head_lora_b") == "lm_head"
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    loss = next_token_loss(model, tb, None)[0]
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=0,
+                               atol=2e-5)
+    named = dict(model.named_parameters())
+    for site, fac in want_grads.items():
+        for side in ("a", "b"):
+            got = named[tlora.factor_prefix(site) + "lora_" + side].grad
+            np.testing.assert_allclose(got.numpy(), fac[side].numpy(),
+                                       rtol=0, atol=2e-5,
+                                       err_msg=f"{site} {side}")
+    # the adapted forward is the merged decoder's
+    plain = DecoderLM(cfg)
+    plain.load_state_dict(tlora.merge_lora(base.state_dict(), tl, tspec))
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, VOCAB, (2, 12)))
+    with torch.no_grad():
+        np.testing.assert_allclose(model(toks).numpy(), plain(toks).numpy(),
+                                   rtol=0, atol=1e-5)
+        with tlora.adapted(base, tl, tspec):
+            assert type(base).__name__ == "LoraDecoderLM"
+            np.testing.assert_allclose(base(toks).numpy(),
+                                       plain(toks).numpy(), rtol=0, atol=1e-5)
+    assert type(base) is DecoderLM and "lm_head_lora_a" not in base.__dict__
+    assert set(tlora.lora_state(model)) == set(tl)

@@ -348,8 +348,8 @@ def test_make_plan_on_moe_matches_jax_at_one_device(strategy):
 def test_moe_decoding_is_refused():
     """MoE decoding is ported (``tests/test_torch_port_moe_decode.py``
     holds it to JAX): ``generate`` and the serving engine decode MoE on
-    one device; only decoding over a mesh is still refused, naming
-    ROADMAP item 3."""
+    one device, and over a mesh (``tests/test_torch_port_sharded_decode.py``;
+    a mesh of one device decodes as none)."""
     from torch_automatic_distributed_neural_network_tpu_torch.inference import (
         decode,
     )
@@ -361,8 +361,12 @@ def test_moe_decoding_is_refused():
     prompt = torch.from_numpy(_tokens(42, B=1, S=4)).long()
     out = decode.generate(tm, prompt, max_new_tokens=2)
     assert out.shape == (1, 6) and torch.equal(out[:, :4], prompt.int())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        decode.generate(tm, prompt, max_new_tokens=2, mesh=object())
+    from torch_automatic_distributed_neural_network_tpu_torch.topology import (
+        single_device_mesh,
+    )
+
+    assert torch.equal(out, decode.generate(tm, prompt, max_new_tokens=2,
+                                            mesh=single_device_mesh()))
     eng = ServeEngine(tm, device="cpu", n_slots=1, max_len=16, block_size=8)
     req = eng.submit(prompt[0].tolist(), max_new_tokens=2)
     eng.run()

@@ -204,8 +204,13 @@ def test_moe_decode_is_checked():
         tdec.generate(tm, p, max_new_tokens=2, moe_decode="sparse")
     with pytest.raises(ValueError, match="moe_decode"):
         ServeEngine(tm, device="cpu", moe_decode="sparse")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tdec.generate(tm, p, max_new_tokens=2, mesh=object())
+    from torch_automatic_distributed_neural_network_tpu_torch.topology import (
+        single_device_mesh,
+    )
+
+    with pytest.raises(ValueError, match="moe_decode"):
+        tdec.generate(tm, p, max_new_tokens=2, moe_decode="sparse",
+                      mesh=single_device_mesh())
 
 
 def _serve(engine_cls, model_args, prompts, **kw):

@@ -14,7 +14,8 @@ port's collectives over the mesh's named axes; rank 0 writes
 ``out.pt``: per run the step losses, the tokens the step counted, the
 plan and its journal events, the local shapes of the parameters, the
 full final parameters (gathered) and, for a run marked ``inspect``, the
-eval loss and greedy tokens of the trained state; and the collectives'
+eval loss and greedy tokens of the trained state, and the collectives
+each step dispatched (``CollectiveCounter``); and the collectives'
 results of every rank.  A run marked ``lora`` freezes the base, puts
 ``job["lora"]``'s factors on it (``job["lora_spec"]``) and trains them
 under ``lora_optimizer``.  A run may name a ``mesh`` (a degrees
@@ -88,6 +89,9 @@ def _run(job, run):
     from torch_automatic_distributed_neural_network_tpu_torch.obs import (
         journal,
     )
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.collectives import (
+        CollectiveCounter,
+    )
 
     model = DecoderLM(TransformerConfig(**job["cfg"]))
     model.load_state_dict(job["state_dict"])
@@ -107,16 +111,18 @@ def _run(job, run):
                         loss_fn=loss_fn, device="cpu",
                         strategy=run["strategy"], zero1=run.get("zero1", False),
                         grad_accum=run.get("grad_accum", 1),
-                        mesh=run.get("mesh"))
+                        mesh=run.get("mesh"), **run.get("kw", {}))
     with journal.as_default(journal.Journal(host0_only=False)) as j:
         state = ad.init(None, job["batches"][0])
     events = {name: [r for r in j.records if r["name"] == name]
               for name in ("plan", "comms.estimate", "plan.zero1")}
     local = {n: tuple((p.to_local() if hasattr(p, "to_local") else p).shape)
              for n, p in model.named_parameters()}
-    losses, tokens = [], []
+    losses, tokens, comms = [], [], []
     for batch in job["batches"]:
-        state, metrics = ad.step(state, batch)
+        with CollectiveCounter() as counter:
+            state, metrics = ad.step(state, batch)
+        comms.append(counter.counts)
         losses.append(float(metrics["loss"]))
         tokens.append(float(metrics["tokens"]))
     with torch.no_grad():
@@ -125,7 +131,8 @@ def _run(job, run):
     out = {"losses": losses, "tokens": tokens, "strategy": ad.plan.strategy,
            "degrees": ad.plan.degrees, "zero1": ad.plan.zero1,
            "remat": ad.plan.remat, "local_shapes": local, "params": params,
-           "events": events}
+           "events": events, "comms": comms,
+           "sp_norms": sorted(ad._exec.sp_norms)}
     if run.get("inspect"):
         # the trained state's eval loss on the global batch, greedy
         # tokens from the weights gathered on every rank, and the forward
@@ -714,6 +721,166 @@ def _cp_ops(cj, world):
     return out
 
 
+def _serve_tp(sj, world):
+    """Each case of ``sj``: the tensor-parallel engine on this rank; every
+    rank's record, gathered."""
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        DecoderLM,
+        TransformerConfig,
+        topology,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.inference.serve import (
+        ServeEngine,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel.collectives import (
+        CollectiveCounter,
+    )
+
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        MoEConfig,
+        MoELM,
+    )
+
+    mesh = topology.build_mesh(tensor=world)
+    out = {}
+
+    def loaded(case):
+        model = (MoELM(MoEConfig(**case["cfg"])) if case.get("family") == "moe"
+                 else DecoderLM(TransformerConfig(**case["cfg"])))
+        model.load_state_dict(case["state_dict"])
+        return model
+
+    for case in sj["cases"]:
+        model = loaded(case)
+        spec = sj["spec"] if case.get("adapters") else None
+        eng = ServeEngine(model, device="cpu", mesh=mesh, lora_spec=spec,
+                          **sj["geometry"], **case.get("kw", {}))
+        names = []
+        for name, lora in (sj["adapters"] if spec else ()):
+            eng.register_adapter(name, lora)
+            names.append(name)
+        n = len(names) + 1
+        reqs = [eng.submit(p, max_new_tokens=sj["max_new"], eos_id=None,
+                           adapter=names[i % n - 1] if names and i % n
+                           else None)
+                for i, p in enumerate(sj["prompts"])]
+        comms = []
+        decode_all = eng._decode_all
+
+        def counted(decode_all=decode_all, comms=comms):
+            with CollectiveCounter() as c:
+                decode_all()
+            comms.append(c.counts)
+
+        eng._decode_all = counted
+        eng.run()
+        eng.scheduler.check_invariants()
+        pool = eng.adapter_pool
+        rec = {"tokens": [r.out_tokens for r in reqs],
+               "kv_heads": eng.pool.kv_heads, "spec": eng.pool.spec,
+               "pool_shape": tuple(eng.pool.k[0]["q"].shape
+                                   if eng.pool.quantize
+                                   else eng.pool.k[0].shape),
+               "bytes_per_block": eng.pool.bytes_per_block,
+               "n_transfers": eng.pool.n_transfers,
+               "transferred_blocks": eng.pool.transferred_blocks,
+               "transferred_bytes": eng.pool.transferred_bytes,
+               "n_kv_ships": eng.scheduler.n_kv_ships,
+               "free_blocks": eng.pool.allocator.n_free,
+               "comms": comms,
+               "factor_shapes": None if pool is None else {
+                   key: {side: tuple((leaf["q"] if isinstance(leaf, dict)
+                                      else leaf).shape)
+                         for side, leaf in fac.items()}
+                   for key, fac in pool.factors.items()}}
+        if case.get("ref") == "port":
+            # the unsharded engine on the same weights, in this process
+            eng = ServeEngine(loaded(case), device="cpu", **sj["geometry"],
+                              **case.get("kw", {}))
+            reqs = [eng.submit(p, max_new_tokens=sj["max_new"], eos_id=None)
+                    for p in sj["prompts"]]
+            eng.run()
+            rec["unsharded_tokens"] = [r.out_tokens for r in reqs]
+        both = [None] * world
+        dist.all_gather_object(both, rec)
+        out[case["name"]] = both
+    return out
+
+
+def _decode_runs(dj, world):
+    """Each run of ``dj``: ``AutoDistribute`` under its strategy, then the
+    sharded decode two ways; every rank's record, gathered."""
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+        DecoderLM,
+        TransformerConfig,
+        moe_next_token_loss,
+        next_token_loss,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.inference import (
+        decode,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        MoEConfig,
+        MoELM,
+    )
+
+    out = {}
+    for run in dj["runs"]:
+        sec = dj[run["model"]]
+        moe = run["model"] == "moe"
+        model = (MoELM(MoEConfig(**sec["cfg"])) if moe
+                 else DecoderLM(TransformerConfig(**sec["cfg"])))
+        model.load_state_dict(sec["state_dict"])
+        optimizer = _optimizer(None)
+        loss_fn = moe_next_token_loss if moe else next_token_loss
+        if run.get("lora"):
+            from torch_automatic_distributed_neural_network_tpu_torch.training.lora import (
+                apply_lora,
+                lora_loss,
+                lora_optimizer,
+            )
+
+            apply_lora(model, dj["lora_spec"], dj["lora"])
+            optimizer = lora_optimizer(optimizer)
+            loss_fn = lora_loss(loss_fn, dj["lora_spec"])
+        ad = AutoDistribute(model, optimizer=optimizer, loss_fn=loss_fn,
+                            device="cpu", strategy=run["strategy"],
+                            precision=run.get("precision", "fp32"))
+        state = ad.init(None, {"input_ids": torch.cat(
+            [sec["prompt"]] * 2, 1)})
+        kw = dict(max_new_tokens=dj["max_new"], cache_dtype=torch.float32,
+                  moe_decode=run.get("moe_decode", "dense"))
+        got = ad.generate(state, sec["prompt"], **kw)
+        # the module's own weights (under ``mixed`` its compute-dtype
+        # copies) straight through the sharded decode
+        direct = decode.generate(ad._exec.model, sec["prompt"],
+                                 mesh=ad._exec.mesh, **kw)
+        layer = dict(ad._exec.model.named_parameters())
+        local = {n: tuple((p.to_local() if hasattr(p, "to_local")
+                           else p).shape) for n, p in layer.items()
+                 if n.startswith("layers.0.")}
+        # the model ``generate`` decodes on: the module, or the copy of
+        # a ``mixed`` state's masters that each rank filled with shards
+        dec = ad._sharded_decode_model(state)
+        q = dict(dec.named_parameters())["layers.0.attn.q_proj.weight"] \
+            if not moe else None
+        rec = {"generated": got, "direct": direct,
+               "degrees": ad.plan.degrees, "strategy": ad.plan.strategy,
+               "local_shapes": local,
+               "decodes_on_module": dec is ad._exec.model,
+               "decode_q": None if q is None else (
+                   tuple(q.to_local().shape), q.dtype)}
+        both = [None] * world
+        dist.all_gather_object(both, rec)
+        out[run["name"]] = both
+    return out
+
+
 def main(rank, world, init_file, job_path, out_path):
     import torch.distributed as dist
 
@@ -747,6 +914,10 @@ def main(rank, world, init_file, job_path, out_path):
             mj, run, str(Path(out_path).parent)) for run in mj["runs"]}
     if job.get("moe_ffn"):
         out["moe_ffn_sharded"] = _moe_ffn_sharded(job["moe_ffn"], world)
+    if job.get("serve_tp"):
+        out["serve_tp"] = _serve_tp(job["serve_tp"], world)
+    if job.get("decode"):
+        out["decode"] = _decode_runs(job["decode"], world)
     if job.get("only_lm"):
         dist.barrier()
         dist.destroy_process_group()

@@ -39,7 +39,12 @@ Its slices:
 - ResNet with BatchNorm (``models.resnet``): its running statistics as
   ``TrainState.model_state`` through the step, eval, checkpoints and the
   wrappers, global-batch statistics under a plan, SGD with momentum, the
-  mutable losses, and the ResNet/CIFAR and Llama FSDP examples.
+  mutable losses, and the ResNet/CIFAR and Llama FSDP examples;
+- serving and decoding across devices: the tensor-parallel and
+  disaggregated ``ServeEngine`` (``inference.serve``), the plan-aware
+  decode (``inference.decode.generate(mesh=)``,
+  ``AutoDistribute.generate``), LoRA on a bare parameter, and
+  Megatron-SP (``parallel.context``).
 
 The top-level names are the JAX package's (``AutoDistribute``,
 ``autodistribute``, the planner's and the topology's), but for

@@ -20,9 +20,11 @@ plain PyTorch path).  Weights are random, made from ``--seed``.
 same N seeded tokens), ``--speculative K`` and ``--adapters N
 [--adapter-rank R] [--quant-adapters]`` (N seeded LoRA tenants
 ``tenant{i}``, request j served by ``tenant{j % N}``) run as in the JAX
-package.  Flags whose features the port does not have yet
-(disaggregation, tensor parallelism) are accepted and refused with exit
-code 2 when set.  ``doctor`` is the checkpoint and launch part of the
+package, and so do ``--disaggregate`` (disaggregated prefill's time
+model) and ``--serve-tp N`` (tensor-parallel serving: one process a
+device under ``torchrun`` or the port's launcher, N of them; every rank
+serves the same seeded streams in lockstep and rank 0 writes the
+journal and prints the summary).  ``doctor`` is the checkpoint and launch part of the
 JAX package's ``tadnn doctor`` (a sharded directory, ``training/
 shards.py``, is verified through its per-host shard chain).  ``run``
 brings the process group up from ``torchrun``'s environment and runs a
@@ -71,14 +73,21 @@ def cmd_serve(args: argparse.Namespace) -> int:
         print(f"serve needs a decoder family (gpt2/llama/moe), got "
               f"{args.family!r}", file=sys.stderr)
         return 2
-    later = [flag for flag, on in (
-        ("--disaggregate", args.disaggregate),
-        ("--serve-tp", args.serve_tp > 1)) if on]
-    if later:
-        print(f"serve: {', '.join(later)} not ported yet (a later slice of "
-              f"the PyTorch port)", file=sys.stderr)
-        return 2
-    device = resolve_device(args.device)
+    mesh = None
+    if args.serve_tp > 1:
+        from . import topology
+
+        topology.initialize_distributed()  # a no-op outside torchrun
+        world = (torch.distributed.get_world_size()
+                 if torch.distributed.is_initialized() else 1)
+        if world != args.serve_tp:
+            print(f"--serve-tp {args.serve_tp} needs {args.serve_tp} "
+                  f"processes, one a device (torchrun --nproc-per-node "
+                  f"{args.serve_tp}), but the world has {world}",
+                  file=sys.stderr)
+            return 2
+        mesh = topology.build_mesh(tensor=args.serve_tp)
+    device = resolve_device(None if args.device == "cuda" else args.device)
 
     family = {"gpt2": GPT2, "llama": Llama, "moe": MoE}[args.family]
     size = args.size or "test"
@@ -101,7 +110,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
 
         lora_spec = LoraSpec(rank=args.adapter_rank)
 
-    with Journal(args.journal, host0_only=False,
+    with Journal(args.journal, host0_only=mesh is not None,
                  meta={"tool": "serve"}) as jnl:
         eng = ServeEngine(
             model,
@@ -118,6 +127,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
             # +1: slot 0 is the identity adapter
             n_adapters=n_adapters + 1 if n_adapters else 8,
             quant_adapters=args.quant_adapters,
+            mesh=mesh,
+            disaggregate=args.disaggregate,
             journal=jnl,
             device=device,
         )
@@ -175,7 +186,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
             "spec_accept_rate": (
                 round(eng.spec_accepted / eng.spec_drafted, 4)
                 if eng.spec_drafted else None),
-            "disaggregate": False,
+            "disaggregate": eng.disaggregate,
             "prefix_cache": eng.prefix_cache is not None,
             "prefix_hit_rate": (
                 round(eng.prefix_cached_tokens
@@ -190,7 +201,7 @@ def cmd_serve(args: argparse.Namespace) -> int:
             "cow_forks": (eng.cow_forks
                           if eng.prefix_cache is not None else None),
             "decode_routes": dict(eng.decode_routes),
-            "tp": 1,
+            "tp": eng.tp,
             "kv_ships": eng.pool.n_transfers,
             "shipped_blocks": eng.pool.transferred_blocks,
             "shipped_bytes": eng.pool.transferred_bytes,
@@ -200,7 +211,8 @@ def cmd_serve(args: argparse.Namespace) -> int:
             "journal": args.journal,
             "device": str(device),
         }
-    print(json.dumps(summary))
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(json.dumps(summary))
     if args.smoke and len(done) != streams:
         print(f"smoke: expected {streams} finished requests, got "
               f"{len(done)}", file=sys.stderr)
@@ -451,7 +463,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="greedy speculative decoding: K prompt-lookup "
                         "drafts verified per step (default K 4)")
     p.add_argument("--disaggregate", action="store_true",
-                   help="(not ported yet)")
+                   help="disaggregated prefill/decode: every prefilling "
+                        "slot advances each step, finished KV ships into "
+                        "decode through the pool, the step's modelled "
+                        "wall is max(prefill, decode); token-identical "
+                        "to colocated")
     p.add_argument("--prefix-cache", action="store_true",
                    dest="prefix_cache",
                    help="cross-request prefix reuse (radix index over "
@@ -461,7 +477,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="every stream's prompt starts with the same N "
                         "seeded tokens (prefix-cache traffic)")
     p.add_argument("--serve-tp", type=int, default=1, dest="serve_tp",
-                   metavar="N", help="(not ported yet)")
+                   metavar="N",
+                   help="tensor-parallel serving over N processes, one a "
+                        "device (run under torchrun --nproc-per-node N)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--journal", default=None,
                    help="journal path for serve.* spans (the JAX "

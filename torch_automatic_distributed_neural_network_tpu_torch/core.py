@@ -36,9 +36,10 @@ strategies ``ep``, ``ep_fsdp`` and ``ep_tp`` (the banks sharded over
 ``expert``, the dispatched slots exchanged by ``all_to_all``).  Every
 rank takes the global batch and keeps its rows (``shard_batch``), or
 its own rows only (a ``data.HostBatch`` from ``data.shard_for_host``);
-the step returns the global batch's loss.  ``generate`` gathers the
-full weights on each rank and decodes there, in bf16 or int8, an MoE
-model densely or routed (``moe_decode``).  The tuned and searched
+the step returns the global batch's loss.  ``generate`` decodes with
+the plan's wrapped model, its weights sharded as trained (each rank its
+rows of the batch and, under ``tensor``, its kv heads), in bf16 or
+int8, an MoE model densely or routed (``moe_decode``).  The tuned and searched
 strategies and the export cache raise ``NotImplementedError`` naming
 their ROADMAP item.
 
@@ -70,6 +71,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import itertools
 import math
 from collections.abc import Mapping
 from typing import Any, Callable
@@ -99,6 +101,7 @@ from .training.optim import (
 from .data.loader import HostBatch
 from .utils.device import (
     group_up,
+    is_dtensor,
     process_count,
     process_index,
     resolve_device,
@@ -140,7 +143,10 @@ class AutoDistribute:
     'ep_fsdp', 'ep_tp'),
     ``mesh`` (a ``DeviceMesh`` from ``topology.build_mesh`` or a degrees
     mapping), ``rules`` (the planner's name rules), ``seq_parallel`` and
-    ``seq_impl`` ('auto', 'ring' or 'ulysses'), ``pipeline_stages``,
+    ``seq_impl`` ('auto', 'ring' or 'ulysses'), ``megatron_sp`` (the JAX
+    context's field, on by default: under a tensor axis above 1 a
+    decoder's residual stream carries each rank's slice of the sequence
+    between the blocks, ``parallel/context.py``), ``pipeline_stages``,
     ``microbatches``, ``pipeline_schedule`` ('cond', 'dense', '1f1b',
     'interleaved', 'interleaved_1f1b') and ``pipeline_virtual`` (V >= 2
     for the interleaved ones), ``zero1`` (the
@@ -168,6 +174,7 @@ class AutoDistribute:
         devices=None,
         seq_parallel: int = 1,
         seq_impl: str = "auto",
+        megatron_sp: bool = True,
         pipeline_stages: int = 1,
         microbatches: int = 8,
         pipeline_schedule: str = "cond",
@@ -235,6 +242,7 @@ class AutoDistribute:
         self._exec: executor_mod.Execution | None = None
         self._grad_accum = grad_accum
         self._seq_parallel, self._seq_impl = seq_parallel, seq_impl
+        self._megatron_sp = bool(megatron_sp)
         self._pipeline_stages = pipeline_stages
         self._microbatches = microbatches
         self._pipeline_schedule = pipeline_schedule
@@ -402,9 +410,11 @@ class AutoDistribute:
         if group_up():
             self._exec = executor_mod.apply_plan(
                 model, self.plan, self.plan.mesh, self.device,
-                rules=self._rules, heads=_heads(model))
+                rules=self._rules, heads=_heads(model),
+                megatron_sp=self._megatron_sp)
             self._ctx = pctx.ParallelContext(mesh=self.plan.mesh,
-                                             seq_impl=self._seq_impl)
+                                             seq_impl=self._seq_impl,
+                                             megatron_sp=self._megatron_sp)
             if self._exec.degree("pipe") > 1:
                 from .parallel.pipeline import Pipeline, PipelinedModel
 
@@ -733,9 +743,9 @@ class AutoDistribute:
         """The model holding ``state_or_params``'s weights: the module
         itself when they are its own, else an unwrapped copy loaded with
         them (the fp32 masters of a ``mixed`` state, a bare name -> tensor
-        mapping, the module's own tensors where it names none, or under
-        a plan the full weights gathered on this rank, as the JAX
-        ``generate`` replicates them)."""
+        mapping, the module's own tensors where it names none; under a
+        plan gathered whole on this rank, as they always are under a
+        pipeline, where each rank holds its stage's layers only)."""
         from .interop import _like
 
         tree, own = self._tree(state_or_params), self._own()
@@ -745,12 +755,11 @@ class AutoDistribute:
         spec = getattr(self.model, "lora_spec", None)
         if spec is not None:
             # a plain decoder holding the merged weights
-            from .training.lora import is_lora_name, merge_lora
+            from .training.lora import factor_site, is_lora_name, merge_lora
 
             full = {n: self._whole(n, p) for n, p in tree.items()}
-            lora = {n[:-len(".lora_a")] + ".weight":
-                    {"a": full[n], "b": full[n[:-1] + "b"]}
-                    for n in full if n.endswith(".lora_a")}
+            lora = {factor_site(n): {"a": full[n], "b": full[n[:-1] + "b"]}
+                    for n in full if n.endswith("lora_a")}
             tree = merge_lora({n: t for n, t in full.items()
                                if not is_lora_name(n)}, lora, spec)
         full = {**own, **tree}
@@ -777,6 +786,54 @@ class AutoDistribute:
             return gathered(t).detach()
         return self._exec.full(name, t)
 
+    def _sharded_decode_model(self, state_or_params):
+        """The plan's wrapped model holding ``state_or_params``'s weights,
+        sharded as trained: the module itself when they are its own (LoRA
+        factors included: the adapted modules merge them in their
+        forward), else a copy that the same plan wraps while it is empty
+        (on the meta device) and each rank then fills with its own shards
+        of them (the fp32 masters of a ``mixed`` state, a bare mapping,
+        the module's own tensors where it names none): no weight is
+        gathered whole.  None under a pipeline, without a plan, or where
+        the plan shards no parameter (data parallelism: each rank holds
+        every weight whole already)."""
+        from .executor import apply_plan, like
+        from .interop import _like
+
+        ex = self._exec
+        if ex is None or ex.degree("pipe") > 1:
+            return None
+        tree, own = self._tree(state_or_params), self._own()
+        if all(tree.get(n, t) is t for n, t in own.items()):
+            return ex.model
+        if not any(is_dtensor(p) for p in ex.model.parameters()):
+            return None
+        model = _like(self.model, device="meta")
+        spec = getattr(self.model, "lora_spec", None)
+        if spec is not None:
+            from .training.lora import apply_lora, factor_site, is_lora_name
+
+            lora: dict = {}
+            for n, t in own.items():
+                if is_lora_name(n):
+                    lora.setdefault(factor_site(n), {})[n[-1]] = torch.empty(
+                        t.shape, device="meta")
+            apply_lora(model, spec, lora)
+        mine = dict(model.named_parameters())
+        mine.update(model.named_buffers())
+        for name, t in mine.items():
+            t.data = t.data.to(tree.get(name, own[name]).dtype)
+        apply_plan(model, self.plan, ex.mesh, self.device,
+                   rules=self._rules, heads=_heads(model))
+        model.to_empty(device=self.device)
+        with torch.no_grad():
+            for name, t in itertools.chain(model.named_parameters(),
+                                           model.named_buffers()):
+                src = tree.get(name, own[name])
+                t.copy_(src if is_dtensor(src) or not is_dtensor(t)
+                        else like(src.to(self.device), t))
+        return model
+
     @torch.no_grad()
     def generate(self, state_or_params, prompt, *, max_new_tokens: int,
                  sample=None, generator: torch.Generator | None = None,
@@ -784,16 +841,30 @@ class AutoDistribute:
                  moe_decode: str = "dense", moe_capacity: int | None = None,
                  quant: str | None = None):
         """Autoregressive generation with the trained weights
-        (``inference/decode.py::generate``) on this device: ``prompt``
-        [B, P] -> [B, P + max_new_tokens] int32.  An MoE model decodes
-        by ``moe_decode`` ('dense' or 'routed', with ``moe_capacity``
-        pinning the prefill's slots) from its banks gathered whole.
+        (``inference/decode.py::generate``): ``prompt`` [B, P] -> [B, P +
+        max_new_tokens] int32.  An MoE model decodes by ``moe_decode``
+        ('dense' or 'routed', with ``moe_capacity`` pinning the
+        prefill's slots).
+
+        Under a plan (a collective: every rank calls it with the same
+        prompt) the decode runs on the plan's wrapped model, its weights
+        sharded as trained (``tp`` col/row, FSDP, the expert banks over
+        ``expert``), each rank its rows of the batch and, under
+        ``tensor``, its kv heads (``decode.cache_partition_spec``), as
+        the JAX ``generate`` runs under the plan's shardings; every rank
+        returns the whole batch.  Weights that are not the module's own
+        (the fp32 masters of a ``mixed`` state, a bare mapping) go into a
+        copy that the same plan wraps empty, each rank copying in only its
+        shards; LoRA factors stay factors, merged in the adapted modules'
+        forward.  Under a pipeline, and under plain data parallelism, a
+        copy with the weights whole decodes on every rank.
 
         ``quant="int8"`` decodes with int8 weights
-        (``quantize_for_decode``), quantized anew on each call as the JAX
-        package's jitted program does; a long-lived server quantizes once
-        and calls ``inference.decode.generate`` itself.  ``sample``
-        defaults to greedy; a sampled run draws from ``generator``."""
+        (``quantize_for_decode``) of a copy with the weights whole,
+        quantized anew on each call as the JAX package's jitted program
+        does; a long-lived server quantizes once and calls
+        ``inference.decode.generate`` itself.  ``sample`` defaults to
+        greedy; a sampled run draws from ``generator``."""
         from .inference import decode
         from .inference.quant import quantize_for_decode
 
@@ -801,13 +872,18 @@ class AutoDistribute:
             raise RuntimeError("call init() or build_plan() first")
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant={quant!r}; supported: 'int8'")
-        model = self._decode_model(state_or_params)
+        model = mesh = None
+        if quant is None:
+            model = self._sharded_decode_model(state_or_params)
+            mesh = None if model is None else self._exec.mesh
+        if model is None:
+            model = self._decode_model(state_or_params)
         if quant == "int8":
             model = quantize_for_decode(model)
         return decode.generate(
             model, prompt, max_new_tokens=max_new_tokens, sample=sample,
             generator=generator, cache_dtype=cache_dtype, eos_id=eos_id,
-            moe_decode=moe_decode, moe_capacity=moe_capacity)
+            moe_decode=moe_decode, moe_capacity=moe_capacity, mesh=mesh)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict

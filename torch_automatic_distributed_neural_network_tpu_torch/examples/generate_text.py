@@ -1,4 +1,4 @@
-"""Autoregressive generation on one card: the JAX package's
+"""Autoregressive generation: the JAX package's
 ``examples/generate_text.py`` on the port.
 
 With random weights the output is noise; the point is the decode path
@@ -12,12 +12,17 @@ Usage::
     ... run.quant=int8          # int8 weights
     ... run.speculative=1       # a draft proposes, the model verifies
     ... model.size=test model.vocab_size=256 run.device=cpu
+    # the plan-aware sharded decode, one process a device:
+    torchrun --nproc-per-node 2 -m torch_automatic_distributed_neural_network_tpu_torch.examples.generate_text \
+        run.strategy=tp
 
 The one field beyond the JAX example's is ``run.device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch path).  ``run.strategy`` other
-than ``none`` is the plan-aware sharded decode, not ported yet (ROADMAP
-Queue 1 item 3).  ``main`` returns the
-output tokens, the model, the prompt and the timed run's tokens/s.
+``cuda``; ``cpu`` runs the plain PyTorch path and, under ``torchrun``,
+a gloo group).  ``run.strategy`` other than ``none`` decodes through
+``AutoDistribute.generate`` under that strategy's plan: the weights
+sharded as the plan shards them, each rank its rows and kv heads.
+``main`` returns the output tokens, the model, the prompt and the timed
+run's tokens/s.
 """
 
 import dataclasses
@@ -57,8 +62,9 @@ class RunCfg:
     top_k: int = 40
     top_p: float = 1.0  # nucleus sampling; 1.0 = off
     eos_id: int = -1  # >= 0: rows finalize after emitting this token
-    # 'none' -> plain decode on one device; a planner strategy is the
-    # sharded decode, not ported yet
+    # 'none' -> plain decode on one device; a planner strategy ('tp',
+    # 'tp_fsdp', 'fsdp', 'dp') -> the plan-aware sharded decode
+    # (AutoDistribute.generate)
     strategy: str = "none"
     quant: str = "none"  # 'int8': weight-only quantized decode
     # 1: greedy speculative decoding (batch 1, temperature ignored) — a
@@ -83,16 +89,18 @@ def main(argv=None) -> dict:
     if r.quant not in ("none", "int8"):
         raise SystemExit(f"unknown run.quant={r.quant!r}; "
                          "supported: none, int8")
-    if r.strategy != "none":
-        raise NotImplementedError(
-            f"run.strategy={r.strategy!r}: the plan-aware sharded decode is "
-            f"not ported yet (ROADMAP Queue 1 item 3); use run.strategy=none")
-    if r.speculative and (r.quant != "none" or r.eos_id >= 0):
+    if r.speculative and (r.strategy != "none" or r.quant != "none"
+                          or r.eos_id >= 0):
         # a silently dropped flag would attribute the tok/s line to a
         # config that never ran
         raise SystemExit("run.speculative=1 is plain greedy decode: it "
-                         "does not compose with run.quant / run.eos_id")
-    device = resolve_device(r.device)
+                         "does not compose with run.strategy / run.quant "
+                         "/ run.eos_id")
+    if r.strategy != "none":
+        from torch_automatic_distributed_neural_network_tpu_torch import topology
+
+        topology.initialize_distributed()  # a no-op outside torchrun
+    device = resolve_device(None if r.device == "cuda" else r.device)
     # speculative rounds need k+1 positions of headroom past the last
     # emitted token; build the model once with the right table size
     seq_budget = r.prompt_len + r.new_tokens + (
@@ -118,6 +126,25 @@ def main(argv=None) -> dict:
             return speculative_generate(model, draft, prompt,
                                         max_new_tokens=r.new_tokens,
                                         k=r.spec_k)
+    elif r.strategy != "none":
+        from torch_automatic_distributed_neural_network_tpu_torch import (
+            AutoDistribute,
+            next_token_loss,
+            sgd,
+        )
+
+        ad = AutoDistribute(model, optimizer=sgd(0.1),
+                            loss_fn=next_token_loss, strategy=r.strategy,
+                            device=device)
+        state = ad.init(None, {"input_ids": np.zeros(
+            (batch, r.prompt_len + 1), np.int64)})
+        print(f"plan: strategy={ad.plan.strategy} mesh={ad.plan.degrees}")
+
+        def gen(seed):
+            g = torch.Generator(device=device).manual_seed(seed)
+            return ad.generate(state, prompt, max_new_tokens=r.new_tokens,
+                               sample=sample, generator=g, eos_id=eos,
+                               quant=None if r.quant == "none" else r.quant)
     else:
         if r.quant == "int8":
             model = quantize_for_decode(model)

@@ -14,7 +14,14 @@ in place by the plan's strategy, even at degree 1:
   on dim 0 and a ``RowwiseParallel`` for dim 1; a bare parameter the
   plan splits (the embedding, the untied head) becomes a ``DTensor``
   that the model all-gathers at use.  Local outputs, so the attention
-  kernels see plain local tensors;
+  kernels see plain local tensors.  With ``megatron_sp`` (the default)
+  a dense decoder backbone and its layers are marked for Megatron-SP
+  (``parallel/context.py``): whenever the active context splits the
+  stream, its attention and MLP blocks all-gather their input at the
+  entry and its o and MLP-down projections reduce-scatter their outputs
+  over the sequence (``_seq_styles``), and its norms' gradients, each
+  rank's from its slice, are summed over ``tensor`` in one flat
+  all-reduce;
 - ``fsdp``: FSDP2 ``fully_shard`` per decoder layer and at the root on
   ``mesh["fsdp"]``, each parameter's shard on the dim its spec names; a
   parameter the plan leaves unsharded stays out of FSDP
@@ -58,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -151,8 +159,69 @@ def _apply_ep(model: nn.Module, layout: dict, mesh) -> set[str]:
     return banks
 
 
+def _sp_backbones(model: nn.Module) -> list[nn.Module]:
+    """The decoder backbones whose layer stack Megatron-SP may split:
+    dense decoder layers only (an MoE stack stays whole: its routing
+    groups are whole rows)."""
+    from .models.transformer_core import DecoderLayer, DecoderLM
+
+    return [mod for mod in model.modules()
+            if isinstance(mod, DecoderLM) and mod.layer_cls is DecoderLayer]
+
+
+@functools.cache
+def _seq_styles() -> tuple[type, type]:
+    """Megatron-SP's two ``ParallelStyle``s, each acting only while the
+    active context splits the stream (``parallel/context.py``) and as
+    plain TP otherwise (a decode step, a forward outside a step):
+
+    - ``_SeqGather`` on a block (attention, MLP): its input, this rank's
+      slice of the sequence, all-gathered at the entry, once for every
+      column-split projection inside;
+    - ``_SeqRowwise``: ``RowwiseParallel`` whose partial sums are
+      reduce-scattered over the sequence (dim 1) instead of
+      all-reduced."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.parallel import (
+        ParallelStyle,
+        RowwiseParallel,
+    )
+
+    from .parallel.collectives import gather_whole, reduce_scatter_slices
+    from .parallel.context import sequence_parallel
+
+    class _SeqGather(ParallelStyle):
+        def _apply(self, module, device_mesh):
+            group = device_mesh.get_group()
+
+            def gather(mod, args):
+                if sequence_parallel() is None:
+                    return None
+                return (gather_whole(args[0], group), *args[1:])
+
+            module.register_forward_pre_hook(gather)
+            return module
+
+    class _SeqRowwise(RowwiseParallel):
+        @staticmethod
+        def _prepare_output_fn(output_layouts, use_local_output, mod,
+                               outputs, device_mesh):
+            if sequence_parallel() is None:
+                return RowwiseParallel._prepare_output_fn(
+                    output_layouts, use_local_output, mod, outputs,
+                    device_mesh)
+            # the partial sums' gradient is the whole one on every rank
+            local = outputs.to_local(grad_placements=(Replicate(),))
+            return reduce_scatter_slices(local, device_mesh.get_group())
+
+    return _SeqGather, _SeqRowwise
+
+
 def _apply_tp(model: nn.Module, layout: dict, mesh,
-              skip: set[str] = frozenset()) -> None:
+              skip: set[str] = frozenset(),
+              megatron_sp: bool = False) -> set[str]:
+    """The TP wrappers; returns the names of the norm parameters of the
+    layers marked for Megatron-SP (empty without it)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,
@@ -161,6 +230,21 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
     )
 
     tp_mesh = mesh["tensor"]
+    sp_styles, sp_norms = {}, set()
+    if megatron_sp:
+        gather_style, rowwise_style = _seq_styles()
+        names = {id(m): n for n, m in model.named_modules()}
+        for backbone in _sp_backbones(model):
+            backbone.seq_parallel = True
+            for layer in backbone.layers:
+                layer.seq_parallel = True
+                for block in (layer.attn, layer.mlp):
+                    sp_styles[names[id(block)]] = gather_style()
+                for lin in (layer.attn.o_proj, layer.mlp.down_proj):
+                    sp_styles[names[id(lin)]] = rowwise_style()
+                for norm in (layer.attn_norm, layer.mlp_norm):
+                    sp_norms.update(f"{names[id(norm)]}.{p}" for p, _ in
+                                    norm.named_parameters())
     styles, in_modules, factors = {}, set(), {}
     # the expert banks (``skip``) are laid out by ``_apply_ep``
     for mod_name, mod in model.named_modules():
@@ -178,6 +262,7 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
         if dim is not None:
             styles[mod_name] = ColwiseParallel() if dim == 0 else (
                 RowwiseParallel())
+    styles.update(sp_styles)
     if styles:
         parallelize_module(model, tp_mesh, styles)
     for name, p in factors.items():
@@ -201,6 +286,7 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
             raise ValueError(
                 f"{name}: the plan splits dim {dim} over tensor, the TP "
                 f"wrappers split {got}")
+    return sp_norms
 
 
 def _apply_fsdp(model: nn.Module, layout: dict, mesh,
@@ -247,6 +333,9 @@ class Execution:
     # other stages' layers (meta tensors here: their owners hold them)
     stage: int = 0
     foreign: set[str] = dataclasses.field(default_factory=set)
+    # Megatron-SP: the norm parameters each rank trains on its slice of
+    # the sequence (their gradients summed over ``tensor``)
+    sp_norms: set[str] = dataclasses.field(default_factory=set)
 
     @property
     def batch_axes(self) -> list[tuple[str, int]]:
@@ -318,8 +407,10 @@ class Execution:
         expert bank's gradient, summed over ``expert`` by the backward
         exchange, divided by that degree.  Over ``seq`` every gradient
         is summed: each rank's loss already carries its share of the
-        global token count (``core.AutoDistribute``)."""
+        global token count (``core.AutoDistribute``); under Megatron-SP
+        a split layer's norm gradients are summed over ``tensor``."""
         seq = self.degree("seq")
+        split = []
         for name, p in self.model.named_parameters():
             if p.grad is None:
                 continue
@@ -331,6 +422,14 @@ class Execution:
                     self._mean(local, axis, deg)
             if seq > 1:
                 dist.all_reduce(local, group=self.mesh.get_group("seq"))
+            if name in self.sp_norms:
+                split.append(local)
+        if split and self.degree("tensor") > 1:
+            # one flat all-reduce for all of them
+            flat = torch.cat([g.reshape(-1) for g in split])
+            dist.all_reduce(flat, group=self.mesh.get_group("tensor"))
+            for g, part in zip(split, flat.split([g.numel() for g in split])):
+                g.copy_(part.view_as(g))
 
     @torch.no_grad()
     def full(self, name: str, t: torch.Tensor) -> torch.Tensor:
@@ -374,13 +473,15 @@ class Execution:
 
 def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
                device: torch.device, *, rules=TRANSFORMER_RULES,
-               heads: tuple[int, int] | None = None) -> Execution:
+               heads: tuple[int, int] | None = None,
+               megatron_sp: bool = True) -> Execution:
     """Wrap ``model`` (on ``device``, in the dtypes it trains in) by the
     plan's strategy on the ``DeviceMesh`` ``mesh``.  The wrappers take
     the plan's layout with every axis of the strategy applied, degree 1
     included (``param_spec_tree(min_degree=1)``): where an axis has a
     degree above 1 that is the plan's own spec, and an axis of degree 1
-    shards nothing."""
+    shards nothing.  ``megatron_sp``: mark a decoder backbone for
+    Megatron-SP under a tensor axis above 1 outside a pipeline."""
     check_executable(plan)
     stage = mesh.get_local_rank("pipe") if plan.degrees.get("pipe", 1) > 1 \
         else 0
@@ -402,8 +503,12 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
     banks: set[str] = set()
     if plan.strategy.startswith("ep"):
         banks = _apply_ep(model, layout, mesh)
+    sp_norms: set[str] = set()
     if plan.strategy in ("tp", "tp_fsdp", "ep_tp"):
-        _apply_tp(model, layout, mesh, skip=banks | foreign)
+        sp = (megatron_sp and plan.degrees.get("tensor", 1) > 1
+              and plan.degrees.get("pipe", 1) == 1)
+        sp_norms = _apply_tp(model, layout, mesh, skip=banks | foreign,
+                             megatron_sp=sp)
     if plan.strategy in ("fsdp", "tp_fsdp", "ep_fsdp"):
         for name in _apply_fsdp(model, layout, mesh, skip=foreign):
             # HSDP averages over data too
@@ -421,7 +526,7 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
                           broadcast_buffers=False)
     return Execution(plan=plan, mesh=mesh, model=model, module=module,
                      reduced=reduced, banks=banks, stage=stage,
-                     foreign=foreign)
+                     foreign=foreign, sp_norms=sp_norms)
 
 
 def like(full: torch.Tensor, param: torch.Tensor) -> torch.Tensor:

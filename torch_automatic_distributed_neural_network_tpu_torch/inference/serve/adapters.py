@@ -26,6 +26,15 @@ is quantized ONCE at ``register()``, so decode, prefill and any parity
 oracle see the same round-tripped numbers, and the decode gather
 dequantizes only the gathered rows (:func:`factor_rows`).
 
+Under tensor parallelism (``mesh=``, a ``tensor`` axis of degree t) each
+rank's pool holds its share of the factors, cut as its projections are:
+a q/k/v site's ``b`` keeps its rank's output channels (whole heads, as
+the column-split weight does), the o site's ``a`` its input rows (the
+rank's heads, as the row-split weight does).  The other factor stays
+whole.  The decode step sums the o site's rank-r partial ``(x @ a)``
+over the tensor group (one all-reduce of ``[S, T, r]`` a layer) before
+``b``, and adds the delta after o's own all-reduce.
+
 Slot 0 is ``IDENTITY_ADAPTER``: all-zero factors, so its delta is exactly
 0 and base-model requests run through the same gather unchanged.  The
 allocator hands out slots 1..A-1 with LRU eviction and
@@ -45,6 +54,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from ...ops.paged_attention import tensor_degree
 from ...training.lora import LoraSpec, adapter_shapes, init_lora_params
 from ...utils.device import resolve_device
 from ..quant import dequantize_leaf, is_quantized_leaf, quantize_lora_factor
@@ -197,18 +207,17 @@ class AdapterPool:
     ``base``: the model (or its name -> tensor mapping) the spec's
     geometry comes from (``training.lora.adapter_shapes``), so the pool
     layout cannot drift from trained factor shapes.  ``device``: where
-    the pool lives (default ``cuda``, raising without it).  A ``mesh``
-    (tensor-parallel serving) raises ``NotImplementedError``.
+    the pool lives (default ``cuda``, raising without it).  ``mesh``:
+    this rank's share of the factors (module docstring); ``tensor_group``
+    is then the group the o site's partial sums cross, else None.
     """
 
     def __init__(self, base, spec: LoraSpec, *, n_adapters: int = 8,
                  quantize: bool = False, dtype=torch.float32, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "AdapterPool(mesh=...): tensor-parallel serving is not "
-                "ported to the PyTorch package yet (ROADMAP Queue 1 item 2, "
-                "tensor-parallel serving)")
+        self.t = tensor_degree(mesh)
+        self.t_rank = mesh.get_local_rank("tensor") if self.t > 1 else 0
+        self.tensor_group = mesh.get_group("tensor") if self.t > 1 else None
         self.spec = spec
         self.n_adapters = int(n_adapters)
         self.quantize = bool(quantize)
@@ -237,13 +246,39 @@ class AdapterPool:
             (d_in, d_out), = dims
             self.sites[key] = (n_layers, d_in, d_out)
         r = spec.rank
+        for key, (_, d_in, d_out) in self.sites.items():
+            width = d_in if key == "o" else d_out
+            if width % self.t:
+                raise ValueError(f"site {key!r}: {width} channels do not "
+                                 f"split {self.t} ways")
         self.factors: dict[str, dict] = {
-            key: {"a": _zeros_factor((L, self.n_adapters, d_in, r),
-                                     self.quantize, dtype, self.device),
-                  "b": _zeros_factor((L, self.n_adapters, r, d_out),
-                                     self.quantize, dtype, self.device)}
+            key: {"a": _zeros_factor(
+                (L, self.n_adapters, d_in // (self.t if key == "o" else 1),
+                 r), self.quantize, dtype, self.device),
+                  "b": _zeros_factor(
+                (L, self.n_adapters, r, d_out // (1 if key == "o"
+                                                  else self.t)),
+                self.quantize, dtype, self.device)}
             for key, (L, d_in, d_out) in self.sites.items()}
         self._registry: dict[str, dict] = {}
+
+    def _share(self, key: str, side: str, x):
+        """This rank's share of a stacked factor ``x`` [L, m, n] (or an
+        int8 leaf): the o site's ``a`` rows, another site's ``b``
+        columns; the whole factor without a tensor split."""
+        if self.t == 1 or (side == "a") != (key == "o"):
+            return x
+        dim = -2 if side == "a" else -1
+
+        def cut(t: torch.Tensor) -> torch.Tensor:
+            if t.shape[dim] == 1:  # an int8 ``a``'s per-column scales
+                return t
+            w = t.shape[dim] // self.t
+            return t.narrow(dim, self.t_rank * w, w)
+
+        if is_quantized_leaf(x):
+            return {"q": cut(x["q"]), "scale": cut(x["scale"])}
+        return cut(x)
 
     def layer_factors(self, layer: int) -> dict[str, dict]:
         """Layer ``layer``'s ``{site: {"a": [A, d_in, r], "b": [A, r,
@@ -345,7 +380,8 @@ class AdapterPool:
     def _load(self, slot: int, name: str) -> None:
         for key, fac in self._registry[name].items():
             for side in ("a", "b"):
-                src, dst = fac[side], self.factors[key][side]
+                src = self._share(key, side, fac[side])
+                dst = self.factors[key][side]
                 if self.quantize:
                     dst["q"][:, slot] = src["q"]
                     dst["scale"][:, slot] = src["scale"]
@@ -356,6 +392,7 @@ class AdapterPool:
 
     @property
     def total_bytes(self) -> int:
+        """Bytes of this rank's pool."""
         total = 0
         for fac in self.factors.values():
             for leaf in fac.values():
@@ -373,7 +410,9 @@ def pool_adapter_bytes(cfg, *, rank: int, n_adapters: int,
     int8 payload + per-output-channel fp32 scales when ``quantize``.
     Under a tensor degree (``degrees={"tensor": t}``) each ``b`` factor
     splits its output channels t ways when they divide, so only b/t
-    lands on a shard; ``a`` factors stay replicated."""
+    lands on a shard; ``a`` factors stay replicated.  The JAX package's
+    formula, and the port's layout for these two sites (an o site, not
+    in the default recipe, splits its ``a`` rows instead of ``b``)."""
     t = int((degrees or {}).get("tensor", 1)) or 1
     per_adapter_layer = 0
     q_out = cfg.n_heads * cfg.head_dim

@@ -73,6 +73,32 @@ completes, the request bounces back to the queue (``Scheduler.requeue``)
 and ``serve.adapter`` journals the stall.  Prefix-cache keys commit to
 the adapter, so a tenant reuses only its own KV.
 
+Tensor parallelism (``mesh=``, a ``DeviceMesh`` whose ``tensor`` axis
+has degree t; every other axis 1): one process a device, each running
+this engine in lockstep on the same requests.  The model is wrapped by
+the ``tp`` plan's wrappers (``executor.apply_plan``: q/k/v and MLP-up
+column-split, o and MLP-down row-split, by whole heads; the token table,
+the head and an MoE model's banks stay whole, :data:`SERVE_TP_RULES`), the pool
+holds the rank's kv heads (``PagedKVPool(mesh=)``) and the adapter pool
+its factor shares (``AdapterPool(mesh=)``).  The paged kernel runs on
+the local heads, one launch a layer a step.  A decode step all-reduces
+twice a layer (the row-split o and MLP-down; once for an MoE layer),
+plus once a layer for the o site's adapter partials when the spec
+adapts o.  Every rank samples
+from the same all-reduced logits with a generator seeded the same way,
+so the ranks' schedulers stay in lockstep with the same block ids.  A
+head count that t does not divide is refused (the JAX package falls back
+to the unsharded kernel there).
+
+Disaggregated prefill (``disaggregate=True``, the JAX engine's time
+model): every prefilling slot advances one chunk each step (no
+``prefill_chunks_per_step`` cap), a finished prefill's KV lands through
+``pool.ship_prefill`` with ``Scheduler.record_ship`` and a
+``serve.kv_ship`` record, and the step's modelled wall time is the
+larger of its prefill and decode times (``overlapped_wall_s``) where
+colocated serving adds them.  Both phases run in this one process, so
+the tokens are the colocated engine's, bit for bit.
+
 Greedy decoding (temperature 0) gives the JAX engine's tokens; stochastic
 sampling is reproducible under the engine's own seeded generator.
 
@@ -81,9 +107,8 @@ Telemetry: the same ``serve.engine`` / ``serve.prefill_chunk`` /
 ``serve.adapter`` / ``serve.step`` / ``serve.request_done`` journal
 records as the JAX engine, so its ``tadnn report`` renders them.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): disaggregated prefill, tensor parallelism (a mesh) and the AOT
-export cache.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+the AOT export cache.
 """
 
 from __future__ import annotations
@@ -98,9 +123,10 @@ import numpy as np
 import torch
 
 from ...obs import journal as _journal
-from ...models.transformer_core import embedding_lookup, rope
+from ...models.transformer_core import embedding_lookup, gathered, rope
 from ...ops.attention import xla_attention
-from ...ops.paged_attention import kernel_takes, paged_attention
+from ...ops.paged_attention import kernel_takes, paged_attention, tensor_degree
+from ...planner import TRANSFORMER_RULES
 from ...training.lora import LoraSpec, adapted
 from ...utils.device import resolve_device
 from ..decode import (
@@ -120,6 +146,12 @@ from .scheduler import Request, Scheduler
 
 _LATER = "is a later slice of the PyTorch port (ROADMAP Queue 1 item {})"
 
+# the tp plan's rules with the token table and the head left whole: a
+# decode step reads them every token, and an all-gather each time would
+# cost more than the copy
+SERVE_TP_RULES = tuple(r for r in TRANSFORMER_RULES
+                       if not (r.matches("embed") or r.matches("lm_head")))
+
 
 def _step_route(attention_impl: str, T: int) -> str:
     """The step's KV read: the paged kernel for one query a slot, else
@@ -129,13 +161,20 @@ def _step_route(attention_impl: str, T: int) -> str:
 
 
 def _lora_delta(site: dict, inp: torch.Tensor, ids: torch.Tensor,
-                scaling: float) -> torch.Tensor:
+                scaling: float, group=None) -> torch.Tensor:
     """Each slot's low-rank delta ``scaling * (x @ A_id) @ B_id`` in fp32:
     ``inp [S, T, d_in]`` fp32, the site's layer factors gathered at
-    ``ids [S]`` -> ``[S, T, d_out]``."""
+    ``ids [S]`` -> ``[S, T, d_out]``.  ``group``: the partial ``x @ A``
+    of a rank's input rows is summed over it first (the o site under
+    tensor parallelism)."""
     a = factor_rows(site["a"], ids)  # [S, d_in, r]
     b = factor_rows(site["b"], ids)  # [S, r, d_out]
-    return scaling * torch.bmm(torch.bmm(inp, a), b)
+    xa = torch.bmm(inp, a)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(xa, group=group)
+    return scaling * torch.bmm(xa, b)
 
 
 def _plus_delta(t: torch.Tensor, delta: torch.Tensor, cfg,
@@ -167,7 +206,7 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
     window = cfg.sliding_window
     T = tok.shape[1]
     route = _step_route(attention_impl, T)
-    x = embedding_lookup(model.embed, tok, dtype)  # [S, T, d]
+    x = embedding_lookup(gathered(model.embed), tok, dtype)  # [S, T, d]
     positions = (ctx_lens.to(torch.int64)[:, None]
                  + torch.arange(T, device=tok.device)[None, :])  # [S, T]
     if cfg.pos == "learned":
@@ -215,8 +254,9 @@ def _decode_logits(model, pool: PagedKVPool, tables: torch.Tensor,
         ao = layer.attn.out_proj(o.to(dtype))
         if "o" in ad:
             of = o.reshape(o.shape[0], o.shape[1], -1).to(torch.float32)
-            ao = _plus_delta(ao, _lora_delta(ad["o"], of, adapter_ids,
-                                             scaling), cfg, positions)
+            ao = _plus_delta(ao, _lora_delta(
+                ad["o"], of, adapter_ids, scaling,
+                adapters.tensor_group), cfg, positions)
         x = x + ao
         # an MoE bank combines densely here, as the JAX engine's decode
         # and verify steps do
@@ -321,6 +361,12 @@ class ServeEngine:
     ``lora_spec`` serves LoRA tenants: a pool of ``n_adapters`` slots
     (slot 0 the base model), int8 factors with ``quant_adapters``; size
     ``n_adapters > n_slots`` to never stall on a full pool.
+
+    ``mesh``: tensor-parallel serving, this rank's share (module
+    docstring); every rank of the tensor group builds the engine and
+    takes the same requests.  The model is wrapped in place.
+    ``disaggregate``: disaggregated prefill's time model (module
+    docstring).
     """
 
     def __init__(self, model, *,
@@ -352,17 +398,18 @@ class ServeEngine:
             raise ValueError(
                 f"unknown attention_impl {attention_impl!r} "
                 f"(expected 'paged' or 'dense')")
-        for name, value, item in (
-                ("disaggregate (disaggregated prefill)", disaggregate, "2"),
-                ("mesh (tensor-parallel serving)", mesh, "2"),
-                ("export_cache", export_cache, "4")):
-            if value:
-                raise NotImplementedError(f"{name} {_LATER.format(item)}")
+        if export_cache:
+            raise NotImplementedError(f"export_cache {_LATER.format('4')}")
         check_moe_decode(moe_decode)
         self.moe_decode = moe_decode
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = model.cfg
+        self.mesh = mesh
+        self.tp = tensor_degree(mesh)
+        if mesh is not None:
+            self._shard_model()
+        self.disaggregate = bool(disaggregate)
         if self.cfg.pos == "learned" and max_len > self.cfg.max_seq_len:
             raise ValueError(
                 f"max_len {max_len} exceeds the model's {self.cfg.max_seq_len}"
@@ -401,14 +448,15 @@ class ServeEngine:
             num_blocks = n_slots * self.max_blocks + 1
         self.pool = PagedKVPool(
             self.cfg, num_blocks=num_blocks, block_size=block_size,
-            dtype=cache_dtype, quantize=quant_kv, device=self.device)
+            dtype=cache_dtype, quantize=quant_kv, device=self.device,
+            mesh=mesh)
         self.journal = journal or _journal.get_default()
         self.lora_spec = lora_spec
         self.adapter_pool: AdapterPool | None = None
         if lora_spec is not None:
             self.adapter_pool = AdapterPool(
                 self.model, lora_spec, n_adapters=n_adapters,
-                quantize=quant_adapters, device=self.device)
+                quantize=quant_adapters, device=self.device, mesh=mesh)
         # cross-request prefix caching: matched prefixes are ref'd into
         # the new request's table and their chunks skipped.  A match
         # aligns to blocks, and in int8 mode also to prefill-chunk
@@ -466,7 +514,26 @@ class ServeEngine:
                 quant_adapters=bool(quant_adapters and lora_spec),
                 speculative=self.speculative,
                 prefix_cache=self._prefix_cache is not None,
-                disaggregate=False, tp=1)
+                disaggregate=self.disaggregate, tp=self.tp)
+
+    def _shard_model(self) -> None:
+        """Wrap the model by the ``tp`` plan on ``mesh["tensor"]`` (the
+        executor's wrappers, :data:`SERVE_TP_RULES`), refusing a mesh with
+        another axis above 1 or heads the tensor degree does not divide."""
+        from ...executor import apply_plan
+        from ...planner import ShardPlan, _check_heads
+        from ...topology import mesh_degrees
+
+        other = {a: d for a, d in mesh_degrees(self.mesh).items()
+                 if a != "tensor" and d > 1}
+        if other:
+            raise ValueError(f"tensor-parallel serving takes a mesh whose "
+                             f"axes other than 'tensor' are 1, got {other}")
+        _check_heads((self.cfg.n_heads, self.cfg.kv_heads), self.tp)
+        apply_plan(self.model, ShardPlan(mesh=self.mesh, strategy="tp"),
+                   self.mesh, self.device, rules=SERVE_TP_RULES,
+                   heads=(self.cfg.n_heads, self.cfg.kv_heads),
+                   megatron_sp=False)
 
     # -- request intake ------------------------------------------------------
 
@@ -545,15 +612,27 @@ class ServeEngine:
             return None
         return self.adapter_pool.effective_lora(req.adapter)
 
-    def _commit_prefill(self, req: Request, k: Any, v: Any) -> None:
+    def _commit_prefill(self, slot: int, req: Request, k: Any,
+                        v: Any) -> None:
         """Land a finished prefill's computed cache rows in the request's
         blocks — only the uncached suffix: rows ``k``/``v`` start at token
         ``req.cached_tokens`` (a prefix-cache hit's reused blocks already
-        hold their KV).  Then publish every full prompt block into the
-        radix index: decode writes start at position n_prompt, so those
-        rows are immutable."""
+        hold their KV).  Colocated serving writes them in place;
+        disaggregated serving ships them (``pool.ship_prefill``, the same
+        write plus its block and byte accounting) and journals the
+        shipment.  Then publish every full prompt block into the radix
+        index: decode writes start at position n_prompt, so those rows
+        are immutable."""
         full = blocks_for_tokens(req.n_prompt, self.pool.block_size)
-        self.pool.write_prefill(req.blocks[req.cached_blocks:full], k, v)
+        blocks = req.blocks[req.cached_blocks:full]
+        if not self.disaggregate:
+            self.pool.write_prefill(blocks, k, v)
+        else:
+            moved = self.pool.ship_prefill(blocks, k, v)
+            self.scheduler.record_ship(slot, len(blocks))
+            if self.journal is not None:
+                self.journal.event("serve.kv_ship", rid=req.rid, slot=slot,
+                                   n_blocks=len(blocks), bytes=moved)
         if self._prefix_cache is not None:
             n_pub = req.n_prompt // self.pool.block_size
             new = self._prefix_cache.insert(
@@ -570,16 +649,17 @@ class ServeEngine:
         req.token_walls = [req.t_first_token]
         self.tokens_emitted += 1
 
-    def _prefill_into_slot(self, req: Request) -> None:
+    def _prefill_into_slot(self, slot: int, req: Request) -> None:
         tokens = torch.tensor([req.prompt], dtype=torch.int64,
                               device=self.device)
         cache = KVCache.init(self.cfg, 1, tokens.shape[1],
-                             dtype=torch.bfloat16, device=self.device)
+                             dtype=torch.bfloat16, device=self.device,
+                             kv_heads=self.pool.kv_heads)
         with adapted(self.model, self._req_lora(req), self.lora_spec):
             logits, cache = forward_cached(self.model, tokens, cache,
                                            moe_decode=self.moe_decode)
         self._first_token(req, logits)
-        self._commit_prefill(req, cache.k[:, 0], cache.v[:, 0])
+        self._commit_prefill(slot, req, cache.k[:, 0], cache.v[:, 0])
 
     def _start_prefill(self, slot: int, req: Request) -> None:
         """Admission entry point: single-shot prefill, or flip the slot to
@@ -590,11 +670,11 @@ class ServeEngine:
             # happens here, before the prefill work
             if not self._bind_adapter(slot, req):
                 return
-            self._prefill_into_slot(req)
+            self._prefill_into_slot(slot, req)
             return
         req.state = "prefilling"
         cache = KVCache.init(self.cfg, 1, self.max_len, dtype=torch.bfloat16,
-                             device=self.device)
+                             device=self.device, kv_heads=self.pool.kv_heads)
         if self._prefix_cache is not None:
             self.prefix_queries += 1
             if req.cached_tokens:
@@ -656,7 +736,7 @@ class ServeEngine:
             else:
                 k_rows = st.cache.k[:, 0, req.cached_tokens:req.n_prompt]
                 v_rows = st.cache.v[:, 0, req.cached_tokens:req.n_prompt]
-            self._commit_prefill(req, k_rows, v_rows)
+            self._commit_prefill(slot, req, k_rows, v_rows)
             req.state = "running"
             del self._prefill[req.rid]
         chunk_s = time.monotonic() - t0
@@ -812,7 +892,9 @@ class ServeEngine:
                     if req.t_first_token else None),
             itl_s=itl_s,
             itl_mean_s=(sum(itl_s) / len(itl_s) if itl_s else None),
-            kv_ship_s=None, cached_tokens=cached_tokens or None,
+            kv_ship_s=((req.t_kv_shipped - req.t_admit)
+                       if req.t_kv_shipped and req.t_admit else None),
+            cached_tokens=cached_tokens or None,
             prefill_chunks=req.prefill_chunks or None,
             prefill_compute_s=(round(req.prefill_compute_s, 6)
                                if req.prefill_chunks else None),
@@ -820,8 +902,9 @@ class ServeEngine:
 
     def step(self) -> None:
         """One serving iteration: evict finished, admit queued, advance
-        prefill chunks (at most ``prefill_chunks_per_step``), grow/preempt
-        (optimistic), decode every decoding slot."""
+        prefill chunks (at most ``prefill_chunks_per_step``; every
+        prefilling slot when disaggregated), grow/preempt (optimistic),
+        decode every decoding slot."""
         sched = self.scheduler
         tokens_before = self.tokens_emitted
         for s in range(self.n_slots):
@@ -834,7 +917,8 @@ class ServeEngine:
             if req.state == "running" and req.finished():
                 self._finish(slot)  # single-shot, max_new_tokens == 1
         prefill_s = 0.0
-        for slot, req in sched.prefill_plan(self.prefill_chunks_per_step):
+        budget = None if self.disaggregate else self.prefill_chunks_per_step
+        for slot, req in sched.prefill_plan(budget):
             t0 = time.monotonic()
             self._advance_prefill(slot, req)
             prefill_s += time.monotonic() - t0
@@ -856,7 +940,10 @@ class ServeEngine:
         self._occupancy_sum += sched.n_active / self.n_slots
         self.prefill_busy_s += prefill_s
         self.decode_busy_s += decode_s
-        self.overlapped_wall_s += prefill_s + decode_s
+        # one device serializes the phases; disaggregated slices overlap
+        overlap_s = (max(prefill_s, decode_s) if self.disaggregate
+                     else prefill_s + decode_s)
+        self.overlapped_wall_s += overlap_s
         if self.journal is not None:
             extra = {}
             if self.adapter_pool is not None:
@@ -875,7 +962,9 @@ class ServeEngine:
                 occupancy=sched.n_active / self.n_slots,
                 free_blocks=self.pool.allocator.n_free,
                 prefill_s=prefill_s, decode_s=decode_s,
-                mode="colocated", overlap_s=prefill_s + decode_s,
+                mode=("disaggregated" if self.disaggregate
+                      else "colocated"),
+                overlap_s=overlap_s,
                 **extra)
         if self._debug_invariants:
             sched.check_invariants()

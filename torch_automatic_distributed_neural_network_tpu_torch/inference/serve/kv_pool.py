@@ -21,6 +21,13 @@ at the same (block, offset) the token lands in.
 The pool is updated IN PLACE: ``pool.k[l]`` / ``pool.v[l]`` are views of
 layer ``l`` of the stored tensors (dicts of views in int8 mode), and the
 decode step writes each token into them directly.
+
+Under tensor parallelism (``mesh=`` with a ``tensor`` axis of degree t)
+each rank allocates its own kv heads only, ``[L, NB, bs, kvH/t, hd]``
+(:attr:`PagedKVPool.spec`, ``decode.cache_partition_spec`` without batch
+axes); block ids, tables and the allocator are the same on every rank.
+The byte counts (:func:`pool_kv_bytes`, ``bytes_per_block``,
+``total_bytes``) stay global, as the JAX package reckons them.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any
 
 import torch
 
+from ...ops.paged_attention import tensor_degree
 from ...utils.device import resolve_device
 from ..quant import is_quantized_leaf, kv_leaf_parts, quantize_kv
 
@@ -196,11 +204,13 @@ class PagedKVPool:
     ``self.kv`` holds the stacked ``{"k": .., "v": ..}`` tensors with a
     leading layer axis; ``self.k[l]`` / ``self.v[l]`` are layer ``l``'s
     views of them, which the decode step updates in place.  ``device``
-    defaults to ``cuda`` and raises without it."""
+    defaults to ``cuda`` and raises without it.  ``mesh``: this rank's
+    kv heads only (module docstring); ``spec`` is then their placement,
+    else None."""
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int,
                  dtype=torch.bfloat16, quantize: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         self.cfg = cfg
         self.block_size = int(block_size)
         self.dtype = dtype
@@ -211,8 +221,17 @@ class PagedKVPool:
         self.n_transfers = 0
         self.transferred_blocks = 0
         self.transferred_bytes = 0
-        shape = (cfg.n_layers, num_blocks, block_size,
-                 cfg.kv_heads, cfg.head_dim)
+        self.spec = None
+        kv_heads = cfg.kv_heads
+        if mesh is not None:
+            from ..decode import cache_partition_spec
+
+            self.spec = cache_partition_spec(cfg, mesh, batch_axes=())
+            if self.spec[3] is not None:
+                kv_heads //= tensor_degree(mesh)
+        self.kv_heads = kv_heads  # this rank's
+        shape = (cfg.n_layers, num_blocks, block_size, kv_heads,
+                 cfg.head_dim)
         self.kv = {side: _zeros_side(shape, dtype, quantize, self.device)
                    for side in ("k", "v")}
         self.k = _layer_views(self.kv["k"], cfg.n_layers)

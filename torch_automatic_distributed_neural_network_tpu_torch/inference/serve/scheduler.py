@@ -32,8 +32,10 @@ pinned reference (``check_invariants`` asserts it).  Prefix matches are
 keyed by the adapter too (``prefix_cache.block_hashes``): a tenant
 reuses only KV computed through its own weights.
 
-A framework-free copy of the JAX package's scheduler, without
-disaggregated KV shipping (not ported yet).  The scheduler owns no
+A framework-free copy of the JAX package's scheduler, disaggregated KV
+shipping's accounting included (:meth:`Scheduler.record_ship`).  Under
+tensor parallelism every rank runs the same scheduler in lockstep, so
+the ranks hand out the same block ids.  The scheduler owns no
 device state: it moves ``Request`` objects between queue and slots and
 block ids between the allocator and block tables.
 """
@@ -237,6 +239,9 @@ class Scheduler:
         self.slots: list[Request | None] = [None] * n_slots
         self.n_finished = 0
         self.n_preemptions = 0
+        # disaggregated serving: finished prefills shipped into decode
+        self.n_kv_ships = 0
+        self.shipped_blocks = 0
 
     # -- introspection -------------------------------------------------------
 
@@ -470,6 +475,16 @@ class Scheduler:
             self.slots[slot] = req
             admitted.append((slot, req))
         return admitted
+
+    def record_ship(self, slot: int, n_blocks: int) -> None:
+        """Account one finished prefill's KV-block transfer into decode
+        (disaggregated serving hands ``n_blocks`` to the decode side's
+        pool): stamps the request and the running totals."""
+        req = self.slots[slot]
+        assert req is not None, f"record_ship on empty slot {slot}"
+        req.t_kv_shipped = self.clock()
+        self.n_kv_ships += 1
+        self.shipped_blocks += int(n_blocks)
 
     def prefill_plan(self, max_chunks: int | None
                      ) -> list[tuple[int, Request]]:

@@ -39,7 +39,8 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import attention
-from ..parallel.context import seq_offset
+from ..parallel.collectives import gather_whole, scatter_slices
+from ..parallel.context import seq_offset, sequence_parallel
 from ..utils.device import is_dtensor
 
 
@@ -197,8 +198,46 @@ def _linear(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
 def gathered(p):
     """A parameter as a plain tensor: a tensor-parallel ``DTensor`` (the
     plan's vocab split of the embedding or the head) all-gathered, in a
-    way autograd differentiates."""
-    return p.full_tensor() if is_dtensor(p) else p
+    way autograd differentiates.  A CUDA ``DTensor`` on a gloo mesh (two
+    processes sharing one card: gloo moves CUDA tensors by all-reduce and
+    broadcast only) is gathered by an all-reduce of its zero-padded
+    shards, which is exact."""
+    if not is_dtensor(p):
+        return p
+    if p.is_cuda:
+        import torch.distributed as dist
+
+        if dist.get_backend(p.device_mesh.get_group(0)) == "gloo":
+            return _GatherBySum.apply(p.to_local(), p)
+    return p.full_tensor()
+
+
+class _GatherBySum(torch.autograd.Function):
+    """A sharded ``DTensor`` whole from its local shard: the shard written
+    into zeros at its offset, summed over each mesh dim it is sharded on;
+    the gradient (the same on every rank) sliced back to the shard."""
+
+    @staticmethod
+    def forward(ctx, local, p):
+        import torch.distributed as dist
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset,
+        )
+
+        mesh = p.device_mesh
+        shape, offset = compute_local_shape_and_global_offset(
+            p.shape, mesh, p.placements)
+        ctx.where = tuple(slice(o, o + n) for o, n in zip(offset, shape))
+        full = torch.zeros(p.shape, dtype=local.dtype, device=local.device)
+        full[ctx.where] = local
+        for dim, placement in enumerate(p.placements):
+            if placement.is_shard():
+                dist.all_reduce(full, group=mesh.get_group(dim))
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.where], None
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -285,15 +324,23 @@ class MLPBlock(nn.Module):
         return _linear(h, self.down_proj, dt)
 
 
-def _dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: int | None,
+             shard: tuple[int, int] | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale the
     kept values by 1 / (1 - rate), from a generator seeded with ``seed``
     (None: deterministic, no dropout).  A seed, not a generator, crosses
-    the layer's checkpoint, so the recompute draws the same mask."""
+    the layer's checkpoint, so the recompute draws the same mask.
+    ``shard`` ``(n, i)``: ``x`` is slice i of n of the sequence (dim 1),
+    and takes that slice of the whole sequence's mask."""
     if not rate or seed is None:
         return x
     gen = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    shape = list(x.shape)
+    if shard is not None:
+        shape[1] *= shard[0]
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    if shard is not None:
+        keep = keep.narrow(1, shard[1] * x.shape[1], x.shape[1])
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 
@@ -320,8 +367,12 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         post = cfg.norm_order == "post"
         s_attn, s_mlp = seeds or (None, None)
+        sp = sequence_parallel(self)
+        shard = None if sp is None else (
+            sp.sp_degree, sp.mesh.get_local_rank("tensor"))
         h = x if post else self.attn_norm(x)
-        h = _dropout(self.attn(h, positions, mask), cfg.dropout_rate, s_attn)
+        h = _dropout(self.attn(h, positions, mask), cfg.dropout_rate, s_attn,
+                     shard)
         x = x + h
         if post:
             x = self.attn_norm(x)
@@ -329,7 +380,7 @@ class DecoderLayer(nn.Module):
         h, aux = self.mlp(h), None
         if isinstance(h, tuple):
             h, aux = h
-        h = _dropout(h, cfg.dropout_rate, s_mlp)
+        h = _dropout(h, cfg.dropout_rate, s_mlp, shard)
         out = x + h
         if post:
             out = self.mlp_norm(out)
@@ -456,7 +507,10 @@ def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
 
     Under context parallelism (``parallel/context.py``) the tokens are
     this rank's slice of the sequence: the default positions, and the
-    learned position rows, start at its offset."""
+    learned position rows, start at its offset.  Under Megatron-SP the
+    layer stack runs on this rank's slice of the (local) sequence,
+    scattered after the embeddings and gathered before the final norm;
+    the positions are the whole sequence's."""
     if inputs_embeds is not None:
         if tokens is not None:
             raise ValueError("pass tokens or inputs_embeds, not both")
@@ -478,6 +532,14 @@ def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
                                  cfg.dtype)
     if cfg.embed_norm:
         x = mod.embed_norm(x)
+    sp = sequence_parallel(mod)
+    if sp is not None:
+        if S % sp.sp_degree:
+            raise ValueError(
+                f"Megatron-SP splits the sequence over tensor "
+                f"{sp.sp_degree}: {S} tokens do not divide; pass "
+                f"AutoDistribute(megatron_sp=False)")
+        x = scatter_slices(x, sp.tensor_group)
     if trunk is not None:
         x = trunk(x, positions, generator, mask)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -485,6 +547,8 @@ def backbone_forward(mod: nn.Module, cfg: TransformerConfig, tokens,
         x, aux = run_layers(mod.layers, cfg, x, positions,
                             layer_seeds(cfg, generator, len(mod.layers)),
                             mask)
+    if sp is not None:
+        x = gather_whole(x, sp.tensor_group)
     if cfg.final_norm:
         x = mod.final_norm(x)
     return x, aux

@@ -25,6 +25,15 @@ dense ``gather_blocks`` + ``xla_attention`` path the engine's
 for tensors on the CPU; on a CUDA tensor it launches the kernel or
 raises.  :func:`paged_attention_split_reference` is a plain model of the
 kernel's split-and-merge arithmetic, for the tests.
+
+Under tensor parallelism (``mesh=`` with a ``tensor`` axis of degree t)
+each rank holds whole kv heads: rank r the kv heads ``[r kvH/t,
+(r + 1) kvH/t)`` and their query groups (heads are kv-major, so a GQA
+group never straddles two ranks), in a pool of its own
+(:func:`local_heads`: a contiguous copy, never a strided view, because
+the kernel encodes its TMA tensor maps from the pool's strides).
+Attention is head-parallel: the kernel runs unchanged on the local
+heads and the result is this rank's heads, with nothing to combine.
 """
 
 from __future__ import annotations
@@ -109,14 +118,49 @@ def kernel_takes(head_dim: int, q_dtype: torch.dtype,
             and pool_dtype in _KV_DTYPES)
 
 
+def tensor_degree(mesh, axis: str = "tensor") -> int:
+    """Degree of ``axis`` in ``mesh`` (a ``DeviceMesh`` or a degrees
+    mapping); 1 when the axis is absent or ``mesh`` is None."""
+    if mesh is None:
+        return 1
+    from ..topology import mesh_degrees
+
+    return mesh_degrees(mesh).get(axis, 1)
+
+
+def local_heads(x, t: int, rank: int, dim: int):
+    """Rank ``rank``'s share of ``x``'s head dim ``dim`` out of ``t``
+    whole-head shards, as a contiguous tensor of its own (an int8 pool's
+    ``{"q", "scale"}`` leaf part by part).  Raises when ``t`` does not
+    divide the heads: the port splits whole heads."""
+    if isinstance(x, dict):
+        return {k: local_heads(v, t, rank, dim) for k, v in x.items()}
+    n = x.shape[dim]
+    if n % t:
+        raise ValueError(f"{n} heads do not split into {t} whole-head "
+                         f"shards")
+    w = n // t
+    return x.narrow(dim, rank * w, w).contiguous()
+
+
 def paged_attention(q: torch.Tensor, k_pool, v_pool, tables: torch.Tensor,
                     ctx_lens: torch.Tensor, *,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None, mesh=None,
+                    axis: str = "tensor") -> torch.Tensor:
     """Paged decode attention over one layer of the KV pool.
 
     Returns [S, Hq, hd] in ``q.dtype``.  On the CPU this is the plain
     version; on a CUDA tensor it launches the kernel (and counts the
-    launch in ``paged_attention.launches``)."""
+    launch in ``paged_attention.launches``).  With ``mesh`` of ``axis``
+    degree t > 1 the operands are this rank's whole-head shard (q [S,
+    Hq/t, hd], pools [NB, bs, kvH/t, hd], as :func:`local_heads` cuts
+    them), tables and context lengths the full ones, and the result is
+    this rank's heads (module docstring)."""
+    t = tensor_degree(mesh, axis)
+    if t > 1 and not all(kv_leaf_parts(p)[0].is_contiguous()
+                         for p in (k_pool, v_pool)):
+        raise ValueError("a rank's pool shard must be an allocation of "
+                         "its own (local_heads), not a strided view")
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pool, v_pool, tables,
                                          ctx_lens, window=window)

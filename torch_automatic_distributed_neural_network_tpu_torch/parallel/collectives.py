@@ -27,6 +27,11 @@ pipeline's stage boundaries (``"pipe"``), the broadcasts it is the
 source of (``"broadcast"``: the pipeline's trunk output and input
 cotangent), the ring's K/V rotations (``"ring"``) and the all-to-all
 exchanges (``"all_to_all"``).
+
+:class:`CollectiveCounter` counts the collectives dispatched while it is
+active, by kind, whoever issues them (a tensor-parallel wrapper's
+``DTensor`` redistribution, FSDP2, or a direct ``torch.distributed``
+call): the count a decode step or a training step makes.
 """
 
 from __future__ import annotations
@@ -114,6 +119,32 @@ def axis_index(axis: str, *, mesh) -> int:
 
 traffic = {"pipe": 0, "broadcast": 0, "ring": 0, "all_to_all": 0,
            "staged": 0}
+
+
+# the kinds, by the words their dispatched ops' names hold (the
+# functional and the in-place ops, coalesced and padded variants too)
+_KINDS = (("reduce_scatter", "reduce_scatter"), ("all_reduce", "all_reduce"),
+          ("allreduce", "all_reduce"), ("all_gather", "all_gather"),
+          ("allgather", "all_gather"), ("all_to_all", "all_to_all"),
+          ("alltoall", "all_to_all"), ("broadcast", "broadcast"))
+
+
+class CollectiveCounter(torch.utils._python_dispatch.TorchDispatchMode):
+    """``with CollectiveCounter() as c: ...``: ``c.counts`` maps a kind
+    (``all_reduce``, ``reduce_scatter``, ``all_gather``, ``all_to_all``,
+    ``broadcast``) to the collectives of that kind dispatched inside."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace in ("_c10d_functional", "c10d"):
+            kind = next((k for word, k in _KINDS if word in func._opname),
+                        None)
+            if kind is not None:
+                self.counts[kind] = self.counts.get(kind, 0) + 1
+        return func(*args, **(kwargs or {}))
 
 
 def reset_traffic() -> None:
@@ -242,24 +273,104 @@ class _GatherSeq(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
         ctx.group, ctx.dim = group, dim
-        staged = _staged(x, group)
-        src = _to_host(x) if staged else x
-        out = _done(funcol.all_gather_tensor(
-            src.movedim(dim, 0).contiguous(), 0, group))
-        out = out.movedim(0, dim)
-        return _from_host(out, x.device) if staged else out
+        return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        staged = _staged(g, ctx.group)
-        src = _to_host(g) if staged else g
-        out = _done(funcol.reduce_scatter_tensor(
-            src.movedim(ctx.dim, 0).contiguous(), "sum", 0, ctx.group))
-        out = out.movedim(0, ctx.dim)
-        return (_from_host(out, g.device) if staged else out), None, None
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 def gather_slices(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
     """The whole tensor from each rank's slice along ``dim`` (a sequence
     split over the ``seq`` axis), differentiable."""
     return _GatherSeq.apply(x, group, dim)
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (a
+    host buffer in between for a CUDA tensor on a gloo group)."""
+    staged = _staged(x, group)
+    src = _to_host(x) if staged else x
+    out = _done(funcol.all_gather_tensor(
+        src.movedim(dim, 0).contiguous(), 0, group)).movedim(0, dim)
+    return _from_host(out, x.device) if staged else out
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``x`` summed over the group."""
+    staged = _staged(x, group)
+    src = _to_host(x) if staged else x
+    out = _done(funcol.reduce_scatter_tensor(
+        src.movedim(dim, 0).contiguous(), "sum", 0, group)).movedim(0, dim)
+    return _from_host(out, x.device) if staged else out
+
+
+def _own_slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = group.size()
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"{n} ways")
+    width = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * width, width).contiguous()
+
+
+class _Scatter(torch.autograd.Function):
+    """This rank's slice; the gradient gathered back (Megatron-SP's
+    entry: every rank holds the same whole tensor before it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    """The slices gathered; the gradient this rank's slice of it (every
+    rank computes the same loss from the whole tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Partial sums reduce-scattered along ``dim``; the gradient
+    all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+def scatter_slices(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a tensor every rank holds
+    whole; its gradient all-gathered (Megatron-SP's ``g`` operator)."""
+    return _Scatter.apply(x, group, dim)
+
+
+def gather_whole(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The whole tensor from each rank's slice along ``dim``, whose
+    gradient is the same on every rank: the backward keeps this rank's
+    slice of it, no collective."""
+    return _GatherWhole.apply(x, group, dim)
+
+
+def reduce_scatter_slices(x: torch.Tensor, group,
+                          dim: int = 1) -> torch.Tensor:
+    """Each rank's partial sums, reduce-scattered along ``dim``;
+    differentiable (the gradient all-gathered)."""
+    return _ReduceScatter.apply(x, group, dim)

@@ -600,12 +600,15 @@ def _worker_main(args) -> int:
         if step in kill_at:
             # orchestrator-scheduled hard kill: the latch marker makes
             # it once-per-launch (the resumed cohort replays this step
-            # without re-dying); SIGKILL means no drain, no atexit, no
-            # ckpt.wait() — the in-flight async save must be protected
-            # by the completion markers, not by a clean shutdown
+            # without re-dying); SIGKILL means no drain and no atexit.
+            # The saves queued before this step are made durable first,
+            # so the restart's resume point is fixed (the newest save
+            # before the kill); a torn save is held to the completion
+            # markers by ``tear_checkpoint`` and the doctor instead
             marker = os.path.join(
                 args.launch_dir, f"chaos_sigkill_h{pid}_s{step}")
             if not os.path.exists(marker):
+                ckpt.wait()
                 with open(marker, "w") as f:
                     f.write(str(os.getpid()))
                 journal.event("launch.chaos", kind="sigkill",

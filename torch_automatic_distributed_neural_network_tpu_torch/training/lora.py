@@ -41,6 +41,19 @@ and no state, so Adam moments exist only for the factors.
 ``AutoDistribute`` hands the optimizer and the gradient only the
 parameters that train.  :func:`merge_lora` folds trained factors back
 into plain weights that a ``DecoderLM`` loads.
+
+A target that is a bare parameter rather than an ``nn.Linear`` weight
+(``HEAD_LIKE``: Llama's untied ``lm_head [d, V]``, JAX's ``[in, out]``
+view) carries its factors beside it on its owner, as ``<name>_lora_a`` /
+``<name>_lora_b``; the owner's class becomes a subclass whose read of the
+parameter returns the merged weight ``W + scaling * a @ b`` (fp32
+contraction and sum, stored in W's dtype), so every use of it adapts.
+
+Under a tensor-parallel plan (``executor``'s wrappers) a targeted
+module's weight is a ``DTensor``; :func:`adapted` lays the factors out
+as the weight is split (a column-split weight's ``b`` and a row-split
+weight's ``a`` sharded with it, the other replicated), so the merge is
+the rank's shard of the merged weight.
 """
 
 from __future__ import annotations
@@ -85,8 +98,22 @@ FACTOR_NAMES = ("lora_a", "lora_b")
 
 
 def is_lora_name(name: str) -> bool:
-    """Whether a parameter name is a LoRA factor (``...lora_a``/``_b``)."""
-    return name.rsplit(".", 1)[-1] in FACTOR_NAMES
+    """Whether a parameter name is a LoRA factor (``...lora_a``/``_b``,
+    or a bare parameter's ``..._lora_a``/``_b``)."""
+    return name.rsplit(".", 1)[-1].endswith(FACTOR_NAMES)
+
+
+def factor_prefix(name: str) -> str:
+    """The prefix of a targeted weight's factor names: ``layers.0.attn.
+    q_proj.`` for ``layers.0.attn.q_proj.weight`` (the module's
+    ``lora_a``), ``lm_head_`` for a bare parameter ``lm_head``."""
+    return name[:-len("weight")] if name.endswith(".weight") else name + "_"
+
+
+def factor_site(name: str) -> str:
+    """The weight a factor name adapts (inverse of :func:`factor_prefix`)."""
+    stem = name[:-len("lora_a")]
+    return stem + "weight" if stem.endswith(".") else stem[:-1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -296,17 +323,73 @@ def _lora_class(cls: type) -> type:
     return _LORA_CLASSES[cls]
 
 
-def _linear_of(model: nn.Module, name: str, target: LoraTarget
-               ) -> nn.Linear:
+class LoraParams:
+    """Mixed into a module's class by :func:`apply_lora` for the bare
+    parameters it adapts: reading one (``_lora_sites``: name -> target)
+    gives ``W + scaling * a @ b`` laid into W's shape, in W's dtype, from
+    the factors ``<name>_lora_a`` / ``<name>_lora_b`` beside it."""
+
+    def __getattr__(self, name: str):
+        sites = self.__dict__.get("_lora_sites")
+        if sites is None or name not in sites:
+            return super().__getattr__(name)
+        from ..models.transformer_core import dense_weight, gathered
+
+        w = gathered(super().__getattr__(name))
+        a = self._lora_factor(f"{name}_lora_a")
+        b = self._lora_factor(f"{name}_lora_b")
+        d = lora_delta(gathered(a), gathered(b), self._lora_scaling,
+                       sites[name], w.shape)
+        dtype = w.dtype if isinstance(w, torch.Tensor) else torch.float32
+        return (dense_weight(w, torch.float32) + d).to(dtype)
+
+    def _lora_factor(self, name: str):
+        got = self.__dict__.get(name)
+        return got if got is not None else super().__getattr__(name)
+
+
+_PARAM_CLASSES: dict[type, type] = {}
+
+
+def _params_class(cls: type) -> type:
+    """:class:`LoraParams` over a module class, made once per class."""
+    if issubclass(cls, LoraParams):
+        return cls
+    if cls not in _PARAM_CLASSES:
+        _PARAM_CLASSES[cls] = type(f"Lora{cls.__name__}", (LoraParams, cls),
+                                   {"__module__": __name__})
+    return _PARAM_CLASSES[cls]
+
+
+def _site_of(model: nn.Module, name: str, target: LoraTarget):
+    """(owning module, attribute, whether it is an ``nn.Linear``'s
+    ``[out, in]`` weight) of a targeted weight."""
     owner_name, _, attr = name.rpartition(".")
     owner = model.get_submodule(owner_name) if owner_name else model
-    if attr != "weight" or not isinstance(owner, nn.Linear) or (
-            not target.out_first):
+    linear = attr == "weight" and isinstance(owner, nn.Linear)
+    if linear != target.out_first:
         raise NotImplementedError(
-            f"LoRA on {name!r}: the port adapts nn.Linear weights "
-            "([out, in]) in a module; merge factors of other weights with "
-            "merge_lora")
-    return owner
+            f"LoRA on {name!r}: an out_first target adapts an nn.Linear "
+            "weight, any other target a bare parameter in JAX's [in, out] "
+            "view")
+    return owner, attr, linear
+
+
+def _tp_factors(weight, a, b):
+    """``a`` / ``b`` as ``DTensor``s split as ``weight`` is (module
+    docstring); as they are for a plain weight."""
+    from ..utils.device import is_dtensor
+
+    if not is_dtensor(weight):
+        return a, b
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    place = weight.placements[0]
+    mesh = weight.device_mesh
+    a_pl = Shard(0) if place.is_shard() and place.dim == 1 else Replicate()
+    b_pl = Shard(1) if place.is_shard() and place.dim == 0 else Replicate()
+    return (distribute_tensor(a, mesh, [a_pl], src_data_rank=None),
+            distribute_tensor(b, mesh, [b_pl], src_data_rank=None))
 
 
 def _install(model: nn.Module, spec: LoraSpec, lora: Mapping,
@@ -320,7 +403,8 @@ def _install(model: nn.Module, spec: LoraSpec, lora: Mapping,
             f"sites {sorted(shapes)[:4]}... ({len(lora)} vs {len(shapes)})")
     done = []
     for name, fac in lora.items():
-        mod = _linear_of(model, name, spec.resolve(name))
+        target = spec.resolve(name)
+        mod, attr, linear = _site_of(model, name, target)
         _, d_in, d_out = shapes[name]
         a, b = fac["a"], fac["b"]
         if tuple(a.shape) != (d_in, spec.rank) or tuple(b.shape) != (
@@ -328,20 +412,29 @@ def _install(model: nn.Module, spec: LoraSpec, lora: Mapping,
             raise ValueError(
                 f"{name}: factors a{tuple(a.shape)} / b{tuple(b.shape)} "
                 f"do not match a{(d_in, spec.rank)} / b{(spec.rank, d_out)}")
-        dev = mod.weight.device
-        done.append((mod, mod.__class__))
-        if not isinstance(mod, LoraLinear):
-            mod.__class__ = _lora_class(type(mod))
-        mod.lora_scaling = spec.scaling
+        weight = mod._parameters[attr]
+        dev = weight.device
+        if not any(m is mod for m, _ in done):
+            done.append((mod, mod.__class__))
+        if linear:
+            names = FACTOR_NAMES
+            if not isinstance(mod, LoraLinear):
+                mod.__class__ = _lora_class(type(mod))
+            mod.lora_scaling = spec.scaling
+        else:
+            names = (f"{attr}_lora_a", f"{attr}_lora_b")
+            mod.__class__ = _params_class(type(mod))
+            mod.__dict__.setdefault("_lora_sites", {})[attr] = target
+            mod._lora_scaling = spec.scaling
         if as_parameters:
             # copies: training updates the factors in place
-            mod.lora_a = nn.Parameter(a.detach().to(dev, torch.float32,
-                                                    copy=True))
-            mod.lora_b = nn.Parameter(b.detach().to(dev, torch.float32,
-                                                    copy=True))
+            for n, x in zip(names, (a, b)):
+                setattr(mod, n, nn.Parameter(
+                    x.detach().to(dev, torch.float32, copy=True)))
         else:
-            object.__setattr__(mod, "lora_a", a)
-            object.__setattr__(mod, "lora_b", b)
+            for n, x in zip(names, _tp_factors(weight, a.to(dev),
+                                               b.to(dev))):
+                object.__setattr__(mod, n, x)
     return done
 
 
@@ -369,8 +462,8 @@ def lora_named(lora: Mapping) -> dict[str, torch.Tensor]:
     gives its factors (``...lora_a`` / ``...lora_b``)."""
     out = {}
     for name, fac in lora.items():
-        owner = name[:-len("weight")]
-        out[owner + "lora_a"], out[owner + "lora_b"] = fac["a"], fac["b"]
+        prefix = factor_prefix(name)
+        out[prefix + "lora_a"], out[prefix + "lora_b"] = fac["a"], fac["b"]
     return out
 
 
@@ -379,9 +472,14 @@ def lora_state(model: nn.Module) -> dict:
     keyed by the adapted weight's name (detached, not copied)."""
     out = {}
     for mod_name, mod in model.named_modules():
+        prefix = f"{mod_name}." if mod_name else ""
         if isinstance(mod, LoraLinear):
-            out[f"{mod_name}.weight"] = {"a": mod.lora_a.detach(),
-                                         "b": mod.lora_b.detach()}
+            out[f"{prefix}weight"] = {"a": mod.lora_a.detach(),
+                                      "b": mod.lora_b.detach()}
+        for attr in mod.__dict__.get("_lora_sites", ()):
+            out[prefix + attr] = {
+                "a": mod._lora_factor(f"{attr}_lora_a").detach(),
+                "b": mod._lora_factor(f"{attr}_lora_b").detach()}
     return out
 
 
@@ -403,7 +501,10 @@ def adapted(model: nn.Module, lora: Mapping | None, spec: LoraSpec):
         yield model
     finally:
         for mod, cls in done:
-            for attr in FACTOR_NAMES + ("lora_scaling",):
+            for attr in mod.__dict__.pop("_lora_sites", ()):
+                for side in FACTOR_NAMES:
+                    mod.__dict__.pop(f"{attr}_{side}", None)
+            for attr in FACTOR_NAMES + ("lora_scaling", "_lora_scaling"):
                 mod.__dict__.pop(attr, None)
             mod.__class__ = cls
 
