@@ -296,12 +296,29 @@ card, in phases, one JSON line each; any failure exits non-zero:
    overlapped wall beside the busy sum; and (f) LoRA on Llama 3.2 1B's
    untied head (``HEAD_LIKE``) beside q/v at 2 layers, B 4 x S 512, 5
    steps: the base loss first, then falling, the head bitwise, its
-   factors trained.
+   factors trained;
+27. the serving gateway (``gateway``): two ``EngineReplica``s, each a
+   ``ServeEngine`` of GPT-2 small at full width and depth (one weight
+   copy, fp32 compute, bf16 KV, prefix cache on, K4), behind
+   ``Router(policy="affinity")`` gated by a ``CircuitBreaker`` a
+   replica, the engines and the breakers journaling into one file; 16
+   greedy requests of 128 prompt + 32 new tokens in four groups sharing
+   a 64-token prefix (each group's first request prefilled before the
+   rest): the later requests of a group go to its first's replica (12
+   affinity placements) and hit its prefix cache; part way through
+   replica B's breaker is opened by ``observe(False)`` while B stalls,
+   new groups avoid it, B is drained onto A and forgotten; every request
+   finishes once with 32 tokens, those that never moved agree with one
+   engine serving the same prompts alone at 1.0 and those moved at
+   least 0.99; K4 launches on both replicas, once a layer a decode
+   step; the journal read back by ``Journal.follow`` into
+   ``LiveAggregator`` counts the 16 requests, and ``tadnn doctor
+   --gateway-dir --json`` exits 0 and reports B's breaker opening.
 
-Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23 and 25 write their
-journals with schema validation on (``Journal(validate=True)``): a record that
-breaks the event schema fails the run; phase 18 checks every record
-of its merged journal the same way.
+Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23, 25 and 27 write
+their journals with schema validation on (``Journal(validate=True)``): a
+record that breaks the event schema fails the run; phase 18 checks every
+record of its merged journal the same way.
 
 Then, on lines of their own: a summary (the number of kernels, K4's
 launches per decode step, the prefix hit rates), the per-kernel JSON record, the
@@ -5253,6 +5270,223 @@ def phase_sharded_serve(torch, card) -> dict[str, int]:
     return launches
 
 
+# -- phase 27: the serving gateway --------------------------------------------
+
+
+GATEWAY_SEED = 16
+GATEWAY_TRAFFIC = dict(groups=4, per_group=4, shared=64, prompt_len=128,
+                       max_new=32)
+GATEWAY_ENGINE = dict(n_slots=8, max_len=256, block_size=16,
+                      prefill_chunk=32, prefix_cache=True)
+
+
+def phase_gateway(torch, model) -> int:
+    """Prefix-affinity routing over two paged engines with a circuit
+    breaker a replica, a drain and failover, the journal read back live
+    and by the doctor (module docstring, phase 27).  Returns K4's
+    launches on the two replicas."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .gateway import BreakerPolicy, CircuitBreaker, EngineReplica, Router
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.live \
+        import LiveAggregator
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    tr = GATEWAY_TRAFFIC
+    rs = np.random.RandomState(GATEWAY_SEED)
+    vocab = model.cfg.vocab_size
+    groups = []
+    for _ in range(tr["groups"]):
+        shared = [int(t) for t in rs.randint(1, vocab, size=tr["shared"])]
+        groups.append([shared + [int(t) for t in rs.randint(
+            1, vocab, size=tr["prompt_len"] - tr["shared"])]
+            for _ in range(tr["per_group"])])
+    # warm-up: first-call costs stay out of the timed run
+    warm = ServeEngine(model, device="cuda", **GATEWAY_ENGINE)
+    warm.submit(groups[0][0], max_new_tokens=2)
+    warm.run()
+    del warm
+
+    gdir = tempfile.mkdtemp(prefix="tadnn_gateway_")
+    path = os.path.join(gdir, "journal.jsonl")
+    jnl = Journal(path, host0_only=False, validate=True,
+                  meta={"tool": "chip_smoke"})
+    reps = [EngineReplica(name, ServeEngine(model, journal=jnl,
+                                            device="cuda",
+                                            **GATEWAY_ENGINE))
+            for name in "AB"]
+    breakers = {r.name: CircuitBreaker(
+        r.name, BreakerPolicy(min_observations=4, open_s=3600.0),
+        journal=jnl) for r in reps}
+    router = Router(reps, block_size=GATEWAY_ENGINE["block_size"],
+                    policy="affinity",
+                    gate=lambda r: breakers[r.name].allow(), journal=jnl)
+    k4 = {r.name: 0 for r in reps}
+    reqs, where, moved = {}, {}, set()
+
+    def step(replicas):
+        for r in replicas:
+            before = paged_attention.launches
+            r.step()
+            k4[r.name] += paged_attention.launches - before
+
+    def step_until(replicas, cond, limit=2000):
+        for _ in range(limit):
+            if cond():
+                return
+            step(replicas)
+        require(False, "gateway: the replicas stopped making progress")
+
+    def submit(g, j):
+        rep = router.route(groups[g][j])
+        reqs[(g, j)] = rep.submit(groups[g][j], tr["max_new"])
+        where[(g, j)] = rep.name
+        return reqs[(g, j)]
+
+    def group(g, replicas):
+        # the first request prefills (and publishes its prefix) first
+        first = submit(g, 0)
+        step_until(replicas, lambda: first.t_first_token is not None)
+        for j in range(1, tr["per_group"]):
+            submit(g, j)
+
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for g in (0, 1):
+        group(g, reps)
+    step_until(reps, lambda: any(
+        r.n_generated > 1 for (g, _), r in reqs.items() if g == 1))
+    # B stalls from here (only A steps): its breaker opens on the
+    # failed observations and new groups avoid it
+    b = reps[1]
+    for _ in range(4):
+        breakers["B"].observe(False)
+    require(breakers["B"].state == "open" and not breakers["B"].allow(),
+            "gateway: B's breaker did not open")
+    for g in (2, 3):
+        group(g, reps[:1])
+    on_b = [k for k in reqs if k[0] >= 2 and where[k] == "B"]
+    require(not on_b, f"gateway: {on_b} placed on B behind its open breaker")
+    drained = b.drain()
+    moved = {r.rid for r in drained}
+    for req in drained:
+        reps[0].resubmit(req)
+    jnl.event("gateway.failover", kind="redispatch", replica="B",
+              reason="breaker_open", n_requeued=len(drained),
+              rids=sorted(moved))
+    released = router.forget("B")
+    step_until(reps, lambda: all(r.idle() for r in reps))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = paged_attention.launches
+    jnl.close()
+
+    finished = reps[0].take_finished() + b.take_finished()
+    rids = sorted(r.rid for r in finished)
+    require(rids == sorted(r.rid for r in reqs.values()),
+            f"gateway: finished {len(rids)} of {len(reqs)}, or twice")
+    require(all(len(r.out_tokens) == tr["max_new"] == len(r.token_walls)
+                and all(0 <= t < vocab for t in r.out_tokens)
+                for r in finished),
+            "gateway: a request's tokens are missing, doubled or out of "
+            "range")
+    stats = router.stats()
+    require(stats["n_routed"] == len(reqs) and stats["n_affinity"] >= (
+        tr["groups"] * (tr["per_group"] - 1)),
+        f"gateway: affinity placements {stats}")
+    require(bool(moved) and released > 0 and b.retired,
+            f"gateway: the drain moved {len(moved)} requests and released "
+            f"{released} claims")
+    recs = Journal.read(path)
+    done = sorted(r["rid"] for r in recs if r["name"] == "serve.request_done")
+    require(done == rids, "gateway: serve.request_done does not list each "
+            "request once")
+    hits = {r["rid"]: r["cached_tokens"] for r in recs
+            if r["name"] == "serve.prefix" and r.get("kind") == "match"
+            and r["hit"]}
+    stayed_later = [r.rid for (g, j), r in reqs.items()
+                    if j and r.rid not in moved]
+    require(len(stayed_later) >= 9 and all(
+        hits.get(rid) == tr["shared"] for rid in stayed_later),
+        f"gateway: prefix hits {hits} for the later requests "
+        f"{stayed_later}")
+    decode_steps = sum(1 for r in recs if r["name"] == "serve.step"
+                       and r["decode_s"] > 0)
+    require(k4["A"] > 0 and k4["B"] > 0 and launches == sum(k4.values())
+            == model.cfg.n_layers * decode_steps,
+            f"gateway: K4 launches {k4} over {decode_steps} decode steps")
+
+    # one engine serving the same prompts alone
+    ref = ServeEngine(model, device="cuda", **GATEWAY_ENGINE)
+    alone = {k: ref.submit(groups[k[0]][k[1]], tr["max_new"])
+             for k in sorted(reqs)}
+    ref.run()
+    keys = sorted(reqs)
+    stay = [k for k in keys if reqs[k].rid not in moved]
+    move = [k for k in keys if reqs[k].rid in moved]
+    agree_stay = _agreement([reqs[k].out_tokens for k in stay],
+                            [alone[k].out_tokens for k in stay])
+    agree_moved = _agreement([reqs[k].out_tokens for k in move],
+                             [alone[k].out_tokens for k in move])
+
+    agg = LiveAggregator(window_s=1.0, clock=None)
+    for rec in Journal.follow(path, poll_s=0.05, idle_timeout=0.5):
+        agg.add(rec)
+    agg.flush()
+    live = agg.summary()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "torch_automatic_distributed_neural_network_tpu_torch", "doctor",
+         "--gateway-dir", gdir, "--json"],
+        capture_output=True, text=True, timeout=300)
+    doc = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    shutil.rmtree(gdir, ignore_errors=True)
+    new_tokens = sum(len(r.out_tokens) for r in finished)
+    emit({"phase": "gateway", "model": "gpt2-small",
+          "requests": len(reqs), "groups": tr["groups"],
+          "prompt_len": tr["prompt_len"], "shared_prefix": tr["shared"],
+          "max_new": tr["max_new"], "replicas": [r.name for r in reps],
+          "wall_s": wall, "new_tokens": new_tokens,
+          "tokens_per_s": new_tokens / wall, "router": stats,
+          "placed": {f"{g}.{j}": where[(g, j)] for g, j in keys},
+          "prefix_hits": len(hits), "moved": len(moved),
+          "claims_released": released,
+          "breaker_transitions": breakers["B"].transitions,
+          "k4_launches": k4, "decode_steps": decode_steps,
+          "agreement_stayed": agree_stay, "agreement_moved": agree_moved,
+          "live": {k: live[k] for k in ("n_done", "n_windows",
+                                        "new_tokens", "p50_s", "p99_s")},
+          "doctor": {"rc": proc.returncode, "ok": doc.get("ok"),
+                     "breaker_transitions": doc.get("breaker_transitions"),
+                     "failovers": len(doc.get("failovers") or ()),
+                     "culprit": doc.get("culprit")}})
+    require(agree_stay == 1.0,
+            f"gateway: requests that never moved agree with one engine on "
+            f"only {agree_stay:.4f} of positions")
+    require(agree_moved >= SHARDED_AGREEMENT,
+            f"gateway: moved requests agree with one engine on "
+            f"{agree_moved:.4f} < {SHARDED_AGREEMENT}")
+    require(live["n_done"] == len(reqs),
+            f"gateway: the live aggregator counted {live['n_done']} "
+            f"requests")
+    require(proc.returncode == 0 and doc.get("ok") is True and any(
+        t["replica"] == "B" and t["to"] == "open"
+        for t in doc.get("breaker_transitions") or ()),
+        f"gateway: doctor rc {proc.returncode}: {proc.stderr[-2000:]}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5429,6 +5663,12 @@ def main(argv=None) -> int:
     if run("sharded_serve"):
         sharded_serve_launches = phase_sharded_serve(torch, card)
         torch.cuda.empty_cache()
+    if run("gateway"):
+        gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
+                                    dtype=torch.float32), 1)
+        gateway_launches = phase_gateway(torch, gpt2)
+        del gpt2
+        torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -5443,7 +5683,8 @@ def main(argv=None) -> int:
         "replaces": PAGED_REPLACES,
         "launches": (paged_launches + lora_k4_launches + moe_k4_launches
                      + bridges_launches["paged_attention"]
-                     + sharded_serve_launches["paged_attention"]),
+                     + sharded_serve_launches["paged_attention"]
+                     + gateway_launches),
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -5481,7 +5722,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
           "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
-          "bridges", "sharded_serve")
+          "bridges", "sharded_serve", "gateway")
 
 
 if __name__ == "__main__":

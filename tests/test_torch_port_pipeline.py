@@ -13,7 +13,9 @@ Each world spawns its ranks once (``torch_port_dist_worker.py``, the
   4-layer GPT-2; Llama ``test`` (RMSNorm, RoPE, GQA, untied head) under
   ``1f1b``; and, in the port alone, every schedule with dropout 0.1 on
   the 4-layer model;
-- 4 ranks: pipe 2 x data 2 (``dp``), pipe 2 x tensor 2 (``tp``,
+- 4 ranks: pipe 2 x data 2 (``dp``; also with ``zero1``: the
+  optimizer state sharded over data, the meta leaves of the other
+  stage left alone), pipe 2 x tensor 2 (``tp``,
   microbatches 2: JAX's ``pipe_x_tp``) and pipe 2 x fsdp 2 (``fsdp``,
   microbatches 2, under ``1f1b``).
 
@@ -100,6 +102,7 @@ RUNS = {
         dict(name="llama_1f1b", kw=_pipe("1f1b"), weights="llama",
              model="llama", inspect=True)],
     4: [dict(name="pipe_x_data", kw=_pipe(strategy="dp")),
+        dict(name="pipe_x_data_zero1", kw=_pipe(strategy="dp", zero1=True)),
         dict(name="pipe_x_tp", kw=_pipe(m=2, strategy="tp")),
         dict(name="pipe_x_fsdp", kw=_pipe("1f1b", m=2, strategy="fsdp"))],
 }
@@ -208,6 +211,11 @@ def test_pipeline_step_matches_jax(results, world, name):
     assert got["degrees"] == jdeg and jdeg["pipe"] == 2
     assert (got["strategy"], got["remat"]) == (plan.strategy, plan.remat)
     assert got["remat"] is False
+    assert got["zero1"] == plan.zero1 == run["kw"].get("zero1", False)
+    for seen in got["ranks"]:
+        # Adam's two moments: whole, or ZeRO-1's half of each over data
+        share = 2 / jdeg["data"] if plan.zero1 else 2
+        assert seen["opt_numel"] == share * seen["param_numel"], seen
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5,
                                atol=0)
     cfg = _port_cfg(run)

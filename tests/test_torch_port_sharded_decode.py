@@ -24,6 +24,13 @@ to its unsharded one).
   ``generate`` decodes ``state.params``, through a copy that the plan
   wraps empty and each rank fills with its own shards.
 
+- ``generate(quant="int8")`` under ``tp_fsdp`` on 2 and 4 ranks, against
+  JAX's ``generate`` on its ``quantize_for_decode`` weights: each rank
+  quantizes its own shards (a row-split weight's channel maxima taken
+  over ``tensor``, so every rank uses the scale of the whole weight), and
+  the bytes of parameters a rank holds while it decodes (its trained
+  shards and the int8 copy's) stay under the whole model's.
+
 B 8 x prompt 8, 5 new tokens, greedy, fp32 cache.  Tokens must be equal
 (no tolerance), on every rank, both ways of calling (``generate(mesh=)``
 on the module's own weights: under ``mixed`` its bf16 copies, which
@@ -41,6 +48,9 @@ import torch
 
 from torch_automatic_distributed_neural_network_tpu.inference.decode import (
     generate as jgenerate,
+)
+from torch_automatic_distributed_neural_network_tpu.inference.quant import (
+    quantize_for_decode as jquantize,
 )
 from torch_automatic_distributed_neural_network_tpu.inference.serve.adapters import (
     random_adapter,
@@ -76,11 +86,15 @@ RUNS = [dict(name="tp_fsdp", model="gpt2", strategy="tp_fsdp"),
         dict(name="ep-dense", model="moe", strategy="ep",
              moe_decode="dense")]
 EXTRA = {2: [dict(name="tp_fsdp-lora", model="gpt2", strategy="tp_fsdp",
-                  lora=True)],
+                  lora=True),
+             dict(name="tp_fsdp-int8", model="gpt2", strategy="tp_fsdp",
+                  quant="int8")],
          4: [dict(name="tp_fsdp-mixed", model="gpt2", strategy="tp_fsdp",
                   precision="mixed"),
              dict(name="tp_fsdp-lora-mixed", model="gpt2",
-                  strategy="tp_fsdp", lora=True, precision="mixed")]}
+                  strategy="tp_fsdp", lora=True, precision="mixed"),
+             dict(name="tp_fsdp-int8", model="gpt2", strategy="tp_fsdp",
+                  quant="int8")]}
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,6 +119,10 @@ def jax_side(model):
         cache_dtype=jnp.float32, moe_decode=mode))
         for mode in (("dense", "routed") if model == "moe" else ("dense",))}
     if model == "gpt2":
+        want["int8"] = np.asarray(jgenerate(
+            jm, {"params": jquantize(variables["params"])},
+            jnp.asarray(PROMPT), max_new_tokens=NEW,
+            cache_dtype=jnp.float32))
         merged = jlora.merge_lora(variables["params"], jax_lora(), JSPEC)
         want["lora"] = np.asarray(jgenerate(
             jm, {"params": merged}, jnp.asarray(PROMPT), max_new_tokens=NEW,
@@ -152,8 +170,8 @@ CASES = [(w, run) for w in (2, 4) for run in RUNS + EXTRA[w]]
                          ids=[f"{w}x-{r['name']}" for w, r in CASES])
 def test_sharded_generate_matches_jax(results, world, run):
     _, _, want = jax_side(run["model"])
-    want = want["lora" if run.get("lora")
-                else run.get("moe_decode", "dense")]
+    want = want["lora" if run.get("lora") else run.get(
+        "quant", run.get("moe_decode", "dense"))]
     if run.get("lora"):
         assert not np.array_equal(want, jax_side("gpt2")[2]["dense"])
     ranks = results(world)[run["name"]]
@@ -162,7 +180,13 @@ def test_sharded_generate_matches_jax(results, world, run):
         assert rec["strategy"] == run["strategy"]
         np.testing.assert_array_equal(rec["generated"].numpy(), want,
                                       err_msg=f"rank {rank}")
-        if run.get("precision") == "mixed":
+        if run.get("quant"):
+            # nothing gathered whole: the trained shards and the int8
+            # decode model's (the shards' payloads and scales, the norms
+            # and biases) stay under the whole model's bytes
+            assert rec["direct"] is None
+            assert rec["held_bytes"] < rec["whole_bytes"], rec
+        elif run.get("precision") == "mixed":
             # the module computes with bf16 copies: every rank alike
             np.testing.assert_array_equal(
                 rec["direct"].numpy(), ranks[0]["direct"].numpy(),
@@ -183,8 +207,10 @@ def test_sharded_generate_matches_jax(results, world, run):
             # generate's model holds the same shards: the module, or the
             # copy of the fp32 masters
             mixed = run.get("precision") == "mixed"
-            assert rec["decodes_on_module"] is not mixed
-            assert rec["decode_q"] == (tuple(shape), torch.float32)
+            int8 = run.get("quant") == "int8"
+            assert rec["decodes_on_module"] is not (mixed or int8)
+            assert rec["decode_q"] == (tuple(shape), torch.int8 if int8
+                                       else torch.float32)
         else:
             assert deg["expert"] == world
             assert local["layers.0.mlp.experts_up"][0] == 4 // world

@@ -20,6 +20,7 @@ tables are equal exactly; a refused module raises
 """
 
 import copy
+import math
 import functools
 
 import jax
@@ -572,3 +573,75 @@ def test_autodistribute_steps_bridged_lm_match_jax():
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL, atol=0)
     # the mask buffer is model state, untouched by the steps
     assert torch.equal(stats["mask"], torch.tril(torch.ones(12, 12)))
+
+
+def _mt_batches():
+    rs = np.random.RandomState(23)
+    return [{"src": rs.randint(0, 50, (8, 9)), "tgt": rs.randint(0, 50, (8, 8))}
+            for _ in range(3)]
+
+
+def _jax_mt_loss(params, model_state, batch, rng, apply_fn):
+    """JAX's MT bridge test's loss (``tests/test_torch_bridge.py``)."""
+    logits, updates = apply_fn({"params": params, **model_state},
+                               batch["src"], batch["tgt"][:, :-1],
+                               mutable=list(model_state.keys()))
+    return optax.softmax_cross_entropy_with_integer_labels(
+        logits, batch["tgt"][:, 1:]).mean(), {"model_state": updates}
+
+
+@pytest.fixture(scope="module")
+def bridge_tp(tmp_path_factory):
+    """The bridged ``nn.Transformer`` under ``tp`` on 2 devices in JAX
+    and on 2 gloo ranks in the port (one spawn of
+    ``tests/torch_port_dist_worker.py``), from the same weights on the
+    same 3 batches."""
+    from torch_port_spawn import spawn
+
+    _, model, params, jmodel, variables, _ = _case("nn_transformer_mt")
+    batches = _mt_batches()
+    ad = JAutoDistribute(jmodel, optimizer=optax.adamw(1e-3),
+                         loss_fn=_jax_mt_loss, strategy="tp",
+                         devices=jax.devices()[:2],
+                         init_fn=lambda rng, b: variables)
+    state = ad.init(jax.random.key(0), batches[0])
+    losses = []
+    for b in batches:
+        state, m = ad.step(state, b)
+        losses.append(float(m["loss"]))
+    job = {"bridge_tp": {
+        "spec": model.spec, "layout": model.layout, "state_dict": params,
+        "batches": [{k: torch.from_numpy(v) for k, v in b.items()}
+                    for b in batches]}}
+    got = spawn(2, job, tmp_path_factory.mktemp("bridge_tp"))["bridge_tp"]
+    return (losses, ad.plan, jax.tree.map(np.asarray, state.params)), got
+
+
+def test_bridged_transformer_tp_matches_jax(bridge_tp):
+    """``nn.Transformer`` (d 32, 4 heads, 2 + 2 layers, ffn 64) bridged
+    and trained under ``tp`` on 2 ranks: the plan splits every
+    projection as JAX's does (the bridge rules), the packed ``in_w``
+    [96, 32] is [48, 32] on a rank (its half of the heads of each of q,
+    k and v), lin1 [32, 64] is [32, 32] and lin2 [64, 32] is [32, 32];
+    the 3 losses within 2e-5 relative of JAX's ``tp`` losses and the
+    trained parameters within 1e-4 of JAX's (the key third of ``in_b``
+    5e-3: its gradient is rounding noise, which Adam moves by ~lr)."""
+    (want, jplan, jparams), got = bridge_tp
+    assert got["degrees"]["tensor"] == 2 == math.prod(got["degrees"].values())
+    jspecs = {n: tuple(s) for n, s in jplan.param_specs.items()}
+    assert got["specs"] == jspecs
+    assert sum("tensor" in s for s in jspecs.values()) == 30
+    for layer in ("enc.l0", "enc.l1", "dec.l0", "dec.l1"):
+        assert got["local"][f"tf//{layer}.sa.in_w"] == (48, 32)
+        assert got["local"][f"tf//{layer}.sa.in_b"] == (48,)
+        assert got["local"][f"tf//{layer}.sa.out_w"] == (32, 16)
+        assert got["local"][f"tf//{layer}.lin1.kernel"] == (32, 32)
+        assert got["local"][f"tf//{layer}.lin2.kernel"] == (32, 32)
+    assert got["local"]["tf//dec.l0.ca.in_w"] == (48, 32)
+    np.testing.assert_allclose(got["losses"], want, rtol=LOSS_RTOL, atol=0)
+    for name, arr in jparams.items():
+        atol = np.full(arr.shape, 1e-4)
+        if name.endswith("in_b"):
+            atol[32:64] = 5e-3
+        np.testing.assert_array_less(
+            np.abs(got["params"][name].numpy() - arr), atol, err_msg=name)

@@ -374,10 +374,11 @@ def test_what_is_not_ported_raises(tmp_path):
         trainer.fit(_tiny_data())
     # the Trainer across processes and doctor --launch-dir are ported
     # (test_torch_port_multiproc.py, test_torch_port_launch.py): a
-    # launch directory with nothing in it reports no failure
+    # launch directory with nothing in it reports no failure; doctor
+    # --gateway-dir is ported too (test_torch_port_gateway.py): a
+    # directory with no journal in it is an error, as in JAX
     assert cli(["doctor", "--launch-dir", str(tmp_path)]) == 0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli(["doctor", "--gateway-dir", str(tmp_path)])
+    assert cli(["doctor", "--gateway-dir", str(tmp_path)]) == 1
 
 
 def test_example_runs_on_the_cpu_and_doctor_reads_its_chain(tmp_path,

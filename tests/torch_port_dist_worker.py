@@ -55,6 +55,11 @@ Adam moments, gathered) equals the first bitwise — and
 ``hsdp_divergence``: the Trainer's divergence check on a data2 x fsdp2
 state, healthy and with one data replica's shard perturbed.  Imports
 torch and the port only.
+
+A job may also hold ``bridge_tp``: a bridged ``nn.Transformer``
+(``from_torch``'s graph, layout and weights) trained under ``tp`` on the
+MT loss, recording the losses, each parameter's local shape, the plan's
+specs and the trained parameters gathered.
 """
 
 import sys
@@ -510,10 +515,25 @@ def _lm_run(sec, run, out_dir):
     params = ad.gathered_params(state)
     out = {"losses": losses, "tokens": tokens, "strategy": ad.plan.strategy,
            "degrees": ad.plan.degrees, "remat": ad.plan.remat,
-           "stages": ad.plan.stages, "params": params, "traffic": traffic}
+           "stages": ad.plan.stages, "params": params, "traffic": traffic,
+           "zero1": ad.plan.zero1}
+    # the elements of the optimizer state this rank holds, and of the
+    # parameters it holds (ZeRO-1 keeps a slice of each moment)
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        resilience,
+    )
+
+    def local_numel(tree):
+        return sum((t.to_local() if hasattr(t, "to_local") else t).numel()
+                   for t in resilience.flatten_state(tree).values()
+                   if isinstance(t, torch.Tensor) and not t.is_meta
+                   and t.ndim)
+
     everyone = [None] * dist.get_world_size()
-    dist.all_gather_object(everyone, {"held": held,
-                                      "embed_grad": grads.get("embed")})
+    dist.all_gather_object(everyone, {
+        "held": held, "embed_grad": grads.get("embed"),
+        "opt_numel": local_numel(state.opt_state),
+        "param_numel": local_numel(state.params)})
     out["ranks"] = everyone
     if run.get("inspect"):
         out["eval_loss"] = float(ad.eval_step(state, batches[0])["loss"])
@@ -855,30 +875,86 @@ def _decode_runs(dj, world):
             [sec["prompt"]] * 2, 1)})
         kw = dict(max_new_tokens=dj["max_new"], cache_dtype=torch.float32,
                   moe_decode=run.get("moe_decode", "dense"))
-        got = ad.generate(state, sec["prompt"], **kw)
+        quant = run.get("quant")
+        got = ad.generate(state, sec["prompt"], quant=quant, **kw)
         # the module's own weights (under ``mixed`` its compute-dtype
         # copies) straight through the sharded decode
-        direct = decode.generate(ad._exec.model, sec["prompt"],
-                                 mesh=ad._exec.mesh, **kw)
+        direct = None if quant else decode.generate(
+            ad._exec.model, sec["prompt"], mesh=ad._exec.mesh, **kw)
         layer = dict(ad._exec.model.named_parameters())
         local = {n: tuple((p.to_local() if hasattr(p, "to_local")
                            else p).shape) for n, p in layer.items()
                  if n.startswith("layers.0.")}
-        # the model ``generate`` decodes on: the module, or the copy of
-        # a ``mixed`` state's masters that each rank filled with shards
-        dec = ad._sharded_decode_model(state)
-        q = dict(dec.named_parameters())["layers.0.attn.q_proj.weight"] \
-            if not moe else None
+        # the model ``generate`` decodes on: the module, the copy of a
+        # ``mixed`` state's masters that each rank filled with shards, or
+        # the int8 copy that each rank quantized from its shards
+        dec = (ad._sharded_int8_model(state) if quant
+               else ad._sharded_decode_model(state))
+        named = dict(dec.named_parameters()) | dict(dec.named_buffers())
+        q = None if moe else named["layers.0.attn.q_proj.weight" + (
+            ".q" if quant else "")]
+
+        def nbytes(tensors):
+            return sum((t.to_local() if hasattr(t, "to_local") else t)
+                       .nbytes for t in tensors)
+
         rec = {"generated": got, "direct": direct,
                "degrees": ad.plan.degrees, "strategy": ad.plan.strategy,
                "local_shapes": local,
                "decodes_on_module": dec is ad._exec.model,
                "decode_q": None if q is None else (
-                   tuple(q.to_local().shape), q.dtype)}
+                   tuple(q.to_local().shape), q.dtype),
+               # the bytes of parameters a rank holds while it decodes:
+               # its trained shards and the decode model's own tensors,
+               # against the whole model's
+               "held_bytes": nbytes(layer.values()) + (
+                   nbytes(named.values()) if dec is not ad._exec.model
+                   else 0),
+               "whole_bytes": sum(p.numel() * p.element_size()
+                                  for p in layer.values())}
         both = [None] * world
         dist.all_gather_object(both, rec)
         out[run["name"]] = both
     return out
+
+
+def _mt_loss(model, batch, generator):
+    """The bridged ``nn.Transformer``'s cross-entropy on the next target
+    token (JAX's MT bridge test's loss)."""
+    import torch.nn.functional as F
+
+    logits, updates = model(batch["src"], batch["tgt"][:, :-1], train=True,
+                            mutable=True, generator=generator)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           batch["tgt"][:, 1:].reshape(-1))
+    return loss, {"model_state": updates}
+
+
+def _bridge_tp(bj):
+    """A bridged module (``bj``: its graph, layout and weights) under
+    ``tp``: the losses, each parameter's local shape and the plan's
+    specs on this rank, and the trained parameters gathered."""
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        AutoDistribute,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        TorchBridge,
+    )
+
+    model = TorchBridge(bj["spec"], bj["layout"])
+    model.load_state_dict(bj["state_dict"])
+    ad = AutoDistribute(model, optimizer=_optimizer(None), loss_fn=_mt_loss,
+                        strategy="tp", device="cpu")
+    state = ad.init(None, bj["batches"][0])
+    local = {n: tuple((p.to_local() if hasattr(p, "to_local") else p).shape)
+             for n, p in ad.model.named_parameters()}
+    losses = []
+    for batch in bj["batches"]:
+        state, metrics = ad.step(state, batch)
+        losses.append(float(metrics["loss"]))
+    return {"losses": losses, "local": local, "degrees": ad.plan.degrees,
+            "specs": {n: tuple(s) for n, s in ad.plan.param_specs.items()},
+            "params": ad.gathered_params(state)}
 
 
 def main(rank, world, init_file, job_path, out_path):
@@ -918,6 +994,8 @@ def main(rank, world, init_file, job_path, out_path):
         out["serve_tp"] = _serve_tp(job["serve_tp"], world)
     if job.get("decode"):
         out["decode"] = _decode_runs(job["decode"], world)
+    if job.get("bridge_tp"):
+        out["bridge_tp"] = _bridge_tp(job["bridge_tp"])
     if job.get("only_lm"):
         dist.barrier()
         dist.destroy_process_group()

@@ -228,7 +228,10 @@ def cmd_doctor(args: argparse.Namespace) -> int:
     ``--launch-dir`` switches to launch supervision health (training/
     launch.py): per-host last-seen heartbeats, restart-budget
     consumption, and which host broke the cohort; exit 1 when the
-    launch gave up."""
+    launch gave up.  ``--gateway-dir`` is the serving twin: a fleet
+    post-mortem from a gateway journal — per-replica heartbeats,
+    failovers, hedge record, breaker/degrade history, and which replica
+    broke the cohort; exit 1 when an accepted request was lost."""
     if args.launch_dir:
         from .training import launch as launch_mod
 
@@ -239,12 +242,17 @@ def cmd_doctor(args: argparse.Namespace) -> int:
             print(launch_mod.format_launch_doctor(doc))
         return 1 if doc.get("ok") is False else 0
     if args.gateway_dir:
-        raise NotImplementedError(
-            "doctor --gateway-dir: the gateway is not ported to the "
-            "PyTorch package yet (ROADMAP Queue 1 item 7)")
+        from .inference.gateway import doctor as gw_doctor
+
+        doc = gw_doctor.gateway_doctor(args.gateway_dir)
+        if args.json:
+            print(json.dumps(doc))
+        else:
+            print(gw_doctor.format_gateway_doctor(doc))
+        return 1 if doc.get("ok") is False else 0
     if not args.directory:
-        print("doctor: a checkpoint directory or --launch-dir is required",
-              file=sys.stderr)
+        print("doctor: a checkpoint directory, --launch-dir or "
+              "--gateway-dir is required", file=sys.stderr)
         return 2
     from .training import resilience, shards
 
@@ -499,7 +507,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="launch supervision health (training/launch.py): "
                         "heartbeats, restart budget, the failed host")
     p.add_argument("--gateway-dir", default=None,
-                   help="fleet post-mortem of a gateway (not ported yet)")
+                   help="fleet post-mortem of a gateway journal (a "
+                   "directory holding one, or the file)")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_doctor)
 

@@ -321,10 +321,6 @@ class AutoDistribute:
                 DecoderLayer):
             raise TypeError(f"pipeline parallelism needs a DecoderLM-family "
                             f"model (GPT2/Llama); got {type(model).__name__}")
-        if plan.zero1:
-            raise NotImplementedError(
-                "zero1 beside pipeline_stages > 1 is not ported to the "
-                "PyTorch package")
         check_schedule(model.cfg.n_layers, plan.degrees["pipe"],
                        self._microbatches, self._pipeline_schedule,
                        self._pipeline_virtual)
@@ -834,6 +830,36 @@ class AutoDistribute:
                         else like(src.to(self.device), t))
         return model
 
+    def _sharded_int8_model(self, state_or_params):
+        """The int8 decode model of ``state_or_params``'s weights sharded
+        as trained: an empty copy laid out by the plan's tensor-parallel
+        wrappers alone (no FSDP wrapper: the int8 payloads keep their
+        fsdp shards and are gathered at use), filled by
+        ``quant.quantize_sharded``.  None where ``generate`` quantizes a
+        whole copy: without a plan that shards a parameter, under a
+        pipeline, an expert strategy or LoRA factors."""
+        from .inference.quant import quantize_sharded
+        from .interop import _like
+
+        ex = self._exec
+        if (ex is None or ex.degree("pipe") > 1
+                or self.plan.strategy not in ("fsdp", "tp", "tp_fsdp")
+                or getattr(self.model, "lora_spec", None) is not None
+                or not any(is_dtensor(p) for p in ex.model.parameters())):
+            return None
+        tree, own = self._tree(state_or_params), self._own()
+        source = {n: tree.get(n, t) for n, t in own.items()}
+        model = _like(self.model, device="meta")
+        for name, t in itertools.chain(model.named_parameters(),
+                                       model.named_buffers()):
+            t.data = t.data.to(source[name].dtype)
+        if self.plan.strategy != "fsdp":
+            layout = planner_mod.param_spec_tree(
+                planner_mod.abstract_params(model), self.plan.degrees, "tp",
+                self._rules, heads=_heads(model), min_degree=1)
+            executor_mod._apply_tp(model, layout, ex.mesh)
+        return quantize_sharded(model, source, self.device)
+
     @torch.no_grad()
     def generate(self, state_or_params, prompt, *, max_new_tokens: int,
                  sample=None, generator: torch.Generator | None = None,
@@ -860,11 +886,15 @@ class AutoDistribute:
         copy with the weights whole decodes on every rank.
 
         ``quant="int8"`` decodes with int8 weights
-        (``quantize_for_decode``) of a copy with the weights whole,
-        quantized anew on each call as the JAX package's jitted program
-        does; a long-lived server quantizes once and calls
-        ``inference.decode.generate`` itself.  ``sample`` defaults to
-        greedy; a sampled run draws from ``generator``."""
+        (``quantize_for_decode``), quantized anew on each call as the JAX
+        package's jitted program does; under a plan that shards them
+        (``fsdp``, ``tp``, ``tp_fsdp``) each rank quantizes its own
+        shards (``inference.quant.quantize_sharded``: a row-split
+        weight's channel maxima taken over ``tensor``), otherwise a copy
+        with the weights whole is quantized.  A long-lived server
+        quantizes once and calls ``inference.decode.generate`` itself.
+        ``sample`` defaults to greedy; a sampled run draws from
+        ``generator``."""
         from .inference import decode
         from .inference.quant import quantize_for_decode
 
@@ -872,14 +902,15 @@ class AutoDistribute:
             raise RuntimeError("call init() or build_plan() first")
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant={quant!r}; supported: 'int8'")
-        model = mesh = None
         if quant is None:
             model = self._sharded_decode_model(state_or_params)
-            mesh = None if model is None else self._exec.mesh
+        else:
+            model = self._sharded_int8_model(state_or_params)
+        mesh = None if model is None else self._exec.mesh
         if model is None:
             model = self._decode_model(state_or_params)
-        if quant == "int8":
-            model = quantize_for_decode(model)
+            if quant == "int8":
+                model = quantize_for_decode(model)
         return decode.generate(
             model, prompt, max_new_tokens=max_new_tokens, sample=sample,
             generator=generator, cache_dtype=cache_dtype, eos_id=eos_id,

@@ -67,6 +67,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import re
 from typing import Any
 
 import torch
@@ -228,6 +229,7 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
         RowwiseParallel,
         parallelize_module,
     )
+    from torch.distributed.tensor.placement_types import _StridedShard
 
     tp_mesh = mesh["tensor"]
     sp_styles, sp_norms = {}, set()
@@ -270,18 +272,28 @@ def _apply_tp(model: nn.Module, layout: dict, mesh,
         _set_param(model, name, distribute_tensor(
             p.data, tp_mesh, [Replicate() if dim is None else Shard(dim)],
             src_data_rank=None), p.requires_grad)
+    packed = getattr(model, "tp_packed", {})
     for name, p in list(model.named_parameters()):
         dim = _dim_of(layout[name], "tensor")
         if name not in in_modules and name not in skip and dim is not None:
+            # a packed projection ([q; k; v]) splits each of its parts
+            # alike, so that each rank holds whole heads of every part
+            parts = next((n for pat, n in packed.items()
+                          if re.search(pat, name)), 1)
+            place = Shard(dim) if parts == 1 else _StridedShard(
+                dim, split_factor=parts)
             _set_param(model, name, distribute_tensor(
-                p.data, tp_mesh, [Shard(dim)], src_data_rank=None),
+                p.data, tp_mesh, [place], src_data_rank=None),
                 p.requires_grad)
+    for mod in model.modules():
+        if hasattr(mod, "tensor_group"):
+            mod.tensor_group = tp_mesh.get_group()
     for name, p in model.named_parameters():
         if name in skip:
             continue
         dim = _dim_of(layout[name], "tensor")
-        got = (p.placements[0].dim if is_dtensor(p)
-               and p.placements[0].is_shard() else None)
+        got = getattr(p.placements[0], "dim", None) if is_dtensor(p) else (
+            None)
         if got != dim:
             raise ValueError(
                 f"{name}: the plan splits dim {dim} over tensor, the TP "
@@ -515,7 +527,7 @@ def apply_plan(model: nn.Module, plan: ShardPlan, mesh,
             reduced[name].update(("fsdp", "data"))
     # under a pipe axis no DDP: the schedule runs M microbatches before
     # the last backward, and reduce_grads averages over data once, after
-    if (plan.strategy == "dp" or plan.zero1) and not foreign:
+    if plan.zero1 or (plan.strategy == "dp" and not foreign):
         # DDP averages over data, and ZeRO-1's update reduces over it
         for name in names:
             reduced[name].add("data")

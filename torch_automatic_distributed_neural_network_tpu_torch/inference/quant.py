@@ -28,12 +28,14 @@ fp32 inputs quantize to the same payloads.
 from __future__ import annotations
 
 import copy
+import itertools
 import re
 
 import torch
 from torch import nn
 
 from ..training.lora import KERNEL_MATRIX_VIEWS, input_dims
+from ..utils.device import is_dtensor
 
 # embeddings quantize per row; ``pos_embed`` is not an embedding table
 # here, as it is not one in the JAX package's pattern
@@ -59,8 +61,22 @@ class QuantizedWeight(nn.Module):
         return getattr(self, key)
 
     def dense(self, dtype) -> torch.Tensor:
-        """The whole weight, dequantized to ``dtype``."""
+        """The whole weight, dequantized to ``dtype``; a payload sharded
+        as trained (:func:`quantize_sharded`) is gathered over every mesh
+        axis but ``tensor`` first, as the plan's tensor-parallel wrappers
+        compute with it."""
+        if is_dtensor(self.q):
+            return dequantize_leaf({"q": over_tensor(self.q),
+                                    "scale": over_tensor(self.scale)}, dtype)
         return dequantize_leaf(self, dtype)
+
+    def whole(self) -> "QuantizedWeight":
+        """This weight with its payload and scale whole on this rank."""
+        if not is_dtensor(self.q):
+            return self
+        from ..models.transformer_core import gathered
+
+        return QuantizedWeight(gathered(self.q), gathered(self.scale))
 
     def rows(self, tokens: torch.Tensor, dtype) -> torch.Tensor:
         """Rows ``tokens`` of a per-row quantized embedding: gather, then
@@ -74,10 +90,16 @@ def is_quantized_leaf(x) -> bool:
         isinstance(x, dict) and set(x) == {"q", "scale"})
 
 
-def _quantize(leaf: torch.Tensor, reduce_dims: tuple[int, ...]) -> dict:
-    """Symmetric int8 with per-channel scales over ``reduce_dims``."""
+def _quantize(leaf: torch.Tensor, reduce_dims: tuple[int, ...],
+              groups=()) -> dict:
+    """Symmetric int8 with per-channel scales over ``reduce_dims``; the
+    channel maxima also taken over each process group of ``groups`` (the
+    mesh dims that split a reduced dim of a sharded weight)."""
     w = leaf.to(torch.float32)
     amax = w.abs().amax(dim=reduce_dims, keepdim=True)
+    for group in groups:
+        torch.distributed.all_reduce(amax, torch.distributed.ReduceOp.MAX,
+                                     group=group)
     scale = torch.clamp(amax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return {"q": q, "scale": scale}
@@ -120,6 +142,95 @@ def quantize_for_decode(model: nn.Module) -> nn.Module:
             leaf = _quantize(p.detach(), dims)
             put_quantized(out, name, leaf["q"], leaf["scale"])
     return out
+
+
+def over_tensor(x):
+    """A sharded ``DTensor`` laid out over the ``tensor`` mesh axis alone,
+    as the tensor-parallel wrappers compute: its other mesh dims (fsdp,
+    data) gathered; a plain tensor where the mesh has no tensor axis."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    keep = [pl if n == "tensor" else Replicate()
+            for n, pl in zip(names, x.placements)]
+    if keep != list(x.placements):
+        x = x.redistribute(mesh, keep)
+    if "tensor" not in names:
+        return x.to_local()
+    return DTensor.from_local(x.to_local(), mesh["tensor"],
+                              [keep[names.index("tensor")]], run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def quantize_shard(x: torch.Tensor, dims: tuple[int, ...]
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(q, scale)`` of ``x`` over ``dims``, as :func:`_quantize` gives
+    them for the whole tensor, computed on this rank's shard of a
+    ``DTensor``: the maxima taken over every mesh dim that splits one of
+    ``dims`` (a row-split weight's input dim), both kept in ``x``'s
+    layout (the scale replicated where the maxima were taken)."""
+    if not is_dtensor(x):
+        leaf = _quantize(x, dims)
+        return leaf["q"], leaf["scale"]
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, groups, scale_pl = x.device_mesh, [], []
+    for i, pl in enumerate(x.placements):
+        if getattr(pl, "dim", None) in dims:
+            groups.append(mesh.get_group(i))
+            scale_pl.append(Replicate())
+        else:
+            scale_pl.append(pl)
+    leaf = _quantize(x.to_local(), dims, groups)
+    shape = torch.Size(1 if d in dims else n for d, n in enumerate(x.shape))
+    return (DTensor.from_local(leaf["q"], mesh, x.placements,
+                               run_check=False, shape=x.shape,
+                               stride=x.stride()),
+            DTensor.from_local(leaf["scale"], mesh, scale_pl,
+                               run_check=False, shape=shape,
+                               stride=torch.empty(shape, device="meta")
+                               .stride()))
+
+
+def quantize_sharded(model: nn.Module, source: dict, device) -> nn.Module:
+    """Fill ``model`` for int8 decoding from a plan's shards, gathering no
+    weight whole: ``model`` is an empty copy on the meta device laid out
+    by the plan's tensor-parallel wrappers alone, ``source`` names each
+    of its tensors (``DTensor``s sharded as trained, or plain ones).
+    Each weight :func:`quantize_for_decode` quantizes becomes a
+    :class:`QuantizedWeight` whose payload and scale keep their source's
+    layout (:func:`quantize_shard`; gathered over the axes but tensor at
+    use, as FSDP gathers a layer); every other tensor is copied in full
+    precision, gathered over every axis but tensor."""
+    from torch.distributed.tensor import distribute_tensor
+
+    targets = {}
+    for name, p in model.named_parameters():
+        dims = _target_dims(name, p.shape)
+        if dims is not None:
+            targets[name] = dims
+    empty = torch.empty(0, device="meta")
+    for name in targets:  # no full-precision storage is made for these
+        put_quantized(model, name, empty, empty)
+    model.to_empty(device=device)
+    with torch.no_grad():
+        for name, dims in targets.items():
+            qw = model.get_submodule(name)
+            qw.q, qw.scale = quantize_shard(source[name], dims)
+        for name, t in itertools.chain(model.named_parameters(),
+                                       model.named_buffers()):
+            if name.rpartition(".")[0] in targets:
+                continue
+            src = source[name]
+            if is_dtensor(src):
+                src = over_tensor(src)
+            if is_dtensor(src) and not is_dtensor(t):
+                src = src.to_local()  # replicated over tensor
+            elif is_dtensor(t) and not is_dtensor(src):
+                src = distribute_tensor(src.to(t.device), t.device_mesh,
+                                        t.placements, src_data_rank=None)
+            t.copy_(src)
+    return model
 
 
 def put_quantized(model: nn.Module, name: str, q: torch.Tensor,

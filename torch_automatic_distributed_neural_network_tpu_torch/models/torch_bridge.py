@@ -62,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.device import is_dtensor
 from .transformer_core import _dropout as seeded_dropout
 
 
@@ -478,6 +479,11 @@ class TorchBridge(nn.Module):
 
     # forward takes train= and mutable=, and the step threads the buffers
     stateful = True
+    # under ``tp`` (``executor._apply_tp``): the packed [q; k; v]
+    # projections split each third alike, and the group the split leaves
+    # are sharded over, which the forward reduces partial outputs across
+    tp_packed = {r"(sa|ca)\.in_[wb]$": 3}
+    tensor_group = None
 
     def __init__(self, spec: GraphSpec, layout: tuple):
         super().__init__()
@@ -550,12 +556,22 @@ class TorchBridge(nn.Module):
         return out if updates is None else (out, updates)
 
     def _p(self, scope: str, name: str):
-        """A leaf's tensor, or None where it has none."""
+        """A leaf's tensor (this rank's shard of one split over
+        ``tensor``), or None where it has none."""
         key = f"{scope}//{name}"
         try:
-            return self._get(key)
+            t = self._get(key)
         except AttributeError:
             return None
+        return t.to_local() if is_dtensor(t) else t
+
+    def _split(self, scope: str, name: str):
+        """The ``tensor`` group when the leaf is split over it, else
+        None."""
+        t = self._get(f"{scope}//{name}")
+        if is_dtensor(t) and t.to_local().shape != t.shape:
+            return self.tensor_group
+        return None
 
     def _apply_layer(self, node, largs, lkwargs, train, updates, generator):
         kind, cfg, scope = node.target, dict(node.cfg), node.scope
@@ -673,19 +689,32 @@ class TorchBridge(nn.Module):
         nn.Transformer executors, plain torch (JAX ``_mha_core``);
         ``{prefix}in_w`` etc. under ``scope``.  Returns ``(out [B, Tq, d],
         probs [B, H, Tq, Tk])``: the probabilities before dropout, which
-        torch returns as the weights while the dropped ones multiply V."""
-        H = cfg["heads"]
+        torch returns as the weights while the dropped ones multiply V.
+        Split over ``tensor``, this rank's heads: ``in_w`` holds its rows
+        of each third, ``out_w`` the matching input columns, and the
+        partial outputs are summed over the group before ``out_b``."""
         d = q.shape[-1]
+        hd = d // cfg["heads"]
         in_w = self._p(scope, prefix + "in_w")  # [3d, d], torch layout
         in_b = self._p(scope, prefix + "in_b")
+        group = self._split(scope, prefix + "in_w")
+        if group is not None:
+            from ..parallel.expert import _CopyToGroup
+
+            copies = {}
+            for t in (q, k, v):  # self-attention passes one tensor thrice
+                if id(t) not in copies:
+                    copies[id(t)] = _CopyToGroup.apply(t, group)
+            q, k, v = copies[id(q)], copies[id(k)], copies[id(v)]
+        dl = in_w.shape[0] // 3  # this rank's width of each third
+        H = dl // hd
 
         def proj(x, lo):
-            return F.linear(x, in_w[lo:lo + d],
-                            None if in_b is None else in_b[lo:lo + d])
+            return F.linear(x, in_w[lo:lo + dl],
+                            None if in_b is None else in_b[lo:lo + dl])
 
-        qp, kp, vp = proj(q, 0), proj(k, d), proj(v, 2 * d)
+        qp, kp, vp = proj(q, 0), proj(k, dl), proj(v, 2 * dl)
         B, Tq, Tk = qp.shape[0], qp.shape[1], kp.shape[1]
-        hd = d // H
         qh = qp.reshape(B, Tq, H, hd).transpose(1, 2)
         kh = kp.reshape(B, Tk, H, hd).transpose(1, 2)
         vh = vp.reshape(B, Tk, H, hd).transpose(1, 2)
@@ -708,10 +737,15 @@ class TorchBridge(nn.Module):
         probs = torch.softmax(scores, dim=-1)
         dropped = _dropout(probs, cfg.get("attn_rate", cfg["rate"]), train,
                            generator)
-        out = (dropped @ vh).transpose(1, 2).reshape(B, Tq, d)
-        out = F.linear(out, self._p(scope, prefix + "out_w"),
-                       self._p(scope, prefix + "out_b"))
-        return out, probs
+        out = (dropped @ vh).transpose(1, 2).reshape(B, Tq, dl)
+        out_w, out_b = (self._p(scope, prefix + "out_w"),
+                        self._p(scope, prefix + "out_b"))
+        if group is None:
+            return F.linear(out, out_w, out_b), probs
+        from ..parallel.expert import _SumOverGroup
+
+        out = _SumOverGroup.apply(F.linear(out, out_w), group)
+        return (out if out_b is None else out + out_b), probs
 
     def _lin(self, scope, prefix, x):
         return F.linear(x, self._p(scope, prefix + "kernel").t(),
@@ -749,8 +783,19 @@ class TorchBridge(nn.Module):
             return drop(out)
 
         def ff(h):
-            h = drop(act(self._lin(scope, prefix + "lin1.", h)))
-            return drop(self._lin(scope, prefix + "lin2.", h))
+            group = self._split(scope, prefix + "lin1.kernel")
+            if group is None:
+                h = drop(act(self._lin(scope, prefix + "lin1.", h)))
+                return drop(self._lin(scope, prefix + "lin2.", h))
+            # split over tensor: lin1's output columns, lin2's input rows
+            from ..parallel.expert import _CopyToGroup, _SumOverGroup
+
+            h = drop(act(self._lin(scope, prefix + "lin1.",
+                                   _CopyToGroup.apply(h, group))))
+            h = _SumOverGroup.apply(F.linear(
+                h, self._p(scope, prefix + "lin2.kernel").t()), group)
+            bias = self._p(scope, prefix + "lin2.bias")
+            return drop(h if bias is None else h + bias)
 
         def norm(n, h):
             return self._ln(scope, f"{prefix}norm{n}.", h, eps)

@@ -201,7 +201,10 @@ def gathered(p):
     way autograd differentiates.  A CUDA ``DTensor`` on a gloo mesh (two
     processes sharing one card: gloo moves CUDA tensors by all-reduce and
     broadcast only) is gathered by an all-reduce of its zero-padded
-    shards, which is exact."""
+    shards, which is exact.  A weight kept in another form (the int8
+    ``QuantizedWeight``) gives its own whole form (``p.whole()``)."""
+    if not isinstance(p, torch.Tensor):
+        return p.whole()
     if not is_dtensor(p):
         return p
     if p.is_cuda:

@@ -1,11 +1,11 @@
 """Observability: the span/event journal (``obs.journal``), its event
 schema registry (``obs.schema``), the goodput breakdown
-(``obs.goodput``) and the merge of per-host journals
-(``obs.aggregate``).  Library code emits to a
+(``obs.goodput``), the merge of per-host journals (``obs.aggregate``)
+and the live serving windows (``obs.live``).  Library code emits to a
 process-global journal (``set_default`` / ``TADNN_JOURNAL``); when none
 is installed every call is a cheap no-op."""
 
-from . import aggregate, schema
+from . import aggregate, live, schema
 from .goodput import BUCKETS, GoodputMeter
 from .journal import (
     Journal,
@@ -15,8 +15,10 @@ from .journal import (
     set_default,
     span,
 )
+from .live import LatencySketch, LiveAggregator, aggregate_stream
 
 __all__ = [
-    "BUCKETS", "GoodputMeter", "Journal", "aggregate", "as_default", "event",
-    "get_default", "schema", "set_default", "span",
+    "BUCKETS", "GoodputMeter", "Journal", "LatencySketch", "LiveAggregator",
+    "aggregate", "aggregate_stream", "as_default", "event", "get_default",
+    "live", "schema", "set_default", "span",
 ]

@@ -4,11 +4,11 @@ The port writes the same JSON lines as the JAX package's
 ``obs/journal.py``, so its records stay readable by that package's
 ``tadnn report``.  Here: the writer, live taps (``subscribe``),
 size-capped rotation, the in-memory filter ``named``, the torn-line
-tolerant reader ``Journal.read``, and the process-default helpers
-(``as_default`` and the module-level ``event`` / ``span``, which library
-code logs through), and emit-time validation against the event schema
-registry (``obs/schema.py``, ``validate=True``).  Following a live file
-stays in the JAX package (ROADMAP Queue 1 item 7).
+tolerant reader ``Journal.read`` and its live tail ``Journal.follow``,
+the process-default helpers (``as_default`` and the module-level
+``event`` / ``span``, which library code logs through), and emit-time
+validation against the event schema registry (``obs/schema.py``,
+``validate=True``).
 
 Every record carries BOTH clocks:
 
@@ -241,6 +241,105 @@ class Journal:
                 f"journal {path}: skipped {bad} torn/corrupt line(s) "
                 f"({len(out)} readable records kept)", stacklevel=2)
         return out
+
+    @staticmethod
+    def follow(path: str, *, poll_s: float = 0.2,
+               idle_timeout: float | None = None,
+               stop=None, sleep=time.sleep) -> Iterator[dict]:
+        """Tail a journal file as a concurrent writer appends to it.
+
+        Yields each record as soon as its line is complete.  A torn
+        final line — the writer seen mid-record — is buffered until its
+        newline arrives, so a live reader never drops the record a
+        crash-time reader would have skipped; interior corrupt lines
+        are skipped with the same once-per-file warning as ``read``.
+
+        Stops when ``stop()`` returns true (checked between polls) or
+        after ``idle_timeout`` seconds with no new bytes (None = follow
+        forever).  ``sleep`` is injectable so tests can drive the tail
+        loop without real waiting.
+
+        The path may not exist yet (a monitor is routinely started
+        before the engine's first event): creation is polled for under
+        the same ``idle_timeout`` budget instead of raising.
+
+        Size-capped rotation is survived: when the writer rotates the
+        file out from under the tail (``os.replace`` to ``<path>.1`` —
+        the open fd now points at the OLD generation) or truncates it,
+        the follower detects the inode swap / size shrink, reopens the
+        fresh file from the top, and warns once per rotation; a torn
+        buffer from the old generation is dropped (its tail lives in
+        ``<path>.1``, not the stream)."""
+        buf = ""
+        idle = 0.0
+        while not os.path.exists(path):
+            if stop is not None and stop():
+                return
+            if idle_timeout is not None and idle >= idle_timeout:
+                return
+            sleep(poll_s)
+            idle += poll_s
+        idle = 0.0
+        f = open(path)
+        try:
+            while True:
+                chunk = f.read()
+                if chunk:
+                    idle = 0.0
+                    buf += chunk
+                    while "\n" in buf:
+                        line, _, buf = buf.partition("\n")
+                        line = line.strip()
+                        if not line:
+                            continue
+                        try:
+                            rec = json.loads(line)
+                        except ValueError:
+                            rec = None
+                        if isinstance(rec, dict):
+                            yield rec
+                            continue
+                        if path not in _warned_corrupt:
+                            _warned_corrupt.add(path)
+                            warnings.warn(
+                                f"journal {path}: skipping torn/corrupt "
+                                f"line(s) while following", stacklevel=2)
+                    continue
+                # no new bytes on the open fd: check whether the file
+                # was rotated (replaced: different inode at the path)
+                # or truncated (shrunk below our read position) and
+                # re-attach to the live generation if so
+                rotated = False
+                try:
+                    disk = os.stat(path)
+                    here = os.fstat(f.fileno())
+                    if disk.st_ino != here.st_ino:
+                        rotated = True
+                    elif disk.st_size < f.tell():
+                        rotated = True
+                except OSError:
+                    # path briefly absent mid-replace: treat as idle,
+                    # the next poll sees the new file
+                    pass
+                if rotated:
+                    warnings.warn(
+                        f"journal {path}: rotated mid-follow, "
+                        f"re-attached to the new generation"
+                        + (" (dropped a torn partial line)"
+                           if buf.strip() else ""), stacklevel=2)
+                    f.close()
+                    f = open(path)
+                    buf = ""
+                    idle = 0.0
+                    continue
+                if stop is not None and stop():
+                    return
+                if idle_timeout is not None and idle >= idle_timeout:
+                    return
+                sleep(poll_s)
+                idle += poll_s
+        finally:
+            f.close()
 
 
 # paths already warned about corrupt lines (once-per-file, process-wide)

@@ -98,6 +98,17 @@ TRANSFORMER_RULES: tuple[Rule, ...] = (
          r"\.lora_b$", (None, "tensor")),
     Rule(r"(o_proj|out_proj|attn_out|wo|proj_out|down_proj|fc2|wo_mlp|w2|"
          r"mlp_out)\.lora_a$", ("tensor", None)),
+    # torch-bridge naming (models/torch_bridge.py): the MHA weights keep
+    # torch's [out, in] layout -- the packed [q; k; v] ``in_w`` [3d, d]
+    # splits dim 0 (each third alike: ``TorchBridge.tp_packed``), ``out_w``
+    # [d, d] its input dim 1 -- and a Linear kernel is [in, out] (lin1
+    # fan-out splits dim 1, lin2 fan-in dim 0)
+    Rule(r"(sa|ca)\.in_w$", ("tensor", None)),
+    Rule(r"(sa|ca)\.in_b$", ("tensor",)),
+    Rule(r"(sa|ca)\.out_w$", (None, "tensor")),
+    Rule(r"lin1\.kernel$", (None, "tensor")),
+    Rule(r"lin1\.bias$", ("tensor",)),
+    Rule(r"lin2\.kernel$", ("tensor", None)),
     # norms / scalars replicated
     Rule(r"(norm|ln|layernorm|rmsnorm|scale)", ()),
 )

@@ -278,13 +278,14 @@ def zero1_shards(params: Params, *, mesh, opt_specs, param_specs) -> Params:
     """The optimizer's view of ``params`` under ZeRO-1: a leaf whose
     optimizer spec adds ``data`` on a dim is this rank's slice there, a
     ``DTensor`` sharded over ``data`` (:func:`_zero1_layout`: beside a
-    plan's own tensor or fsdp shards); any other leaf is itself."""
+    plan's own tensor or fsdp shards); any other leaf, and another
+    pipeline stage's (a meta tensor), is itself."""
     from torch.distributed.tensor import DTensor
 
     out = {}
     for name, p in params.items():
         d = _zero1_dim(opt_specs[name], param_specs[name])
-        if d is None:
+        if d is None or p.is_meta:
             out[name] = p
             continue
         m, whole, shard = _zero1_layout(p, mesh, d)
@@ -305,7 +306,8 @@ def zero1_update(optimizer: GradientTransformation, grads: Params,
     the shard (``opt_state`` holds shards: :func:`zero1_shards` at
     init), the fresh shards all-gathered into ``params`` in place.  A
     leaf ZeRO-1 leaves whole has its gradient all-reduced over data,
-    unless its ``DTensor`` already carries the data axis."""
+    unless its ``DTensor`` already carries the data axis.  Another
+    pipeline stage's leaf (a meta tensor) passes through untouched."""
     from torch.distributed.tensor import DTensor, Partial
 
     data = mesh["data"]
@@ -314,6 +316,9 @@ def zero1_update(optimizer: GradientTransformation, grads: Params,
                           param_specs=param_specs)
     sharded_grads = {}
     for name, g in grads.items():
+        if g.is_meta:
+            sharded_grads[name] = g
+            continue
         d = _zero1_dim(opt_specs[name], param_specs[name])
         averaged = is_dtensor(g) and "data" in g.device_mesh.mesh_dim_names
         if d is None:
@@ -337,6 +342,8 @@ def zero1_update(optimizer: GradientTransformation, grads: Params,
             run_check=False).redistribute(m, shard) / n
     updates, opt_state = optimizer.update(sharded_grads, opt_state, shards)
     for name, p in params.items():
+        if p.is_meta:
+            continue
         new = shards[name] + updates[name]
         d = _zero1_dim(opt_specs[name], param_specs[name])
         if d is not None:
