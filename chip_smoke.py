@@ -170,9 +170,9 @@ card, in phases, one JSON line each; any failure exits non-zero:
    is below the flash floor);
 19. sharded checkpoints at full width (``sharded_trainer``): GPT-2 small
    (B 8 x S 1024, bf16 compute, flash) under ``Trainer.fit`` with a
-   ``ShardedCheckpoint`` every 5 steps for 20 steps; step 20's shard
+   ``ShardedCheckpoint`` every 4 steps for 12 steps; step 12's shard
    torn, a resumed fit quarantines it (``ckpt.corrupt``), falls back to
-   step 15 and replays steps 16-20 bitwise; the newest intact step
+   step 8 and replays steps 9-12 bitwise; the newest intact step
    restored into fresh ``AutoDistribute``s under fsdp, tp and tp_fsdp in
    a world of one NCCL rank, parameters and Adam moments bitwise equal
    to the saved ones and one more step's loss bitwise equal to the
@@ -237,7 +237,7 @@ card, in phases, one JSON line each; any failure exits non-zero:
    remats imply, step ms and peak memory; (d) the first step's dropped
    fraction, per layer, over the batch and on row 0 alone;
 24. pipeline and context parallelism (``pipeline_cp``), GPT-2 small at B
-   8 x S 1024, bf16 compute, 3 steps on one batch: the unsharded step in
+   8 x S 1024, bf16 compute, 2 steps on one batch: the unsharded step in
    this process, then two processes on the one card in a gloo group (NCCL
    refuses two ranks on one device; sends, rotations and all-to-alls go
    through host buffers, counted): pipe 2 with microbatches 4 under
@@ -285,10 +285,10 @@ card, in phases, one JSON line each; any failure exits non-zero:
    ranks' tokens equal, at least 0.99 agreement with the unsharded
    engine, K4 once a layer a decode step on each rank, 24 all-reduces
    a decode step, tokens/s, p99 and the decode step; (d)
-   ``AutoDistribute.generate`` under ``tp`` (B 4 x (128 + 64), fp32):
+   ``AutoDistribute.generate`` under ``tp`` (B 4 x (128 + 32), fp32):
    both ranks equal, at least 0.99 agreement with the unsharded
    ``generate``, q_proj held [384, 768] a rank; (e) the train cell (B 8
-   x S 1024, bf16, 3 steps) under ``tp`` 2 with Megatron-SP on and off:
+   x S 1024, bf16, 2 steps) under ``tp`` 2 with Megatron-SP on and off:
    the loss gap (within 1e-2), a reduce-scatter in every step with it on
    and none with it off, each rank's peak memory; in this process (c)
    ``disaggregate=True`` against colocated on (b)'s requests: identical
@@ -313,9 +313,36 @@ card, in phases, one JSON line each; any failure exits non-zero:
    least 0.99; K4 launches on both replicas, once a layer a decode
    step; the journal read back by ``Journal.follow`` into
    ``LiveAggregator`` counts the 16 requests, and ``tadnn doctor
-   --gateway-dir --json`` exits 0 and reports B's breaker opening.
+   --gateway-dir --json`` exits 0 and reports B's breaker opening;
+28. the HTTP/SSE ingress (``ingress``): phase 27's two replicas of
+   GPT-2 small behind a ``Gateway`` (a breaker a replica, journaling
+   with validation) and ``HttpIngress`` on 127.0.0.1 at an ephemeral
+   port in this process's event loop; 16 greedy requests of 128 prompt
+   + 32 new tokens in four groups sharing a 64-token prefix, from four
+   tenants, POSTed at once to ``/v1/generate``, then 4 at once from
+   tenant ``limited`` (a token bucket of burst 2): every SSE stream ends
+   in ``done`` with each token index once, the tokens agree with one
+   engine serving the same prompts alone at 1.0, ``limited`` gets 2
+   streams and 2 HTTP 429s with a Retry-After header, K4 launches on
+   both replicas, and ``tadnn monitor <journal> --json`` exits 0 and
+   counts 18 finished requests; the wall, tokens/s and the client's
+   TTFT p50/p99 are printed;
+29. the tuner (``tune``): ``AutoDistribute(strategy="tuned")`` on the
+   train cell (B 8 x S 1024, bf16, 3 steps) journals ``tune.fallback``
+   (one device), plans as ``"auto"`` does and gives ``"auto"``'s losses
+   bitwise from one seed, K1-K3 launching, steps 2-3 of each profiled
+   for the device's busy time; through ``cli.main`` in this process (a
+   child interpreter costs seconds a call), ``tadnn tune --measure
+   --top-k 1 --json`` at GPT-2 small (the tuning cache in a temp dir)
+   measures its top row, printed beside the cost model's compute, HBM
+   and step estimates and their ratios to the measured step and to the
+   busy time; the same call again answers from the fallback (a
+   one-device decision is not cached), ``--topology h100-8`` twice is
+   ranked and then replayed from the cache, and ``tadnn simulate
+   --topology h100-8,h100-8x4 --json`` returns 0, device-free.
 
-Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23, 25 and 27 write
+Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23, 25, 27, 28
+and 29 write
 their journals with schema validation on (``Journal(validate=True)``): a
 record that breaks the event schema fails the run; phase 18 checks every
 record of its merged journal the same way.
@@ -2012,8 +2039,8 @@ def _ckpt_timing(journal) -> dict:
             "bytes": writes[0]["bytes"] if writes else None}
 
 
-def phase_sharded_trainer(torch, data, card, *, steps=20,
-                          every=5) -> dict[str, int]:
+def phase_sharded_trainer(torch, data, card, *, steps=12,
+                          every=4) -> dict[str, int]:
     """GPT-2 small at full width and depth (B 8 x S 1024, bf16 compute)
     under the Trainer with a ``ShardedCheckpoint`` every ``every`` steps
     for ``steps`` steps; the newest step torn, a resumed fit falls back
@@ -4116,7 +4143,7 @@ def phase_moe(torch, card) -> tuple[int, dict[str, int]]:
 # train; two processes share the one card over a gloo group (NCCL refuses
 # two ranks on one device), so the sends, rotations and all-to-alls go
 # through host buffers, counted
-PIPE_CP_STEPS = 3
+PIPE_CP_STEPS = 2
 PIPE_CP_SEED = 0
 PIPE_CP_MICROBATCHES = 4
 PIPE_CP_RUNS = (
@@ -4279,7 +4306,7 @@ def _pipe_cp_child(out_path: str, rank: int, init_file: str) -> int:
 
 def phase_pipeline_cp(torch, card) -> dict[str, int]:
     """Pipeline and context parallelism at GPT-2 small (B 8 x S 1024,
-    bf16 compute, 3 steps on one batch): the unsharded step in this
+    bf16 compute, 2 steps on one batch): the unsharded step in this
     process, then two processes on the card in a gloo group running pipe
     2 under cond, 1f1b and interleaved_1f1b (V 2, microbatches 4) and
     seq 2 under ring and Ulysses, each against the unsharded losses; K1-K3
@@ -4372,7 +4399,8 @@ def phase_pipeline_cp(torch, card) -> dict[str, int]:
         import bubble_fraction
 
     emit({"phase": "pipeline_cp", "card": card,
-          "model": "gpt2-small B 8 x S 1024 bf16, 3 steps on one batch",
+          "model": f"gpt2-small B 8 x S 1024 bf16, {PIPE_CP_STEPS} steps "
+                   f"on one batch",
           "unsharded": {"losses": ref, "step_ms": ref_ms,
                         "median_step_ms": statistics.median(ref_ms[1:])},
           "loss_bound": PIPE_CP_LOSS_BOUND,
@@ -4779,8 +4807,8 @@ SHARDED_SEED = 1
 SHARDED_SERVE = dict(n_slots=8, max_len=1024, block_size=16,
                      prefill_chunk=32)
 SHARDED_REQUESTS = (16, 256, 64)  # requests, prompt tokens, new tokens
-SHARDED_GEN = (4, 128, 64)        # (d): B, prompt, new tokens
-SHARDED_SP_STEPS = 3
+SHARDED_GEN = (4, 128, 32)        # (d): B, prompt, new tokens
+SHARDED_SP_STEPS = 2
 # (a) with the shard's own split count, against the plain version: the
 # kernel-case bounds (fp32 q: sums in another order; bf16 q: one ulp)
 SHARDED_K4_BOUNDS = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -5083,7 +5111,7 @@ def phase_sharded_serve(torch, card) -> dict[str, int]:
     the decode step; (c) disaggregated against colocated in this
     process: identical tokens, the shipped bytes 589,824 a block, the
     modelled overlapped wall beside the sum; (d) ``AutoDistribute
-    .generate`` under ``tp`` in the two processes, B 4 x (128 + 64),
+    .generate`` under ``tp`` in the two processes, B 4 x (128 + 32),
     fp32, against the unsharded ``generate``; (e) the train cell (B 8 x
     S 1024, bf16) under ``tp`` 2 with Megatron-SP on and off: the loss
     gap, the reduce-scatters a step, each rank's peak memory; (f) LoRA
@@ -5487,6 +5515,410 @@ def phase_gateway(torch, model) -> int:
     return launches
 
 
+PORT = "torch_automatic_distributed_neural_network_tpu_torch"
+
+
+def _port_cli(args, env):
+    """``python -m <port> ARGS`` in this process (``cli.main``, no
+    interpreter start): (rc, stdout, stderr), with ``env``'s variables
+    set around the call and the process's default journal put back
+    after it (``simulate`` installs its own)."""
+    import contextlib
+    import io
+    import os
+
+    from torch_automatic_distributed_neural_network_tpu_torch.cli import main
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal, as_default
+
+    out, err = io.StringIO(), io.StringIO()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err), \
+                as_default(Journal(host0_only=False, validate=True)):
+            rc = main(list(args))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _json_lines(text: str) -> list[dict]:
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+def phase_tune(torch, data) -> dict[str, int]:
+    """``strategy="tuned"`` against ``"auto"`` on the train cell, then
+    ``tadnn tune`` measured, the cache and ``tadnn simulate`` through
+    the command line in this process (module docstring, phase 29).
+    Returns K1-K3's launches in the tuned run."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, adamw, next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal, as_default
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    batch = data.batch(0)
+    tmp = tempfile.mkdtemp(prefix="tadnn_tune_")
+    env = {"TADNN_TUNE_CACHE": os.path.join(tmp, "tune.jsonl")}
+
+    # (a) the tuned plan on one card, then the auto plan, 3 steps each
+    # from one seed; the tuner's cache points at the temp dir too.
+    # Steps 2-3 of each run are profiled: the device's busy time beside
+    # the cost model's estimate (the losses stay bitwise)
+    def run(strategy):
+        jnl = Journal(host0_only=False, validate=True)
+        old = os.environ.get("TADNN_TUNE_CACHE")
+        os.environ["TADNN_TUNE_CACHE"] = env["TADNN_TUNE_CACHE"]
+        try:
+            with as_default(jnl):
+                ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                                    loss_fn=next_token_loss,
+                                    strategy=strategy)
+                state = ad.init(
+                    torch.Generator(device="cuda").manual_seed(0), batch)
+                for w in wrappers:
+                    w.launches = 0
+                losses = []
+                state, metrics = ad.step(state, batch)
+                losses.append(float(metrics["loss"]))
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(2):
+                        state, metrics = ad.step(state, batch)
+                        losses.append(float(metrics["loss"]))
+                    torch.cuda.synchronize()
+        finally:
+            if old is None:
+                os.environ.pop("TADNN_TUNE_CACHE", None)
+            else:
+                os.environ["TADNN_TUNE_CACHE"] = old
+        launches = {w.__name__: w.launches for w in wrappers}
+        plan = (ad.plan.strategy, ad.plan.degrees, ad.plan.zero1,
+                ad.plan.remat, dict(ad.plan.param_specs))
+        names = [r["name"] for r in jnl.records]
+        busy = (_device_time(prof, 2, 0) or {}).get(
+            "device_busy_ms_per_step")
+        del ad, state
+        torch.cuda.empty_cache()
+        return losses, launches, plan, names, busy
+
+    t0 = time.monotonic()
+    tuned_losses, launches, tuned_plan, tuned_names, busy_ms = run("tuned")
+    auto_losses, _, auto_plan, _, auto_busy_ms = run("auto")
+    fallback = [n for n in tuned_names if n.startswith("tune.")]
+    emit({"phase": "tune", "part": "tuned_training", "model": "gpt2-small",
+          "batch": data.batch_size, "seq": data.seq_len - 1,
+          "tuned_losses": tuned_losses, "auto_losses": auto_losses,
+          "plan": {"strategy": tuned_plan[0], "mesh": tuned_plan[1],
+                   "zero1": tuned_plan[2], "remat": tuned_plan[3]},
+          "tune_events": fallback, "launches": launches,
+          "device_busy_ms_per_step": {
+              "tuned": busy_ms if busy_ms is not None else "not measured",
+              "auto": auto_busy_ms if auto_busy_ms is not None
+              else "not measured"},
+          "seconds": time.monotonic() - t0})
+    require("tune.fallback" in tuned_names
+            and "tune.profile_skipped" in tuned_names,
+            f"tune: the tuned run journaled {fallback}, not tune.fallback")
+    require(tuned_plan == auto_plan,
+            f"tune: tuned plan {tuned_plan[:4]} != auto plan {auto_plan[:4]}")
+    require(tuned_losses == auto_losses and all(
+        math.isfinite(x) for x in tuned_losses),
+        f"tune: tuned losses {tuned_losses} != auto {auto_losses}")
+    require(all(c > 0 for c in launches.values()),
+            f"tune: a flash kernel never launched in the tuned run "
+            f"{launches}")
+
+    # (b) tadnn tune, measured on the card
+    argv = ["tune", "--family", "gpt2", "--size", "small", "--seq", "1024",
+            "--batch", "8", "--measure", "--top-k", "1", "--json"]
+    t0 = time.monotonic()
+    rc, out, err = _port_cli(argv, env)
+    cli_s = time.monotonic() - t0
+    rows = _json_lines(out)
+    require(rc == 0 and len(rows) >= 2,
+            f"tune: tadnn tune rc {rc}: {err[-2000:]}")
+    top, decision = rows[0], rows[-1]
+    require("measured_ms" in top, f"tune: the top row is not measured: "
+            f"{top} ({err[-1000:]})")
+    b = top["breakdown"]
+    emit({"phase": "tune", "part": "cli_measure", "argv": argv,
+          "seconds": cli_s, "candidate": top["strategy"],
+          "mesh": top["mesh"], "source": decision["source"],
+          "estimate_ms": {"step": top["step_time_ms"],
+                          "compute": b["compute_ms"], "hbm": b["hbm_ms"],
+                          "comm": b["comm_ms"]},
+          "measured_ms": top["measured_ms"],
+          "measured_over_estimate": top["measured_ms"] / top["step_time_ms"],
+          "tuned_busy_ms": busy_ms,
+          "busy_over_estimate": (busy_ms / top["step_time_ms"]
+                                 if busy_ms is not None else None),
+          "memory_estimate_gib": b["memory"]["total_bytes"] / 2**30})
+
+    # (c) the cache: a fallback (one device) is not cached, as in the
+    # JAX package, so the same call answers from the fallback again; a
+    # ranked decision (an 8-card fleet) is, and the second call replays
+    # it
+    rc2, out2, err2 = _port_cli(argv[:-4] + ["--json"], env)
+    again = _json_lines(out2)
+    fleet = argv[:9] + ["--topology", "h100-8", "--json"]
+    rc3, out3, err3 = _port_cli(fleet, env)
+    rc4, out4, err4 = _port_cli(fleet, env)
+    first, second = _json_lines(out3), _json_lines(out4)
+    emit({"phase": "tune", "part": "cache",
+          "one_card": again[-1] if again else None,
+          "fleet_first": first[-1] if first else None,
+          "fleet_second": second[-1] if second else None})
+    require(rc2 == 0 and again and again[-1]["source"] == "fallback"
+            and again[-1]["chosen_strategy"] == decision["chosen_strategy"],
+            f"tune: the second one-card call: rc {rc2} {err2[-1000:]}")
+    require(rc3 == 0 and rc4 == 0 and first and second
+            and first[-1]["source"] == "cost_model"
+            and second[-1]["source"] == "cache"
+            and {k: v for k, v in first[-1].items() if k != "source"}
+            == {k: v for k, v in second[-1].items() if k != "source"},
+            f"tune: the h100-8 decision was not replayed from the cache: "
+            f"{first[-1:]} then {second[-1:]} ({err4[-1000:]})")
+
+    # (d) tadnn simulate, device-free
+    sim_argv = ["simulate", "--family", "gpt2", "--size", "small",
+                "--topology", "h100-8,h100-8x4", "--json"]
+    t0 = time.monotonic()
+    rc5, out5, err5 = _port_cli(sim_argv, env)
+    sim_s = time.monotonic() - t0
+    report = _json_lines(out5)
+    require(rc5 == 0 and report and report[-1].get("predictions"),
+            f"tune: tadnn simulate rc {rc5}: {err5[-2000:]}")
+    rep = report[-1]
+    best = rep["predictions"][0]
+    emit({"phase": "tune", "part": "simulate", "seconds": sim_s,
+          "topologies": rep["topologies"],
+          "n_candidates": rep["n_candidates"], "n_slo_ok": rep["n_slo_ok"],
+          "best": {k: best[k] for k in (
+              "topology", "plan", "admission", "mfu", "step_time_s",
+              "tok_s_per_chip", "p99_s", "hbm_headroom_frac")}})
+    return launches
+
+
+INGRESS_TENANTS = ("t0", "t1", "t2", "t3")
+INGRESS_LIMITED_BURST = 2
+
+
+def _sse_post(host, port, payload) -> dict:
+    """``ingress.sse_generate`` with each frame stamped on the client's
+    clock: status, Retry-After, frames, first-token and done times (a
+    refusal's status and Retry-After from its ``GatewayError``)."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .gateway import GatewayError, sse_generate
+
+    t0 = time.monotonic()
+    out = {"status": 200, "retry_after": None, "events": [],
+           "t_first": None, "t_done": None}
+
+    def stamp(ev):
+        now = time.monotonic() - t0
+        if "token" in ev and out["t_first"] is None:
+            out["t_first"] = now
+        if ev.get("done"):
+            out["t_done"] = now
+
+    try:
+        out["events"] = sse_generate(host, port, payload, timeout=600.0,
+                                     on_event=stamp)
+    except GatewayError as e:  # a refusal: its status is the result
+        out["status"], out["retry_after"] = e.status, e.retry_after
+    return out
+
+
+def phase_ingress(torch, model) -> int:
+    """HTTP/SSE through ``HttpIngress`` over a ``Gateway`` of two engine
+    replicas, a rate-limited tenant, and ``tadnn monitor`` on the journal
+    (module docstring, phase 28).  Returns K4's launches on the two
+    replicas."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .gateway import BreakerPolicy, EngineReplica, Gateway, HttpIngress
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    tr = GATEWAY_TRAFFIC
+    rs = np.random.RandomState(GATEWAY_SEED + 1)
+    vocab = model.cfg.vocab_size
+    prompts = []  # (group, index) order: four groups sharing a prefix
+    for _ in range(tr["groups"]):
+        shared = [int(t) for t in rs.randint(1, vocab, size=tr["shared"])]
+        prompts += [shared + [int(t) for t in rs.randint(
+            1, vocab, size=tr["prompt_len"] - tr["shared"])]
+            for _ in range(tr["per_group"])]
+    limited = [[int(t) for t in rs.randint(1, vocab, size=tr["prompt_len"])]
+               for _ in range(4)]
+    warm = ServeEngine(model, device="cuda", **GATEWAY_ENGINE)
+    warm.submit(prompts[0], max_new_tokens=2)
+    warm.run()
+    del warm
+
+    gdir = tempfile.mkdtemp(prefix="tadnn_ingress_")
+    path = os.path.join(gdir, "journal.jsonl")
+    jnl = Journal(path, host0_only=False, validate=True,
+                  meta={"tool": "chip_smoke"})
+    reps = [EngineReplica(name, ServeEngine(model, journal=jnl,
+                                            device="cuda",
+                                            **GATEWAY_ENGINE))
+            for name in ("replica0", "replica1")]
+    k4 = {r.name: 0 for r in reps}
+
+    def counted(rep):
+        step = rep.step
+
+        def run():
+            before = paged_attention.launches
+            n = step()
+            k4[rep.name] += paged_attention.launches - before
+            return n
+        return run
+
+    for r in reps:
+        r.step = counted(r)
+    # every tenant has a token bucket at a negligible refill rate; the
+    # traffic tenants' burst covers their 4 requests, `limited`'s is 2
+    gw = Gateway(reps, journal=jnl, rate_limit_per_s=1e-3, burst=64,
+                 breaker=BreakerPolicy(min_observations=8, open_s=3600.0))
+    limited_bucket = gw._bucket("limited")
+    limited_bucket.burst = limited_bucket.tokens = INGRESS_LIMITED_BURST
+    results: dict = {}
+
+    async def drive():
+        ingress = HttpIngress(gw, host="127.0.0.1", port=0)
+        await ingress.start()
+        try:
+            loop = asyncio.get_running_loop()
+
+            def post(i, prompt, tenant):
+                return loop.run_in_executor(None, lambda: _sse_post(
+                    "127.0.0.1", ingress.port, {
+                        "prompt": prompt, "max_new_tokens": tr["max_new"],
+                        "tenant": tenant, "priority": "interactive"}))
+
+            t0 = time.monotonic()
+            outs = await asyncio.gather(*(
+                post(i, p, INGRESS_TENANTS[i % len(INGRESS_TENANTS)])
+                for i, p in enumerate(prompts)))
+            results["wall"] = time.monotonic() - t0
+            results["traffic"] = outs
+            results["limited"] = await asyncio.gather(*(
+                post(i, p, "limited") for i, p in enumerate(limited)))
+        finally:
+            await ingress.stop()
+
+    paged_attention.launches = 0
+    torch.cuda.synchronize()
+    try:
+        asyncio.run(drive())
+    finally:
+        jnl.close()
+    torch.cuda.synchronize()
+    launches = paged_attention.launches
+    outs, lim = results["traffic"], results["limited"]
+    wall = results["wall"]
+
+    def tokens(out):
+        return [ev["token"] for ev in out["events"] if "token" in ev]
+
+    complete = [o["status"] == 200 and o["events"] and o["events"][-1].get(
+        "done") and [ev["i"] for ev in o["events"] if "token" in ev]
+        == list(range(tr["max_new"])) for o in outs]
+    require(all(complete), f"ingress: streams incomplete or out of order: "
+            f"{[i for i, c in enumerate(complete) if not c]}")
+    accepted = [o for o in lim if o["status"] == 200]
+    refused = [o for o in lim if o["status"] == 429]
+    require(len(accepted) == INGRESS_LIMITED_BURST and len(refused) == 2
+            and all(o["retry_after"] and o["retry_after"] >= 1
+                    for o in refused)
+            and all(o["events"] and o["events"][-1].get("done")
+                    for o in accepted),
+            f"ingress: limited got {[o['status'] for o in lim]} with "
+            f"Retry-After {[o['retry_after'] for o in lim]}")
+
+    ref = ServeEngine(model, device="cuda", **GATEWAY_ENGINE)
+    alone = [ref.submit(p, tr["max_new"]) for p in prompts]
+    lim_ref = {i: ref.submit(p, tr["max_new"]) for i, p in enumerate(limited)
+               if lim[i]["status"] == 200}
+    ref.run()
+    agree = _agreement([tokens(o) for o in outs],
+                       [r.out_tokens for r in alone])
+    agree_lim = _agreement([tokens(lim[i]) for i in lim_ref],
+                           [r.out_tokens for r in lim_ref.values()])
+    ttft = [o["t_first"] for o in outs]
+    new_tokens = sum(len(tokens(o)) for o in outs)
+    stats = gw.summary()
+    proc = subprocess.run([sys.executable, "-m", PORT, "monitor", path,
+                           "--json"], capture_output=True, text=True,
+                          timeout=300)
+    summary = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    recs = Journal.read(path)
+    shutil.rmtree(gdir, ignore_errors=True)
+    overall = summary.get("overall") or {}
+    emit({"phase": "ingress", "model": "gpt2-small",
+          "requests": len(outs), "prompt_len": tr["prompt_len"],
+          "shared_prefix": tr["shared"], "max_new": tr["max_new"],
+          "tenants": list(INGRESS_TENANTS), "wall_s": wall,
+          "new_tokens": new_tokens, "tokens_per_s": new_tokens / wall,
+          "ttft_p50_s": _pct(ttft, 0.5), "ttft_p99_s": _pct(ttft, 0.99),
+          "total_p50_s": _pct([o["t_done"] for o in outs], 0.5),
+          "total_p99_s": _pct([o["t_done"] for o in outs], 0.99),
+          "agreement": agree, "agreement_limited": agree_lim,
+          "limited": [{"status": o["status"],
+                       "retry_after": o["retry_after"]} for o in lim],
+          "gateway": {k: stats[k] for k in ("accepted", "rejected", "done")},
+          "router": stats["router"], "k4_launches": k4,
+          "rejects_journaled": sum(1 for r in recs
+                                   if r["name"] == "gateway.reject"),
+          "monitor": {"rc": proc.returncode,
+                      "n_done": overall.get("n_done"),
+                      "n_windows": summary.get("n_windows"),
+                      "tok_s": overall.get("tok_s"),
+                      "ttft_p99_s": overall.get("ttft_p99_s")}})
+    require(agree == 1.0 and agree_lim == 1.0,
+            f"ingress: tokens agree with one engine on {agree:.4f} "
+            f"(limited {agree_lim:.4f})")
+    require(stats["accepted"] == len(outs) + INGRESS_LIMITED_BURST
+            and stats["done"] == stats["accepted"]
+            and stats["rejected"] == 2,
+            f"ingress: gateway counted {stats}")
+    require(all(k4[r.name] > 0 for r in reps)
+            and launches == sum(k4.values()),
+            f"ingress: K4 launches {k4} (of {launches})")
+    require(proc.returncode == 0 and overall.get("n_done") == (
+        len(outs) + INGRESS_LIMITED_BURST),
+        f"ingress: tadnn monitor rc {proc.returncode} counted "
+        f"{overall.get('n_done')}: {proc.stderr[-2000:]}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5663,11 +6095,21 @@ def main(argv=None) -> int:
     if run("sharded_serve"):
         sharded_serve_launches = phase_sharded_serve(torch, card)
         torch.cuda.empty_cache()
-    if run("gateway"):
+    if run("gateway") or run("ingress"):
         gpt2 = model_of(gpt2_config("small", max_seq_len=1024,
                                     dtype=torch.float32), 1)
-        gateway_launches = phase_gateway(torch, gpt2)
+        if run("gateway"):
+            gateway_launches = phase_gateway(torch, gpt2)
+        if run("ingress"):
+            ingress_launches = phase_ingress(torch, gpt2)
         del gpt2
+        torch.cuda.empty_cache()
+    if run("tune"):
+        from torch_automatic_distributed_neural_network_tpu_torch import \
+            SyntheticLM
+
+        tune_launches = phase_tune(
+            torch, SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8))
         torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
@@ -5684,7 +6126,7 @@ def main(argv=None) -> int:
         "launches": (paged_launches + lora_k4_launches + moe_k4_launches
                      + bridges_launches["paged_attention"]
                      + sharded_serve_launches["paged_attention"]
-                     + gateway_launches),
+                     + gateway_launches + ingress_launches),
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -5697,7 +6139,8 @@ def main(argv=None) -> int:
                          + zoo_launches[name] + llama_launches[name]
                          + moe_launches[name] + pipe_cp_launches[name]
                          + bridges_launches[name]
-                         + sharded_serve_launches[name]),
+                         + sharded_serve_launches[name]
+                         + tune_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -5722,7 +6165,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
           "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
-          "bridges", "sharded_serve", "gateway")
+          "bridges", "sharded_serve", "gateway", "ingress", "tune")
 
 
 if __name__ == "__main__":

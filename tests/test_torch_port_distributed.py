@@ -21,7 +21,11 @@ process) and runs every strategy in turn in that one group:
 - 4 ranks: ``fsdp``, ``tp_fsdp`` on 2 x 2 with the clip, and the
   hybrid meshes, a data axis beside the others: HSDP on data 2 x fsdp 2,
   DP x TP on data 2 x tensor 2, and ZeRO-1 beside tensor 2 (the JAX
-  package on 4 devices with the same degrees); then the sharded
+  package on 4 devices with the same degrees); ``strategy="tuned"``,
+  whose strategy, degrees and ZeRO-1 equal JAX's ``make_plan(strategy=
+  "tuned")`` on 4 devices (no liveness profile, as the port) and whose
+  losses JAX's under that plan (the tuning cache in the test's
+  directory); then the sharded
   checkpoint's resharding chain, dp/4 -> fsdp/2 -> dp + ZeRO-1/4 -> one
   process, bitwise at every hop (parameters and Adam moments), and the
   divergence check under HSDP tripping on one perturbed data replica;
@@ -77,6 +81,8 @@ from jax.sharding import Mesh, PartitionSpec as JP
 
 from torch_automatic_distributed_neural_network_tpu import AutoDistribute as JAutoDistribute
 from torch_automatic_distributed_neural_network_tpu import planner as jplanner
+from torch_automatic_distributed_neural_network_tpu import topology as jtopo
+from torch_automatic_distributed_neural_network_tpu import tune as jtune
 from torch_automatic_distributed_neural_network_tpu.data.synthetic import (
     SyntheticLM as JSyntheticLM,
 )
@@ -149,7 +155,10 @@ RUNS = {
         dict(name="data2xtensor2", strategy="auto",
              mesh={"data": 2, "tensor": 2}),
         dict(name="zero1+tensor2", strategy="auto", zero1=True,
-             mesh={"data": 2, "tensor": 2})],
+             mesh={"data": 2, "tensor": 2}),
+        # the cost-model search: JAX's tuned plan without a liveness
+        # profile (the port has none), its choice checked in the test
+        dict(name="tuned", strategy="tuned")],
 }
 
 
@@ -287,7 +296,30 @@ def _jax_model():
     return GPT2("test", vocab_size=VOCAB, max_seq_len=64, dtype=jnp.float32)
 
 
+def _jax_tuned_plan(world, batch):
+    """JAX's ``make_plan(strategy="tuned")`` on ``world`` CPU devices with
+    the policy ``AutoDistribute`` builds (the batch's items, one
+    accumulation choice, fp32's state factor) and no liveness profile,
+    the cache off."""
+    model = _jax_model()
+    jabs = jax.eval_shape(lambda: model.init(
+        jax.random.key(0), jnp.asarray(batch["input_ids"])))["params"]
+    return jplanner.make_plan(
+        jabs, strategy="tuned", devices=jax.devices()[:world],
+        tune_policy=jtune.TunePolicy(
+            batch_items=jtune.estimate_batch_items(batch), grad_accums=(1,),
+            state_factor=4.0, act_profile=None, use_cache=False))
+
+
 def _jax_run(world, run, base=None):
+    if run["strategy"] == "tuned":
+        # trained under the tuned plan: its strategy on its mesh
+        plan = _jax_tuned_plan(world, _batches()[0])
+        out = _jax_run(world, {**run, "strategy": plan.strategy,
+                               "mesh": jtopo.mesh_degrees(plan.mesh),
+                               "zero1": plan.zero1}, base)
+        out["tuned_plan"] = plan
+        return out
     opt = optax.adamw(1e-3)
     if run.get("clip"):
         opt = optax.chain(optax.clip_by_global_norm(run["clip"]), opt)
@@ -321,7 +353,8 @@ def _spawn(world, job, tmp_path):
     """Every rank of one gloo world; rank 0's results."""
     job_path, out_path = tmp_path / "job.pt", tmp_path / "out.pt"
     torch.save(job, job_path)
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1",
+           "TADNN_TUNE_CACHE": str(tmp_path / "tune_cache.jsonl")}
     procs = [subprocess.Popen(
         [sys.executable, str(WORKER), str(rank), str(world),
          str(tmp_path / "pg"), str(job_path), str(out_path)],
@@ -403,6 +436,10 @@ def test_sharded_step_matches_jax(results, world, name):
     assert got["remat"] == plan.remat
     jdeg = dict(zip(plan.mesh.axis_names, plan.mesh.devices.shape))
     assert got["degrees"] == jdeg
+    if "tuned_plan" in want:
+        tuned = want["tuned_plan"]
+        assert (got["strategy"], got["degrees"], got["zero1"]) == (
+            tuned.strategy, jtopo.mesh_degrees(tuned.mesh), tuned.zero1)
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=2e-5,
                                atol=0)
     assert got["tokens"] == [BATCH * (SEQ - 1)] * STEPS

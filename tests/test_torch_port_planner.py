@@ -238,11 +238,24 @@ def test_spec_helpers_match_jax():
     assert P(None) != P() and planner._norm_spec([None]) == P()
 
 
-def test_planner_refuses_what_is_not_ported():
-    _, _, pabs, _ = abstract_pair("gpt2", "test")
+def test_planner_refuses_what_is_not_ported(monkeypatch, tmp_path):
+    _, jabs, pabs, heads = abstract_pair("gpt2", "test")
     topo = topology.parse_topology("cpu-4")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        planner.make_plan(pabs, strategy="tuned", topology=topo)
+    # the tuned strategy is ported: on 4 CPU devices it picks JAX's plan
+    # (its cost model ranks, the cache off)
+    from torch_automatic_distributed_neural_network_tpu import tune as jtune
+    from torch_automatic_distributed_neural_network_tpu_torch import tune
+
+    monkeypatch.setenv("TADNN_TUNE_CACHE", str(tmp_path / "tune.jsonl"))
+    plan = planner.make_plan(pabs, strategy="tuned", topology=topo,
+                             heads=heads,
+                             tune_policy=tune.TunePolicy(use_cache=False))
+    jplan = jplanner.make_plan(jabs, strategy="tuned",
+                               devices=jax.devices()[:4],
+                               tune_policy=jtune.TunePolicy(use_cache=False))
+    assert (plan.strategy, plan.degrees, plan.zero1, plan.remat) == (
+        jplan.strategy, jtopo.mesh_degrees(jplan.mesh), jplan.zero1,
+        jplan.remat)
     # sequence and pipeline parallelism are ported: each alone takes its
     # axis out of the devices first, as JAX's planner does; together
     # they are its ValueError

@@ -40,6 +40,10 @@ from torch_automatic_distributed_neural_network_tpu_torch.models import (
     MoE,
     gpt2_config,
 )
+from torch_automatic_distributed_neural_network_tpu_torch.obs.journal import (
+    Journal,
+    as_default,
+)
 from torch_automatic_distributed_neural_network_tpu_torch.planner import (
     abstract_params,
     make_plan,
@@ -340,10 +344,12 @@ def test_autodistribute_precision_storage(precision):
                for t in state.opt_state[0]["mu"].values())
 
 
-def test_autodistribute_refuses_what_is_not_ported():
+def test_autodistribute_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """What the port cannot run raises ``NotImplementedError`` naming its
-    ROADMAP item, never a quiet fall to another strategy: the tuned and
-    searched strategies (item 7) and the export cache (item 4).
+    ROADMAP item, never a quiet fall to another strategy: the measured
+    search (``strategy='search'``, item 7) and the export cache (item 4).
+    The tuned strategy is ported: on one device the tuner falls back to
+    the ``auto`` heuristic, as JAX's does, and journals why.
     Sequence and pipeline parallelism are ported
     (``tests/test_torch_port_pipeline.py``,
     ``tests/test_torch_port_context_parallel.py``): each alone is taken,
@@ -372,11 +378,19 @@ def test_autodistribute_refuses_what_is_not_ported():
     check_executable(make_plan(
         abstract_params(MoE("test", vocab_size=256)),
         mesh={"expert": 2, "tensor": 2}, strategy="ep_tp"))
-    for kw, item in ((dict(strategy="tuned"), "7"),
-                     (dict(strategy="search"), "7"),
+    for kw, item in ((dict(strategy="search"), "7"),
                      (dict(export_cache=True), "4")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             AutoDistribute(model, loss_fn=next_token_loss, device="cpu", **kw)
+    monkeypatch.setenv("TADNN_TUNE_CACHE", str(tmp_path / "tune.jsonl"))
+    jnl = Journal()
+    with as_default(jnl):
+        plan = AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
+                              strategy="tuned").build_plan()
+    assert (plan.strategy, plan.degrees["data"], plan.zero1) == (
+        "dp", 1, False)
+    assert [r["name"] for r in jnl.named("tune")] == [
+        "tune.profile_skipped", "tune.cache_miss", "tune.fallback"]
     for kw in (dict(seq_parallel=2), dict(pipeline_stages=2)):
         AutoDistribute(model, loss_fn=next_token_loss, device="cpu", **kw)
     with pytest.raises(ValueError, match="cannot be combined with "

@@ -1,5 +1,6 @@
 """Command line for the PyTorch port: the ``serve``, ``doctor``,
-``devices``, ``run``, ``launch`` and ``tokenize`` subcommands.
+``devices``, ``run``, ``launch``, ``tokenize``, ``tune``, ``simulate``,
+``monitor`` and ``gateway`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
@@ -35,6 +36,24 @@ their per-step losses are bitwise equal.  The cohort forms over NCCL,
 one card a worker, unless ``--simulate`` asks for gloo on the CPU.
 ``tokenize`` writes a UTF-8 text file as a TADN token file
 (``data/text.py``) with the JAX package's arguments.
+
+``tune`` ranks a zoo model's candidate plans with the tune/ cost model
+for the devices of this run (or ``--topology``'s fleet) and, with
+``--measure``, times the top-k on ``--device``; ``simulate`` sweeps
+hypothetical fleets (default ``h100-8``) device-free; ``monitor`` judges
+a serving journal's windows against an SLO; ``gateway --smoke`` and
+``--chaos`` run the virtual-clock scenarios, and ``gateway --port``
+serves HTTP/SSE over ``--replicas`` engines on ``--device``.  Their
+flags, rows and exit codes are the JAX package's.
+
+    python -m torch_automatic_distributed_neural_network_tpu_torch tune \
+        --family gpt2 --size small --seq 1024 --batch 8 --measure --top-k 1
+    python -m torch_automatic_distributed_neural_network_tpu_torch simulate \
+        --family gpt2 --size small --topology h100-8,h100-8x4
+    python -m torch_automatic_distributed_neural_network_tpu_torch gateway \
+        --port 8080 --replicas 2
+    python -m torch_automatic_distributed_neural_network_tpu_torch monitor \
+        JOURNAL --slo "p99_ms<=2500" --check
 """
 
 from __future__ import annotations
@@ -415,6 +434,500 @@ def cmd_tokenize(args: argparse.Namespace) -> int:
     return 0
 
 
+def _family_setup(args: argparse.Namespace, device=None):
+    """(model, loss_fn, sample_batch) for the model-zoo commands (tune,
+    simulate) from --family/--size/--seq/--batch.  The model is built on
+    ``device``, the meta device by default (shapes, no memory: the
+    planner's input); ``tune --measure`` builds one on the card a
+    candidate."""
+    import numpy as np
+    import torch
+
+    from .models import GPT2, MLP, Bert, Llama, MoE, ViT
+    from .training import (
+        blockwise_next_token_loss,
+        masked_lm_loss,
+        moe_next_token_loss,
+        next_token_loss,
+        softmax_xent_loss,
+    )
+
+    with torch.device(device or "meta"):
+        if args.family == "mlp":
+            # the bench model: --size is the comma-separated layer
+            # widths, --seq the (square) input image side
+            feats = tuple(
+                int(x) for x in (args.size or "1024,1024,10").split(","))
+            side = args.seq or 28
+            model = MLP(features=feats, in_features=side * side)
+            sample = {
+                "x": np.zeros((args.batch, side * side), np.float32),
+                "label": np.zeros((args.batch,), np.int32),
+            }
+            return model, softmax_xent_loss, sample
+        family = {"gpt2": GPT2, "llama": Llama, "moe": MoE,
+                  "bert": Bert, "vit": ViT}[args.family]
+        size = args.size or {"gpt2": "1p3b", "llama": "8b", "moe": "test",
+                             "bert": "large", "vit": "large"}[args.family]
+        blockwise = getattr(args, "loss", "full") == "blockwise"
+        if args.family == "vit":
+            side = args.seq or 224  # --seq is the image side for ViT
+            model = family(size, image_size=side)
+            loss = softmax_xent_loss
+            sample = {"x": np.zeros((args.batch, side, side, 3), np.float32),
+                      "label": np.zeros((args.batch,), np.int32)}
+        else:
+            seq = args.seq or 1024
+            model = family(size, max_seq_len=seq)
+            if args.family == "bert":
+                loss = masked_lm_loss
+                sample = {
+                    "input_ids": np.zeros((args.batch, seq), np.int32),
+                    "labels": np.full((args.batch, seq), -100, np.int32),
+                }
+            else:
+                if blockwise:
+                    loss = blockwise_next_token_loss()
+                else:
+                    loss = (moe_next_token_loss if args.family == "moe"
+                            else next_token_loss)
+                sample = {
+                    "tokens": np.zeros((args.batch, seq + 1), np.int32),
+                }
+    return model, loss, sample
+
+
+def _abstract(model, precision: str):
+    """The planner's input for ``model`` in ``precision``'s storage
+    dtype, and its head counts."""
+    from .core import _heads
+    from .planner import abstract_params
+    from .training import precision as precision_mod
+
+    prec = precision_mod.resolve(precision)
+    return abstract_params(model, prec.param_dtype), _heads(model)
+
+
+def cmd_tune(args: argparse.Namespace) -> int:
+    """Rank candidate parallelism plans with the tune/ cost model (and
+    optionally measure the top-k with a real microbenchmark), printing
+    the per-candidate cost breakdown the decision was made from.
+    ``--topology`` ranks for a fleet spelled as ``simulate`` spells it
+    (default: the devices of this run)."""
+    from . import AutoDistribute, topology, tune
+    from .training import adamw
+
+    if getattr(args, "simulate", None):
+        # tune --simulate h100-8,h100-8x4 == tadnn simulate over those
+        # fleets with this tune invocation's model/search knobs
+        args.topology = [t.strip() for t in args.simulate.split(",")
+                         if t.strip()]
+        return cmd_simulate(args)
+
+    model, loss, sample = _family_setup(args)
+    abstract, heads = _abstract(model, args.precision)
+    try:
+        topo = (topology.parse_topology(args.tune_topology)
+                if args.tune_topology else topology.detect())
+    except ValueError as e:
+        print(f"tune: {e}", file=sys.stderr)
+        return 2
+    policy = tune.TunePolicy(
+        grad_accums=tuple(int(g) for g in args.grad_accums.split(",")),
+        top_k=args.top_k,
+        batch_items=tune.estimate_batch_items(sample),
+        use_cache=not args.no_cache,
+        # the liveness profile waits for ROADMAP Queue 1 item 7d: rank
+        # on the activation heuristic, JAX's path when its profile fails
+        act_profile=None,
+        zero1=not args.no_zero1,
+    )
+    result = tune.tune(abstract, topo, policy=policy, heads=heads)
+    ranked = result.ranked
+    if not ranked:  # cache hit or fallback — re-rank locally for display
+        kept, _ = tune.enumerate_candidates(
+            abstract, topo, grad_accums=policy.grad_accums,
+            max_tensor=policy.max_tensor, state_factor=policy.state_factor,
+            batch_items=policy.batch_items, safety=policy.safety,
+            act_profile=policy.act_profile, zero1=policy.zero1, heads=heads,
+        )
+        ranked = tune.rank(abstract, topo, kept,
+                           state_factor=policy.state_factor,
+                           batch_items=policy.batch_items,
+                           safety=policy.safety,
+                           act_profile=policy.act_profile,
+                           heads=heads) if kept else []
+
+    measured: dict[str, float] = {}
+    if args.measure and ranked:
+        def make_ad(cand):
+            # a fresh model a candidate: init and the step own it
+            fresh, _, _ = _family_setup(args, device=args.device)
+            return AutoDistribute(
+                fresh, optimizer=adamw(1e-4), loss_fn=loss,
+                strategy=cand.strategy, mesh=cand.degrees_dict,
+                grad_accum=cand.grad_accum, precision=args.precision,
+                device=args.device,
+            )
+
+        trials = tune.measure.measure_candidates(
+            [e.candidate for e in ranked[:args.top_k]], make_ad, 0, sample,
+        )
+        measured = {t["candidate"]: t.get("step_time_ms")
+                    for t in trials if t.get("step_time_ms")}
+        for t in trials:
+            if t.get("error"):
+                print(f"tune: {t['candidate']} was not measured: "
+                      f"{t['error']}", file=sys.stderr)
+
+    if args.json:
+        for i, est in enumerate(ranked):
+            row = {"rank": i, **est.to_json()}
+            if est.candidate.label() in measured:
+                row["measured_ms"] = measured[est.candidate.label()]
+            print(json.dumps(row))
+        print(json.dumps({
+            "chosen_strategy": result.strategy, "mesh": result.degrees,
+            "grad_accum": result.grad_accum, "zero1": result.zero1,
+            "source": result.source,
+            "cache_key": result.key,
+        }))
+        return 0
+
+    print(f"devices: {topo.num_devices} x {topo.device_kind}  "
+          f"candidates: {len(ranked)}  source: {result.source}")
+    hdr = (f"{'rank':>4} {'strategy':<9} {'mesh':<24} {'ga':>2} "
+           f"{'step_ms':>9} {'compute':>8} {'comm':>8} {'hbm':>8} "
+           f"{'mem_gib':>8} fit")
+    if measured:
+        hdr += f" {'measured':>9}"
+    print(hdr)
+    for i, est in enumerate(ranked):
+        b = est.breakdown
+        mesh = "x".join(f"{a}{n}" for a, n in est.candidate.degrees if n > 1)
+        strat = est.candidate.strategy + (
+            "+z1" if est.candidate.zero1 else "")
+        line = (f"{i:>4} {strat:<9} {mesh or '1':<24} "
+                f"{est.candidate.grad_accum:>2} "
+                f"{est.step_time_s * 1e3:>9.3f} {b['compute_ms']:>8.3f} "
+                f"{b['comm_ms']:>8.3f} {b['hbm_ms']:>8.3f} "
+                f"{b['memory']['total_bytes'] / 2**30:>8.2f} "
+                f"{'y' if est.fits else 'N'}")
+        m = measured.get(est.candidate.label())
+        if measured:
+            line += f" {m:>9.3f}" if m is not None else f" {'-':>9}"
+        print(line)
+    print(f"chosen: {result.strategy}{'+z1' if result.zero1 else ''} "
+          f"{result.degrees} "
+          f"grad_accum={result.grad_accum} ({result.source}; "
+          f"cache {tune.cache.cache_path()})")
+    return 0
+
+
+def cmd_simulate(args: argparse.Namespace) -> int:
+    """Fleet-scale what-if planner: sweep hypothetical topologies x
+    parallelism plans and rank the joint prediction (training MFU/step
+    time, HBM headroom, serving tok/s + p99 from a virtual-time replay
+    of the real scheduler, restart-budget survival) against an operator
+    SLO.  Pure shape math + discrete-event simulation — device-free.
+    Its ``simulate.*`` records go to ``--journal`` (in memory without
+    one), the process default for the call."""
+    from .obs import Journal, as_default
+
+    with as_default(Journal(getattr(args, "journal", None))):
+        return _simulate(args)
+
+
+def _simulate(args: argparse.Namespace) -> int:
+    from . import tune
+
+    model, _loss, sample = _family_setup(args)
+    abstract, _heads = _abstract(model, args.precision)
+    # transformer families carry a cfg that sizes the serving KV pool;
+    # without one (mlp, vit) the serving columns are simply absent
+    model_cfg = getattr(model, "cfg", None)
+    if not all(hasattr(model_cfg, k)
+               for k in ("n_layers", "kv_heads", "head_dim")):
+        model_cfg = None
+
+    # repeated --topology flags, or one comma-separated list (as tune
+    # --simulate takes them)
+    specs = [t.strip() for spec in (args.topology or ["h100-8"])
+             for t in spec.split(",") if t.strip()]
+    measured_overlap = getattr(args, "measured_overlap", None)
+    trace_journal = getattr(args, "trace_journal", None)
+    if measured_overlap is None and trace_journal:
+        # feed a traced run back into the roofline: trace.step records
+        # carry collective_s / exposed_collective_s, and their exposed
+        # fraction IS cost.score's measured_overlap
+        from .tune import cost as cost_mod
+
+        steps = []
+        with open(trace_journal) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                rec = json.loads(line)
+                if rec.get("name") == "trace.step":
+                    steps.append(rec)
+        measured_overlap = cost_mod.overlap_from_trace(steps)
+        if measured_overlap is None:
+            print(f"simulate: {trace_journal} has no trace.step records "
+                  "with collective time; ignoring --trace-journal",
+                  file=sys.stderr)
+    try:
+        traffic = tune.TrafficMix.parse(getattr(args, "traffic", None))
+        slo = tune.SLOSpec.parse(getattr(args, "slo", None))
+        adm_raw = getattr(args, "admissions", None) or "reserve,optimistic"
+        admissions = tuple(
+            a.strip() for a in adm_raw.split(",") if a.strip())
+        policy = tune.SimulatePolicy(
+            grad_accums=tuple(
+                int(g) for g in
+                str(getattr(args, "grad_accums", None)
+                    or "1,2,4,8").split(",")),
+            batch_items=tune.estimate_batch_items(sample),
+            admissions=admissions,
+            slots=int(getattr(args, "slots", None) or 8),
+            block_size=int(getattr(args, "block_size", None) or 16),
+            max_len=int(getattr(args, "max_len", None) or 256),
+            prefill_chunk=(int(getattr(args, "prefill_chunk", None) or 32)
+                           or None),
+            disaggregate=bool(getattr(args, "disaggregate", False)),
+            prefix_cache=bool(getattr(args, "prefix_cache", False)),
+            measured_overlap=measured_overlap,
+            preemption_rate_per_h=float(
+                getattr(args, "preemption_rate", None) or 0.0),
+            mission_hours=float(
+                getattr(args, "mission_hours", None) or 24.0),
+            top_k=int(getattr(args, "top_k", None) or 10),
+            use_cache=not getattr(args, "no_cache", False),
+        )
+        report = tune.simulate.simulate(
+            abstract, specs, model_cfg=model_cfg, policy=policy,
+            traffic=traffic, slo=slo)
+    except ValueError as e:
+        # unknown kind / malformed traffic / malformed SLO — loud + clean
+        print(f"simulate: {e}", file=sys.stderr)
+        return 2
+
+    out_path = getattr(args, "out", None)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(report, f, indent=2)
+    if getattr(args, "json", False):
+        print(json.dumps(report))
+        return 0
+
+    preds = report["predictions"]
+    print(f"simulated {report['n_candidates']} candidates over "
+          f"{len(report['topologies'])} topologies "
+          f"({report['n_slo_ok']} meet the SLO; cache {report['cache']})")
+    print(f"{'rank':>4} {'topology':<12} {'plan':<26} {'adm':<10} "
+          f"{'mfu':>6} {'step_ms':>9} {'hdroom':>7} {'tok/s/c':>8} "
+          f"{'p99_ms':>8} {'occ':>5} {'pre':>4} {'surv':>6} slo")
+    for i, p in enumerate(preds):
+        p99 = (f"{p['p99_s'] * 1e3:>8.1f}" if p.get("p99_s") is not None
+               else f"{'-':>8}")
+        tok = (f"{p['tok_s_per_chip']:>8.1f}"
+               if p.get("tok_s_per_chip") is not None else f"{'-':>8}")
+        occ = (f"{p['mean_occupancy']:>5.2f}"
+               if p.get("mean_occupancy") is not None else f"{'-':>5}")
+        pre = (f"{p['preemptions']:>4d}"
+               if p.get("preemptions") is not None else f"{'-':>4}")
+        print(f"{i:>4} {p['topology']:<12} {p['plan']:<26} "
+              f"{p['admission']:<10} {p['mfu']:>6.3f} "
+              f"{p['step_time_s'] * 1e3:>9.3f} "
+              f"{p['hbm_headroom_frac']:>7.2%} {tok} {p99} {occ} {pre} "
+              f"{p['survival']:>6.3f} "
+              f"{'ok' if p['slo_ok'] else ';'.join(p['slo_violations'])}")
+    if getattr(args, "journal", None):
+        print(f"journal written to {args.journal} (render with "
+              f"`tadnn report {args.journal}`)")
+    return 0
+
+
+def cmd_monitor(args: argparse.Namespace) -> int:
+    """Continuous SLO monitor over a serving journal (obs/slo_monitor):
+    fold ``serve.*`` events into rolling event-time windows, evaluate
+    the ``--slo`` spec per window with hysteresis, journal
+    ``slo.breach`` / ``slo.recover`` incidents, and optionally compare
+    measured throughput against the simulate replay's prediction for a
+    bench record (``--drift``).  ``--follow`` tails a live journal; the
+    default deterministically replays a finished one — with ``--check``
+    the exit code is the CI gate (nonzero on any breach or out-of-band
+    planner drift).  Pure file parsing — no device needed."""
+    from .obs import slo_monitor as slm
+    from .obs.journal import Journal
+    from .tune.slo import SLOSpec
+
+    if args.follow and args.replay:
+        print("monitor: --follow and --replay are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    try:
+        spec = SLOSpec.parse(args.slo)
+    except ValueError as e:
+        print(f"monitor: {e}", file=sys.stderr)
+        return 2
+    if not args.follow and not os.path.isfile(args.journal):
+        # --follow accepts a not-yet-created journal (a gateway starts
+        # its monitor before first traffic): Journal.follow polls for
+        # the file under --idle-timeout instead of raising
+        print(f"monitor: no journal at {args.journal}", file=sys.stderr)
+        return 2
+    policy = slm.MonitorPolicy(
+        slo=spec, window_s=args.window,
+        breach_after=args.breach_after,
+        recover_after=args.recover_after,
+        n_chips=args.chips, warmup_windows=args.warmup_windows)
+    drift_extra = None
+    if args.drift:
+        with open(args.drift) as f:
+            rec = json.load(f)
+        # a full bench record or a bare extra dict both work
+        drift_extra = rec.get("extra") or rec
+    # incidents land in their own sink: --replay must never append to
+    # the (possibly committed) journal it is reading
+    with Journal(args.incident_journal, host0_only=False,
+                 meta={"tool": "monitor",
+                       "source": args.journal}) as sink:
+        records = (Journal.follow(args.journal,
+                                  idle_timeout=args.idle_timeout)
+                   if args.follow else Journal.read(args.journal))
+        summary = slm.monitor_records(
+            records, policy, journal=sink, drift_extra=drift_extra)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f)
+    if args.json:
+        print(json.dumps(summary))
+    else:
+        print(slm.format_summary(summary))
+    if args.check:
+        drift_bad = ((summary.get("drift") or {}).get("within_band")
+                     is False)
+        return 1 if (summary["breaches"] or drift_bad) else 0
+    return 0
+
+
+def cmd_gateway(args: argparse.Namespace) -> int:
+    """Online serving gateway (inference/gateway): multi-replica
+    ingress with prefix-affinity routing and the closed-loop SLO
+    autoscaler.
+
+    ``--smoke`` runs the virtual-clock chaos scenario twice (traffic
+    flip → SLO breach → replan → scale-out → recover) and checks the
+    two journals are byte-identical — the CI gate.  ``--chaos`` runs
+    the FLEET fault scenario (seeded replica kill/stall/slow) and
+    passes only if every accepted request completes with a token
+    stream bitwise-identical to a fault-free replay, deterministically
+    across two runs.  ``--port`` starts a real asyncio HTTP/SSE server
+    over ``--replicas`` engines of the ``tadnn serve --smoke`` model on
+    ``--device`` (default ``cuda``: the paged-attention kernel serves
+    each replica's decode).
+    """
+    from .inference.gateway import chaos_smoke, fleet_chaos
+
+    if getattr(args, "chaos", False):
+        out = fleet_chaos(
+            journal_path=args.journal,
+            seed=args.seed,
+            n_replicas=max(4, args.replicas))
+        print(json.dumps(out))
+        if not out["ok"]:
+            for flag in ("deterministic", "stream_parity",
+                         "all_completed", "killed_inflight",
+                         "baseline_complete"):
+                if not out[flag]:
+                    print(f"gateway chaos: {flag} check failed",
+                          file=sys.stderr)
+            return 1
+        return 0
+    if args.smoke:
+        out = chaos_smoke(
+            journal_path=args.journal,
+            n_replicas=args.replicas,
+            slo_text=args.slo,
+            max_replicas=args.max_replicas,
+            scale=args.scale,
+            autoscale=args.autoscale)
+        print(json.dumps(out))
+        if not out["ok"]:
+            for flag in ("deterministic", "closed_loop"):
+                if not out[flag]:
+                    print(f"gateway smoke: {flag} check failed",
+                          file=sys.stderr)
+            return 1
+        return 0
+    if not args.port:
+        print("tadnn gateway needs --smoke, --chaos or --port",
+              file=sys.stderr)
+        return 2
+
+    import asyncio
+
+    import torch
+
+    from .inference.gateway import (
+        AutoscalePolicy, EngineReplica, Gateway, serve_forever)
+    from .inference.serve import ServeEngine
+    from .models import GPT2
+    from .obs.journal import Journal
+    from .tune.slo import SLOSpec
+    from .utils.device import resolve_device
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    with torch.device(device):
+        model = GPT2("test", max_seq_len=args.max_len, vocab_size=128,
+                     dtype=torch.float32, remat=False)
+    model.init_weights(
+        torch.Generator(device=device).manual_seed(args.seed + 1))
+
+    with Journal(args.journal, host0_only=False,
+                 meta={"tool": "gateway"}) as jnl:
+        def make(name: str) -> EngineReplica:
+            eng = ServeEngine(model, n_slots=args.slots,
+                              max_len=args.max_len, block_size=8,
+                              prefix_cache=True, journal=jnl, device=device)
+            return EngineReplica(name, eng)
+
+        replicas = [make(f"replica{i}") for i in range(args.replicas)]
+        policy = (AutoscalePolicy(slo=SLOSpec.parse(args.slo))
+                  if args.autoscale else None)
+        gw = Gateway(replicas, journal=jnl, autoscale=policy,
+                     make_replica=make if args.autoscale else None,
+                     rate_limit_per_s=args.rate_limit,
+                     queue_limit=args.queue_limit)
+        print(json.dumps({"listening": True, "host": args.host,
+                          "port": args.port,
+                          "replicas": args.replicas,
+                          "autoscale": bool(args.autoscale),
+                          "journal": args.journal,
+                          "device": str(device)}), flush=True)
+        try:
+            asyncio.run(serve_forever(gw, host=args.host,
+                                      port=args.port))
+        except KeyboardInterrupt:
+            pass
+    return 0
+
+
+def _zoo_args(p: argparse.ArgumentParser) -> None:
+    """The model-zoo arguments of ``tune`` and ``simulate``."""
+    p.add_argument("--family", default="gpt2",
+                   choices=("mlp", "gpt2", "llama", "moe", "bert", "vit"))
+    p.add_argument("--size", default=None,
+                   help="model size preset; default per family "
+                        "(gpt2: 1p3b, llama: 8b, moe: test, bert: large, "
+                        "vit: large); for vit, --seq is the image side; "
+                        "for mlp, comma-separated layer widths")
+    p.add_argument("--seq", type=int, default=None)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--precision", default="fp32")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m torch_automatic_distributed_neural_network_tpu_torch",
@@ -568,6 +1081,232 @@ def build_parser() -> argparse.ArgumentParser:
                         "unless resumed losses match bitwise")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_launch)
+
+    p = sub.add_parser(
+        "tune",
+        help="rank candidate parallelism plans for a model-zoo config "
+             "with the analytic cost model (tune/); --measure also "
+             "builds and times the top-k on the real train step")
+    _zoo_args(p)
+    p.add_argument("--top-k", type=int, default=3,
+                   help="candidates to measure with --measure")
+    p.add_argument("--grad-accums", default="1",
+                   help="comma-separated grad-accumulation choices to "
+                        "include in the search space")
+    p.add_argument("--measure", action="store_true",
+                   help="build + time the top-k candidates (journaled "
+                        "as tune.trial spans)")
+    p.add_argument("--no-cache", action="store_true",
+                   help="skip the persistent tuning cache "
+                        "(~/.cache/tadnn/, TADNN_TUNE_CACHE)")
+    p.add_argument("--no-zero1", action="store_true",
+                   help="drop the ZeRO-1 optimizer-state-sharding "
+                        "variants from the search space (changes the "
+                        "cache key)")
+    p.add_argument("--topology", default=None, dest="tune_topology",
+                   metavar="SPEC",
+                   help="rank for this fleet (h100-8, h100-8x4, cpu-8; "
+                        "default: the devices of this run); --measure "
+                        "times only the candidates these devices hold")
+    p.add_argument("--simulate", default=None, metavar="TOPOS",
+                   help="run the fleet-scale what-if sweep over these "
+                        "comma-separated fleets (e.g. h100-8,h100-8x4) "
+                        "instead of tuning — shorthand for `tadnn "
+                        "simulate`")
+    p.add_argument("--traffic", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--slo", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--device", default="cuda",
+                   help="where --measure runs: cuda (default) or cpu")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_tune)
+
+    p = sub.add_parser(
+        "simulate",
+        help="fleet-scale what-if planner: sweep hypothetical GPU fleets "
+             "(h100-8, h100-8x4, ...) x parallelism plans and rank the "
+             "joint MFU/HBM/serving/survival prediction against an "
+             "operator SLO — device-free, runs anywhere")
+    p.add_argument("--topology", action="append", default=None,
+                   metavar="SPEC",
+                   help="fleet to sweep, as <kind>-<cards> or "
+                        "<kind>-<cards_per_host>x<hosts> (repeatable, or "
+                        "comma-separated; default h100-8; un-sliced "
+                        "specs fan out over host counts)")
+    _zoo_args(p)
+    p.add_argument("--traffic", default=None,
+                   help="serving traffic mix, e.g. "
+                        "'rate=16,n=64,prompt=128,max_new=128,decode=96"
+                        ",jitter=0.5,shared=0,seed=0' (rate in req/s; "
+                        "shared = leading prompt tokens common to every "
+                        "request, for --prefix-cache)")
+    p.add_argument("--slo", default=None,
+                   help="SLO spec, e.g. 'tok_s_chip>=40,p99_ms<=2500,"
+                        "headroom>=0.1,survival>=0.9'")
+    p.add_argument("--grad-accums", default="1,2,4,8",
+                   dest="grad_accums",
+                   help="comma-separated grad-accumulation choices in "
+                        "the training search space")
+    p.add_argument("--admissions", default="reserve,optimistic",
+                   help="comma-separated admission policies to sweep")
+    p.add_argument("--slots", type=int, default=8,
+                   help="decode slots per serving replica")
+    p.add_argument("--block-size", type=int, default=16,
+                   dest="block_size")
+    p.add_argument("--max-len", type=int, default=256, dest="max_len")
+    p.add_argument("--prefill-chunk", type=int, default=32,
+                   dest="prefill_chunk",
+                   help="chunked-prefill size (0 = single-shot prefill)")
+    p.add_argument("--disaggregate", action="store_true",
+                   help="simulate disaggregated prefill/decode serving "
+                        "replicas: prefill on its own host, KV blocks "
+                        "shipped over the network on multi-host fleets, "
+                        "step wall = max(prefill, decode)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   dest="prefix_cache",
+                   help="price cross-request prefix reuse in the replay "
+                        "(a real PrefixCache over the virtual pool); "
+                        "pair with a shared= term in --traffic, e.g. "
+                        "'prompt=128,shared=112' — needs --prefill-chunk")
+    p.add_argument("--measured-overlap", type=float, default=None,
+                   dest="measured_overlap", metavar="FRAC",
+                   help="measured exposed-collective fraction (0..1) "
+                        "correcting the training roofline "
+                        "(cost.score measured_overlap)")
+    p.add_argument("--trace-journal", default=None, dest="trace_journal",
+                   metavar="JSONL",
+                   help="journal with trace.step records to derive "
+                        "--measured-overlap from "
+                        "(cost.overlap_from_trace)")
+    p.add_argument("--preemption-rate", type=float, default=0.0,
+                   dest="preemption_rate",
+                   help="preemptions per HOST per hour for the "
+                        "restart-budget survival model")
+    p.add_argument("--mission-hours", type=float, default=24.0,
+                   dest="mission_hours")
+    p.add_argument("--top-k", type=int, default=10,
+                   help="ranked candidates to keep in the report")
+    p.add_argument("--no-cache", action="store_true",
+                   help="skip the persistent sweep cache "
+                        "(~/.cache/tadnn/, TADNN_TUNE_CACHE)")
+    p.add_argument("--journal", default=None,
+                   help="journal JSONL to write simulate.* events to")
+    p.add_argument("--out", default=None,
+                   help="write the full JSON report to this file")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser(
+        "monitor",
+        help="continuous SLO monitor over a serving journal: rolling "
+             "TTFT/ITL/latency windows, slo.breach/slo.recover "
+             "incidents with hysteresis, planner drift vs the serve "
+             "replay (works offline; no device needed)")
+    p.add_argument("journal", help="serving journal JSONL to monitor")
+    p.add_argument("--slo", default=None,
+                   help='spec over window aggregates, e.g. '
+                        '"p99_ms<=2500,ttft_ms<=2000,itl_ms<=100" '
+                        "(tune/slo fields; empty = report only)")
+    p.add_argument("--window", type=float, default=5.0,
+                   help="window width in event-time seconds")
+    p.add_argument("--replay", action="store_true",
+                   help="deterministically replay the journal from the "
+                        "start (the default mode, spelled out)")
+    p.add_argument("--follow", action="store_true",
+                   help="tail a concurrently-appending journal instead "
+                        "of replaying a finished one")
+    p.add_argument("--idle-timeout", type=float, default=30.0,
+                   dest="idle_timeout",
+                   help="--follow: stop after this many seconds with "
+                        "no new records")
+    p.add_argument("--breach-after", type=int, default=2,
+                   dest="breach_after",
+                   help="consecutive violating windows before a breach "
+                        "incident (hysteresis)")
+    p.add_argument("--recover-after", type=int, default=2,
+                   dest="recover_after",
+                   help="consecutive clean windows before recovery")
+    p.add_argument("--warmup-windows", type=int, default=1,
+                   dest="warmup_windows",
+                   help="leading traffic windows reported but not "
+                        "SLO-evaluated (they carry the first calls' "
+                        "kernel builds)")
+    p.add_argument("--chips", type=int, default=1,
+                   help="card count for tok_s_chip evaluation")
+    p.add_argument("--drift", default=None,
+                   help="a serving bench record (JSON, or its extra "
+                        "dict): compare measured throughput against the "
+                        "simulate replay's prediction and flag >2x "
+                        "planner drift")
+    p.add_argument("--incident-journal", default=None,
+                   dest="incident_journal",
+                   help="append slo.breach/slo.recover/simulate.drift "
+                        "events to this JSONL")
+    p.add_argument("--out", default=None,
+                   help="write the full monitor summary JSON here")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--check", action="store_true",
+                   help="exit nonzero on any breach or out-of-band "
+                        "drift — the CI gate")
+    p.set_defaults(fn=cmd_monitor)
+
+    p = sub.add_parser(
+        "gateway",
+        help="online serving gateway: multi-replica SSE ingress with "
+             "prefix-affinity routing and a closed-loop SLO "
+             "autoscaler; --smoke replays the chaos scenario twice "
+             "and asserts byte-identical journals")
+    p.add_argument("--smoke", action="store_true",
+                   help="run the virtual-clock chaos autoscale "
+                        "scenario (breach → replan → scale → recover) "
+                        "twice and verify determinism; exit 1 on any "
+                        "failed check")
+    p.add_argument("--chaos", action="store_true",
+                   help="run the fleet fault scenario (seeded replica "
+                        "kill/stall/slow mid-stream) and assert every "
+                        "accepted request completes with tokens "
+                        "bitwise-identical to a fault-free replay, "
+                        "deterministically across two runs")
+    p.add_argument("--replicas", type=int, default=2,
+                   help="initial fleet size (--chaos default: 4)")
+    p.add_argument("--max-replicas", type=int, default=8,
+                   dest="max_replicas",
+                   help="autoscaler ceiling (smoke: the scale-out "
+                        "target under the traffic flip)")
+    p.add_argument("--autoscale", action="store_true",
+                   help="enable the closed-loop SLO autoscaler")
+    p.add_argument("--slo", default="p99_ms<=2500",
+                   help="SLO spec the monitor/autoscaler enforce "
+                        "(tune/slo grammar, e.g. 'p99_ms<=2500,"
+                        "ttft_p99_ms<=1000')")
+    p.add_argument("--scale", default="smoke",
+                   choices=["smoke", "light", "gentle"],
+                   help="chaos scenario size (light = fast variant; "
+                        "gentle = no traffic flip)")
+    p.add_argument("--journal", default=None,
+                   help="journal JSONL path (smoke: run 1's journal; "
+                        "--port: the live journal tadnn monitor can "
+                        "follow)")
+    p.add_argument("--port", type=int, default=0,
+                   help="start a real HTTP/SSE ingress on this port "
+                        "(POST /v1/generate, GET /healthz)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--slots", type=int, default=4,
+                   help="serving slots per replica (--port mode)")
+    p.add_argument("--max-len", type=int, default=64, dest="max_len",
+                   help="per-replica context length (--port mode)")
+    p.add_argument("--rate-limit", type=float, default=None,
+                   dest="rate_limit", metavar="R",
+                   help="per-tenant sustained requests/s "
+                        "(token bucket; default unlimited)")
+    p.add_argument("--queue-limit", type=int, default=64,
+                   dest="queue_limit",
+                   help="per-tenant in-flight cap before 503 "
+                        "backpressure")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="--port: where the engines run, cuda (default) "
+                        "or cpu (the plain PyTorch path)")
+    p.set_defaults(fn=cmd_gateway)
 
     p = sub.add_parser(
         "tokenize",

@@ -39,9 +39,12 @@ its own rows only (a ``data.HostBatch`` from ``data.shard_for_host``);
 the step returns the global batch's loss.  ``generate`` decodes with
 the plan's wrapped model, its weights sharded as trained (each rank its
 rows of the batch and, under ``tensor``, its kv heads), in bf16 or
-int8, an MoE model densely or routed (``moe_decode``).  The tuned and searched
-strategies and the export cache raise ``NotImplementedError`` naming
-their ROADMAP item.
+int8, an MoE model densely or routed (``moe_decode``).
+``strategy='tuned'`` plans through ``tune.tune`` (the cost-model search,
+with the sample batch's items, the configured ``grad_accum`` and the
+precision's state factor).  The measured search (``strategy='search'``)
+and the export cache raise ``NotImplementedError`` naming their ROADMAP
+item.
 
 Pipeline parallelism (``pipeline_stages=S``, ``microbatches``,
 ``pipeline_schedule``, ``pipeline_virtual``): each rank of the ``pipe``
@@ -139,8 +142,8 @@ def _not_ported(what: str, item: str):
 
 class AutoDistribute:
     """A model trained by a plan, with the JAX ``AutoDistribute``'s
-    semantics: ``strategy`` ('auto', 'dp', 'fsdp', 'tp', 'tp_fsdp', 'ep',
-    'ep_fsdp', 'ep_tp'),
+    semantics: ``strategy`` ('auto', 'tuned', 'dp', 'fsdp', 'tp',
+    'tp_fsdp', 'ep', 'ep_fsdp', 'ep_tp'),
     ``mesh`` (a ``DeviceMesh`` from ``topology.build_mesh`` or a degrees
     mapping), ``rules`` (the planner's name rules), ``seq_parallel`` and
     ``seq_impl`` ('auto', 'ring' or 'ulysses'), ``megatron_sp`` (the JAX
@@ -186,9 +189,11 @@ class AutoDistribute:
         init_fn: Callable | None = None,
         device=None,
     ):
-        if strategy in ("tuned", "search"):
-            raise _not_ported(f"strategy={strategy!r} (the tune/ cost-model "
-                              f"and measured searches)", "7")
+        if strategy == "search":
+            # JAX accepts the first rung whose compiled peak fits: it needs
+            # compile_report and hbm_fit_budget (item 7d)
+            raise _not_ported("strategy='search' (the measured search over "
+                              "compiled peaks)", "7")
         if strategy not in planner_mod.KNOWN_STRATEGIES:
             raise ValueError(f"Unknown strategy {strategy!r}; expected one "
                              f"of {planner_mod.KNOWN_STRATEGIES}")
@@ -272,10 +277,31 @@ class AutoDistribute:
         self._prepare(rng)
         prec = self.precision
         abstract = planner_mod.abstract_params(self.model, prec.param_dtype)
+        state_factor = prec.bytes_per_param / prec.param_dtype.itemsize
+        tune_policy = None
+        if self._strategy == "tuned":
+            # the tuner sees the real batch (tokens/items per step) and
+            # the configured accumulation.  The liveness activation
+            # profile is not ported (item 7d): the tuner ranks on its
+            # activation heuristic, the JAX path when the profile fails
+            from . import tune as tune_mod
+
+            obs_journal.event(
+                "tune.profile_skipped",
+                error="NotImplementedError: AutoDistribute."
+                      "activation_profile is not ported to the PyTorch "
+                      "package yet (ROADMAP Queue 1 item 7)")
+            tune_policy = tune_mod.TunePolicy(
+                batch_items=(tune_mod.estimate_batch_items(sample_batch)
+                             if sample_batch is not None else None),
+                grad_accums=(self._grad_accum,),
+                state_factor=state_factor,
+                act_profile=None,
+            )
         plan = planner_mod.make_plan(
             abstract, mesh=self._mesh_arg, strategy=self._strategy,
             rules=self._rules, remat=self._remat_arg,
-            state_factor=prec.bytes_per_param / prec.param_dtype.itemsize,
+            state_factor=state_factor, tune_policy=tune_policy,
             zero1=self._zero1,
             heads=_heads(self.model), seq=self._seq_parallel,
             pipe=self._pipeline_stages,

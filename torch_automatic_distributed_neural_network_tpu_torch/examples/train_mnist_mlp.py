@@ -7,8 +7,7 @@ JAX package's ``examples/train_mnist_mlp.py`` on the port.  Run::
         --device cpu --steps 50 --out-dir /tmp/mnist
 
 One flag more than the JAX example: ``--device`` (default ``cuda``;
-``cpu`` runs the plain PyTorch path).  ``--strategy`` takes what the
-port runs (``tuned`` is not ported yet).  ``main`` returns the final
+``cpu`` runs the plain PyTorch path).  ``main`` returns the final
 state, the ``AutoDistribute`` and the data source (and the trainer with
 ``--out-dir``); ``data=`` replaces the configured source.
 """
@@ -41,7 +40,7 @@ def main(argv=None, *, data=None) -> dict:
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--lr", type=float, default=0.05)
     p.add_argument("--strategy", default="auto",
-                   choices=["auto", "dp", "fsdp", "tp", "tp_fsdp"])
+                   choices=["auto", "tuned", "dp", "fsdp", "tp", "tp_fsdp"])
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--data-dir", default="",
                    help="dir with MNIST idx files or x_train/y_train.npy; "

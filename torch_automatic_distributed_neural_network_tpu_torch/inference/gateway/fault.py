@@ -32,9 +32,8 @@ Everything here is host-side bookkeeping on an injected clock — no
 device state, no wall-clock reads, no sleeps.
 
 The PyTorch package's copy of the JAX package's
-``inference/gateway/fault.py``.  The ingress, controller and chaos
-layers that drive hedging and the ladder wait for ROADMAP Queue 1 item
-7c; the breaker gates a :class:`~.router.Router` already.
+``inference/gateway/fault.py``; the ingress (:mod:`.ingress`) drives
+the breakers, hedging and the ladder.
 """
 
 from __future__ import annotations

@@ -1,11 +1,13 @@
 """Observability: the span/event journal (``obs.journal``), its event
 schema registry (``obs.schema``), the goodput breakdown
-(``obs.goodput``), the merge of per-host journals (``obs.aggregate``)
-and the live serving windows (``obs.live``).  Library code emits to a
+(``obs.goodput``), the merge of per-host journals (``obs.aggregate``),
+the live serving windows (``obs.live``), the SLO monitor over them
+(``obs.slo_monitor``) and the timeline attribution arithmetic
+(``obs.trace``).  Library code emits to a
 process-global journal (``set_default`` / ``TADNN_JOURNAL``); when none
 is installed every call is a cheap no-op."""
 
-from . import aggregate, live, schema
+from . import aggregate, live, schema, slo_monitor, trace
 from .goodput import BUCKETS, GoodputMeter
 from .journal import (
     Journal,
@@ -16,9 +18,11 @@ from .journal import (
     span,
 )
 from .live import LatencySketch, LiveAggregator, aggregate_stream
+from .slo_monitor import MonitorPolicy, SLOMonitor
 
 __all__ = [
     "BUCKETS", "GoodputMeter", "Journal", "LatencySketch", "LiveAggregator",
-    "aggregate", "aggregate_stream", "as_default", "event", "get_default",
-    "live", "schema", "set_default", "span",
+    "MonitorPolicy", "SLOMonitor", "aggregate", "aggregate_stream",
+    "as_default", "event", "get_default", "live", "schema", "set_default",
+    "slo_monitor", "span", "trace",
 ]

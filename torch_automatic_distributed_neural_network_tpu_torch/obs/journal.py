@@ -79,14 +79,19 @@ class Journal:
     def __init__(self, path: str | None = None, *,
                  host0_only: bool = True, meta: dict | None = None,
                  max_bytes: int | None = None,
-                 validate: bool | None = None):
+                 validate: bool | None = None,
+                 clock=time.monotonic):
         self.path = path
         if validate is None:
             validate = os.environ.get(
                 "TADNN_JOURNAL_VALIDATE", "").strip() not in ("", "0")
         self.validate = bool(validate)
         self.enabled = (not host0_only) or _process_index() == 0
-        self._t0 = time.monotonic()
+        # ``t`` stamps come from here: inject a virtual clock and every
+        # record's event-time is replayable (the gateway's chaos
+        # scenarios journal byte-identical sequences this way)
+        self._clock = clock
+        self._t0 = clock()
         self._depth = 0
         self._file: IO | None = None
         self.records: list[dict] = []  # in-memory sink when path is None
@@ -164,7 +169,7 @@ class Journal:
         if not self.enabled:
             return None
         rec = {"kind": "event", "name": name,
-               "t": time.monotonic() - self._t0, "wall": time.time(),
+               "t": self._clock() - self._t0, "wall": time.time(),
                "depth": self._depth, **fields}
         self._write(rec)
         return rec
@@ -178,7 +183,7 @@ class Journal:
         if not self.enabled:
             yield rec
             return
-        t_start = time.monotonic()
+        t_start = self._clock()
         rec["t"] = t_start - self._t0
         rec["wall"] = time.time()
         rec["depth"] = self._depth
@@ -190,7 +195,7 @@ class Journal:
             raise
         finally:
             self._depth -= 1
-            rec["dur_s"] = time.monotonic() - t_start
+            rec["dur_s"] = self._clock() - t_start
             self._write(rec)
 
     def named(self, prefix: str) -> list[dict]:
@@ -357,6 +362,7 @@ class _NullJournal(Journal):
         self.counts = {}
         self._subscribers = []
         self._depth = 0
+        self._clock = time.monotonic
         self._t0 = time.monotonic()
 
 

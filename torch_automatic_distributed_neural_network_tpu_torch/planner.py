@@ -622,12 +622,6 @@ def expected_collective_bytes(plan: ShardPlan,
     }
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        f"item {item})")
-
-
 def _check_heads(heads: tuple[int, int] | None, tensor: int) -> None:
     """The port's column split takes whole heads: ``tensor`` must divide
     the query and the key/value head counts."""
@@ -659,6 +653,7 @@ def make_plan(
     zero1: bool = False,
     heads: tuple[int, int] | None = None,
     pipe_virtual: int = 1,
+    tune_policy: Any = None,
 ) -> ShardPlan:
     """The planner: abstract params + topology -> :class:`ShardPlan`.
 
@@ -679,13 +674,19 @@ def make_plan(
     ``i`` of ``L`` on stage ``i // (L / pipe)``, or, with
     ``pipe_virtual`` V > 1 (the interleaved schedules), the
     ``(v pipe + s)``-th run of ``L / (pipe V)`` layers on stage ``s``;
-    the layers keep their tensor and fsdp specs."""
+    the layers keep their tensor and fsdp specs.
+
+    ``strategy='tuned'`` hands the choice to the tune/ subsystem
+    (enumerate candidate factorizations, rank by the analytic cost
+    model, cache the decision) on the devices left after ``seq`` and
+    ``pipe``; ``tune_policy`` is an optional ``tune.TunePolicy`` refining
+    the search (batch size, grad-accum choices, cache on/off).  It falls
+    back to the ``auto`` heuristic when the candidate space is
+    degenerate (one device), and the tuner may pick a ZeRO-1 variant
+    itself."""
     if strategy not in KNOWN_STRATEGIES:
         raise ValueError(f"Unknown strategy {strategy!r}; expected one of "
                          f"{KNOWN_STRATEGIES}")
-    if strategy == "tuned":
-        raise _not_ported("strategy='tuned' (the tune/ cost-model search)",
-                          "7")
     if pipe > 1 and strategy in ("ep", "ep_fsdp", "ep_tp"):
         raise ValueError(
             "pipeline parallelism composes with dp/fsdp/tp; strategy "
@@ -706,13 +707,25 @@ def make_plan(
                     raise ValueError(f"{axis} degree {deg} does not divide "
                                      f"{n} devices")
                 n //= deg
-        if strategy == "auto":
-            resolved, degrees = choose_strategy(
-                abstract_params, dataclasses.replace(topo, num_devices=n),
-                rules, state_factor=state_factor)
+        if strategy in ("auto", "tuned"):
+            sub_topo = dataclasses.replace(topo, num_devices=n)
+            if strategy == "tuned":
+                from . import tune as tune_mod
+
+                result = tune_mod.tune(
+                    abstract_params, sub_topo, rules=rules,
+                    policy=tune_policy
+                    or tune_mod.TunePolicy(state_factor=state_factor),
+                    heads=heads)
+                resolved, degrees = result.strategy, dict(result.degrees)
+                zero1 = zero1 or bool(result.zero1)
+            else:
+                resolved, degrees = choose_strategy(
+                    abstract_params, sub_topo, rules,
+                    state_factor=state_factor)
             if pipe > 1 and resolved in ("ep", "ep_fsdp"):
                 warnings.warn(
-                    f"auto strategy chose {resolved!r} but pipeline "
+                    f"{strategy} strategy chose {resolved!r} but pipeline "
                     f"parallelism does not compose with expert parallelism; "
                     f"falling back to 'fsdp'", stacklevel=2)
                 resolved, degrees = "fsdp", {"fsdp": n}
@@ -766,8 +779,8 @@ def make_plan(
                 raise ValueError(
                     f"{arg}={deg} conflicts with the explicit mesh (its "
                     f"{axis!r} axis is {have.get(axis, 1)})")
-    if mesh is not None and strategy == "auto" and resolved == "auto":
-        # an explicit mesh fixes every degree
+    if mesh is not None and resolved in ("auto", "tuned"):
+        # an explicit mesh fixes every degree — nothing to tune
         d = topo_mod.mesh_degrees(mesh)
         if d.get("expert", 1) > 1:
             if d.get("tensor", 1) > 1:

@@ -416,6 +416,57 @@ class RestartPolicy:
         return len(self._failures)
 
 
+def window_budget_exhausted(failure_times_s: "list[float]",
+                            max_restarts: int = 2,
+                            window_s: float = 3600.0) -> bool:
+    """Pure replay of :meth:`RestartPolicy.note_failure` over a whole
+    failure history: True when ANY failure exhausts the rolling-window
+    budget (more than ``max_restarts`` failures inside ``window_s``).
+    The what-if simulator uses this to score hypothetical preemption
+    traces against the exact policy ``run_with_recovery`` enforces."""
+    window: deque[float] = deque()
+    for now in sorted(failure_times_s):
+        window.append(now)
+        while window and now - window[0] > window_s:
+            window.popleft()
+        if len(window) > max_restarts:
+            return True
+    return False
+
+
+def survival_probability(*, rate_per_hour: float, mission_hours: float,
+                         max_restarts: int = 2, window_s: float = 3600.0,
+                         samples: int = 2048, seed: int = 0) -> float:
+    """P(a run survives ``mission_hours`` of Poisson preemptions at
+    ``rate_per_hour`` without exhausting the restart budget).
+
+    When the window covers the whole mission the budget degenerates to
+    a plain failure count and the answer is the exact Poisson CDF
+    ``P(N <= max_restarts)``.  Otherwise the rolling window forgives
+    spread-out failures and the probability comes from a seeded
+    Monte-Carlo replay of the window math (numpy's ``RandomState``, so
+    a seed gives the JAX package's draws)."""
+    if rate_per_hour <= 0 or mission_hours <= 0:
+        return 1.0
+    mission_s = mission_hours * 3600.0
+    lam = rate_per_hour * mission_hours
+    if window_s >= mission_s:
+        # every failure stays in-window for the whole mission: exact
+        return float(sum(math.exp(-lam) * lam**i / math.factorial(i)
+                         for i in range(max_restarts + 1)))
+    rng = np.random.RandomState(seed)
+    survived = 0
+    for n in rng.poisson(lam, size=samples):
+        if n <= max_restarts:
+            survived += 1  # too few failures to exhaust any window
+            continue
+        times = np.sort(rng.uniform(0.0, mission_s, size=int(n)))
+        if not window_budget_exhausted(
+                times.tolist(), max_restarts, window_s):
+            survived += 1
+    return survived / samples
+
+
 # -- anomaly rollback ---------------------------------------------------------
 
 

@@ -1,9 +1,9 @@
 """Operator SLO specs for the what-if planner (``tadnn simulate``).
 
 The PyTorch package's copy of the JAX package's ``tune/slo.py`` (pure
-stdlib there too).  The planner that ranks against it, ``tune/simulate``,
-is not ported yet (ROADMAP Queue 1 item 7); :func:`rank` works on any
-list of prediction dicts.
+stdlib there too).  ``tune/simulate`` ranks its predictions against it,
+and ``obs/slo_monitor`` judges live serving windows with it;
+:func:`rank` works on any list of prediction dicts.
 
 An :class:`SLOSpec` is the contract a candidate fleet plan must meet:
 minimum serving throughput per chip, maximum p99 latency, minimum
