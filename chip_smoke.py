@@ -339,10 +339,29 @@ card, in phases, one JSON line each; any failure exits non-zero:
    busy time; the same call again answers from the fallback (a
    one-device decision is not cached), ``--topology h100-8`` twice is
    ranked and then replayed from the cache, and ``tadnn simulate
-   --topology h100-8,h100-8x4 --json`` returns 0, device-free.
+   --topology h100-8,h100-8x4 --json`` returns 0, device-free;
+30. tracing (``trace``): ``tadnn trace`` through ``cli.main`` in this
+   process on the train cell's model (GPT-2 small at 12 layers, B 8 x S
+   1024, bf16 compute, remat "dots"): one warm step, then 3 steps under
+   ``torch.profiler`` (CPU and CUDA lanes), each in its
+   ``tadnn_step#<i>`` window, fenced; then ``Trainer.fit`` of 6 steps
+   with ``trace_every_n=3`` (step 3 traced, as JAX's rule picks), both
+   journaling into one file; per traced step the wall, compute,
+   collective and exposed seconds, the measured MFU against 989.4
+   TFLOP/s, K1-K3's launches by the wrappers' counters (24/12/12 a step)
+   and in the step's window with their kernel names, and the busy time
+   beside phase ``train_profile``'s; ``tadnn report``'s generator over
+   the journal; then, in a world of one NCCL rank, ``tadnn trace`` under
+   ``dp`` (DDP at degree 1), one traced step: the ``c10d::*`` ops the
+   profiler recorded with the bytes their shapes give, the NCCL kernels
+   on the device lane and the crosscheck (the planner models no bytes
+   at degree 1: reported, not gated).  It fails
+   when a traced step's window holds no K1, K2 or K3 kernel, a step's
+   compute time is 0, the journal holds a ``trace.error``, the report
+   has no ``trace`` section or a recorded c10d op carries no shapes.
 
-Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23, 25, 27, 28
-and 29 write
+Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23, 25, 27, 28,
+29 and 30 write
 their journals with schema validation on (``Journal(validate=True)``): a
 record that breaks the event schema fails the run; phase 18 checks every
 record of its merged journal the same way.
@@ -1015,7 +1034,7 @@ def phase_profile(torch, *, name, model, n_slots, prompt_len, max_len,
     dev = _device_time(prof, steps, 8)
     if dev is None:
         emit({**rec, "device_busy_ms_per_step": "not measured"})
-        return
+        return None
     emit({**rec, **dev, "device_busy_share":
           dev["device_busy_ms_per_step"] / step_ms})
 
@@ -1550,12 +1569,13 @@ def phase_train_parity(torch, data) -> dict:
     return rec
 
 
-def phase_train_profile(torch, data, *, steps=5) -> None:
+def phase_train_profile(torch, data, *, steps=5) -> float | None:
     """Where a training step's time goes: the host-clock time of
     ``steps`` steps, then the same number of steps under
     ``torch.profiler`` for the device time by kernel.  Device busy share
     = kernel time per step (the union of kernel intervals) over the
-    unprofiled step time."""
+    unprofiled step time.  Returns the busy ms a step (None when the
+    profiler saw no kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     ad, state = _train_setup(torch, seed=0)
@@ -1577,7 +1597,7 @@ def phase_train_profile(torch, data, *, steps=5) -> None:
     dev = _device_time(prof, steps, 12)
     if dev is None:
         emit({**rec, "device_busy_ms_per_step": "not measured"})
-        return
+        return None
     # the flash kernels' device time per step, by kernel symbol
     from torch.autograd import DeviceType
     symbols = {"flash_forward": "flash_fwd_sm90",
@@ -1592,6 +1612,7 @@ def phase_train_profile(torch, data, *, steps=5) -> None:
           dev["device_busy_ms_per_step"] / step_ms,
           "flash_ms_per_step": {n: us / steps / 1e3
                                 for n, us in flash_us.items()}})
+    return dev["device_busy_ms_per_step"]
 
 
 # -- phase 10: the trainer stack --------------------------------------------
@@ -5714,6 +5735,222 @@ def phase_tune(torch, data) -> dict[str, int]:
     return launches
 
 
+FLASH_SYMBOLS = {"flash_forward": "flash_fwd_sm90",
+                 "flash_dkv": "flash_dkv_sm90", "flash_dq": "flash_dq_sm90"}
+
+
+def phase_trace(torch, train_busy_ms) -> dict[str, int]:
+    """``tadnn trace`` in this process on the train cell's model (GPT-2
+    small, 12 layers, B 8 x S 1024), then ``Trainer.fit`` with
+    ``trace_every_n=3``, both journaling into one file, and ``tadnn
+    report``'s generator over it; then ``tadnn trace`` under dp in a
+    world of one NCCL rank (module docstring, phase 30).  Returns
+    K1-K3's launches in all of these runs."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, SyntheticLM, adamw, next_token_loss, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.models import \
+        gpt2_config
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import \
+        report as obs_report
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import \
+        trace as obs_trace
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        MetricsLogger, Trainer, TrainerConfig)
+
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    cfg = gpt2_config("small", max_seq_len=1024)
+    batch, seq = 8, 1024
+    per_step = {"flash_forward": cfg.n_layers * (2 if cfg.remat else 1),
+                "flash_dkv": cfg.n_layers, "flash_dq": cfg.n_layers}
+    tmp = tempfile.mkdtemp(prefix="tadnn_trace_")
+    journal_path = os.path.join(tmp, "journal.jsonl")
+    logdir = os.path.join(tmp, "profile")
+
+    def kernels_in(parsed):
+        """Per step window: K1-K3 counts and their names on the trace."""
+        out = {}
+        for win in parsed["steps"]:
+            t0, t1 = win["ts"], win["ts"] + win["dur"]
+            counts, names = dict.fromkeys(FLASH_SYMBOLS, 0), set()
+            for op in parsed["ops"]:
+                if not t0 <= op["ts"] < t1:
+                    continue
+                for name, symbol in FLASH_SYMBOLS.items():
+                    if symbol in op["name"]:
+                        counts[name] += 1
+                        names.add(op["name"][:120])
+            out[win["step"]] = (counts, sorted(names))
+        return out
+
+    def step_lines(part, recs, parsed, launches, n_steps, flops):
+        by_step = kernels_in(parsed)
+        for r in recs:
+            counts, names = by_step.get(r["step"], ({}, []))
+            emit({"phase": "trace", "part": part, "step": r["step"],
+                  "wall_s": r["wall_s"], "compute_s": r["compute_s"],
+                  "collective_s": r["collective_s"],
+                  "exposed_collective_s": r["exposed_collective_s"],
+                  "n_ops": r["n_ops"],
+                  "measured_mfu": r.get("measured_mfu"),
+                  "mfu_vs_989_4_tflops": flops / r["wall_s"] / 989.4e12,
+                  "launches_per_step_by_counter": {
+                      n: c / n_steps for n, c in launches.items()},
+                  "launches_in_window": counts, "kernel_names": names,
+                  "busy_vs_train_profile": (
+                      r["compute_s"] * 1e3 / train_busy_ms
+                      if train_busy_ms else "not measured")})
+            for name in FLASH_SYMBOLS:
+                require(counts.get(name, 0) > 0,
+                        f"trace: step {r['step']} ({part}) shows no "
+                        f"{name} kernel in its window ({names})")
+            require(r["compute_s"] > 0,
+                    f"trace: step {r['step']} ({part}) has compute_s 0")
+
+    # (a) tadnn trace: one warm step, then 3 traced steps
+    t0 = time.monotonic()
+    for w in wrappers:
+        w.launches = 0
+    argv = ["trace", "--family", "gpt2", "--size", "small", "--seq",
+            str(seq), "--batch", str(batch), "--steps", "3", "--strategy",
+            "auto", "--journal", journal_path, "--logdir", logdir,
+            "--json"]
+    rc, out, err = _port_cli(argv, {"TADNN_JOURNAL_VALIDATE": "1"})
+    cli_launches = {w.__name__: w.launches for w in wrappers}
+    cli_s = time.monotonic() - t0
+    require(rc == 0, f"trace: tadnn trace rc {rc}: {err[-2000:]}")
+    recs = [r for r in _json_lines(out) if "wall_s" in r]
+    require([r["step"] for r in recs] == [1, 2, 3],
+            f"trace: tadnn trace printed steps {[r['step'] for r in recs]}")
+    require(cli_launches == {n: 4 * c for n, c in per_step.items()},
+            f"trace: K1-K3 launched {cli_launches} in 4 steps, the remat "
+            f"implies {per_step} a step")
+    paths = {e["trace"] for e in Journal.read(journal_path)
+             if e["name"] == "trace.step"}
+    require(len(paths) == 1, f"trace: the CLI's steps name {paths}")
+    cli_path = paths.pop()
+    t1 = time.monotonic()
+    parsed = obs_trace.parse_trace(cli_path)
+    parse_s = time.monotonic() - t1
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in GPT2(
+            "small", max_seq_len=seq).parameters())
+    flops = 6.0 * n_params * batch * seq
+    step_lines("cli", recs, parsed, cli_launches, 4, flops)
+    emit({"phase": "trace", "part": "cli", "argv": argv,
+          "seconds": cli_s, "parse_s": parse_s, "launches": cli_launches,
+          "device_ops_in_trace": len(parsed["ops"])})
+    del parsed
+
+    # (b) Trainer.fit, 6 steps, every 3rd traced (step 3: i != start and
+    # (i - start) % 3 == 0, as in the JAX package)
+    t0 = time.monotonic()
+    jnl = Journal(journal_path, validate=True)
+    ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                        loss_fn=next_token_loss)
+    losses = []
+    trainer = Trainer(
+        ad, TrainerConfig(steps=6, log_every=0, trace_every_n=3,
+                          trace_dir=logdir, preflight=False),
+        metrics=MetricsLogger(None, flops_per_step=flops, console=False),
+        journal=jnl,
+        callbacks=[lambda i, s, m: losses.append(float(m["loss"]))])
+    for w in wrappers:
+        w.launches = 0
+    trainer.fit(SyntheticLM(vocab_size=50257, seq_len=seq + 1,
+                            batch_size=batch),
+                rng=torch.Generator(device="cuda").manual_seed(0))
+    fit_launches = {w.__name__: w.launches for w in wrappers}
+    jnl.close()
+    fit_s = time.monotonic() - t0
+    del trainer, ad
+    torch.cuda.empty_cache()
+    records = Journal.read(journal_path)
+    errors = [e for e in records if e["name"] == "trace.error"]
+    require(not errors, f"trace: the journal holds trace.error {errors}")
+    fit_steps = [e for e in records if e["name"] == "trace.step"
+                 and e["trace"] != cli_path]
+    require([e["step"] for e in fit_steps] == [3],
+            f"trace: the Trainer traced steps "
+            f"{[e['step'] for e in fit_steps]}, JAX's rule gives [3]")
+    parsed = obs_trace.parse_trace(fit_steps[0]["trace"])
+    step_lines("trainer", fit_steps, parsed, fit_launches, 6, flops)
+    del parsed
+    require(fit_launches == {n: 6 * c for n, c in per_step.items()},
+            f"trace: K1-K3 launched {fit_launches} in the 6 fit steps")
+    require(all(math.isfinite(x) for x in losses) and len(losses) == 6,
+            f"trace: the fit's losses {losses}")
+
+    # (c) tadnn report over the journal both wrote
+    rep = obs_report.generate(journal_path)
+    text = obs_report.format_report(rep)
+    emit({"phase": "trace", "part": "report", "fit_seconds": fit_s,
+          "fit_losses": losses, "launches": fit_launches,
+          "report_trace": rep.get("trace"),
+          "report_goodput": rep.get("goodput"),
+          "report_lines": [ln for ln in text.splitlines()
+                           if ln.startswith(("trace:", "goodput:", "  "))][:12]})
+    require("trace" in rep and rep["trace"].get("n_steps") == 4,
+            f"trace: the report's trace section is {rep.get('trace')}")
+
+    # (d) in a world of one NCCL rank, tadnn trace under dp (DDP at
+    # degree 1: FSDP2 there dispatches no collective at all): what this
+    # torch's profiler records of the c10d ops (their shapes and dtypes,
+    # the bytes read from them) and of the NCCL kernels on the device
+    # lane.  The planner models no bytes at degree 1, so the crosscheck
+    # is reported, not gated
+    jpath = os.path.join(tmp, "journal.dp.jsonl")
+    topology.initialize_distributed(
+        backend="nccl", init_method=f"file://{os.path.join(tmp, 'pg')}",
+        world_size=1, rank=0)
+    for w in wrappers:
+        w.launches = 0
+    try:
+        rc, out, err = _port_cli(
+            argv[:9] + ["--steps", "1", "--strategy", "dp", "--journal",
+                        jpath, "--logdir", logdir, "--json"], {})
+    finally:
+        dist.destroy_process_group()
+    group_launches = {w.__name__: w.launches for w in wrappers}
+    require(rc == 0, f"trace: tadnn trace under dp in a world of one "
+                     f"NCCL rank: {err[-2000:]}")
+    lines = _json_lines(out)
+    (path,) = {e["trace"] for e in Journal.read(jpath)
+               if e["name"] == "trace.step"}
+    parsed = obs_trace.parse_trace(path)
+    ops = {}
+    for c in parsed["collectives"]:
+        ops.setdefault(c["name"], set()).add(c["bytes"])
+    emit({"phase": "trace", "part": "nccl_world_1_dp",
+          "steps": [{k: r[k] for k in ("step", "wall_s", "compute_s",
+                                        "collective_s",
+                                        "exposed_collective_s")}
+                    for r in lines if "wall_s" in r],
+          "crosscheck": [r for r in lines if "category" in r],
+          "measured": obs_trace.measured_collective_bytes(parsed),
+          "c10d_ops": {n: sorted(b) for n, b in ops.items()},
+          "nccl_on_device_lane": sorted({
+              o["name"][:80] for o in parsed["ops"]
+              if obs_trace.is_collective(o["name"])}),
+          "record_param_comms": sum(
+              e.get("name") == "record_param_comms"
+              for e in obs_trace._load_events(path))})
+    require(all(min(b) > 0 for b in ops.values()),
+            f"trace: a c10d op recorded no shapes under dp: {ops}")
+    del parsed
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {n: cli_launches[n] + fit_launches[n] + group_launches[n]
+            for n in cli_launches}
+
+
 INGRESS_TENANTS = ("t0", "t1", "t2", "t3")
 INGRESS_LIMITED_BURST = 2
 
@@ -6035,10 +6272,11 @@ def main(argv=None) -> int:
             SyntheticLM
 
         data = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8)
+    train_busy_ms = None  # phase train_profile's, for phase trace
     if run("train"):
         train_launches = phase_train(torch, data)
         phase_train_parity(torch, data)
-        phase_train_profile(torch, data)
+        train_busy_ms = phase_train_profile(torch, data)
         torch.cuda.empty_cache()
     if run("dist_plan"):
         dist_launches = phase_dist_plan(torch, data, card)
@@ -6111,6 +6349,9 @@ def main(argv=None) -> int:
         tune_launches = phase_tune(
             torch, SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8))
         torch.cuda.empty_cache()
+    if run("trace"):
+        trace_launches = phase_trace(torch, train_busy_ms)
+        torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -6140,7 +6381,7 @@ def main(argv=None) -> int:
                          + moe_launches[name] + pipe_cp_launches[name]
                          + bridges_launches[name]
                          + sharded_serve_launches[name]
-                         + tune_launches[name]),
+                         + tune_launches[name] + trace_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -6165,7 +6406,8 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "dist_plan", "trainer", "launch", "sharded_trainer", "generate",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
           "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
-          "bridges", "sharded_serve", "gateway", "ingress", "tune")
+          "bridges", "sharded_serve", "gateway", "ingress", "tune",
+          "trace")
 
 
 if __name__ == "__main__":

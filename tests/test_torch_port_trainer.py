@@ -369,9 +369,14 @@ def test_what_is_not_ported_raises(tmp_path):
                             cfg=dict(preflight_action="raise"))
     with pytest.raises(NotImplementedError, match="item 7"):
         trainer.fit(_tiny_data())
-    trainer = _tiny_trainer(tmp_path / "b", 2, cfg=dict(trace_every_n=1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trainer.fit(_tiny_data())
+    # profiler-traced steps are ported (test_torch_port_trace.py): with
+    # trace_every_n=1 the step after the first runs under the profiler
+    j = Journal()
+    trainer = _tiny_trainer(tmp_path / "b", 2, journal=j, cfg=dict(
+        trace_every_n=1, trace_dir=str(tmp_path / "profile")))
+    trainer.fit(_tiny_data())
+    assert [r["step"] for r in j.named("trace.step")] == [1]
+    assert not j.named("trace.error")
     # the Trainer across processes and doctor --launch-dir are ported
     # (test_torch_port_multiproc.py, test_torch_port_launch.py): a
     # launch directory with nothing in it reports no failure; doctor

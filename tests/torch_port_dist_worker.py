@@ -56,6 +56,14 @@ Adam moments, gathered) equals the first bitwise — and
 state, healthy and with one data replica's shard perturbed.  Imports
 torch and the port only.
 
+A job may also hold ``trace``: GPT-2 (``trace["model"]``'s keyword
+arguments, weights from a seeded generator) under each of its runs'
+strategies (``AutoDistribute`` options), one warm step, then
+``trace["steps"]`` steps under ``obs.trace.trace_steps`` (this rank's
+profiler capture), recording the attribution records, the measured
+collective bytes of the traced steps, ``comms.comm_profile``'s
+per-device estimate and the crosscheck of the two.
+
 A job may also hold ``bridge_tp``: a bridged ``nn.Transformer``
 (``from_torch``'s graph, layout and weights) trained under ``tp`` on the
 MT loss, recording the losses, each parameter's local shape, the plan's
@@ -957,6 +965,50 @@ def _bridge_tp(bj):
             "params": ad.gathered_params(state)}
 
 
+def _trace_runs(tj, rank, out_dir):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2,
+        AutoDistribute,
+        adamw,
+        next_token_loss,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        comms,
+        journal,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        trace as obs_trace,
+    )
+
+    out = {}
+    for run in tj["runs"]:
+        model = GPT2(**tj["model"]).init_weights(
+            torch.Generator().manual_seed(0))
+        ad = AutoDistribute(model, optimizer=adamw(1e-3),
+                            loss_fn=next_token_loss, device="cpu",
+                            **run["kw"])
+        with journal.as_default(journal.Journal(host0_only=False)) as j:
+            state = ad.init(None, tj["batch"])
+            state, _ = ad.step(state, tj["batch"])
+            timeline = {}
+            state, recs = obs_trace.trace_steps(
+                ad.step, state, tj["batch"], steps=tj["steps"], first_step=1,
+                logdir=f"{out_dir}/profile.{run['name']}.{rank}",
+                timeline=timeline)
+            measured = obs_trace.measured_collective_bytes(timeline)
+            est = comms.comm_profile(ad)
+            xc = obs_trace.crosscheck_collectives(measured,
+                                                  est["per_device"])
+        out[run["name"]] = {
+            "recs": recs, "measured": measured, "xc": xc,
+            "per_device": {k: v["payload_bytes"]
+                           for k, v in est["per_device"].items()},
+            "degrees": ad.plan.degrees, "remat": ad.plan.remat,
+            "names": sorted({c["name"] for c in timeline["collectives"]}),
+            "journal": [r["name"] for r in j.records]}
+    return out
+
+
 def main(rank, world, init_file, job_path, out_path):
     import torch.distributed as dist
 
@@ -996,6 +1048,9 @@ def main(rank, world, init_file, job_path, out_path):
         out["decode"] = _decode_runs(job["decode"], world)
     if job.get("bridge_tp"):
         out["bridge_tp"] = _bridge_tp(job["bridge_tp"])
+    if job.get("trace"):
+        out["trace"] = _trace_runs(job["trace"], rank,
+                                   str(Path(out_path).parent))
     if job.get("only_lm"):
         dist.barrier()
         dist.destroy_process_group()

@@ -12,7 +12,9 @@
   package's ``inference/gateway/``);
 - **model check** (:mod:`.model_check`): bounded explicit-state BFS
   over event interleavings of real serving state machines, with
-  minimized replayable counterexamples;
+  minimized replayable counterexamples; the protocol models over this
+  package's allocator, scheduler, prefix cache and gateway
+  (:mod:`.protocol`, rules PC001–PC007, ``tadnn check --protocol``);
 - **journal lint** (:mod:`.journal_lint`): every journal emission and
   consumption site resolved statically and checked both ways against
   the :mod:`..obs.schema` event registry, plus a record-level auditor
@@ -21,8 +23,7 @@
 Findings are typed (``error``/``warn``) and journaled as ``lint.*``
 events.  The layers that trace a step (plan, graph, memory and dtype
 lint: :func:`preflight`, :func:`check_spec` / :func:`analyze`,
-:func:`memory_check`) and the protocol models over the gateway
-(``analysis/protocol.py``) wait for ROADMAP Queue 1 item 7.
+:func:`memory_check`) wait for ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations

@@ -29,9 +29,8 @@ result records whether the frontier was exhausted (``complete``) so a
 truncated search can never masquerade as a proof.
 
 The PyTorch package's copy of the JAX package's
-``analysis/model_check.py``.  The JAX package's protocol models over its
-serving objects (``analysis/protocol.py``) wait for ROADMAP Queue 1
-item 7; a model over the port's objects plugs in here as it is.
+``analysis/model_check.py``; the protocol models over this package's
+serving objects are in ``analysis/protocol.py``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Command line for the PyTorch port: the ``serve``, ``doctor``,
 ``devices``, ``run``, ``launch``, ``tokenize``, ``tune``, ``simulate``,
-``monitor`` and ``gateway`` subcommands.
+``monitor``, ``gateway``, ``report``, ``check``, ``trace`` and
+``profile`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
@@ -54,6 +55,21 @@ flags, rows and exit codes are the JAX package's.
         --port 8080 --replicas 2
     python -m torch_automatic_distributed_neural_network_tpu_torch monitor \
         JOURNAL --slo "p99_ms<=2500" --check
+
+``report`` renders a run's journal and metrics file (and ``--check`` /
+``--check-simulate`` guard bench records); ``check`` runs the source and
+async lints, ``--serving``, ``--protocol`` and the journal contract
+(``--preflight``, ``--memory`` and ``--trace-serve`` exit 2: the graph
+lints are not ported yet); ``trace`` profiles a zoo config's steps on
+``--device`` (cuda by default) with ``torch.profiler``, or runs a
+script with ``TADNN_TRACE_EVERY_N`` exported; ``profile`` runs a script
+under the profiler.  Their flags, lines and exit codes are the JAX
+package's.
+
+    python -m torch_automatic_distributed_neural_network_tpu_torch trace \
+        --family gpt2 --size small --seq 1024 --batch 8 --journal run.jsonl
+    python -m torch_automatic_distributed_neural_network_tpu_torch report run.jsonl
+    python -m torch_automatic_distributed_neural_network_tpu_torch check --protocol
 """
 
 from __future__ import annotations
@@ -332,13 +348,7 @@ def cmd_run(args: argparse.Namespace) -> int:
     if process_count() > 1 and process_index() == 0:
         print(f"distributed: {process_count()} processes, backend "
               f"{__import__('torch').distributed.get_backend()}")
-    script_args = list(args.script_args)
-    if script_args and script_args[0] == "--":
-        script_args = script_args[1:]
-    sys.argv = [args.script, *script_args]
-    sys.path.insert(0, os.path.dirname(os.path.abspath(args.script)) or ".")
-    runpy.run_path(args.script, run_name="__main__")
-    return 0
+    return _script(args.script, args.script_args)
 
 
 def cmd_launch(args: argparse.Namespace) -> int:
@@ -914,6 +924,352 @@ def cmd_gateway(args: argparse.Namespace) -> int:
     return 0
 
 
+def _script(script: str, script_args: list[str]) -> int:
+    """Run ``script`` as ``__main__`` with the arguments after it, the
+    process group brought up from ``torchrun``'s environment first (a
+    no-op for one process launched without it)."""
+    from . import topology
+
+    topology.initialize_distributed()
+    script_args = list(script_args)
+    if script_args and script_args[0] == "--":
+        script_args = script_args[1:]
+    sys.argv = [script, *script_args]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(script)) or ".")
+    runpy.run_path(script, run_name="__main__")
+    return 0
+
+
+def cmd_profile(args: argparse.Namespace) -> int:
+    """Run a script under a ``torch.profiler`` capture (the CUDA lane
+    too when ``--device`` is cuda); the Chrome trace goes to
+    ``--logdir``."""
+    from .utils import profiling
+
+    os.makedirs(args.logdir, exist_ok=True)
+    with profiling.trace(args.logdir, device=args.device):
+        rc = _script(args.script, args.script_args)
+    print(f"profile trace written to {args.logdir}")
+    return rc
+
+
+def cmd_trace(args: argparse.Namespace) -> int:
+    """Profile real steps on ``--device``: a device-timeline capture
+    (obs/trace) attributed into per-step compute / collective / exposed
+    collective time and measured MFU, plus the measured-vs-modeled
+    collective-bytes crosscheck (the profiled step's c10d ops vs
+    planner.expected_collective_bytes).
+
+    Two modes: a model-zoo config (--family et al., default the bench
+    mlp) traced in-process, or a training script (``tadnn trace
+    train.py``) run with TADNN_TRACE_EVERY_N exported so the Trainer
+    instruments itself every Nth step.
+    """
+    if args.target and args.target.endswith(".py"):
+        os.environ.setdefault("TADNN_TRACE_EVERY_N", str(args.every))
+        if args.journal:
+            os.environ.setdefault("TADNN_JOURNAL", args.journal)
+        return _script(args.target, args.script_args)
+    if args.target:
+        print(f"trace target must be a .py script (got {args.target}); "
+              "omit it to trace a --family config", file=sys.stderr)
+        return 2
+
+    import torch
+
+    from . import AutoDistribute, topology
+    from .obs import Journal, as_default
+    from .obs import comms as obs_comms
+    from .obs import trace as obs_trace
+    from .training import adamw
+    from .training.metrics import transformer_step_flops
+    from .utils.device import resolve_device
+
+    device = resolve_device(None if args.device == "cuda" else args.device)
+    with as_default(Journal(args.journal)) as jnl:  # None: in memory
+        model, loss, sample = _family_setup(args, device=device)
+        ad = AutoDistribute(model, optimizer=adamw(1e-4), loss_fn=loss,
+                            strategy=args.strategy,
+                            precision=args.precision, device=device)
+        state = ad.init(torch.Generator(device=device).manual_seed(0),
+                        sample)
+        n_params = sum(p.numel() for p in ad.model.parameters())
+        tokens = args.batch * ((args.seq or 1024)
+                               if args.family in ("gpt2", "llama", "moe",
+                                                  "bert") else 1)
+        flops = transformer_step_flops(n_params, tokens)
+
+        # warm up outside the capture — the first step builds the
+        # kernels and would profile the build, not the step
+        state, m = ad.step(state, sample)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timeline: dict = {}
+        state, recs = obs_trace.trace_steps(
+            ad.step, state, sample, steps=args.steps, first_step=1,
+            logdir=args.logdir, flops_per_step=flops, journal=jnl,
+            device=device, timeline=timeline,
+        )
+        measured = obs_trace.measured_collective_bytes(timeline)
+        est = obs_comms.comm_profile(ad)
+        # the profiled step covers every accumulation slice: grad_accum 1
+        xc = obs_trace.crosscheck_collectives(
+            measured, est.get("per_device") or {}, journal=jnl)
+        jnl.close()
+
+    if args.json:
+        for r in recs:
+            print(json.dumps(r))
+        for c in xc:
+            print(json.dumps(c))
+        return 0
+    topo = topology.detect()
+    print(f"traced {len(recs)} step(s) on {topo.num_devices} x "
+          f"{topo.device_kind}  (strategy "
+          f"{ad.plan.strategy}, {n_params:,} params)")
+    for r in recs:
+        line = (f"  step {r['step']}: wall {r['wall_s'] * 1e3:8.2f}ms  "
+                f"compute {r['compute_s'] * 1e3:8.2f}ms  "
+                f"collective {r['collective_s'] * 1e3:7.2f}ms  "
+                f"exposed {r['exposed_collective_s'] * 1e3:7.2f}ms")
+        if r.get("measured_mfu") is not None:
+            line += f"  mfu {r['measured_mfu']:.2%}"
+        print(line)
+    frac = obs_trace.exposed_fraction(recs)
+    if frac is not None:
+        print(f"exposed collective fraction: {frac:.1%} "
+              "(communication the schedule failed to hide)")
+    for c in xc:
+        print(f"  {c['category']}: measured {c['measured_bytes']:,} B "
+              f"vs modeled {c['modeled_bytes']:,} B  "
+              f"ratio {c['ratio']}"
+              + ("" if c["within_2x"] else "  !! outside 2x band"))
+    if args.journal:
+        print(f"journal written to {args.journal} (render with "
+              f"`tadnn report {args.journal}`)")
+    return 0
+
+
+def cmd_report(args: argparse.Namespace) -> int:
+    """Summarize a finished (or crashed) run from its on-disk artifacts:
+    journal JSONL + MetricsLogger JSONL.  Pure file parsing — no torch
+    import, so it works on a machine with no accelerator runtime.
+    ``--check`` instead runs the bench freshness guard; ``--merge``
+    joins per-host journals first (obs/aggregate)."""
+    from .obs import report as obs_report
+
+    if args.check:
+        code, msgs = obs_report.check_bench(
+            args.target, bench_path=args.bench,
+            last_good_path=args.last_good)
+        for m in msgs:
+            # per-message verdict: with two trajectories (BENCH + SERVE)
+            # one can be fresh while the other fails the aggregate code
+            print(("ok   " if ": fresh" in m else "FAIL ") + m)
+        return code
+    if getattr(args, "check_simulate", False):
+        code, msgs = obs_report.check_simulate(args.target)
+        for m in msgs:
+            print(("ok   " if "within 2x" in m else "FAIL ") + m)
+        return code
+    if args.merge:
+        from .obs import aggregate
+
+        try:
+            merged = aggregate.merge_run(args.target)
+            print(f"merged per-host journals -> {merged}")
+        except (FileNotFoundError, NotADirectoryError, OSError) as e:
+            print(f"--merge: {e}", file=sys.stderr)
+            return 1
+    rep = obs_report.generate(args.target, args.metrics)
+    if args.json:
+        print(json.dumps(rep))
+    else:
+        print(obs_report.format_report(rep))
+    return 0
+
+
+_GRAPH_LINTS = "not ported yet (ROADMAP Queue 1 item 7)"
+
+
+def cmd_check(args: argparse.Namespace) -> int:
+    """Static analyzer (analysis/): source and async lint over this
+    package by default; ``--serving`` sizes a decoder's KV pool against
+    ``--budget``; ``--protocol`` model-checks the serving control
+    plane; ``--journal`` / ``--journal-file`` check the telemetry
+    contract.  ``--preflight``, ``--memory`` and ``--trace-serve`` need
+    the graph lints, which are not ported yet: they exit 2.  Exit 1 on
+    error-severity findings; with ``--strict`` also on warnings."""
+    from . import analysis
+
+    if args.rules:
+        if getattr(args, "journal", False):
+            # the generated journal event reference: the registry as a
+            # markdown table
+            from .obs import schema as obs_schema
+
+            print(obs_schema.registry_markdown())
+            return 0
+        for r in analysis.RULES.values():
+            print(f"{r.code}  {r.layer:<6} {r.severity:<5} {r.title}")
+        return 0
+    for flag, on in (("--preflight", args.preflight),
+                     ("--memory", args.memory),
+                     ("--trace-serve", args.trace_serve)):
+        if on:
+            print(f"tadnn check {flag}: {_GRAPH_LINTS}", file=sys.stderr)
+            return 2
+    findings: list = []
+    if not args.no_source:
+        from .analysis import async_lint, source_lint
+
+        findings += source_lint.lint_paths(args.paths or None)
+        findings += async_lint.lint_paths(args.paths or None)
+    serve_est = None
+    if getattr(args, "serving", False):
+        if args.family not in ("gpt2", "llama", "moe"):
+            print("check --serving needs a decoder family "
+                  "(--family gpt2|llama|moe)", file=sys.stderr)
+            return 2
+        from .analysis import serve_lint
+
+        # the model on the meta device: shapes and dtypes, no memory
+        model, _, _ = _family_setup(args)
+        cfg = model.cfg
+        params_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        kwargs = {}
+        if args.headroom is not None:
+            kwargs["headroom"] = args.headroom
+        serve_tp = int(getattr(args, "serve_tp", 1) or 1)
+        if serve_tp > 1:
+            # per-shard accounting: KV heads + adapter b factors split,
+            # params charged per shard like the engine lays them out
+            kwargs["degrees"] = {"tensor": serve_tp}
+            params_bytes //= serve_tp
+        s_findings, serve_est = serve_lint.serve_estimate(
+            cfg, budget=args.budget,
+            block_size=args.serve_block_size,
+            max_len=args.serve_max_len or args.seq or 256,
+            streams=args.serve_streams,
+            quant_kv=args.serve_quant_kv,
+            attention_impl=args.serve_attention_impl,
+            adapters=args.serve_adapters,
+            adapter_rank=args.serve_adapter_rank,
+            quant_adapters=args.serve_quant_adapters,
+            prefix_cache=bool(getattr(args, "serve_prefix_cache", False)),
+            expected_hit_rate=float(
+                getattr(args, "serve_prefix_hit_rate", None) or 0.0),
+            params_bytes=params_bytes, **kwargs)
+        findings += s_findings
+    protocol_results = None
+    if getattr(args, "protocol", False):
+        from .analysis import protocol as protocol_mod
+
+        p_findings, p_results = protocol_mod.run_protocol_check(
+            scope=args.scope,
+            counterexample_dir=args.counterexample_dir,
+        )
+        findings += p_findings
+        protocol_results = [
+            {"model": r.model, "scope": r.scope, "states": r.states,
+             "transitions": r.transitions, "depth": r.depth,
+             "frontier_peak": r.frontier_peak,
+             "wall_s": round(r.wall_s, 3), "complete": r.complete,
+             "violations": len(r.counterexamples)}
+            for r in p_results]
+    journal_stats = None
+    if getattr(args, "journal", False) or getattr(args, "journal_file",
+                                                  None):
+        from .analysis import journal_lint
+        from .obs import journal as obs_journal
+
+        journal_stats = {}
+        if getattr(args, "journal", False):
+            j_findings, journal_stats = journal_lint.lint_paths(
+                args.paths or None)
+            findings += j_findings
+            obs_journal.event(
+                "lint.journal",
+                kinds_emitted=journal_stats.get("kinds_emitted", 0),
+                kinds_known=journal_stats.get("kinds_known", 0),
+                sites=journal_stats.get("sites", 0),
+                dynamic_sites=journal_stats.get("dynamic_sites", 0),
+                coverage=journal_stats.get("coverage", 1.0),
+                findings=len(j_findings))
+        audits = {}
+        for jf in (getattr(args, "journal_file", None) or ()):
+            a_findings, a_stats = journal_lint.audit_journal(jf)
+            findings += a_findings
+            audits[jf] = {**a_stats, "findings": len(a_findings)}
+        if audits:
+            journal_stats = {**journal_stats, "audited": audits}
+    try:
+        findings = analysis.filter_ignored(findings, args.ignore or ())
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    analysis.journal_findings(findings, phase="check")
+    summary = analysis.summarize(findings)
+    if args.json:
+        out = {"findings": [f.to_json() for f in findings],
+               "summary": summary}
+        if serve_est is not None:
+            out["serve_estimate"] = serve_est
+        if protocol_results is not None:
+            out["protocol"] = protocol_results
+        if journal_stats is not None:
+            out["journal"] = journal_stats
+        print(json.dumps(out))
+    else:
+        for f in findings:
+            print(f.format())
+        if serve_est is not None:
+            ws = serve_est.get("decode_workspace_bytes", 0)
+            print(f"serve estimate: {serve_est['max_streams']} "
+                  f"concurrent stream(s) of {serve_est['max_len']} "
+                  f"tokens ({serve_est['num_blocks']} blocks x "
+                  f"{serve_est['block_size']}, "
+                  f"{'int8' if serve_est['quant_kv'] else 'bf16'} KV, "
+                  f"{serve_est.get('attention_impl', 'paged')} decode"
+                  + (f", {ws // 1024} KiB gather workspace" if ws
+                     else "")
+                  + (f", adapter pool {serve_est['n_adapters']}x "
+                     f"r{serve_est['adapter_rank']} "
+                     f"{'int8' if serve_est['quant_adapters'] else 'f32'} "
+                     f"({serve_est['adapter_pool_bytes'] // 1024} KiB)"
+                     if serve_est.get("n_adapters") else "") + ")")
+            if serve_est.get("prefix_cache"):
+                print(f"  prefix cache: index metadata "
+                      f"{serve_est['prefix_index_bytes'] // 1024} KiB; "
+                      f"at {serve_est['expected_hit_rate']:.0%} hit rate "
+                      f"~{serve_est['effective_max_streams']} effective "
+                      f"stream(s) (shared prefix blocks counted once)")
+        if protocol_results is not None:
+            for r in protocol_results:
+                print(f"protocol [{r['model']}]: {r['states']} states / "
+                      f"{r['transitions']} transitions explored to depth "
+                      f"{r['depth']} in {r['wall_s']}s "
+                      f"({'complete' if r['complete'] else 'TRUNCATED'}"
+                      f", {r['violations']} violation(s))")
+        if journal_stats is not None and journal_stats.get("sites"):
+            print(f"journal contract: {journal_stats['kinds_emitted']} "
+                  f"event kind(s) across {journal_stats['sites']} "
+                  f"emission site(s) "
+                  f"(+{journal_stats['dynamic_sites']} dynamic), "
+                  f"registry coverage "
+                  f"{journal_stats['coverage']:.0%} of "
+                  f"{journal_stats['kinds_known']} declared kind(s)")
+        if journal_stats is not None:
+            for jf, st in (journal_stats.get("audited") or {}).items():
+                print(f"journal audit [{jf}]: {st['records']} record(s)"
+                      + (f", {st['torn']} torn" if st["torn"] else "")
+                      + f", {st['findings']} finding(s)")
+        print(f"tadnn check: {summary['errors']} error(s), "
+              f"{summary['warnings']} warning(s)")
+    return analysis.exit_code(findings, strict=args.strict)
+
+
 def _zoo_args(p: argparse.ArgumentParser) -> None:
     """The model-zoo arguments of ``tune`` and ``simulate``."""
     p.add_argument("--family", default="gpt2",
@@ -1307,6 +1663,215 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--port: where the engines run, cuda (default) "
                         "or cpu (the plain PyTorch path)")
     p.set_defaults(fn=cmd_gateway)
+
+    p = sub.add_parser("profile",
+                       help="run a script under torch.profiler")
+    p.add_argument("script")
+    p.add_argument("--logdir", default="/tmp/tadnn_profile")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default: the CUDA lane too) or cpu")
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=cmd_profile)
+
+    p = sub.add_parser(
+        "trace",
+        help="profile real steps: device-timeline capture with per-step "
+             "compute/collective/exposed attribution + measured MFU, "
+             "and a measured-vs-modeled collective-bytes crosscheck; "
+             "pass a .py script to run it with TADNN_TRACE_EVERY_N "
+             "exported",
+    )
+    p.add_argument("target", nargs="?", default=None,
+                   help="training script to instrument (script mode); "
+                        "omit to trace a --family config in-process. "
+                        "trace options go BEFORE the script; everything "
+                        "after it is passed to the script: "
+                        "tadnn trace --every 8 train.py -- --steps 100")
+    p.add_argument("script_args", nargs=argparse.REMAINDER)
+    p.add_argument("--steps", type=int, default=3,
+                   help="instrumented steps to capture (config mode)")
+    p.add_argument("--every", type=int, default=10,
+                   help="script mode: trace every Nth step "
+                        "(TADNN_TRACE_EVERY_N)")
+    p.add_argument("--logdir", default=None,
+                   help="profiler logdir (default: a fresh temp dir)")
+    p.add_argument("--journal", default=None,
+                   help="journal JSONL to write trace.step / "
+                        "trace.collective events to")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--family", default="mlp",
+                   choices=("mlp", "gpt2", "llama", "moe", "bert", "vit"),
+                   help="model to trace in config mode (default: the "
+                        "bench mlp)")
+    p.add_argument("--size", default=None,
+                   help="model size preset; for mlp, comma-separated "
+                        "layer widths (default 1024,1024,10)")
+    p.add_argument("--seq", type=int, default=None,
+                   help="sequence length; for mlp/vit, the input image "
+                        "side")
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--strategy", default="dp",
+                   help="sharding strategy (default dp — the bench "
+                        "config, which has collectives on >1 device)")
+    p.add_argument("--precision", default="fp32")
+    p.add_argument("--device", default="cuda",
+                   help="config mode: where the steps run, cuda "
+                        "(default) or cpu (the plain PyTorch path)")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser(
+        "report",
+        help="summarize a run's journal + metrics JSONL: compiles/"
+             "recompiles, goodput breakdown, expected + measured comm "
+             "bytes, trace attribution, incidents (works offline; no "
+             "accelerator needed)",
+    )
+    p.add_argument("target",
+                   help="run directory (searched for journal.merged."
+                        "jsonl / journal.jsonl / metrics.jsonl) or a "
+                        "journal file path")
+    p.add_argument("--metrics", default=None,
+                   help="explicit MetricsLogger JSONL path")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--check", action="store_true",
+                   help="bench freshness guard: exit nonzero when the "
+                        "latest BENCH_r*.json is stale-marked/missing "
+                        "or its headline regressed >10%% vs "
+                        "BENCH_LAST_GOOD.json")
+    p.add_argument("--bench", default=None,
+                   help="explicit bench record path for --check "
+                        "(default: newest BENCH_r*.json in target)")
+    p.add_argument("--last-good", default=None, dest="last_good",
+                   help="explicit BENCH_LAST_GOOD.json path for --check")
+    p.add_argument("--merge", action="store_true",
+                   help="merge per-host journals in the target directory "
+                        "into journal.merged.jsonl before reporting")
+    p.add_argument("--check-simulate", action="store_true",
+                   dest="check_simulate",
+                   help="crosscheck the simulator against reality: "
+                        "replay the newest SERVE_BENCH record's config "
+                        "through the what-if serve replay and fail when "
+                        "prediction and measurement disagree by >2x")
+    p.set_defaults(fn=cmd_report)
+
+    p = sub.add_parser(
+        "check",
+        help="static analyzer: source and async lint over this package, "
+             "serving capacity (--serving), protocol model check "
+             "(--protocol), journal contract (--journal); exit 1 on "
+             "errors, with --strict also on warnings",
+    )
+    p.add_argument("paths", nargs="*",
+                   help="files/dirs to source-lint (default: this "
+                        "package)")
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--strict", action="store_true",
+                   help="warnings also fail (exit 1)")
+    p.add_argument("--rules", action="store_true",
+                   help="print the rule table and exit")
+    p.add_argument("--preflight", default=None, metavar="FILE",
+                   help=_GRAPH_LINTS)
+    p.add_argument("--no-source", action="store_true",
+                   help="skip the source lint")
+    p.add_argument("--memory", action="store_true", help=_GRAPH_LINTS)
+    p.add_argument("--budget", default=None,
+                   help="HBM budget for --serving, e.g. '16GiB' "
+                        "(default: the detected card's ChipSpec)")
+    p.add_argument("--headroom", type=float, default=None,
+                   help="warn when the predicted peak is within this "
+                        "fraction of the budget (default 0.1)")
+    p.add_argument("--no-compiled", action="store_true",
+                   help=argparse.SUPPRESS)
+    p.add_argument("--ignore", action="append", default=[],
+                   metavar="CODE",
+                   help="suppress findings with this rule code "
+                        "(repeatable) — the analog of "
+                        "'# tadnn: lint-ok(CODE)'")
+    p.add_argument("--pl005-bytes", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--family", default="mlp",
+                   choices=("mlp", "gpt2", "llama", "moe", "bert", "vit"),
+                   help="model for --serving")
+    p.add_argument("--size", default=None,
+                   help="model size preset; for mlp, comma-separated "
+                        "layer widths (default 1024,1024,10)")
+    p.add_argument("--seq", type=int, default=None,
+                   help="sequence length; for mlp/vit, the input image "
+                        "side (mlp default 28)")
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--strategy", default="fsdp", help=argparse.SUPPRESS)
+    p.add_argument("--precision", default="fp32")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--serving", action="store_true",
+                   help="serving capacity lint (analysis/serve_lint): "
+                        "predict max concurrent KV streams under "
+                        "--budget for --family/--size; ML004/ML005")
+    p.add_argument("--serve-streams", type=int, default=None,
+                   dest="serve_streams",
+                   help="requested concurrency (fewer fitting = ML005)")
+    p.add_argument("--serve-block-size", type=int, default=16,
+                   dest="serve_block_size")
+    p.add_argument("--serve-max-len", type=int, default=None,
+                   dest="serve_max_len",
+                   help="tokens per stream (default: --seq or 256)")
+    p.add_argument("--serve-quant-kv", action="store_true",
+                   dest="serve_quant_kv", help="int8 KV pool")
+    p.add_argument("--serve-attention-impl", default="paged",
+                   choices=("paged", "dense"),
+                   dest="serve_attention_impl",
+                   help="decode path to budget: dense charges the "
+                        "per-step gather workspace, paged charges 0")
+    p.add_argument("--serve-adapters", type=int, default=None,
+                   dest="serve_adapters",
+                   help="size the multi-tenant LoRA adapter pool "
+                        "(N tenants + identity slot 0); ML006 when it "
+                        "alone pushes streams to zero")
+    p.add_argument("--serve-adapter-rank", type=int, default=8,
+                   dest="serve_adapter_rank")
+    p.add_argument("--serve-quant-adapters", action="store_true",
+                   dest="serve_quant_adapters",
+                   help="int8 adapter factors (~quarter the pool)")
+    p.add_argument("--serve-tp", type=int, default=1, dest="serve_tp",
+                   metavar="N",
+                   help="budget the serving estimate per TP shard "
+                        "(degrees={'tensor': N})")
+    p.add_argument("--serve-prefix-cache", action="store_true",
+                   dest="serve_prefix_cache",
+                   help="charge the prefix-reuse radix index metadata "
+                        "and report effective concurrency")
+    p.add_argument("--serve-prefix-hit-rate", type=float, default=0.0,
+                   dest="serve_prefix_hit_rate", metavar="FRAC",
+                   help="expected fraction [0,1) of prompt tokens served "
+                        "from the prefix cache")
+    p.add_argument("--zero1", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--trace-serve", action="store_true",
+                   dest="trace_serve", help=_GRAPH_LINTS)
+    p.add_argument("--protocol", action="store_true",
+                   help="explicit-state model check of the serving "
+                        "control plane (allocator / scheduler / prefix "
+                        "cache / gateway): BFS over all event "
+                        "interleavings at --scope, PC0xx findings with "
+                        "minimized replayable counterexamples")
+    p.add_argument("--scope", type=int, default=1,
+                   help="protocol small-scope level (default 1: 2 "
+                        "replicas, 3 requests, 4+ blocks; 2 widens "
+                        "requests/windows — slower, exponentially "
+                        "larger space)")
+    p.add_argument("--counterexample-dir", default=None, metavar="DIR",
+                   dest="counterexample_dir",
+                   help="write minimized counterexamples as replayable "
+                        "JSON event scripts into DIR (replay via "
+                        "analysis.model_check.replay_script)")
+    p.add_argument("--journal", action="store_true",
+                   help="journal telemetry contract lint (JL00x); with "
+                        "--rules, print the registry as a markdown "
+                        "event reference instead")
+    p.add_argument("--journal-file", action="append", default=None,
+                   metavar="FILE", dest="journal_file",
+                   help="audit a JSONL journal record-by-record against "
+                        "the event schema registry (repeatable)")
+    p.set_defaults(fn=cmd_check)
 
     p = sub.add_parser(
         "tokenize",

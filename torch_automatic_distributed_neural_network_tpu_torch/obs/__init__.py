@@ -2,8 +2,10 @@
 schema registry (``obs.schema``), the goodput breakdown
 (``obs.goodput``), the merge of per-host journals (``obs.aggregate``),
 the live serving windows (``obs.live``), the SLO monitor over them
-(``obs.slo_monitor``) and the timeline attribution arithmetic
-(``obs.trace``).  Library code emits to a
+(``obs.slo_monitor``), the ``torch.profiler`` step capture and its
+attribution (``obs.trace``), the collective-bytes accounting
+(``obs.comms``) and the ``tadnn report`` backend (``obs.report``,
+imported on use, as in the JAX package).  Library code emits to a
 process-global journal (``set_default`` / ``TADNN_JOURNAL``); when none
 is installed every call is a cheap no-op."""
 

@@ -26,12 +26,17 @@ Guards:
   agreements run on CPU tensors over a gloo group
   (``utils.device.host_group``);
 - determinism: the per-step dropout generators derive from the state's
-  seed and step counter, so restarts reproduce.
+  seed and step counter, so restarts reproduce;
+- profiler-traced steps: every ``trace_every_n``-th step after the
+  first runs under a ``torch.profiler`` capture (``obs.trace``), fenced,
+  journaled as ``trace.step``; its wall time goes to goodput's ``trace``
+  bucket.  A failed capture journals ``trace.error`` and keeps the
+  step's result, as in the JAX package.
 
 Not ported yet (ROADMAP Queue 1 item 7): the static preflight lint
 (``preflight=True`` journals ``lint.skipped`` naming the item, as the
 JAX package does when its analyzer fails; ``preflight_action="raise"``
-raises) and profiler-traced steps (``trace_every_n > 0`` raises).
+raises).
 """
 
 from __future__ import annotations
@@ -113,11 +118,14 @@ class TrainerConfig:
     # True journals lint.skipped, preflight_action='raise' raises
     preflight: bool = True
     preflight_action: str = "warn"  # 'warn' | 'raise'
-    # profile every Nth steady-state step (0 = off): not ported yet, a
-    # value above 0 raises.  Defaults from TADNN_TRACE_EVERY_N, as in the
-    # JAX package.
+    # profile every Nth steady-state step with obs/trace (0 = off).  The
+    # traced step is fenced under a torch.profiler capture, so its wall
+    # time lands in the 'trace' goodput bucket, never 'step'.  Defaults
+    # from TADNN_TRACE_EVERY_N so `tadnn trace <script.py>` can
+    # instrument an unmodified training script.
     trace_every_n: int = dataclasses.field(
         default_factory=lambda: _env_int("TADNN_TRACE_EVERY_N"))
+    trace_dir: str = ""  # profiler logdir ("" = a fresh temp dir per trace)
 
 
 def _env_int(name: str) -> int:
@@ -254,11 +262,6 @@ class Trainer:
         state: "TrainState | None" = None,
     ) -> "TrainState":
         cfg = self.cfg
-        if cfg.trace_every_n > 0:
-            raise NotImplementedError(
-                f"trace_every_n={cfg.trace_every_n}: profiler-traced steps "
-                "are not ported to the PyTorch package yet (ROADMAP Queue 1 "
-                "item 7)")
         meter = GoodputMeter()
         indexed = _is_step_indexed(data)
         data_iter = None if indexed else iter(data)
@@ -340,12 +343,21 @@ class Trainer:
             pending_done = None
             i = start
             while i < cfg.steps:
+                # traced steps skip i == start: the first step builds the
+                # kernels and would profile the build, not the step
+                traced = bool(cfg.trace_every_n and i != start
+                              and (i - start) % cfg.trace_every_n == 0)
                 t0 = time.perf_counter()
-                state, step_metrics = self.ad.step(state, batch)
+                if traced:
+                    state, step_metrics = self._traced_step(state, batch, i)
+                else:
+                    state, step_metrics = self.ad.step(state, batch)
                 dur = time.perf_counter() - t0
                 # the first step of a fit builds the kernels at first use
-                # and warms cuBLAS and the allocator: warm-up, not goodput
-                meter.add("compile" if i == start else "step", dur)
+                # and warms cuBLAS and the allocator: warm-up, not goodput;
+                # a traced step is fenced and profiled: overhead, not goodput
+                meter.add("compile" if i == start
+                          else ("trace" if traced else "step"), dur)
                 last_done = i + 1
                 if guard is not None:
                     rolled = self._maybe_rollback(guard, state, step_metrics,
@@ -495,6 +507,38 @@ class Trainer:
             obs_journal.event("run_end", stop_step=last_done, n_compiles=0,
                               recompiles=0, export=None)
         return state
+
+    def _traced_step(self, state, batch, i: int):
+        """One profiler-instrumented step (cfg.trace_every_n): capture a
+        device timeline around it and journal the ``trace.step``
+        attribution record.  A profiler failure falls back to the plain
+        step — tracing must never take down training."""
+        from ..obs import trace as obs_trace
+
+        captured = {}
+
+        def step_fn(s, b):
+            out = self.ad.step(s, b)
+            captured["out"] = out
+            return out
+
+        try:
+            state, _ = obs_trace.trace_steps(
+                step_fn, state, batch, steps=1, first_step=i,
+                flops_per_step=(self.metrics.flops_per_step
+                                if self.metrics else None),
+                logdir=self.cfg.trace_dir or None,
+                device=self.ad.device,
+            )
+            return state, captured["out"][1]
+        except Exception as e:  # noqa: BLE001 — any capture failure
+            obs_journal.event("trace.error", step=i,
+                              error=f"{type(e).__name__}: {e}")
+            if "out" in captured:
+                # the step itself ran; only the capture/attribution died.
+                # Reuse its result: the step updated the state in place
+                return captured["out"]
+            return self.ad.step(state, batch)
 
     def _done_marker(self):
         """A callable that returns once the step just enqueued is done

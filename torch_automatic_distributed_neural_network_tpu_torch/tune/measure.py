@@ -109,8 +109,9 @@ def measure_candidates(
 
 def _compiled_flops(ad, state, batch) -> float | None:
     """FLOPs of the compiled step.  The port's step is eager PyTorch with
-    no compiled cost to read: compiled cost waits for ROADMAP Queue 1
-    item 7d (``utils/profiling.compiled_cost``), and until then the
-    trial carries no ``compiled_flops`` — the JAX package's answer when
-    its backend gives none."""
+    no compiled cost to read (``utils/profiling.compiled_cost`` counts
+    FLOPs by running a call, which here would take one more step): the
+    step's cost comes with ``compile_report``, ROADMAP Queue 1 item 7d,
+    and until then the trial carries no ``compiled_flops`` — the JAX
+    package's answer when its backend gives none."""
     return None
