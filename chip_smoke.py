@@ -358,10 +358,33 @@ card, in phases, one JSON line each; any failure exits non-zero:
    at degree 1: reported, not gated).  It fails
    when a traced step's window holds no K1, K2 or K3 kernel, a step's
    compute time is 0, the journal holds a ``trace.error``, the report
-   has no ``trace`` section or a recorded c10d op carries no shapes.
+   has no ``trace`` section or a recorded c10d op carries no shapes;
+31. the step on fake tensors (``fit``): ``AutoDistribute.compile_report``
+   on ``cuda`` at GPT-2 small (12 layers, B 8 x S 1024, the train
+   cell's batch; the step run once under ``FakeTensorMode`` with a
+   live-storage tracker) — its peak, temp size and FLOPs — and the
+   step's fx trace (``analysis.graph_lint.trace_step``), whose
+   ``tadnn`` K1/K2/K3 nodes must equal the launches of one real step
+   (24/12/12); both may allocate under 64 MiB on the card, launch
+   nothing and read no fake tensor's data pointer.  The real step's
+   ``max_memory_allocated`` beside the report's peak (within 2x, the
+   JAX package's bar for static against compiled);
+   ``analysis.memory_check`` at the card's budget (no error) and at 1
+   GiB (ML001), with ``static_over_compiled``; ``tadnn fit --family
+   llama --size 8b --batch 1 --seq 8192 --strategy dp --device cuda``
+   in this process (full width, depth and context)
+   answering ``fits: false`` above ``hbm_fit_budget`` with nothing
+   allocated; ``tadnn check --serving --trace-serve`` on GPT-2 small,
+   whose decode trace holds K4 once a layer and no GL001; and
+   ``Trainer.fit`` of 3 steps with ``preflight_action="raise"``
+   journaling ``lint.mem_estimate`` and no ``lint.skipped``, K1-K3
+   launching 24/12/12 a step.
 
-Phases 5 (``serve``), 10 (``trainer``), 16, 17, 19, 23, 25, 27, 28,
-29 and 30 write
+Every ``Trainer`` of phases 1-30 is given ``preflight=False``
+(``run.preflight=False``, ``--no-preflight`` in the examples' argv):
+the preflight's trace of the step costs seconds a run (phase 31 reports
+it), which the time limit has no room for in every run.  Phases 5 (``serve``), 10 (``trainer``),
+16, 17, 19, 23, 25, 27, 28, 29, 30 and 31 write
 their journals with schema validation on (``Journal(validate=True)``): a
 record that breaks the event schema fails the run; phase 18 checks every
 record of its merged journal the same way.
@@ -762,6 +785,30 @@ def _time_ms(torch, fn, n: int, flush, *, clean_l2=False) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def _host_us(torch, calls: dict, *, blocks=20, per_block=100) -> dict:
+    """Host time of one call of each of ``calls`` (name -> fn), in us:
+    ``blocks`` blocks of ``per_block`` calls, the names in turns, the host
+    clock around the calls alone (the card drains after each block, off
+    the clock, so no launch waits on a full queue); the median and
+    quartiles of each name's blocks."""
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in calls}
+    for _ in range(blocks):
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            for _ in range(per_block):
+                fn()
+            times[name].append((time.perf_counter() - t0) / per_block * 1e6)
+            torch.cuda.synchronize()
+    out = {}
+    for name, v in times.items():
+        q1, med, q3 = statistics.quantiles(v, n=4)
+        out[name] = {"median": med, "q1": q1, "q3": q3}
+    return out
+
+
 def phase_timing(torch) -> dict:
     from torch_automatic_distributed_neural_network_tpu_torch.ops import \
         paged_attention as pa
@@ -790,6 +837,18 @@ def phase_timing(torch) -> dict:
                         100, flush, clean_l2=True)
     one = torch.zeros(1, device="cuda")
     floor_ms = _time_ms(torch, lambda: one.add_(1), 100, flush)
+    # host time a call: the wrapper as shipped, the op called through its
+    # packet (the dispatcher, no wrapper checks) and the launch function as
+    # the wrapper called it before the op; 12 calls a GPT-2 small decode
+    # step
+    host = _host_us(torch, {
+        "wrapper": lambda: pa.paged_attention(q, k, v, tables, ctx),
+        "packet": lambda: torch.ops.tadnn.paged_attention(
+            q, k, v, None, None, tables, ctx, None),
+        "direct": lambda: pa._paged_attention_cuda(q, k, v, tables, ctx,
+                                                   window=None)})
+    op_us = host["wrapper"]["median"] - host["direct"]["median"]
+    packet_us = host["packet"]["median"] - host["direct"]["median"]
     # the split count at this shape, each in turn, there and back
     sweep = {}
     for n in (2, 3, 4, 6, 8, 16, 16, 8, 6, 4, 3, 2):
@@ -822,6 +881,9 @@ def phase_timing(torch) -> dict:
           "achieved_gb_per_s": (kv_bytes + io_bytes) / (ms * 1e-3) / 1e9,
           "roofline_share": rec["bound_ms"] / ms,
           "ms_clean_l2": clean_ms, "timing_floor_ms": floor_ms,
+          "host_us": host, "op_host_us": op_us,
+          "op_host_us_per_decode_step": 12 * op_us,
+          "packet_host_us": packet_us,
           "same_bytes_sum_ms": same_bytes_ms,
           "split_sweep_ms": {str(n): t for n, t in sorted(sweep.items())}})
     require(err <= 1e-4, f"timing-shape kernel error {err} > 1e-4")
@@ -1337,10 +1399,14 @@ def _flash_bound_ms(*, pairs, hd, n_products, bytes_moved):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def _flash_timing_at(torch, flush, *, B, S, H, hd, causal, seed) -> dict:
+def _flash_timing_at(torch, flush, *, B, S, H, hd, causal, seed,
+                     host_cost=False) -> dict:
     """K1, K2 and K3 at one bf16 shape: each against its plain version
     (2e-2), then timed beside the plain version, the bound and PyTorch's
-    ``scaled_dot_product_attention`` (its backward for K2 and K3)."""
+    ``scaled_dot_product_attention`` (its backward for K2 and K3); with
+    ``host_cost``, the host time a call of each wrapper as shipped and
+    of its op called through the packet, against its launch function
+    called directly (after the wrapper's checks, as before the op)."""
     import torch.nn.functional as F
 
     from torch_automatic_distributed_neural_network_tpu_torch.ops import \
@@ -1405,6 +1471,32 @@ def _flash_timing_at(torch, flush, *, B, S, H, hd, causal, seed) -> dict:
                               bytes_moved=6 * t_bytes + 2 * row_bytes),
             "flash_dq": dict(n_products=3,
                              bytes_moved=5 * t_bytes + 2 * row_bytes)}
+    host = {}
+    if host_cost:
+        scale = fa._scale_of(q, None)
+        direct = {
+            "flash_forward": lambda: (
+                fa._device_kind(q, "flash_forward", k, v),
+                fa._launch_forward(q, k, v, causal, None, scale)),
+            "flash_dkv": lambda: (
+                fa._device_kind(q, "flash_dkv", k, v, do),
+                fa._launch_dkv(q, k, v, do, lse_ref, delta, causal, None,
+                               scale)),
+            "flash_dq": lambda: (
+                fa._device_kind(q, "flash_dq", k, v, do),
+                fa._launch_dq(q, k, v, do, lse_ref, delta, causal, None,
+                              scale))}
+        packet = {
+            "flash_forward": lambda: torch.ops.tadnn.flash_forward(
+                q, k, v, causal, None, scale),
+            "flash_dkv": lambda: torch.ops.tadnn.flash_dkv(
+                q, k, v, do, lse_ref, delta, causal, None, scale),
+            "flash_dq": lambda: torch.ops.tadnn.flash_dq(
+                q, k, v, do, lse_ref, delta, causal, None, scale)}
+        for name, (kernel, _, _) in runs.items():
+            host[name] = _host_us(torch, {"wrapper": kernel,
+                                          "packet": packet[name],
+                                          "direct": direct[name]})
     out = {}
     for name, (kernel, plain, library) in runs.items():
         ms = _time_ms(torch, kernel, 20, flush)
@@ -1416,6 +1508,12 @@ def _flash_timing_at(torch, flush, *, B, S, H, hd, causal, seed) -> dict:
                **_flash_bound_ms(pairs=pairs, hd=hd, **work[name])}
         rec["roofline_share"] = rec["bound_ms"] / ms
         rec["tflops"] = rec["flops"] / (ms * 1e-3) / 1e12
+        if name in host:
+            rec["host_us"] = host[name]
+            rec["op_host_us"] = (host[name]["wrapper"]["median"]
+                                 - host[name]["direct"]["median"])
+            rec["packet_host_us"] = (host[name]["packet"]["median"]
+                                     - host[name]["direct"]["median"])
         emit({"phase": "flash_timing", "kernel": name,
               "shape": {"B": B, "S": S, "H": H, "hd": hd, "causal": causal,
                         "dtype": "bfloat16"},
@@ -1435,7 +1533,18 @@ def phase_flash_timing(torch) -> tuple[dict, dict]:
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     out = _flash_timing_at(torch, flush, B=8, S=1024, H=12, hd=64,
-                           causal=True, seed=1001)
+                           causal=True, seed=1001, host_cost=True)
+    # the ops' host cost a GPT-2 small train step: K1 twice a layer
+    # (remat), K2 and K3 once, 12 layers
+    per_step = {"flash_forward": 24, "flash_dkv": 12, "flash_dq": 12}
+    emit({"phase": "flash_timing", "part": "op_host_cost",
+          "op_host_us": {n: out[n]["op_host_us"] for n in per_step},
+          "op_host_us_per_train_step": sum(
+              c * out[n]["op_host_us"] for n, c in per_step.items()),
+          "packet_host_us": {n: out[n]["packet_host_us"]
+                             for n in per_step},
+          "packet_host_us_per_train_step": sum(
+              c * out[n]["packet_host_us"] for n, c in per_step.items())})
     bert = _flash_timing_at(torch, flush, B=8, S=512, H=12, hd=64,
                             causal=False, seed=1002)
     B, H, hd = 8, 12, 64
@@ -1847,7 +1956,8 @@ def phase_trainer(torch) -> dict[str, int]:
         ckpt = os.path.join(tmp, "ckpt")
         common = ["model.size=small", "model.seq_len=1024",
                   "run.batch_size=8", "run.log_every=1", "run.ckpt_every=10",
-                  f"run.ckpt_dir={ckpt}", f"data.path={corpus}"]
+                  f"run.ckpt_dir={ckpt}", f"data.path={corpus}",
+                  "run.preflight=False"]
         wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
         for w in wrappers:
             w.launches = 0
@@ -3267,7 +3377,8 @@ def phase_zoo(torch) -> dict[str, int]:
             total[name] += count
 
     # BERT base, masked LM at its published maximum length
-    bert_argv = ["model.size=base", "model.seq_len=512", "run.batch_size=8"]
+    bert_argv = ["model.size=base", "model.seq_len=512", "run.batch_size=8",
+                 "run.preflight=False"]
     mlm = _OneBatch(SyntheticMLM(vocab_size=30522, seq_len=512,
                                  batch_size=8).batch(0))
     bert, out = _zoo_run(torch, "bert-base-mlm", "train_bert_mlm", bert_argv,
@@ -3351,15 +3462,16 @@ def phase_zoo(torch) -> dict[str, int]:
             ("vit-b16", "train_vit",
              ["model.size=base", "model.image_size=224",
               "model.patch_size=16", "model.num_classes=1000",
-              "run.batch_size=64", "run.lr=1e-4"],
+              "run.batch_size=64", "run.lr=1e-4", "run.preflight=False"],
              SyntheticClassification(image_shape=(224, 224, 3),
                                      num_classes=1000, batch_size=64),
              6, 64),
             ("mt-base", "train_transformer_mt",
-             ["model.size=base", "run.batch_size=64"],
+             ["model.size=base", "run.batch_size=64", "run.preflight=False"],
              SyntheticSeq2Seq(vocab_size=32000, src_len=64, tgt_len=64,
                               batch_size=64), 6, 64 * 64),
-            ("mnist-mlp", "train_mnist_mlp", ["--batch-size", "128"],
+            ("mnist-mlp", "train_mnist_mlp",
+             ["--batch-size", "128", "--no-preflight"],
              SyntheticClassification(batch_size=128), 10, 128)):
         rec = _zoo_run(torch, family, module, argv,
                           _OneBatch(data.batch(0)), steps=steps, items=items)
@@ -3559,7 +3671,8 @@ def phase_resnet(torch, card) -> None:
     data = _OneBatch(SyntheticClassification(
         image_shape=(32, 32, 3), num_classes=10, batch_size=128).batch(0))
     cifar, out = _zoo_run(torch, "resnet50-cifar", "train_resnet_cifar",
-                          ["model.arch=resnet50", "run.batch_size=128"],
+                          ["model.arch=resnet50", "run.batch_size=128",
+                           "run.preflight=False"],
                           data, steps=20, items=128, keep=True)
     state = out["state"]
     means = [float(t.abs().sum()) for n, t in state.model_state.items()
@@ -3627,7 +3740,8 @@ def _llama_fsdp_child(out_path: str, batch_size: int, steps: int) -> int:
     path = os.path.join(tempfile.mkdtemp(), "metrics.jsonl")
     argv = ["model.size=1b", "model.seq_len=2048",
             f"run.batch_size={batch_size}", f"run.steps={steps}",
-            "run.log_every=1", f"run.metrics_path={path}"]
+            "run.log_every=1", f"run.metrics_path={path}",
+            "run.preflight=False"]
     for w in wrappers:
         w.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -4503,7 +4617,8 @@ def _bridge_gpt2(torch, wrappers) -> dict:
                             init_fn=lambda mod, gen: None)
         losses = []
         trainer = Trainer(ad, TrainerConfig(steps=BRIDGE_STEPS,
-                                            log_every=BRIDGE_STEPS),
+                                            log_every=BRIDGE_STEPS,
+                                            preflight=False),
                           callbacks=[lambda i, s, mt: losses.append(
                               float(mt["loss"]))])
         for w in wrappers:
@@ -4729,7 +4844,7 @@ def _bridge_from_torch(torch) -> None:
     del ad, state, model, net
     torch.cuda.empty_cache()
     out, example_s = _timed(torch, lambda: example.main(
-        ["model.source=torch"]))
+        ["model.source=torch", "run.preflight=False"]))
     emit({"phase": "bridges", "part": "d_from_torch", **shape,
           "params": sum(p.numel() for p in params.values()
                         if p.requires_grad),
@@ -5652,9 +5767,12 @@ def phase_tune(torch, data) -> dict[str, int]:
               "auto": auto_busy_ms if auto_busy_ms is not None
               else "not measured"},
           "seconds": time.monotonic() - t0})
+    # one card: the tuner falls back to auto, which reads no liveness
+    # profile, so none is traced (and none skipped)
     require("tune.fallback" in tuned_names
-            and "tune.profile_skipped" in tuned_names,
-            f"tune: the tuned run journaled {fallback}, not tune.fallback")
+            and "tune.profile_skipped" not in tuned_names,
+            f"tune: the tuned run journaled {fallback}, not tune.fallback "
+            f"alone")
     require(tuned_plan == auto_plan,
             f"tune: tuned plan {tuned_plan[:4]} != auto plan {auto_plan[:4]}")
     require(tuned_losses == auto_losses and all(
@@ -6156,6 +6274,243 @@ def phase_ingress(torch, model) -> int:
     return launches
 
 
+# -- phase 31: the step on fake tensors ----------------------------------------
+
+
+def phase_fit(torch) -> dict[str, int]:
+    """The nothing-materialized views of the train step on the card
+    (module docstring, phase 31): ``compile_report`` and the trace of
+    GPT-2 small's step against one real step, ``analysis.memory_check``,
+    ``tadnn fit`` on Llama 8b, ``tadnn check --serving --trace-serve``,
+    and a preflighted ``Trainer.fit``.  Returns K1-K3's launches in the
+    real step and the fit."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, SyntheticLM, adamw, analysis, next_token_loss)
+    from torch_automatic_distributed_neural_network_tpu_torch.analysis \
+        import graph_lint
+    from torch_automatic_distributed_neural_network_tpu_torch.cli import \
+        main as cli
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        flash_attention as fa
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import \
+        paged_attention as pa
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        Trainer, TrainerConfig)
+
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    data = SyntheticLM(vocab_size=50257, seq_len=1025, batch_size=8)
+    batch = data.batch(0)
+    mib = 2**20
+    touched: list[str] = []
+    data_ptr = torch.Tensor.data_ptr
+
+    def spy(self):
+        if isinstance(self, FakeTensor):
+            touched.append(f"{tuple(self.shape)} {self.dtype}")
+        return data_ptr(self)
+
+    @contextlib.contextmanager
+    def on_fake_tensors(what):
+        """The block's bytes allocated on the card and its fake tensors'
+        data pointers read; neither may happen."""
+        for w in (*wrappers, pa.paged_attention):
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        torch.Tensor.data_ptr = spy
+        rec = {}
+        t0 = time.monotonic()
+        try:
+            yield rec
+        finally:
+            torch.Tensor.data_ptr = data_ptr
+        torch.cuda.synchronize()
+        rec["seconds"] = time.monotonic() - t0
+        rec["allocated_mib"] = (torch.cuda.max_memory_allocated()
+                                - before) / mib
+        require(rec["allocated_mib"] < 64,
+                f"fit: {what} allocated {rec['allocated_mib']:.1f} MiB on "
+                f"the card (64 MiB allowed: nothing is materialized)")
+        require(not touched, f"fit: {what} read the data pointer of fake "
+                f"tensors {touched[:4]}")
+        launched = {w.__name__: w.launches
+                    for w in (*wrappers, pa.paged_attention)}
+        require(not any(launched.values()),
+                f"fit: {what} launched kernels {launched}")
+
+    # (a) compile_report and the trace, GPT-2 small, 12 layers, B 8 x S 1024
+    ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                        loss_fn=next_token_loss)
+    cfg = ad.model.cfg
+    per_step = {"flash_forward": cfg.n_layers * (2 if cfg.remat else 1),
+                "flash_dkv": cfg.n_layers, "flash_dq": cfg.n_layers}
+    with on_fake_tensors("compile_report") as report_rec:
+        rep = ad.compile_report(None, batch)
+    require(rep is not None, f"fit: compile_report failed: "
+            f"{ad.last_compile_error}")
+    with on_fake_tensors("the trace") as trace_rec:
+        # the trace memory_check and the preflight read (kept on ``ad``)
+        gm, _ = analysis.traced_step(ad, batch)
+        nodes = graph_lint.kernel_nodes(gm)
+        n_nodes = len(list(graph_lint.iter_eqns(gm)))
+    del gm
+
+    # (b) one real step: its peak against the report's
+    t0 = time.monotonic()
+    state = ad.init(torch.Generator(device="cuda").manual_seed(0))
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = ad.step(state, batch)
+    torch.cuda.synchronize()
+    init_step_s = time.monotonic() - t0
+    real_peak = torch.cuda.max_memory_allocated()
+    step_launches = {w.__name__: w.launches for w in wrappers}
+    loss = float(metrics["loss"])
+    ratio = rep["per_device_peak_bytes"] / real_peak
+    emit({"phase": "fit", "part": "compile_report", "model": "gpt2-small",
+          "layers": cfg.n_layers, "batch": 8, "seq": 1024,
+          "per_device_peak_bytes": rep["per_device_peak_bytes"],
+          "memory": rep["memory"], "flops": rep["flops"],
+          "report_s": report_rec["seconds"],
+          "report_allocated_mib": report_rec["allocated_mib"],
+          "trace_s": trace_rec["seconds"], "trace_nodes": n_nodes,
+          "trace_kernel_nodes": nodes, "real_step_launches": step_launches,
+          "real_step_max_allocated_bytes": real_peak,
+          "report_over_real_peak": ratio, "loss": loss})
+    require(math.isfinite(loss), f"fit: the real step's loss {loss}")
+    require(step_launches == per_step,
+            f"fit: the real step launched {step_launches}, remat implies "
+            f"{per_step}")
+    require(nodes == step_launches,
+            f"fit: the trace holds kernel nodes {nodes}, the real step "
+            f"launched {step_launches}")
+    require(0.5 <= ratio <= 2.0,
+            f"fit: compile_report's peak {rep['per_device_peak_bytes']} is "
+            f"{ratio:.3f}x the real step's {real_peak} (2x allowed)")
+
+    # (c) analysis.memory_check at the card's budget, then at 1 GiB, on
+    # the trace of (a); the static peak over (a)'s measured one
+    with on_fake_tensors("memory_check"):
+        findings, mrep = analysis.memory_check(ad, batch, compiled=False)
+    mrep["static_over_compiled"] = round(
+        mrep["peak_bytes"] / rep["per_device_peak_bytes"], 3)
+    errors = [f.format() for f in findings if f.severity == analysis.ERROR]
+    with on_fake_tensors("memory_check at 1 GiB"):
+        small, _ = analysis.memory_check(ad, batch, budget="1GiB",
+                                         compiled=False)
+    emit({"phase": "fit", "part": "memory_check",
+          "peak_bytes": mrep["peak_bytes"],
+          "budget_bytes": mrep["budget_bytes"],
+          "compiled_peak_bytes": rep["per_device_peak_bytes"],
+          "static_over_compiled": mrep["static_over_compiled"],
+          "breakdown": {k: mrep[k] for k in (
+              "params_bytes", "optimizer_bytes", "batch_bytes",
+              "activation_bytes")},
+          "findings": [f.format() for f in findings],
+          "at_1gib": [f.code for f in small]})
+    require(not errors, f"fit: memory_check at the card's budget: {errors}")
+    require("ML001" in [f.code for f in small],
+            f"fit: memory_check at 1 GiB gave {[f.code for f in small]}, "
+            f"not ML001")
+    del ad, state, metrics
+    torch.cuda.empty_cache()
+
+    # (d) tadnn fit, Llama 8b at full width and depth, B 1 x S 8192
+    out = io.StringIO()
+    with on_fake_tensors("tadnn fit") as fit_rec, \
+            contextlib.redirect_stdout(out):
+        rc = cli(["fit", "--family", "llama", "--size", "8b", "--batch", "1",
+                  "--seq", "8192", "--strategy", "dp", "--device", "cuda"])
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
+             if x.startswith("{")]
+    require(rc == 0 and len(lines) == 2, f"fit: tadnn fit returned {rc}: "
+            f"{out.getvalue()[-2000:]}")
+    entry, chosen = lines
+    emit({"phase": "fit", "part": "tadnn_fit", "model": "llama-8b",
+          "batch": 1, "seq": 8192, "precision": "mixed", **entry, **chosen,
+          "seconds": fit_rec["seconds"],
+          "allocated_mib": fit_rec["allocated_mib"]})
+    require(entry.get("fits") is False
+            and entry["peak_bytes"] > entry["budget_bytes"],
+            f"fit: Llama 8b on one card gave {entry}")
+
+    # (e) tadnn check --serving --trace-serve, GPT-2 small
+    out = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        rc = cli(["check", "--no-source", "--serving", "--family", "gpt2",
+                  "--size", "small", "--trace-serve", "--device", "cuda",
+                  "--json"])
+    check = json.loads(out.getvalue().strip().splitlines()[-1])
+    traces = check.get("serve_trace") or {}
+    codes = [f["code"] for f in check["findings"]]
+    emit({"phase": "fit", "part": "trace_serve", "rc": rc,
+          "seconds": time.monotonic() - t0, "serve_trace": traces,
+          "findings": check["findings"]})
+    require(rc == 0 and "GL001" not in codes,
+            f"fit: check --trace-serve returned {rc}, findings {codes}")
+    require(traces.get("decode", {}).get("kernels", {}).get(
+        "paged_attention") == 12,
+        f"fit: the decode trace's kernel nodes {traces}, not K4 a layer")
+    torch.cuda.empty_cache()
+
+    # (f) Trainer.fit, 3 steps, preflight raising on an error finding
+    tmp = tempfile.mkdtemp(prefix="tadnn_fit_")
+    path = os.path.join(tmp, "journal.jsonl")
+    jnl = Journal(path, validate=True)
+    ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                        loss_fn=next_token_loss)
+    for w in wrappers:
+        w.launches = 0
+    losses = []
+    t0 = time.monotonic()
+    trainer = Trainer(ad, TrainerConfig(steps=3, log_every=0, preflight=True,
+                                        preflight_action="raise"),
+                      journal=jnl, callbacks=[
+                          lambda i, s, m: losses.append(float(m["loss"]))])
+    trainer.fit(data, rng=torch.Generator(device="cuda").manual_seed(0))
+    # goodput's compile bucket: init, the preflight and the first step;
+    # (b)'s init and first step beside it give the preflight's share
+    compile_s = trainer.goodput["seconds"]["compile"]
+    fit_launches = {w.__name__: w.launches for w in wrappers}
+    jnl.close()
+    records = Journal.read(path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    del ad, trainer
+    torch.cuda.empty_cache()
+    est = [r for r in records if r["name"] == "lint.mem_estimate"]
+    skipped = [r for r in records if r["name"] == "lint.skipped"]
+    summary = [r for r in records if r["name"] == "lint.summary"]
+    emit({"phase": "fit", "part": "trainer_preflight", "steps": 3,
+          "seconds": time.monotonic() - t0, "losses": losses,
+          "launches": fit_launches, "goodput_compile_s": compile_s,
+          "init_and_first_step_s": init_step_s,
+          "preflight_s_by_difference": compile_s - init_step_s,
+          "mem_estimate_peak_bytes": est[0]["peak_bytes"] if est else None,
+          "lint_summary": summary[0] if summary else None,
+          "skipped": skipped})
+    require(est and not skipped, f"fit: the preflight journaled "
+            f"{len(est)} lint.mem_estimate and skipped {skipped}")
+    require(fit_launches == {n: 3 * c for n, c in per_step.items()},
+            f"fit: K1-K3 launched {fit_launches} in the 3 preflighted steps")
+    require(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+            f"fit: the preflighted fit's losses {losses}")
+    return {n: step_launches[n] + fit_launches[n] for n in per_step}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6352,6 +6707,9 @@ def main(argv=None) -> int:
     if run("trace"):
         trace_launches = phase_trace(torch, train_busy_ms)
         torch.cuda.empty_cache()
+    if run("fit"):
+        fit_launches = phase_fit(torch)
+        torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -6381,7 +6739,8 @@ def main(argv=None) -> int:
                          + moe_launches[name] + pipe_cp_launches[name]
                          + bridges_launches[name]
                          + sharded_serve_launches[name]
-                         + tune_launches[name] + trace_launches[name]),
+                         + tune_launches[name] + trace_launches[name]
+                         + fit_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -6407,7 +6766,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
           "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
           "bridges", "sharded_serve", "gateway", "ingress", "tune",
-          "trace")
+          "trace", "fit")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ on the same inputs.  No tolerance: findings, states and orders are
 compared exactly.
 
 - The rule table, ``summarize``, ``filter_ignored``, ``exit_code`` and
-  the ``lint.*`` journal records equal JAX's; the layers that trace a
-  step raise ``NotImplementedError`` naming ROADMAP Queue 1 item 7.
+  the ``lint.*`` journal records equal JAX's; an empty spec lints to
+  nothing and a preflight before the plan raises JAX's ValueError (the
+  traced layers: ``tests/test_torch_port_{lint,mem_lint,search}.py``).
 - Source, async and journal lint give JAX's findings (rule, severity,
   ``file:line``, message) on fixture sources that break every rule (and
   suppress some), and on the JAX package's own ``inference/serve/`` and
@@ -28,6 +29,7 @@ compared exactly.
 import json
 import pathlib
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -101,12 +103,15 @@ def test_finding_vocabulary_matches_jax():
     assert jnl.records[-1]["errors"] == 2
     err = analysis.PreflightError(fs)
     assert err.findings == fs and "2 error(s)" in str(err)
-    for fn, args in ((analysis.preflight, (None, None)),
-                     (analysis.check_spec, ({},)),
-                     (analysis.analyze, ({},)),
-                     (analysis.memory_check, (None, None))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            fn(*args)
+    # the traced layers are ported (tests/test_torch_port_lint.py): an
+    # empty spec lints to nothing, and a preflight before the plan is
+    # JAX's ValueError
+    assert analysis.check_spec({}) == janalysis.check_spec({}) == []
+    assert analysis.analyze({}) == janalysis.analyze({}) == []
+    unplanned = types.SimpleNamespace(plan=None)
+    for pkg in (analysis, janalysis):
+        with pytest.raises(ValueError, match="needs a built plan"):
+            pkg.preflight(unplanned, None)
 
 
 SOURCE_FIXTURE = textwrap.dedent('''\

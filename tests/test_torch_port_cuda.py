@@ -339,6 +339,28 @@ def test_flash_bf16_tensor_core_kernels_are_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+def test_wrappers_launch_directly_only_outside_modes(cuda):
+    """On plain CUDA tensors the wrappers call the launch themselves; under
+    a dispatch mode (the FLOP counter) they take the ``tadnn`` op, whose
+    CUDA implementation launches the same kernel: both counted, the
+    outputs bitwise equal, K1's FLOPs counted only through the op."""
+    from torch_automatic_distributed_neural_network_tpu_torch.utils import (
+        profiling,
+    )
+
+    rs = np.random.RandomState(9)
+    q, k, v, _ = _flash_operands(rs, 1, 64, 2, 64, torch.bfloat16, cuda)
+    assert fa.direct_launch(q, k, v)
+    before = fa.flash_forward.launches
+    o, lse = fa.flash_forward(q, k, v, causal=True)
+    with profiling.Flops() as flops:
+        assert not fa.direct_launch(q, k, v)
+        o2, lse2 = fa.flash_forward(q, k, v, causal=True)
+    assert fa.flash_forward.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert flops.total == 2 * 2 * 1 * 2 * 64 * 64 * 64
+
+
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     rs = np.random.RandomState(8)
     q, k, v, do = _flash_operands(rs, 1, 64, 2, 64, torch.float32, cuda)

@@ -15,8 +15,11 @@ check`` against the JAX package's.
   findings and estimate (``params_bytes`` counted on the meta device)
   in JSON and as text; the source lint of one file gives JAX's findings
   and exit code, ``--strict`` too; ``--rules`` (and ``--rules
-  --journal``) print JAX's tables; ``--preflight``, ``--memory`` and
-  ``--trace-serve`` exit 2 naming ROADMAP Queue 1 item 7.
+  --journal``) print JAX's tables; ``--preflight`` of a file without
+  ``tadnn_check()`` exits 2 as JAX's does, and ``--memory`` and
+  ``--serving --trace-serve`` (on ``--device cpu``) exit 0 as JAX's do
+  (their findings against JAX's: ``tests/test_torch_port_lint.py``,
+  ``tests/test_torch_port_mem_lint.py``).
 - Slow tier, as JAX's ``tests/test_protocol.py`` marks it: all five
   models at ``default_scope`` equal to JAX's, and the full mutation
   sweep — every mutation in ``MUTATIONS`` caught with JAX's rule code by
@@ -150,11 +153,20 @@ def test_check_source_rules_and_refusals_equal_jax(tmp_path, capsys):
     registry = capsys.readouterr().out
     assert jcli.main(["check", "--rules", "--journal"]) == 0
     assert registry == capsys.readouterr().out
-    for flag in (["--preflight", str(src)], ["--memory"],
-                 ["--serving", "--family", "gpt2", "--trace-serve"]):
-        assert cli(["check", "--no-source", *flag]) == 2
-        err = capsys.readouterr().err
-        assert "not ported yet (ROADMAP Queue 1 item 7)" in err
+    for flag, port_only, want_out in (
+            (["--preflight", str(src)], [], ""),
+            (["--memory", "--size", "32,10", "--batch", "64",
+              "--no-compiled"], ["--device", "cpu"], "memory estimate"),
+            (["--serving", "--family", "gpt2", "--size", "test",
+              "--trace-serve"], ["--device", "cpu"], "serve estimate")):
+        rc = cli(["check", "--no-source", *flag, *port_only])
+        out = capsys.readouterr()
+        assert rc == jcli.main(["check", "--no-source", *flag])
+        capsys.readouterr()
+        if want_out:
+            assert rc == 0 and want_out in out.out
+        else:
+            assert rc == 2 and "does not define tadnn_check()" in out.err
 
 
 @pytest.mark.slow

@@ -62,6 +62,9 @@ from torch_automatic_distributed_neural_network_tpu_torch import (
     next_token_loss,
     write_token_file,
 )
+from torch_automatic_distributed_neural_network_tpu_torch.analysis import (
+    PreflightError,
+)
 from torch_automatic_distributed_neural_network_tpu_torch.cli import main as cli
 from torch_automatic_distributed_neural_network_tpu_torch.examples import (
     train_gpt2,
@@ -175,9 +178,13 @@ def test_trainer_losses_match_jax(jax_run, tmp_path_factory):
     assert [sorted(r) for r in port_recs] == [sorted(r) for r in jax_recs]
     np.testing.assert_allclose([r["loss"] for r in port_recs], jax_losses,
                                atol=1e-4, rtol=0)
-    # the run's events: preflight skipped naming its item, plan, goodput
-    (lint,) = j.named("lint.skipped")
-    assert "Queue 1 item 7" in lint["error"]
+    # the run's events: the preflight's lint summary and memory estimate
+    # (analysis.preflight on the traced step), plan, goodput
+    assert not j.named("lint.skipped")
+    (summary,) = j.named("lint.summary")
+    assert summary["phase"] == "preflight" and summary["errors"] == 0
+    (est,) = j.named("lint.mem_estimate")
+    assert est["phase"] == "preflight" and est["peak_bytes"] > 0
     (start,) = j.named("run_start")
     # every mesh axis, as the JAX trainer journals its Mesh's degrees
     assert start["strategy"] == "dp" and start["mesh"] == {
@@ -365,9 +372,17 @@ def test_stall_escalator_raises_in_training_thread():
 
 
 def test_what_is_not_ported_raises(tmp_path):
-    trainer = _tiny_trainer(tmp_path / "a", 2,
+    # the preflight is ported: under preflight_action="raise" a clean run
+    # trains, and a predicted OOM (a 1 KiB budget) raises PreflightError
+    # naming ML001 before step 0
+    j = Journal()
+    trainer = _tiny_trainer(tmp_path / "a", 2, journal=j,
                             cfg=dict(preflight_action="raise"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    trainer.fit(_tiny_data())
+    assert j.named("lint.summary")[0]["errors"] == 0
+    trainer = _tiny_trainer(tmp_path / "c", 2, cfg=dict(
+        preflight_action="raise", preflight_budget=1024))
+    with pytest.raises(PreflightError, match="ML001"):
         trainer.fit(_tiny_data())
     # profiler-traced steps are ported (test_torch_port_trace.py): with
     # trace_every_n=1 the step after the first runs under the profiler

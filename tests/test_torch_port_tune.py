@@ -52,6 +52,7 @@ from torch_automatic_distributed_neural_network_tpu.obs import trace as jtrace
 from torch_automatic_distributed_neural_network_tpu.training import (
     resilience as jres,
 )
+from torch_automatic_distributed_neural_network_tpu_torch import AutoDistribute
 from torch_automatic_distributed_neural_network_tpu_torch import planner
 from torch_automatic_distributed_neural_network_tpu_torch import topology
 from torch_automatic_distributed_neural_network_tpu_torch import tune
@@ -340,9 +341,11 @@ def test_cache_roundtrip_invalidation_and_last_match(tmp_path):
 
 
 def test_cli_tune_json_equals_jax(tmp_path, capsys, monkeypatch):
-    """JAX's ``tadnn tune`` on its 8 CPU devices (its liveness profile
-    refused, the port's path) against the port's with ``--topology
-    cpu-8``: the same rows, and the same decision but for the key."""
+    """JAX's ``tadnn tune`` on its 8 CPU devices against the port's with
+    ``--topology cpu-8``, both liveness profiles refused (each package
+    ranks on its activation heuristic; the profiles themselves are held
+    to each other in ``tests/test_torch_port_search.py``): the same
+    rows, and the same decision but for the key."""
     monkeypatch.setenv("TADNN_TUNE_CACHE", str(tmp_path / "cache.jsonl"))
 
     def no_profile(*a, **k):
@@ -350,6 +353,7 @@ def test_cli_tune_json_equals_jax(tmp_path, capsys, monkeypatch):
 
     monkeypatch.setattr(jcore.AutoDistribute, "activation_profile",
                         no_profile)
+    monkeypatch.setattr(AutoDistribute, "activation_profile", no_profile)
     argv = ["tune", "--family", "gpt2", "--size", "test", "--seq", "64",
             "--batch", "8", "--grad-accums", "1,2", "--json"]
 

@@ -1009,6 +1009,164 @@ def _trace_runs(tj, rank, out_dir):
     return out
 
 
+def _traceable_vs_step(ad, batch):
+    """``traceable_step`` run on real copies of this rank's state (its
+    local shards; every rank's batch axis is the world) against
+    ``ad.step`` from the same state: the largest
+    absolute differences of the loss, the updated parameters and the
+    optimizer state, and the shapes of the copies beside the abstract
+    state's (the plan's local shapes)."""
+    from torch.utils._pytree import tree_leaves, tree_map
+
+    state = ad.init(torch.Generator().manual_seed(0), batch)
+
+    def local(t):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        return t.detach().clone() if isinstance(t, torch.Tensor) else t
+
+    params = {n: local(t) for n, t in state.params.items()}
+    opt = tree_map(local, state.opt_state)
+    model_state = {n: local(t) for n, t in state.model_state.items()}
+    rows = dict(ad.shard_batch(batch))
+    fake = ad.abstract_state(batch)
+    shapes_match = [tuple(t.shape) for t in tree_leaves(
+        (params, opt, rows)) if isinstance(t, torch.Tensor)] == [
+        tuple(t.shape) for t in tree_leaves((fake[0], fake[1], fake[3]))
+        if isinstance(t, torch.Tensor)]
+    loss, new_params, new_opt = ad.traceable_step()(
+        params, opt, model_state, rows, ad._generator(state, 0))
+    # the traced loss is this rank's rows'; the step reports its mean over
+    # the batch ranks (a metric all-reduce the trace leaves out)
+    loss = loss.detach().clone()
+    torch.distributed.all_reduce(loss)
+    loss /= torch.distributed.get_world_size()
+    state, m = ad.step(state, batch)
+
+    def diff(a, b):
+        return max((float((local(x) - local(y)).abs().max())
+                    if isinstance(x, torch.Tensor) else abs(x - y))
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    return {"loss": abs(float(loss) - float(m["loss"])),
+            "params": diff(new_params, {n: state.params[n]
+                                        for n in new_params}),
+            "opt_state": diff(new_opt, state.opt_state),
+            "shapes_match": shapes_match}
+
+
+def _lint_runs(lj, rank, world):
+    """The traced-step analysis on ``world`` gloo ranks: the hidden
+    all-gather (GL002) and its tp counterpart, a Python scalar into an
+    all-reduce (DT003), the collectives the traced step runs under dp
+    and fsdp, ``memory_check``'s static peak against the measured one,
+    and ``strategy='search'``: GPT-2 ``test`` taking dp, then, with the
+    budget set between dp's and fsdp's measured peaks, escalating."""
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2,
+        AutoDistribute,
+        adamw,
+        analysis,
+        next_token_loss,
+        planner,
+        topology,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.analysis import (
+        dtype_lint,
+        graph_lint,
+    )
+
+    out = {}
+    meta = {"w": torch.empty(16, 4, device="meta")}
+    mesh = topology.build_mesh(device_type="cpu", data=world)
+    plan = planner.make_plan(meta, mesh={"data": world}, strategy="dp")
+    plan.mesh = mesh
+
+    def hidden(x):
+        y = torch.empty(world * x.shape[0], *x.shape[1:])
+        dist.all_gather_into_tensor(y, x)
+        return y
+
+    gm = graph_lint.trace_step(hidden, torch.ones(8, 4))
+    fs, cross = graph_lint.lint_collectives(gm, plan, meta)
+    out["hidden"] = {"findings": [f.to_json() for f in fs],
+                     "inventory": cross["inventory"]}
+    tp_mesh = topology.build_mesh(device_type="cpu", tensor=world)
+    tp_meta = {"q_proj.weight": torch.empty(8, 16, device="meta")}
+    tp_plan = planner.make_plan(tp_meta, mesh={"tensor": world},
+                                strategy="tp")
+    tp_plan.mesh = tp_mesh
+
+    def tp_step(x):
+        dist.all_reduce(x, group=tp_mesh.get_group("tensor"))
+        return x
+
+    gm = graph_lint.trace_step(tp_step, torch.ones(4, 8))
+    fs, _ = graph_lint.lint_collectives(gm, tp_plan, tp_meta)
+    out["tp"] = [f.to_json() for f in fs]
+
+    def weak(x):
+        t = torch.tensor(2.0)
+        dist.all_reduce(t)
+        return x * t
+
+    out["dt003"] = [f.to_json() for f in dtype_lint.lint_dtypes(
+        graph_lint.trace_step(weak, torch.ones(4)))]
+
+    batch = lj["batch"]
+
+    def fresh(**kw):
+        return AutoDistribute(GPT2(**lj["model"]), optimizer=adamw(1e-3),
+                              loss_fn=next_token_loss, device="cpu", **kw)
+
+    steps, peaks = {}, {}
+    for strategy, kw in (("dp", {}), ("fsdp", {}), ("zero1", {"zero1": True})):
+        ad = fresh(strategy="dp" if strategy == "zero1" else strategy, **kw)
+        ad.build_plan(None, batch)
+        gm = graph_lint.trace_step(ad.traceable_step(),
+                                   *ad.abstract_state(batch),
+                                   torch.Generator())
+        fs, cross = graph_lint.lint_collectives(
+            gm, ad.plan, planner.abstract_params(ad.model))
+        _, rep = analysis.memory_check(ad, batch, budget="16GiB")
+        peaks[strategy] = rep["compiled"]["per_device_peak_bytes"]
+        steps[strategy] = {
+            "findings": [f.to_json() for f in fs],
+            "inventory": cross["inventory"],
+            "kernels": graph_lint.kernel_nodes(gm),
+            "static_over_compiled": rep["static_over_compiled"],
+            "optimizer_bytes": rep["optimizer_bytes"],
+            "peak": rep["compiled"]["per_device_peak_bytes"],
+            "degrees": rep["degrees"]}
+    out["steps"] = steps
+    out["traceable_vs_step"] = {
+        strategy: _traceable_vs_step(
+            fresh(strategy="dp" if strategy == "zero1" else strategy, **kw),
+            lj["real_batch"])
+        for strategy, kw in (("dp", {}), ("fsdp", {}),
+                             ("zero1", {"zero1": True}))}
+
+    ad = fresh(strategy="search")
+    plan = ad.build_plan(None, batch)
+    state = ad.init(torch.Generator().manual_seed(0), batch)
+    state, m = ad.step(state, batch)
+    out["search"] = {"strategy": plan.strategy, "report": ad.search_report,
+                     "loss": float(m["loss"])}
+    budget = (peaks["dp"] + peaks["fsdp"]) / 2
+    saved = AutoDistribute.hbm_fit_budget
+    AutoDistribute.hbm_fit_budget = staticmethod(lambda kind: budget)
+    try:
+        ad = fresh(strategy="search")
+        plan = ad.build_plan(None, batch)
+    finally:
+        AutoDistribute.hbm_fit_budget = saved
+    out["escalated"] = {"strategy": plan.strategy,
+                        "report": ad.search_report, "budget": budget,
+                        "peaks": peaks}
+    return out
+
+
 def main(rank, world, init_file, job_path, out_path):
     import torch.distributed as dist
 
@@ -1051,6 +1209,8 @@ def main(rank, world, init_file, job_path, out_path):
     if job.get("trace"):
         out["trace"] = _trace_runs(job["trace"], rank,
                                    str(Path(out_path).parent))
+    if job.get("lint"):
+        out["lint"] = _lint_runs(job["lint"], rank, world)
     if job.get("only_lm"):
         dist.barrier()
         dist.destroy_process_group()

@@ -1,6 +1,6 @@
-"""Static analysis — the jax-free part of the JAX package's
-``analysis/`` (``tadnn check``), with the same rule table and
-:class:`Finding` vocabulary:
+"""Static analysis — the JAX package's ``analysis/`` (``tadnn check`` and
+the Trainer's preflight), with the same rule table and :class:`Finding`
+vocabulary:
 
 - **source lint** (:mod:`.source_lint`): a rule-based AST engine over
   Python source — duplicate top-level defs, traced-value branching in
@@ -20,10 +20,28 @@
   the :mod:`..obs.schema` event registry, plus a record-level auditor
   for written journals.
 
-Findings are typed (``error``/``warn``) and journaled as ``lint.*``
-events.  The layers that trace a step (plan, graph, memory and dtype
-lint: :func:`preflight`, :func:`check_spec` / :func:`analyze`,
-:func:`memory_check`) wait for ROADMAP Queue 1 item 7.
+- **plan lint** (:mod:`.plan_lint`): pure checks on a ``ShardPlan`` ×
+  mesh degrees — axis divisibility, duplicate/unknown axes, dead mesh
+  axes, large replicated leaves;
+- **graph lint** (:mod:`.graph_lint`): trace the train step on fake
+  tensors to an fx graph (``make_fx``; nothing runs, nothing is
+  allocated, the hand-written kernels are one ``tadnn`` node each) and
+  walk it — inventory its collectives, cross-check them against the
+  analytic comms model (``planner.expected_collective_bytes``), flag
+  host syncs and captured scalars;
+- **memory lint** (:mod:`.mem_lint`): liveness intervals over the same
+  trace → a per-device peak prediction under the plan's sharding,
+  checked against a ``ChipSpec`` budget (predicted OOM = error); the
+  same walk at global shapes feeds the tuner's memory pruning;
+- **dtype lint** (:mod:`.dtype_lint`): dtype propagation over the same
+  trace — loss-path downcasts, f16 overflow-prone sums, Python scalars
+  at collectives, mixed-dtype param trees;
+- **serving trace** (:mod:`.serve_trace`): graph and dtype lint over the
+  serving engine's traced decode and prefill steps.
+
+Findings are typed (``error``/``warn``), journaled as ``lint.*``
+events, runnable via ``tadnn check`` and automatically as a Trainer
+preflight (``TrainerConfig.preflight=True``) before step 0.
 """
 
 from __future__ import annotations
@@ -261,30 +279,269 @@ def exit_code(findings: Sequence[Finding], *, strict: bool = False) -> int:
     return 0
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"analysis.{what} (the plan, graph, memory and dtype lint over a "
-        f"traced step) is not ported to the PyTorch package yet (ROADMAP "
-        f"Queue 1 item 7)")
+def _generator() -> "torch.Generator":
+    import torch
+
+    return torch.Generator().manual_seed(0)
 
 
-def preflight(ad: Any, sample_batch: Any, **kwargs) -> list[Finding]:
-    """Plan + graph + memory + dtype lint for a built AutoDistribute:
-    not ported yet."""
-    raise _not_ported("preflight")
+def _compute_dtype(ad: Any):
+    """The configured compute dtype: the precision's, or, where that is
+    fp32, the model's activation dtype (``cfg.dtype``: the port's
+    attention computes its products in fp32 and casts them to it)."""
+    import torch
+
+    prec = getattr(ad, "precision", None)
+    dtype = getattr(prec, "compute_dtype", None)
+    if dtype in (None, torch.float32):
+        cfg = getattr(ad.model, "cfg", None)
+        dtype = getattr(getattr(cfg, "core", cfg), "dtype", dtype)
+    return dtype
+
+
+def traced_step(ad: Any, sample_batch: Any):
+    """``(gm, state)``: the plan's traced step (``graph_lint.trace_step``
+    of ``AutoDistribute.traceable_step``) and its fake ``(params,
+    opt_state, model_state, batch)`` at this rank's shapes.  Kept on
+    ``ad`` for its plan and the batch's shapes and dtypes, so that
+    ``preflight``, ``memory_check`` and a caller reading the graph share
+    one trace."""
+    import numpy as np
+
+    from . import graph_lint
+
+    key = (id(ad.plan), tuple(
+        (k, tuple(np.shape(v)), str(getattr(v, "dtype", None)
+                                    or np.asarray(v).dtype))
+        for k, v in sorted(sample_batch.items())))
+    cached = getattr(ad, "_step_trace", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    state = ad.abstract_state(sample_batch)
+    closed = graph_lint.trace_step(ad.traceable_step(), *state, _generator())
+    ad._step_trace = (key, (closed, state))
+    return closed, state
+
+
+def _estimate(ad: Any, closed: Any, sample_batch: Any):
+    """The memory estimate of a traced step: persistent terms from the
+    global abstract state under the plan's specs, the transient walk of
+    the local trace."""
+    from . import mem_lint
+
+    params, opt_state, model_state, batch = ad.abstract_state(
+        sample_batch, meshless=True)
+    return mem_lint.estimate_step_memory(
+        closed, ad.plan, params, opt_state=opt_state,
+        model_state=model_state, batch=batch,
+        grad_accum=getattr(ad, "_grad_accum", 1), local=True)
+
+
+def preflight(ad: Any, sample_batch: Any, *, rng: Any = None,
+              big_leaf_bytes: int | None = None,
+              budget: int | str | None = None,
+              headroom: float | None = None,
+              ignore: Iterable[str] = ()) -> list[Finding]:
+    """Plan + graph + memory + dtype lint for a built AutoDistribute —
+    the Trainer's before-step-0 hook.
+
+    Trace-only and off the hot path: the graph/mem/dtype layers trace
+    the step (``AutoDistribute.traceable_step``) on fake tensors with
+    ``make_fx``; nothing is allocated or executed.  ``budget`` (bytes,
+    or '16GiB') defaults to the detected chip's memory — the memory
+    layer errors (ML001) when the predicted peak exceeds it, which under
+    ``preflight_action='raise'`` aborts before step 0 instead of OOMing
+    at it.  ``ignore`` suppresses known-benign codes
+    (:func:`filter_ignored`).  Findings are journaled as ``lint.*``
+    events with ``phase='preflight'``, the breakdown as
+    ``lint.mem_estimate``.  A plan the traced step does not model (a
+    tensor, expert, pipe or seq axis) gets the plan lint alone and a
+    ``lint.skipped`` for the traced layers.
+    """
+    from . import dtype_lint, graph_lint, mem_lint, plan_lint
+    from .. import planner
+
+    if ad.plan is None:
+        raise ValueError("preflight needs a built plan — call "
+                         "build_plan()/init() first")
+    prec = getattr(ad, "precision", None)
+    abstract = planner.abstract_params(ad.model, prec.param_dtype)
+    kwargs = {}
+    if big_leaf_bytes is not None:
+        kwargs["big_leaf_bytes"] = big_leaf_bytes
+    findings = plan_lint.lint_plan(ad.plan, abstract, **kwargs)
+    try:
+        closed, state = traced_step(ad, sample_batch)
+    except ValueError as e:  # a layout the traced step does not model
+        obs_journal.event("lint.skipped", phase="preflight", layer="graph",
+                          error=f"{type(e).__name__}: {e}")
+        closed = None
+    if closed is not None:
+        grad_accum = getattr(ad, "_grad_accum", 1)
+        findings += graph_lint.lint_graph(
+            closed, plan=ad.plan, abstract_params=abstract,
+            grad_accum=grad_accum)
+        findings += dtype_lint.lint_dtypes(
+            closed, abstract_params=state[0],
+            compute_dtype=_compute_dtype(ad))
+        try:
+            est = _estimate(ad, closed, sample_batch)
+            budget_b = mem_lint.resolve_budget(budget)
+            hr = (mem_lint.DEFAULT_HEADROOM if headroom is None
+                  else float(headroom))
+            findings += mem_lint.lint_memory(
+                est, budget_bytes=budget_b, headroom=hr)
+            obs_journal.event(
+                "lint.mem_estimate", phase="preflight",
+                budget_bytes=budget_b, **est.to_json())
+        except Exception as e:  # the estimator must never block training
+            obs_journal.event(
+                "lint.skipped", phase="preflight", layer="mem",
+                error=f"{type(e).__name__}: {e}")
+    findings = filter_ignored(findings, ignore)
+    journal_findings(findings, phase="preflight")
+    return findings
 
 
 def check_spec(spec: Mapping[str, Any]) -> list[Finding]:
-    """Lint a user-supplied spec: not ported yet."""
-    raise _not_ported("check_spec")
+    """Lint a user-supplied spec (the ``tadnn check --preflight FILE``
+    contract: the file's ``tadnn_check()`` returns this dict).
+
+    Recognized keys — all optional, any combination:
+
+    - ``plan`` (:class:`planner.ShardPlan`) or the loose triple
+      ``param_specs`` / ``batch_spec`` / ``degrees`` (+ ``strategy``)
+      → plan lint;
+    - ``abstract_params`` (mapping of shape/dtype leaves: meta or fake
+      tensors) enables the shape-dependent plan rules and the graph
+      cross-check;
+    - ``fn`` + ``args`` (callable and its example arguments) → traced on
+      fake tensors with ``make_fx``, graph- and dtype-linted;
+    - ``static_args`` (name → value mapping) → hashability check;
+    - ``budget`` (bytes or '16GiB'; needs ``plan`` + ``fn`` +
+      ``abstract_params``) → liveness memory lint against that memory
+      budget, with optional ``opt_state`` / ``batch`` abstract trees
+      and ``headroom`` (``fn`` at global shapes, as the JAX package
+      traces it);
+    - ``big_leaf_bytes`` / ``grad_accum`` / ``compute_dtype`` tune the
+      thresholds.
+    """
+    from . import dtype_lint, graph_lint, mem_lint, plan_lint
+
+    findings: list[Finding] = []
+    kwargs = {}
+    if spec.get("big_leaf_bytes") is not None:
+        kwargs["big_leaf_bytes"] = int(spec["big_leaf_bytes"])
+    plan = spec.get("plan")
+    if plan is not None:
+        findings += plan_lint.lint_plan(
+            plan, spec.get("abstract_params"), **kwargs)
+    elif spec.get("param_specs") is not None:
+        findings += plan_lint.lint_specs(
+            spec["param_specs"],
+            spec.get("batch_spec"),
+            spec.get("degrees") or {},
+            spec.get("strategy", "custom"),
+            spec.get("abstract_params"),
+            **kwargs,
+        )
+    fn = spec.get("fn")
+    if fn is not None:
+        closed = graph_lint.trace_step(fn, *spec.get("args", ()))
+        findings += graph_lint.lint_graph(
+            closed,
+            plan=plan,
+            abstract_params=spec.get("abstract_params"),
+            grad_accum=int(spec.get("grad_accum", 1)),
+            static_args=spec.get("static_args"),
+        )
+        findings += dtype_lint.lint_dtypes(
+            closed,
+            abstract_params=spec.get("abstract_params"),
+            compute_dtype=spec.get("compute_dtype"),
+        )
+        if (spec.get("budget") is not None and plan is not None
+                and spec.get("abstract_params") is not None):
+            est = mem_lint.estimate_step_memory(
+                closed, plan, spec["abstract_params"],
+                opt_state=spec.get("opt_state"),
+                batch=spec.get("batch"),
+                grad_accum=int(spec.get("grad_accum", 1)),
+            )
+            findings += mem_lint.lint_memory(
+                est,
+                budget_bytes=mem_lint.resolve_budget(spec["budget"]),
+                headroom=float(
+                    spec.get("headroom", mem_lint.DEFAULT_HEADROOM)),
+            )
+    elif spec.get("static_args"):
+        findings += graph_lint.lint_static_args(spec["static_args"])
+    return findings
 
 
 def analyze(spec: Mapping[str, Any], *,
             ignore: Iterable[str] = ()) -> list[Finding]:
-    """:func:`check_spec` with suppression: not ported yet."""
-    raise _not_ported("analyze")
+    """:func:`check_spec` with suppression — the canonical programmatic
+    entry: ``analysis.analyze(spec, ignore=('PL005',))``."""
+    return filter_ignored(check_spec(spec), ignore)
 
 
-def memory_check(ad: Any, sample_batch: Any, **kwargs):
-    """The ``tadnn check --memory`` entry point: not ported yet."""
-    raise _not_ported("memory_check")
+def memory_check(ad: Any, sample_batch: Any, *, rng: Any = None,
+                 budget: int | str | None = None,
+                 headroom: float | None = None,
+                 big_leaf_bytes: int | None = None,
+                 compiled: bool = True,
+                 ignore: Iterable[str] = ()) -> tuple[list[Finding], dict]:
+    """The ``tadnn check --memory`` entry point: build the plan, trace the
+    step, run plan + memory + dtype lint, and return ``(findings,
+    report)`` where ``report`` is the breakdown ``tadnn report``
+    renders.
+
+    With ``compiled`` (default), the static estimate is cross-checked
+    against ``AutoDistribute.compile_report``'s measured peak (the step
+    run once on fake tensors under a live-storage tracker — an
+    independent measurement of the same step; ``compiled=False`` skips
+    it).  The report is journaled as a ``lint.mem_estimate`` event;
+    findings are NOT journaled here (the caller aggregates layers
+    first).
+    """
+    from . import dtype_lint, mem_lint, plan_lint
+    from .. import planner
+
+    if ad.plan is None:
+        ad.build_plan(rng, sample_batch)
+    prec = getattr(ad, "precision", None)
+    abstract = planner.abstract_params(ad.model, prec.param_dtype)
+    closed, state = traced_step(ad, sample_batch)
+    kwargs = {}
+    if big_leaf_bytes is not None:
+        kwargs["big_leaf_bytes"] = big_leaf_bytes
+    findings = plan_lint.lint_plan(ad.plan, abstract, **kwargs)
+    findings += dtype_lint.lint_dtypes(
+        closed, abstract_params=state[0],
+        compute_dtype=_compute_dtype(ad))
+    est = _estimate(ad, closed, sample_batch)
+    budget_b = mem_lint.resolve_budget(budget)
+    hr = mem_lint.DEFAULT_HEADROOM if headroom is None else float(headroom)
+    findings += mem_lint.lint_memory(est, budget_bytes=budget_b,
+                                     headroom=hr)
+    report = {**est.to_json(), "budget_bytes": int(budget_b),
+              "headroom": hr,
+              "zero1": bool(getattr(ad.plan, "zero1", False))}
+    if compiled:
+        comp = ad.compile_report(rng, sample_batch) or {}
+        peak_c = comp.get("per_device_peak_bytes")
+        report["compiled"] = {
+            "per_device_peak_bytes": peak_c,
+            "bytes_accessed": comp.get("bytes_accessed"),
+            "error": comp.get("error") or getattr(
+                ad, "last_compile_error", None),
+        }
+        if peak_c:
+            report["static_over_compiled"] = round(
+                est.peak_bytes / peak_c, 3)
+    findings = filter_ignored(findings, ignore)
+    obs_journal.event("lint.mem_estimate", phase="check", **report)
+    return findings, report
+
+

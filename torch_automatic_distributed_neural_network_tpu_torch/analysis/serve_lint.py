@@ -20,9 +20,9 @@ to zero streams.  The full estimate is journaled as
 The PyTorch package's copy of the JAX package's ``analysis/serve_lint.py``
 (what ``tune/simulate`` sizes a serving replica's pool with): the pool
 is a pair of ``[n_layers, 1, block, kv_heads, head_dim]`` shapes charged
-through the planner's spec arithmetic (the memory lint's
-``sharded_tree_bytes`` and ``resolve_budget``, restated here until
-``analysis/mem_lint`` is ported, ROADMAP Queue 1 item 7d).
+through the planner's spec arithmetic; the byte formatting, the budget
+and the headroom are the memory lint's (``analysis/mem_lint``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -32,12 +32,8 @@ import math
 from typing import Any, Mapping
 
 from .. import planner
-from .. import topology as topo_mod
 from . import ERROR, WARN, Finding
-
-# The memory lint's margin below the budget (``mem_lint.DEFAULT_HEADROOM``
-# in the JAX package).
-DEFAULT_HEADROOM = 0.1
+from .mem_lint import DEFAULT_HEADROOM, _fmt_bytes, resolve_budget
 
 # host-side radix-index metadata per resident block: 24-hex key string,
 # parent/child dict entries, and a float timestamp (prefix_cache._Node)
@@ -50,28 +46,6 @@ class _Shape:
 
     shape: tuple[int, ...]
     itemsize: int
-
-
-def _fmt_bytes(n: float) -> str:
-    n = float(n)
-    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
-        if abs(n) < 1024 or unit == "TiB":
-            return f"{n:.2f} {unit}" if unit != "B" else f"{int(n)} B"
-        n /= 1024
-    return f"{n:.2f} TiB"
-
-
-def resolve_budget(
-    budget: int | str | None = None, device_kind: str | None = None
-) -> int:
-    """An HBM budget in bytes: explicit int, a size string ('16GiB'),
-    or — when None — the detected chip's ``ChipSpec.hbm_bytes``."""
-    if budget is not None:
-        if isinstance(budget, str):
-            return topo_mod.parse_size(budget)
-        return int(budget)
-    kind = device_kind or topo_mod.detect().device_kind
-    return int(topo_mod.chip_spec(kind).hbm_bytes)
 
 
 def _flat(tree: Any) -> list:

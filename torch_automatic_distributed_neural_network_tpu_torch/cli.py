@@ -1,7 +1,7 @@
 """Command line for the PyTorch port: the ``serve``, ``doctor``,
 ``devices``, ``run``, ``launch``, ``tokenize``, ``tune``, ``simulate``,
-``monitor``, ``gateway``, ``report``, ``check``, ``trace`` and
-``profile`` subcommands.
+``monitor``, ``gateway``, ``report``, ``check``, ``fit``, ``trace``
+and ``profile`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
@@ -58,9 +58,12 @@ flags, rows and exit codes are the JAX package's.
 
 ``report`` renders a run's journal and metrics file (and ``--check`` /
 ``--check-simulate`` guard bench records); ``check`` runs the source and
-async lints, ``--serving``, ``--protocol`` and the journal contract
-(``--preflight``, ``--memory`` and ``--trace-serve`` exit 2: the graph
-lints are not ported yet); ``trace`` profiles a zoo config's steps on
+async lints, ``--serving``, ``--protocol``, the journal contract and the
+traced-step lints (``--preflight FILE``, ``--memory``, ``--serving
+--trace-serve``: the step traced on fake tensors on ``--device``);
+``fit`` answers "will this model fit?" from the step run once on fake
+tensors (``AutoDistribute.compile_report``), one JSON line a candidate;
+``trace`` profiles a zoo config's steps on
 ``--device`` (cuda by default) with ``torch.profiler``, or runs a
 script with ``TADNN_TRACE_EVERY_N`` exported; ``profile`` runs a script
 under the profiler.  Their flags, lines and exit codes are the JAX
@@ -70,6 +73,10 @@ package's.
         --family gpt2 --size small --seq 1024 --batch 8 --journal run.jsonl
     python -m torch_automatic_distributed_neural_network_tpu_torch report run.jsonl
     python -m torch_automatic_distributed_neural_network_tpu_torch check --protocol
+    python -m torch_automatic_distributed_neural_network_tpu_torch check \
+        --memory --no-source --family gpt2 --size small --batch 8
+    python -m torch_automatic_distributed_neural_network_tpu_torch fit \
+        --family llama --size 8b --batch 1 --strategy dp
 """
 
 from __future__ import annotations
@@ -518,6 +525,66 @@ def _abstract(model, precision: str):
     return abstract_params(model, prec.param_dtype), _heads(model)
 
 
+def cmd_fit(args: argparse.Namespace) -> int:
+    """Will this model fit?  The step run once on fake tensors on
+    ``--device`` under a live-storage tracker
+    (``AutoDistribute.compile_report``) — nothing materialized, so it
+    answers for models far larger than this device.  One JSON line per
+    measured candidate, then the chosen strategy and mesh."""
+    from . import AutoDistribute
+    from .training import adamw
+
+    if args.loss == "blockwise" and args.family in ("bert", "vit"):
+        # blockwise CE is a CAUSAL next-token loss; silently running it
+        # on an encoder would fit-report a graph no real config trains
+        print(json.dumps({"error": "--loss blockwise is next-token "
+                          "(causal); bert uses masked LM, vit uses "
+                          "classification"}))
+        return 1
+    model, loss, sample = _family_setup(args)
+    ad = AutoDistribute(
+        model, optimizer=adamw(1e-4), loss_fn=loss,
+        strategy=args.strategy, precision=args.precision,
+        device=args.device,
+    )
+    if args.strategy == "search":
+        ad.build_plan(None, sample)
+        entries = ad.search_report or [
+            {"strategy": ad.plan.strategy, "note": "1-device no-op"}
+        ]
+    else:
+        report = ad.compile_report(None, sample)
+        peak = report and report.get("per_device_peak_bytes")
+        if not peak:
+            print(json.dumps({"error": "backend exposes no analysis"}))
+            return 1
+        # same budget the search ladder measures against
+        budget = AutoDistribute.hbm_fit_budget(ad.device_kind)
+        entries = [{
+            "strategy": ad.plan.strategy,
+            "peak_bytes": peak,
+            "budget_bytes": int(budget),
+            "fits": peak <= budget,
+            "flops": report.get("flops"),
+            "memory": report.get("memory"),
+        }]
+    for e in entries:
+        pb = e.get("peak_bytes")
+        if pb:
+            e["peak_gib"] = round(pb / 2**30, 3)
+        print(json.dumps(e))
+    chosen = ad.plan.strategy if ad.plan is not None else None
+    print(json.dumps({"chosen_strategy": chosen,
+                      "mesh": ad.plan.degrees if ad.plan is not None
+                      else None}))
+    return 0
+
+
+# activation profiles by tune's model arguments, for later calls in this
+# process (a profile traces the step twice)
+_PROFILES: dict[tuple, dict] = {}
+
+
 def cmd_tune(args: argparse.Namespace) -> int:
     """Rank candidate parallelism plans with the tune/ cost model (and
     optionally measure the top-k with a real microbenchmark), printing
@@ -542,14 +609,28 @@ def cmd_tune(args: argparse.Namespace) -> int:
     except ValueError as e:
         print(f"tune: {e}", file=sys.stderr)
         return 2
+    act_profile = None
+    key = (args.family, args.size, args.seq, args.batch, args.precision,
+           getattr(args, "loss", "full"), args.device)
+    if topo.num_devices > 1:  # one device: the fallback reads none
+        act_profile = _PROFILES.get(key)
+    if topo.num_devices > 1 and act_profile is None:
+        try:
+            # the liveness profile of the traced step (fake tensors on
+            # --device: nothing is allocated), as JAX's tune ranks with
+            # it; kept for this process's later calls on the same model
+            act_profile = _PROFILES[key] = AutoDistribute(
+                model, optimizer=adamw(1e-4), loss_fn=loss,
+                precision=args.precision, device=args.device,
+            ).activation_profile(None, sample)
+        except Exception:  # profile is advisory — rank on the heuristic
+            act_profile = None
     policy = tune.TunePolicy(
         grad_accums=tuple(int(g) for g in args.grad_accums.split(",")),
         top_k=args.top_k,
         batch_items=tune.estimate_batch_items(sample),
         use_cache=not args.no_cache,
-        # the liveness profile waits for ROADMAP Queue 1 item 7d: rank
-        # on the activation heuristic, JAX's path when its profile fails
-        act_profile=None,
+        act_profile=act_profile,
         zero1=not args.no_zero1,
     )
     result = tune.tune(abstract, topo, policy=policy, heads=heads)
@@ -1089,7 +1170,49 @@ def cmd_report(args: argparse.Namespace) -> int:
     return 0
 
 
-_GRAPH_LINTS = "not ported yet (ROADMAP Queue 1 item 7)"
+def _fmt_mem_bytes(n) -> str:
+    if n is None:
+        return "-"
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return f"{n:.2f} {unit}" if unit != "B" else f"{int(n)} B"
+        n /= 1024
+    return f"{n:.2f} GiB"
+
+
+def _print_memory_report(report: dict) -> None:
+    rows = [
+        ("params", report.get("params_bytes")),
+        ("optimizer", report.get("optimizer_bytes")),
+        ("model_state", report.get("model_state_bytes")),
+        ("batch", report.get("batch_bytes")),
+        ("activations", report.get("activation_bytes")),
+        ("peak", report.get("peak_bytes")),
+        ("budget", report.get("budget_bytes")),
+    ]
+    mesh = "x".join(f"{a}{n}" for a, n in
+                    sorted((report.get("degrees") or {}).items()))
+    strat = str(report.get("strategy"))
+    if report.get("zero1"):
+        strat += "+zero1"
+    print(f"memory estimate (static, per device; strategy "
+          f"{strat}, mesh {mesh or '1'}, "
+          f"grad_accum {report.get('grad_accum')}, "
+          f"remat {'on' if report.get('remat') else 'off'}):")
+    for name, val in rows:
+        if name == "model_state" and not val:
+            continue
+        print(f"  {name:<12} {_fmt_mem_bytes(val):>12}")
+    comp = report.get("compiled") or {}
+    peak_c = comp.get("per_device_peak_bytes")
+    if peak_c:
+        # the step run once on fake tensors (compile_report) takes the
+        # place of XLA's compiled peak
+        print(f"  {'run peak':<12} {_fmt_mem_bytes(peak_c):>12}  "
+              f"(static/compiled {report.get('static_over_compiled')}x)")
+    elif comp.get("error"):
+        print(f"  run peak: unavailable ({comp['error']})")
 
 
 def cmd_check(args: argparse.Namespace) -> int:
@@ -1097,9 +1220,13 @@ def cmd_check(args: argparse.Namespace) -> int:
     package by default; ``--serving`` sizes a decoder's KV pool against
     ``--budget``; ``--protocol`` model-checks the serving control
     plane; ``--journal`` / ``--journal-file`` check the telemetry
-    contract.  ``--preflight``, ``--memory`` and ``--trace-serve`` need
-    the graph lints, which are not ported yet: they exit 2.  Exit 1 on
-    error-severity findings; with ``--strict`` also on warnings."""
+    contract; ``--preflight FILE`` adds plan + graph lint driven by the
+    file's ``tadnn_check()`` dict; ``--memory`` builds a model-zoo
+    config (--family/--batch/--strategy) and runs the liveness
+    peak-memory estimator against ``--budget``; ``--trace-serve`` lints
+    the serving engine's traced steps.  The traces run on fake tensors
+    on ``--device``.  Exit 1 on error-severity findings; with
+    ``--strict`` also on warnings."""
     from . import analysis
 
     if args.rules:
@@ -1113,19 +1240,48 @@ def cmd_check(args: argparse.Namespace) -> int:
         for r in analysis.RULES.values():
             print(f"{r.code}  {r.layer:<6} {r.severity:<5} {r.title}")
         return 0
-    for flag, on in (("--preflight", args.preflight),
-                     ("--memory", args.memory),
-                     ("--trace-serve", args.trace_serve)):
-        if on:
-            print(f"tadnn check {flag}: {_GRAPH_LINTS}", file=sys.stderr)
-            return 2
     findings: list = []
     if not args.no_source:
         from .analysis import async_lint, source_lint
 
         findings += source_lint.lint_paths(args.paths or None)
         findings += async_lint.lint_paths(args.paths or None)
+    if args.preflight:
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "_tadnn_check_target", args.preflight)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        hook = getattr(mod, "tadnn_check", None)
+        if hook is None:
+            print(f"{args.preflight} does not define tadnn_check()",
+                  file=sys.stderr)
+            return 2
+        hook_spec = dict(hook())
+        if args.pl005_bytes is not None:
+            hook_spec.setdefault("big_leaf_bytes", args.pl005_bytes)
+        findings += analysis.check_spec(hook_spec)
+    mem_report = None
+    if args.memory:
+        from . import AutoDistribute
+        from .training import adamw
+
+        model, loss, sample = _family_setup(args)
+        ad = AutoDistribute(
+            model, optimizer=adamw(1e-4), loss_fn=loss,
+            strategy=args.strategy, precision=args.precision,
+            grad_accum=args.grad_accum, zero1=args.zero1,
+            device=args.device,
+        )
+        mem_findings, mem_report = analysis.memory_check(
+            ad, sample, budget=args.budget, headroom=args.headroom,
+            big_leaf_bytes=args.pl005_bytes,
+            compiled=not args.no_compiled,
+        )
+        findings += mem_findings
     serve_est = None
+    serve_trace_stats = None
     if getattr(args, "serving", False):
         if args.family not in ("gpt2", "llama", "moe"):
             print("check --serving needs a decoder family "
@@ -1162,6 +1318,22 @@ def cmd_check(args: argparse.Namespace) -> int:
                 getattr(args, "serve_prefix_hit_rate", None) or 0.0),
             params_bytes=params_bytes, **kwargs)
         findings += s_findings
+        if args.trace_serve:
+            from .analysis import serve_trace
+
+            # a real engine on --device (weights uninitialized: the
+            # traces read shapes only)
+            model, _, _ = _family_setup(args, device=args.device)
+            t_findings, serve_trace_stats = serve_trace.serve_trace_check(
+                model,
+                n_slots=4,
+                max_len=min(args.serve_max_len or 64, cfg.max_seq_len),
+                block_size=min(args.serve_block_size, 8),
+                quant_kv=args.serve_quant_kv,
+                attention_impl=args.serve_attention_impl,
+                device=args.device,
+            )
+            findings += t_findings
     protocol_results = None
     if getattr(args, "protocol", False):
         from .analysis import protocol as protocol_mod
@@ -1214,8 +1386,12 @@ def cmd_check(args: argparse.Namespace) -> int:
     if args.json:
         out = {"findings": [f.to_json() for f in findings],
                "summary": summary}
+        if mem_report is not None:
+            out["memory"] = mem_report
         if serve_est is not None:
             out["serve_estimate"] = serve_est
+        if serve_trace_stats is not None:
+            out["serve_trace"] = serve_trace_stats
         if protocol_results is not None:
             out["protocol"] = protocol_results
         if journal_stats is not None:
@@ -1224,6 +1400,8 @@ def cmd_check(args: argparse.Namespace) -> int:
     else:
         for f in findings:
             print(f.format())
+        if mem_report is not None:
+            _print_memory_report(mem_report)
         if serve_est is not None:
             ws = serve_est.get("decode_workspace_bytes", 0)
             print(f"serve estimate: {serve_est['max_streams']} "
@@ -1437,6 +1615,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "unless resumed losses match bitwise")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_launch)
+
+    p = sub.add_parser(
+        "fit",
+        help="will this model fit? the step run once on fake tensors "
+             "(nothing allocated) under a live-storage tracker, per "
+             "device; with --strategy search, walks the escalation "
+             "ladder and reports every candidate",
+    )
+    p.add_argument("--family", default="gpt2",
+                   choices=("mlp", "gpt2", "llama", "moe", "bert", "vit"))
+    p.add_argument("--size", default=None,
+                   help="model size preset; default per family "
+                        "(gpt2: 1p3b, llama: 8b, moe: test, bert: large, "
+                        "vit: large); for vit, --seq is the image side; "
+                        "for mlp, comma-separated layer widths")
+    p.add_argument("--seq", type=int, default=None,
+                   help="sequence length (default 1024); for vit, the "
+                        "image side (default 224)")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--strategy", default="search")
+    p.add_argument("--precision", default="mixed")
+    p.add_argument("--loss", default="full", choices=("full", "blockwise"),
+                   help="blockwise = vocab-blockwise CE (never "
+                        "materializes [B,S,V] logits; big-vocab models "
+                        "fit far smaller)")
+    p.add_argument("--device", default="cuda",
+                   help="device the fake tensors live on (cpu takes the "
+                        "plain attention)")
+    p.set_defaults(fn=cmd_fit)
 
     p = sub.add_parser(
         "tune",
@@ -1770,18 +1977,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rules", action="store_true",
                    help="print the rule table and exit")
     p.add_argument("--preflight", default=None, metavar="FILE",
-                   help=_GRAPH_LINTS)
+                   help="python file defining tadnn_check() -> dict with "
+                        "keys among plan/abstract_params/param_specs/"
+                        "batch_spec/degrees/strategy/fn/args/static_args/"
+                        "budget; runs plan + graph + mem + dtype lint "
+                        "on it")
     p.add_argument("--no-source", action="store_true",
                    help="skip the source lint")
-    p.add_argument("--memory", action="store_true", help=_GRAPH_LINTS)
+    p.add_argument("--memory", action="store_true",
+                   help="trace a model-zoo config (--family et al.) and "
+                        "predict its per-device peak memory against "
+                        "--budget (ML001 error when it would OOM)")
     p.add_argument("--budget", default=None,
-                   help="HBM budget for --serving, e.g. '16GiB' "
-                        "(default: the detected card's ChipSpec)")
+                   help="HBM budget for --memory and --serving, e.g. "
+                        "'16GiB' (default: the detected card's ChipSpec)")
     p.add_argument("--headroom", type=float, default=None,
                    help="warn when the predicted peak is within this "
                         "fraction of the budget (default 0.1)")
     p.add_argument("--no-compiled", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="skip the measured cross-check (the step run "
+                        "once on fake tensors: compile_report)")
     p.add_argument("--ignore", action="append", default=[],
                    metavar="CODE",
                    help="suppress findings with this rule code "
@@ -1799,10 +2014,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sequence length; for mlp/vit, the input image "
                         "side (mlp default 28)")
     p.add_argument("--batch", type=int, default=256)
-    p.add_argument("--strategy", default="fsdp", help=argparse.SUPPRESS)
+    p.add_argument("--strategy", default="fsdp",
+                   help="sharding strategy for --memory (default fsdp)")
     p.add_argument("--precision", default="fp32")
-    p.add_argument("--grad-accum", type=int, default=1,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="device the traces' fake tensors live on "
+                        "(--memory, --trace-serve; nothing is allocated "
+                        "for --memory); cpu takes the plain attention")
     p.add_argument("--serving", action="store_true",
                    help="serving capacity lint (analysis/serve_lint): "
                         "predict max concurrent KV streams under "
@@ -1844,9 +2063,15 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="serve_prefix_hit_rate", metavar="FRAC",
                    help="expected fraction [0,1) of prompt tokens served "
                         "from the prefix cache")
-    p.add_argument("--zero1", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1 for --memory: shard optimizer moments "
+                        "over the data axis (the per-chip optimizer row "
+                        "drops ~DP-fold)")
     p.add_argument("--trace-serve", action="store_true",
-                   dest="trace_serve", help=_GRAPH_LINTS)
+                   dest="trace_serve",
+                   help="with --serving: build a ServeEngine on the "
+                        "family config and run graph + dtype lint over "
+                        "its decode/prefill steps traced on fake tensors")
     p.add_argument("--protocol", action="store_true",
                    help="explicit-state model check of the serving "
                         "control plane (allocator / scheduler / prefix "

@@ -41,10 +41,26 @@ the plan's wrapped model, its weights sharded as trained (each rank its
 rows of the batch and, under ``tensor``, its kv heads), in bf16 or
 int8, an MoE model densely or routed (``moe_decode``).
 ``strategy='tuned'`` plans through ``tune.tune`` (the cost-model search,
-with the sample batch's items, the configured ``grad_accum`` and the
-precision's state factor).  The measured search (``strategy='search'``)
-and the export cache raise ``NotImplementedError`` naming their ROADMAP
-item.
+with the sample batch's items, the configured ``grad_accum``, the
+precision's state factor and the liveness profile of the traced step,
+:meth:`AutoDistribute.activation_profile`).  ``strategy='search'``
+walks JAX's escalation ladder and takes the first rung whose measured
+per-device peak (:meth:`AutoDistribute.compile_report`) fits
+:meth:`AutoDistribute.hbm_fit_budget`.  The export cache raises
+``NotImplementedError`` naming its ROADMAP item.
+
+Nothing-materialized views of the step (the JAX package's
+``jax.eval_shape`` / ``make_jaxpr`` / AOT compile):
+:meth:`AutoDistribute.traceable_step` is a function of ``(params,
+opt_state, model_state, batch, generator)`` that does what ``step``
+does on the plan's local shapes (``torch.func.functional_call``,
+``torch.autograd.grad`` and the functional optimizer), running the
+plan's data and fsdp traffic as functional collectives;
+:meth:`AutoDistribute.abstract_state` makes its arguments as fake
+tensors.  ``analysis.graph_lint.trace_step`` traces it to an fx graph
+(the lints' input); :meth:`AutoDistribute.compile_report` runs it once
+under ``FakeTensorMode`` with a live-storage tracker and
+``FlopCounterMode``'s formulas.
 
 Pipeline parallelism (``pipeline_stages=S``, ``microbatches``,
 ``pipeline_schedule``, ``pipeline_virtual``): each rank of the ``pipe``
@@ -142,8 +158,8 @@ def _not_ported(what: str, item: str):
 
 class AutoDistribute:
     """A model trained by a plan, with the JAX ``AutoDistribute``'s
-    semantics: ``strategy`` ('auto', 'tuned', 'dp', 'fsdp', 'tp',
-    'tp_fsdp', 'ep', 'ep_fsdp', 'ep_tp'),
+    semantics: ``strategy`` ('auto', 'tuned', 'search', 'dp', 'fsdp',
+    'tp', 'tp_fsdp', 'ep', 'ep_fsdp', 'ep_tp'),
     ``mesh`` (a ``DeviceMesh`` from ``topology.build_mesh`` or a degrees
     mapping), ``rules`` (the planner's name rules), ``seq_parallel`` and
     ``seq_impl`` ('auto', 'ring' or 'ulysses'), ``megatron_sp`` (the JAX
@@ -189,14 +205,9 @@ class AutoDistribute:
         init_fn: Callable | None = None,
         device=None,
     ):
-        if strategy == "search":
-            # JAX accepts the first rung whose compiled peak fits: it needs
-            # compile_report and hbm_fit_budget (item 7d)
-            raise _not_ported("strategy='search' (the measured search over "
-                              "compiled peaks)", "7")
-        if strategy not in planner_mod.KNOWN_STRATEGIES:
+        if strategy not in (*planner_mod.KNOWN_STRATEGIES, "search"):
             raise ValueError(f"Unknown strategy {strategy!r}; expected one "
-                             f"of {planner_mod.KNOWN_STRATEGIES}")
+                             f"of {(*planner_mod.KNOWN_STRATEGIES, 'search')}")
         if mesh is not None and not isinstance(mesh, Mapping) and not (
                 hasattr(mesh, "mesh_dim_names")):
             raise TypeError(f"mesh must be a DeviceMesh "
@@ -259,6 +270,8 @@ class AutoDistribute:
         self._prepared = init_fn is None
         # names of the parameters that train, fixed at init
         self._trainable: frozenset[str] = frozenset()
+        self.search_report: list = []  # strategy='search' measurements
+        self.last_compile_error: str | None = None
 
     # -- planning -------------------------------------------------------------
 
@@ -273,30 +286,40 @@ class AutoDistribute:
         storage dtype) and the topology; with a process group up, the
         plan's mesh as a ``DeviceMesh`` over the world.  ``rng`` is
         accepted for the JAX signature; the module's shapes need no
-        trace."""
+        trace.  ``strategy='search'`` measures candidates
+        (:meth:`_search_plan`)."""
+        if self._strategy == "search":
+            return self._search_plan(rng, sample_batch)
         self._prepare(rng)
         prec = self.precision
         abstract = planner_mod.abstract_params(self.model, prec.param_dtype)
         state_factor = prec.bytes_per_param / prec.param_dtype.itemsize
         tune_policy = None
         if self._strategy == "tuned":
-            # the tuner sees the real batch (tokens/items per step) and
-            # the configured accumulation.  The liveness activation
-            # profile is not ported (item 7d): the tuner ranks on its
-            # activation heuristic, the JAX path when the profile fails
+            # the tuner sees the real batch (tokens/items per step), the
+            # configured accumulation, and a liveness activation profile
+            # of the traced step, so its memory/cost estimates match what
+            # this AutoDistribute will actually run
             from . import tune as tune_mod
 
-            obs_journal.event(
-                "tune.profile_skipped",
-                error="NotImplementedError: AutoDistribute."
-                      "activation_profile is not ported to the PyTorch "
-                      "package yet (ROADMAP Queue 1 item 7)")
+            act_profile = None
+            n = (math.prod(mesh_degrees(self._mesh_arg).values())
+                 if self._mesh_arg is not None else process_count())
+            # one device: the tuner falls back to 'auto' and reads no
+            # profile, so none is traced
+            if n // (self._seq_parallel * self._pipeline_stages) > 1:
+                try:
+                    act_profile = self.activation_profile(rng, sample_batch)
+                except Exception as e:  # profile is advisory, never fatal
+                    obs_journal.event(
+                        "tune.profile_skipped",
+                        error=f"{type(e).__name__}: {e}")
             tune_policy = tune_mod.TunePolicy(
                 batch_items=(tune_mod.estimate_batch_items(sample_batch)
                              if sample_batch is not None else None),
                 grad_accums=(self._grad_accum,),
                 state_factor=state_factor,
-                act_profile=None,
+                act_profile=act_profile,
             )
         plan = planner_mod.make_plan(
             abstract, mesh=self._mesh_arg, strategy=self._strategy,
@@ -389,6 +412,447 @@ class AutoDistribute:
                 predicted_allgather_bytes=per_dev[
                     "zero1_param_allgather"]["wire_bytes"],
                 compiled_bytes=None)
+
+    # -- the measured search ---------------------------------------------------
+
+    # Escalation ladders for strategy='search': cheapest collectives
+    # first, sharded + remat last.  (strategy, outer_remat) pairs.
+    _SEARCH_LADDER_DENSE = (
+        ("dp", None), ("fsdp", None), ("tp_fsdp", None), ("tp_fsdp", True),
+    )
+    _SEARCH_LADDER_MOE = (
+        ("ep", None), ("ep_fsdp", None), ("fsdp", None), ("fsdp", True),
+    )
+    _SEARCH_SAFETY = 0.92  # accept a plan at <= this fraction of HBM
+
+    @staticmethod
+    def hbm_fit_budget(device_kind: str) -> float:
+        """The byte budget a measured plan must fit (search ladder and
+        `tadnn fit` both compare against this): the per-chip memory table
+        entry scaled by the safety margin."""
+        return AutoDistribute._SEARCH_SAFETY * planner_mod._hbm_bytes(
+            device_kind)
+
+    @property
+    def device_kind(self) -> str:
+        """This process's device kind: the card's name, or ``cpu``."""
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_name(self.device)
+        return "cpu"
+
+    def _search_plan(self, rng, sample_batch) -> ShardPlan:
+        """Measurement-validated strategy selection (``strategy='search'``).
+
+        The analytic auto policy (planner.choose_strategy) predicts
+        persistent-state bytes but can only guess activations; this path
+        walks an escalation ladder and accepts the first candidate whose
+        **measured** per-device peak (:meth:`compile_report` — the step
+        run once on fake tensors, nothing materialized) fits within
+        ``_SEARCH_SAFETY`` of the device's memory.  Every candidate's
+        measurement lands in ``self.search_report`` for observability.
+        Falls back to the analytic ``'auto'`` policy when no peak can be
+        had.
+        """
+        import warnings
+
+        self.search_report = []
+        orig_remat = self._remat_arg
+        if self._mesh_arg is not None:
+            n_devices = math.prod(mesh_degrees(self._mesh_arg).values())
+        else:
+            n_devices = process_count()
+        if n_devices == 1:
+            self._strategy = "dp"  # no-op path; nothing to search
+            return self.build_plan(rng, sample_batch)
+        self._prepare(rng)
+        abstract = planner_mod.abstract_params(self.model)
+        ladder = (self._SEARCH_LADDER_MOE
+                  if planner_mod.detect_expert_count(abstract)
+                  else self._SEARCH_LADDER_DENSE)
+        budget = self.hbm_fit_budget(self.device_kind)
+        if orig_remat is not None:
+            # an explicit user remat= overrides the ladder's escalation
+            # dimension: measure every rung with the user's setting
+            seen = set()
+            ladder = tuple((s, orig_remat) for s, _ in ladder
+                           if not (s in seen or seen.add(s)))
+        last_built = None  # last (strategy, remat) that produced a plan
+
+        def reset(strategy, remat):
+            self.plan = None
+            self._strategy, self._remat_arg = strategy, remat
+
+        try:
+            for strat, remat in ladder:
+                reset(strat, remat)
+                try:
+                    report = self.compile_report(rng, sample_batch)
+                except ValueError as e:
+                    # candidate inapplicable (axis degrees don't divide,
+                    # no TP-matching params, ...): record and escalate
+                    self.search_report.append(
+                        {"strategy": strat, "remat": remat,
+                         "peak_bytes": None, "budget_bytes": int(budget),
+                         "fits": False, "flops": None, "error": str(e)})
+                    continue
+                if report is None:
+                    # a per-candidate failure of the measured run: record
+                    # the reason compile_report kept, escalate
+                    self.search_report.append(
+                        {"strategy": strat, "remat": remat,
+                         "peak_bytes": None, "budget_bytes": int(budget),
+                         "fits": False, "flops": None,
+                         "error": ("lower/compile failed: "
+                                   f"{self.last_compile_error}"
+                                   if self.last_compile_error
+                                   else "lower/compile failed (see logs)")})
+                    continue
+                if not report.get("per_device_peak_bytes"):
+                    warnings.warn(
+                        "strategy='search': backend exposes no memory "
+                        "analysis; falling back to the analytic 'auto' "
+                        "policy", stacklevel=2)
+                    reset("auto", orig_remat)
+                    return self.build_plan(rng, sample_batch)
+                peak = report["per_device_peak_bytes"]
+                entry = {
+                    "strategy": strat, "remat": remat, "peak_bytes": peak,
+                    "budget_bytes": int(budget), "fits": peak <= budget,
+                    "flops": report.get("flops"),
+                }
+                self.search_report.append(entry)
+                last_built = (strat, remat)
+                if entry["fits"]:
+                    return self.plan
+        except Exception:
+            # unexpected failure mid-search: leave the object
+            # re-searchable instead of stuck on a ladder rung
+            reset("search", orig_remat)
+            raise
+        if last_built is None:
+            self._strategy, self._remat_arg = "search", orig_remat
+            errs = {e.get("error") for e in self.search_report}
+            if len(errs) == 1:
+                # every rung failed identically -> a strategy-independent
+                # config error (e.g. batch vs grad_accum); surface it
+                # verbatim rather than as a topology-sounding failure
+                raise ValueError(errs.pop())
+            raise ValueError(
+                f"strategy='search': no ladder candidate was applicable "
+                f"to this model/topology: {self.search_report}")
+        if (self._strategy, self._remat_arg) != last_built:
+            # the last candidate errored; rebuild the last one that
+            # actually produced a plan
+            reset(*last_built)
+            self.build_plan(rng, sample_batch)
+        warnings.warn(
+            f"strategy='search': no candidate fit "
+            f"{budget / 2**30:.1f} GiB "
+            f"(measured peaks: "
+            f"{[(e['strategy'], e.get('peak_bytes')) for e in self.search_report]}); "
+            f"keeping the most aggressive candidate "
+            f"{self._strategy!r} remat={self._remat_arg} — expect OOM at "
+            f"init unless the budget table underestimates this chip",
+            stacklevel=2)
+        return self.plan
+
+    # -- the step on fake tensors ---------------------------------------------
+
+    def _trace_plan(self, meshless: bool):
+        """(degrees, param specs, opt specs, batch axes, mesh) the traced
+        step lays its tensors out by: the plan's, or, ``meshless``, one
+        device's.  Raises ValueError for an axis it does not model."""
+        if meshless:
+            return {}, {}, None, [], None
+        plan = self.plan
+        deg = plan.degrees
+        for ax in ("tensor", "expert", "pipe", "seq"):
+            if deg.get(ax, 1) > 1:
+                raise ValueError(
+                    f"the traced step does not model a {ax!r} axis above 1 "
+                    f"yet (mesh {deg}; ROADMAP Queue 1 item 7)")
+        batch_axes = [a for a in planner_mod.spec_axes(plan.batch_spec)
+                      if deg.get(a, 1) > 1]
+        opt = plan.opt_spec_tree if plan.zero1 else None
+        mesh = None if isinstance(plan.mesh, Mapping) else plan.mesh
+        return deg, plan.param_specs, opt, batch_axes, mesh
+
+    def abstract_state(self, sample_batch: dict, *, meshless: bool = False,
+                       mode=None) -> tuple:
+        """Fake ``(params, opt_state, model_state, batch)`` for
+        :meth:`traceable_step`, on this device at the plan's local shapes
+        (``meshless``: one device's, the global shapes): each parameter's
+        shard by its spec in the precision's storage dtype, the optimizer
+        state of the trained ones (by the ZeRO-1 specs under ``zero1``),
+        the module's buffers, and this rank's rows of ``sample_batch``.
+        Made under ``mode`` (a new ``FakeTensorMode`` by default):
+        nothing is allocated on any device."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        if sample_batch is None:
+            raise ValueError("the traced step needs a sample batch")
+        if not meshless and self.plan is None:
+            raise RuntimeError("call init() or build_plan() first")
+        deg, specs, opt_specs, batch_axes, _ = self._trace_plan(meshless)
+        mode = mode or FakeTensorMode(allow_non_fake_inputs=True)
+        prec = self.precision
+        dp = math.prod(deg.get(a, 1) for a in batch_axes)
+        trainable = {n for n, p in self.model.named_parameters()
+                     if p.requires_grad}
+
+        def local(shape, spec):
+            return _local_shape(shape, spec, deg)
+
+        with mode:
+            params = {n: torch.empty(local(p.shape, specs.get(n)),
+                                     dtype=prec.param_dtype,
+                                     device=self.device)
+                      for n, p in self.model.named_parameters()}
+            trained = {n: p for n, p in params.items() if n in trainable}
+            if opt_specs is not None:
+                trained = {n: torch.empty(
+                    _local_shape(self.model.get_parameter(n).shape,
+                                 opt_specs[n], deg),
+                    dtype=prec.param_dtype, device=self.device)
+                    for n in trained}
+            opt_state = self.optimizer.init(trained)
+            model_state = {n: torch.empty(b.shape, dtype=b.dtype,
+                                          device=self.device)
+                           for n, b in self.model.named_buffers()}
+            batch = {}
+            for key, v in sample_batch.items():
+                shape = tuple(np.shape(v))
+                if shape and dp > 1 and not isinstance(sample_batch,
+                                                       HostBatch):
+                    shape = (shape[0] // dp, *shape[1:])
+                batch[key] = torch.empty(shape, dtype=_torch_dtype(v),
+                                         device=self.device)
+        return params, opt_state, model_state, batch
+
+    def traceable_step(self, *, meshless: bool = False,
+                       remat: bool | None = None) -> Callable:
+        """``fn(params, opt_state, model_state, batch, generator) ->
+        (loss, params, opt_state)``: what :meth:`step` does, as a function
+        of its state, on this rank's local shapes — the JAX package's
+        ``_step_fn_raw``, the input of the graph, memory and dtype lints
+        and of :meth:`compile_report`.
+
+        ``batch`` is this rank's rows; ``grad_accum`` slices them in
+        turn.  Each slice runs the loss through ``torch.func.
+        functional_call`` on the parameters whole (fsdp's shards
+        all-gathered, as FSDP2 gathers them), the ``remat`` of the plan
+        (or the given one) around it, and ``torch.autograd.grad``; under
+        ``mixed`` the loss sees the compute-dtype copies of the masters.
+        The summed gradients are averaged over the batch axes (fsdp's
+        reduce-scattered onto their shards, ZeRO-1's onto the optimizer's
+        shards, the rest all-reduced: the traffic DDP's and FSDP2's hooks
+        carry in the real step, here functional collectives a trace
+        records), the functional optimizer updates the parameters in
+        place and returns the new optimizer state.  The loss is this
+        rank's (the mean over its rows): :meth:`step` reports its mean
+        over the batch axes, a metric all-reduce the trace leaves out,
+        as the plan's collective model does.  ``meshless``: one
+        device at the global shapes, no collective (the tuner's
+        profile).  Raises ValueError under a tensor, expert, pipe or seq
+        axis above 1, which it does not model yet."""
+        if self._loss_fn is None:
+            raise ValueError("AutoDistribute needs a loss_fn to train")
+        deg, specs, opt_specs, batch_axes, mesh = self._trace_plan(meshless)
+        if remat is None:
+            remat = bool(self.plan.remat if self.plan is not None
+                         else self._remat_arg)
+        k = self._grad_accum
+        prec = self.precision
+        cast = prec.compute_dtype != prec.param_dtype
+        dp = math.prod(deg.get(a, 1) for a in batch_axes)
+        trainable = frozenset(n for n, p in self.model.named_parameters()
+                              if p.requires_grad)
+        loss_mod = _StepLoss(self._trace_model(), self._loss_fn, remat)
+
+        def group(axis):
+            if mesh is not None:
+                return mesh.get_group(axis)
+            return torch.distributed.group.WORLD
+
+        def gather(t, spec):
+            from torch.distributed import _functional_collectives as fc
+
+            for d, axes in enumerate(spec or ()):
+                for ax in reversed(_entry_axes(axes)):
+                    if deg.get(ax, 1) > 1:
+                        t = fc.all_gather_tensor(t, d, group(ax))
+            return t
+
+        def sync(g, spec):
+            """The gradient averaged over the batch axes and cut to
+            ``spec``'s shard."""
+            from torch.distributed import _functional_collectives as fc
+
+            dims = {ax: d for d, axes in enumerate(spec or ())
+                    for ax in _entry_axes(axes)}
+            for ax in batch_axes:
+                if ax in dims:
+                    g = fc.reduce_scatter_tensor(g, "sum", dims[ax],
+                                                 group(ax))
+                else:
+                    g = fc.all_reduce(g, "sum", group(ax))
+            return g / dp if dp > 1 else g
+
+        def step(params, opt_state, model_state, batch, generator):
+            loss, grads, auxes = None, None, []
+            for i in range(k):
+                mb = {key: v.reshape(k, v.shape[0] // k, *v.shape[1:])[i]
+                      if v.ndim and k > 1 else v for key, v in batch.items()}
+                full = {n: gather(p, specs.get(n)) for n, p in params.items()}
+                leaves = {n: (t.to(prec.compute_dtype) if cast else t)
+                          .detach().requires_grad_(True)
+                          for n, t in full.items() if n in trainable}
+                tree = {f"model.{n}": leaves.get(n, t)
+                        for n, t in full.items()}
+                tree.update({f"model.{n}": t
+                             for n, t in model_state.items()})
+                with torch.enable_grad():
+                    loss_i, aux_i, g_i = torch.func.functional_call(
+                        loss_mod, tree, (mb, generator, list(
+                            leaves.values())), strict=False)
+                g_i = {n: torch.zeros_like(t) if g is None else g
+                       for (n, t), g in zip(leaves.items(), g_i)}
+                with torch.no_grad():
+                    for name, t in (aux_i.pop("model_state", None)
+                                    or {}).items():
+                        model_state[name].copy_(t)
+                loss = loss_i if loss is None else loss + loss_i
+                grads = g_i if grads is None else {
+                    n: grads[n] + g for n, g in g_i.items()}
+                auxes.append(aux_i)
+            with torch.no_grad():
+                grads = {n: sync(g / k if k > 1 else g,
+                                 (opt_specs or specs).get(n))
+                         for n, g in grads.items()}
+                trained = {n: params[n] for n in grads}
+                if opt_specs is not None:
+                    # ZeRO-1: the update on the optimizer's shard, the
+                    # fresh values all-gathered back to the param layout
+                    trained = {n: _shard_of(params[n], opt_specs[n],
+                                            specs.get(n), deg)
+                               for n in grads}
+                deltas, new_opt = self.optimizer.update(
+                    grads, opt_state, trained)
+                if opt_specs is not None:
+                    deltas = {n: _regather(d, opt_specs[n], specs.get(n),
+                                           deg, gather)
+                              for n, d in deltas.items()}
+                apply_updates(params, deltas)
+            return loss / k if k > 1 else loss, params, new_opt
+
+        return step
+
+    def _trace_model(self) -> nn.Module:
+        """The module the traced step computes with: the model itself, or,
+        once a plan has wrapped it (FSDP2's hooks would gather its real
+        shards), an empty copy on the meta device (``interop._like``):
+        ``functional_call`` gives it the fake state either way."""
+        if self._exec is None or getattr(self.model, "lora_spec", None):
+            return self.model
+        from .interop import _like
+
+        try:
+            return _like(self.model, device="meta")
+        except Exception:  # a family _like cannot rebuild
+            return self.model
+
+    def compile_report(self, rng=None, sample_batch: dict | None = None
+                       ) -> dict | None:
+        """The train step's per-device cost from ABSTRACT shapes only —
+        no parameters, optimizer state, or activations are ever
+        materialized: :meth:`traceable_step` runs once under
+        ``FakeTensorMode`` on :meth:`abstract_state`, a live-storage
+        tracker (``utils.profiling.LiveBytes``) counting the bytes alive
+        at each op and ``FlopCounterMode``'s formulas the FLOPs
+        (``utils.profiling.Flops``; K1-K3 by their registered formulas).  The port has no compiler whose buffer
+        assignment could be read: the tracker's peak takes its place.
+
+        Returns the JAX dict: ``{'flops': float|None, 'memory':
+        {'argument_size', 'temp_size', 'output_size', 'alias_size'},
+        'per_device_peak_bytes': int}`` — the arguments are the state
+        and this rank's batch; the parameters, updated in place, are
+        their own alias; ``temp_size`` is the peak above the arguments
+        and the new optimizer state, so ``argument + temp + output -
+        alias`` is the measured peak.  ``None`` when the run fails (the
+        reason in ``self.last_compile_error``); a plan this layout cannot
+        take raises ValueError."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from .analysis.graph_lint import _eager_checkpointing
+        from .utils.profiling import Flops, LiveBytes
+
+        if self.plan is None:
+            self.build_plan(rng, sample_batch)
+        if sample_batch is None:
+            raise ValueError("compile_report needs a sample batch")
+        self._check_batch(sample_batch)
+        fn = self.traceable_step()
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        args = self.abstract_state(sample_batch, mode=mode)
+        tracker, flops = LiveBytes(), Flops()
+        try:
+            with mode, _eager_checkpointing(), flops:
+                arg_keys = tracker.track(args)
+                argument = tracker.current
+                with tracker:
+                    loss, params, opt_state = fn(
+                        *args, torch.Generator().manual_seed(0))
+                out_keys = tracker.keys((loss, params, opt_state))
+        except Exception as e:  # the measured run failed: keep why
+            self.last_compile_error = f"{type(e).__name__}: {e}"
+            return None
+        self.last_compile_error = None
+        sizes = tracker.live
+        output = sum(sizes.get(key, 0) for key in out_keys)
+        alias = sum(sizes.get(key, 0) for key in out_keys & arg_keys)
+        peak = int(tracker.peak)
+        return {
+            "flops": float(flops.total) or None,
+            "memory": {"argument_size": int(argument),
+                       "temp_size": int(max(0, peak - argument
+                                                - (output - alias))),
+                       "output_size": int(output),
+                       "alias_size": int(alias)},
+            "per_device_peak_bytes": peak,
+        }
+
+    def activation_profile(self, rng=None, sample_batch: dict | None = None
+                           ) -> dict | None:
+        """Global-shape liveness activation profile of this model's
+        train step — the tuner's memory-pruning input (``tune/space.py``
+        via ``analysis.mem_lint``).
+
+        Traced meshless (:meth:`traceable_step` at one device's shapes,
+        ``analysis.graph_lint.trace_step`` on fake tensors): no plan,
+        mesh, or devices needed, so it runs BEFORE the tuner picks one.
+        Two variants (remat on/off) let the tuner charge each candidate
+        the transient footprint its strategy would actually see.  Returns
+        None for stateful models, as JAX's does."""
+        from . import tune as tune_mod
+        from .analysis import graph_lint, mem_lint
+
+        if sample_batch is None:
+            raise ValueError("activation_profile needs a sample batch")
+        self._prepare(rng)
+        if any(True for _ in self.model.buffers()):
+            return None
+        abstract = planner_mod.abstract_params(self.model,
+                                               self.precision.param_dtype)
+        profile: dict = {
+            "batch_items": tune_mod.estimate_batch_items(sample_batch)}
+        for name, remat in (("noremat", False), ("remat", True)):
+            args = self.abstract_state(sample_batch, meshless=True)
+            gm = graph_lint.trace_step(
+                self.traceable_step(meshless=True, remat=remat), *args,
+                torch.Generator())
+            profile[name] = mem_lint.activation_profile_from_trace(
+                gm, abstract, args[3])
+        return profile
 
     # -- init -----------------------------------------------------------------
 
@@ -1009,6 +1473,74 @@ def _heads(model: nn.Module) -> tuple[int, int] | None:
     if cfg is None or not hasattr(cfg, "n_heads"):
         return None
     return cfg.n_heads, getattr(cfg, "kv_heads", cfg.n_heads)
+
+
+def _entry_axes(entry) -> tuple[str, ...]:
+    """Axis names of one PartitionSpec dim entry (None -> ())."""
+    if entry is None:
+        return ()
+    if isinstance(entry, (tuple, list)):
+        return tuple(a for a in entry if a)
+    return (entry,)
+
+
+def _local_shape(shape, spec, degrees) -> tuple[int, ...]:
+    """A parameter's shard shape under ``spec`` (a dim split by the
+    product of its axes' degrees; None: the whole shape)."""
+    out = [int(n) for n in shape]
+    for d, entry in enumerate(spec or ()):
+        for ax in _entry_axes(entry):
+            out[d] //= max(1, int(degrees.get(ax, 1)))
+    return tuple(out)
+
+
+def _shard_of(t, opt_spec, spec, degrees):
+    """ZeRO-1: this rank's slice of a parameter laid out by ``spec``
+    along the axes ``opt_spec`` adds (the first shard: on fake tensors
+    only its shape matters)."""
+    want = _local_shape(t.shape, opt_spec, {
+        ax: n for ax, n in degrees.items()
+        if not any(ax in _entry_axes(e) for e in (spec or ()))})
+    return t[tuple(slice(0, n) for n in want)]
+
+
+def _regather(d, opt_spec, spec, degrees, gather):
+    """ZeRO-1: a shard's update all-gathered over the axes the optimizer
+    specs add, back to the parameter's own layout."""
+    extra = tuple(
+        tuple(a for a in _entry_axes(e)
+              if not any(a in _entry_axes(f) for f in (spec or ())))
+        for e in opt_spec)
+    return gather(d, tuple(axes or None for axes in extra))
+
+
+def _torch_dtype(v) -> torch.dtype:
+    """The torch dtype of a batch leaf (a tensor, an array or a
+    scalar)."""
+    if isinstance(v, torch.Tensor):
+        return v.dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.asarray(v).dtype)).dtype
+
+
+class _StepLoss(nn.Module):
+    """The loss and its gradients as one module call, so that
+    ``torch.func.functional_call`` keeps the substituted parameters in
+    place through the backward: a checkpointed layer recomputes its
+    forward there and must see them, not the module's own."""
+
+    def __init__(self, model: nn.Module, loss_fn, remat: bool):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+        self.remat = remat
+
+    def forward(self, batch, generator, leaves):
+        if self.remat:
+            loss, aux = remat_fn(self.loss_fn, self.model, batch, generator)
+        else:
+            loss, aux = self.loss_fn(self.model, batch, generator)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), _detached(aux), grads
 
 
 def autodistribute(model: nn.Module | None = None, **kwargs

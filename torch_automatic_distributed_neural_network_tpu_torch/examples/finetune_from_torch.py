@@ -66,6 +66,9 @@ class RunCfg:
     lr: float = 1e-4
     log_every: int = 10
     device: str = "cuda"  # 'cpu' runs the plain PyTorch path
+    # the static lint before step 0 (TrainerConfig.preflight: the step
+    # traced on fake tensors, ~10 s for GPT-2 small); False skips it
+    preflight: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,7 +185,8 @@ def main(argv=None) -> dict:
         device=device,
     )
     trainer = Trainer(ad, TrainerConfig(steps=cfg.run.steps,
-                                        log_every=cfg.run.log_every))
+                                        log_every=cfg.run.log_every,
+                                        preflight=cfg.run.preflight))
     state = trainer.fit(data)
     print(f"plan: {ad.plan.strategy} mesh={tad.mesh_degrees(ad.plan.mesh)} "
           f"final_step={int(state.step)}")

@@ -77,6 +77,9 @@ class RunCfg:
     max_restarts: int = -1
     anomaly_rollback: bool = False  # loss NaN/spike -> restore + skip batch
     device: str = "cuda"  # 'cpu' runs the plain PyTorch path
+    # the static lint before step 0 (TrainerConfig.preflight: the step
+    # traced on fake tensors, ~10 s for GPT-2 small); False skips it
+    preflight: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +180,7 @@ def main(argv=None, *, callbacks=None) -> dict:
     trainer = Trainer(
         ad,
         TrainerConfig(steps=cfg.run.steps, log_every=cfg.run.log_every,
+                      preflight=cfg.run.preflight,
                       ckpt_every=cfg.run.ckpt_every, anomaly=anomaly),
         metrics=metrics,
         ckpt=ckpt,

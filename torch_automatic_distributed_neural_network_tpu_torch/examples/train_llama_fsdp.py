@@ -59,6 +59,9 @@ class RunCfg:
     ckpt_dir: str = ""
     ckpt_every: int = 0
     device: str = "cuda"  # 'cpu' runs the plain PyTorch path
+    # the static lint before step 0 (TrainerConfig.preflight: the step
+    # traced on fake tensors, ~10 s for GPT-2 small); False skips it
+    preflight: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +119,7 @@ def main(argv=None, *, data=None, init_fn=None) -> dict:
     trainer = Trainer(
         ad,
         TrainerConfig(steps=cfg.run.steps, log_every=cfg.run.log_every,
+                      preflight=cfg.run.preflight,
                       ckpt_every=cfg.run.ckpt_every),
         metrics=metrics,
         ckpt=ckpt,

@@ -50,6 +50,8 @@ def main(argv=None, *, data=None) -> dict:
                         "metrics.jsonl) here and train via Trainer")
     p.add_argument("--device", default="cuda",
                    help="'cpu' runs the plain PyTorch path")
+    p.add_argument("--no-preflight", dest="preflight", action="store_false",
+                   help="skip the Trainer's static lint before step 0")
     args = p.parse_args(argv)
 
     device = device_of(args.device)
@@ -105,7 +107,8 @@ def run_observed(args, data, ad, device) -> dict:
                             items_name="images", device=device)
     trainer = Trainer(
         ad,
-        TrainerConfig(steps=args.steps, log_every=args.log_every),
+        TrainerConfig(steps=args.steps, log_every=args.log_every,
+                      preflight=args.preflight),
         metrics=metrics,
         items_per_step=args.batch_size,
         journal=journal,

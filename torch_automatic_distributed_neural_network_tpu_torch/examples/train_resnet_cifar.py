@@ -62,6 +62,9 @@ class RunCfg:
     # synthetic fallback when empty/absent
     data_dir: str = ""
     device: str = "cuda"  # 'cpu' runs the plain PyTorch path
+    # the static lint before step 0 (TrainerConfig.preflight: the step
+    # traced on fake tensors, ~10 s for GPT-2 small); False skips it
+    preflight: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +123,8 @@ def main(argv=None, *, data=None) -> dict:
     )
     trainer = Trainer(
         ad,
-        TrainerConfig(steps=cfg.run.steps, log_every=cfg.run.log_every),
+        TrainerConfig(steps=cfg.run.steps, log_every=cfg.run.log_every,
+                      preflight=cfg.run.preflight),
         metrics=metrics,
         items_per_step=cfg.run.batch_size,
         run_config=cfglib.to_dict(cfg),

@@ -24,9 +24,17 @@ dense PyTorch with the same rounding points (fp32 scores masked to
 ``-0.7 * FLT_MAX``, the running max clamped at half that, ``l >= 1e-30``,
 ``p`` cast to v's type before ``p . v``, ``ds`` cast to q's / k's type
 before ``ds^T . q`` / ``ds . k``).  The wrappers :func:`flash_forward`,
-:func:`flash_dkv` and :func:`flash_dq` run the plain version only for a
-tensor on the CPU; on a CUDA tensor they launch the kernel (and count
-the launch on the wrapper) or raise.
+:func:`flash_dkv` and :func:`flash_dq` call the dispatcher ops
+``tadnn::flash_forward``, ``tadnn::flash_dkv`` and ``tadnn::flash_dq``,
+whose CPU implementation is the plain version and whose CUDA
+implementation launches the kernel (and counts the launch on the
+wrapper) or raises.  Each op has a fake implementation that returns
+empty outputs of the right shapes and types, so a step traced on fake
+tensors (``analysis.graph_lint.trace_step``) holds each launch as one
+node named after its kernel and never reads a data pointer.  On plain
+CUDA tensors with no dispatch mode active a wrapper calls the op's CUDA
+implementation itself (:func:`direct_launch`): the same launch, without
+the dispatcher's cost a call.
 """
 
 from __future__ import annotations
@@ -230,11 +238,13 @@ def _kernel(q, name):
 
 
 def _device_kind(q, name, *rest):
-    """``cpu`` (the plain version) or ``cuda`` (the kernel).  The kernels
-    take raw pointers, so a ``DTensor`` (a sharded plan's global view)
-    is refused, never launched on its local shape or sent to the plain
+    """``cpu`` (the plain version) or ``cuda`` (the kernel; a fake tensor
+    of either device takes the op's fake implementation).  The kernels
+    take raw pointers, so a ``DTensor`` (a sharded plan's global view) is
+    refused, never launched on its local shape or sent to the plain
     version: a plan hands them local tensors."""
-    if any(is_dtensor(t) for t in (q, *rest)):
+    if not all(type(t) is torch.Tensor for t in (q, *rest)) and any(
+            is_dtensor(t) for t in (q, *rest)):
         raise TypeError(f"{name}: got a DTensor; the flash kernels take "
                         f"the local tensors of a sharded plan")
     if q.device.type not in ("cpu", "cuda"):
@@ -242,21 +252,15 @@ def _device_kind(q, name, *rest):
     return q.device.type
 
 
-def flash_forward(q, k, v, *, causal=False, window=None, scale=None):
-    """K1: ``(o, lse)`` of BSHD q, k, v with equal head counts; o in q's
-    type, lse [B, H, Sq] fp32.  ``scale`` (default ``1 / sqrt(hd)``)
-    multiplies the scores.  The plain version on the CPU; on a CUDA
-    tensor the kernel (counted in ``flash_forward.launches``)."""
-    if _device_kind(q, "flash_forward", k, v) == "cpu":
-        return flash_forward_reference(q, k, v, causal, window, scale)
+def _launch_forward(q, k, v, causal, window, scale):
+    """K1's launch: ``(o, lse)`` from the kernel of q's type."""
     B, H, Sq, Sk, hd = _check_operands(q, k, v, causal=causal, window=window)
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr())
-    shape = (B, H, Sq, Sk, hd, int(causal), window or 0,
-             _scale_of(q, scale))
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, scale)
     with torch.cuda.device(q.device):
         err = _kernel(q, "forward")(*ptrs, *shape, stream)
     _raise_on(err, "flash_forward")
@@ -264,24 +268,15 @@ def flash_forward(q, k, v, *, causal=False, window=None, scale=None):
     return o, lse
 
 
-flash_forward.launches = 0
-
-
-def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
-              scale=None):
-    """K2: ``(dk, dv)`` in k's and v's type.  The plain version on the
-    CPU; on a CUDA tensor the kernel (``flash_dkv.launches``)."""
-    if _device_kind(q, "flash_dkv", k, v, do) == "cpu":
-        return flash_dkv_reference(q, k, v, do, lse, delta, causal, window,
-                                   scale)
+def _launch_dkv(q, k, v, do, lse, delta, causal, window, scale):
+    """K2's launch: ``(dk, dv)``."""
     B, H, Sq, Sk, hd = _check_operands(q, k, v, do, stats=(lse, delta),
                                        causal=causal, window=window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    shape = (B, H, Sq, Sk, hd, int(causal), window or 0,
-             _scale_of(q, scale))
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, scale)
     with torch.cuda.device(q.device):
         err = _kernel(q, "dkv")(*ptrs, *shape, stream)
     _raise_on(err, "flash_dkv")
@@ -289,29 +284,145 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
     return dk, dv
 
 
-flash_dkv.launches = 0
-
-
-def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
-             scale=None):
-    """K3: dq in q's type.  The plain version on the CPU; on a CUDA
-    tensor the kernel (``flash_dq.launches``)."""
-    if _device_kind(q, "flash_dq", k, v, do) == "cpu":
-        return flash_dq_reference(q, k, v, do, lse, delta, causal, window,
-                                  scale)
+def _launch_dq(q, k, v, do, lse, delta, causal, window, scale):
+    """K3's launch: dq."""
     B, H, Sq, Sk, hd = _check_operands(q, k, v, do, stats=(lse, delta),
                                        causal=causal, window=window)
     dq = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr())
-    shape = (B, H, Sq, Sk, hd, int(causal), window or 0,
-             _scale_of(q, scale))
+    shape = (B, H, Sq, Sk, hd, int(causal), window or 0, scale)
     with torch.cuda.device(q.device):
         err = _kernel(q, "dq")(*ptrs, *shape, stream)
     _raise_on(err, "flash_dq")
     flash_dq.launches += 1
     return dq
+
+
+# -- the dispatcher ops --------------------------------------------------------
+#
+# One op a kernel in the ``tadnn`` namespace: CPU -> the plain version,
+# CUDA -> the launch, and a fake implementation (FakeTensorMode, the meta
+# device) that only makes outputs of the right shapes and types.
+
+_STATS = "bool causal, int? window, float scale"
+_LIB = torch.library.Library("tadnn", "FRAGMENT")
+_LIB.define(f"flash_forward(Tensor q, Tensor k, Tensor v, {_STATS}) "
+            f"-> (Tensor, Tensor)")
+_LIB.define(f"flash_dkv(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+            f"Tensor delta, {_STATS}) -> (Tensor, Tensor)")
+_LIB.define(f"flash_dq(Tensor q, Tensor k, Tensor v, Tensor do, Tensor lse, "
+            f"Tensor delta, {_STATS}) -> Tensor")
+_LIB.impl("flash_forward", flash_forward_reference, "CPU")
+_LIB.impl("flash_forward", _launch_forward, "CUDA")
+_LIB.impl("flash_dkv", flash_dkv_reference, "CPU")
+_LIB.impl("flash_dkv", _launch_dkv, "CUDA")
+_LIB.impl("flash_dq", flash_dq_reference, "CPU")
+_LIB.impl("flash_dq", _launch_dq, "CUDA")
+
+
+@torch.library.register_fake("tadnn::flash_forward", lib=_LIB)
+def _forward_fake(q, k, v, causal, window, scale):
+    B, Sq, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+@torch.library.register_fake("tadnn::flash_dkv", lib=_LIB)
+def _dkv_fake(q, k, v, do, lse, delta, causal, window, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.register_fake("tadnn::flash_dq", lib=_LIB)
+def _dq_fake(q, k, v, do, lse, delta, causal, window, scale):
+    return torch.empty_like(q)
+
+
+def _flop_formulas() -> None:
+    """K1-K3's FLOPs for ``torch.utils.flop_counter.FlopCounterMode``
+    (``AutoDistribute.compile_report``), which knows no custom op: 2 a
+    multiply-add over every (query, key) pair, as torch counts its own
+    attention (no causal discount), K1 two products (``q k^T``, ``p v``),
+    K2 four (the scores again, ``dp``, ``dv``, ``dk``), K3 three (the
+    scores, ``dp``, ``dq``)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    def products(n):
+        def formula(q_shape, k_shape, *args, out_shape=None, **kwargs):
+            B, Sq, H, hd = q_shape
+            return 2 * n * B * H * Sq * k_shape[1] * hd
+        return formula
+
+    for op, n in ((torch.ops.tadnn.flash_forward, 2),
+                  (torch.ops.tadnn.flash_dkv, 4),
+                  (torch.ops.tadnn.flash_dq, 3)):
+        register_flop_formula(op)(products(n))
+
+
+_flop_formulas()
+
+
+def direct_launch(*tensors) -> bool:
+    """Whether a wrapper may call its op's CUDA implementation itself:
+    plain CUDA tensors (no fake, functional or traced subclass), no
+    dispatch or function mode active and no compile in progress — where
+    the dispatcher would pick that implementation and nothing observes
+    the op.  It saves the dispatcher's boxing into a Python kernel, 9-15
+    us a call on the card (``chip_smoke.py`` phases ``timing`` and
+    ``flash_timing``); anything else (the CPU, a fake trace, a dispatch
+    mode such as ``FlopCounterMode``) goes through the op."""
+    return (all(type(t) is torch.Tensor and t.is_cuda for t in tensors)
+            and not torch._C._len_torch_dispatch_stack()
+            and not torch._C._is_torch_function_mode_enabled()
+            and not torch.compiler.is_compiling())
+
+
+def flash_forward(q, k, v, *, causal=False, window=None, scale=None):
+    """K1: ``(o, lse)`` of BSHD q, k, v with equal head counts; o in q's
+    type, lse [B, H, Sq] fp32.  ``scale`` (default ``1 / sqrt(hd)``)
+    multiplies the scores.  The op ``tadnn::flash_forward``: the plain
+    version on the CPU; on a CUDA tensor the kernel (counted in
+    ``flash_forward.launches``), launched directly where
+    :func:`direct_launch` allows."""
+    _device_kind(q, "flash_forward", k, v)
+    scale = _scale_of(q, scale)
+    if direct_launch(q, k, v):
+        return _launch_forward(q, k, v, causal, window, scale)
+    return torch.ops.tadnn.flash_forward.default(q, k, v, causal, window,
+                                                 scale)
+
+
+flash_forward.launches = 0
+
+
+def flash_dkv(q, k, v, do, lse, delta, *, causal=False, window=None,
+              scale=None):
+    """K2: ``(dk, dv)`` in k's and v's type.  The op ``tadnn::flash_dkv``:
+    the plain version on the CPU; on a CUDA tensor the kernel
+    (``flash_dkv.launches``), directly where :func:`direct_launch`
+    allows."""
+    _device_kind(q, "flash_dkv", k, v, do)
+    scale = _scale_of(q, scale)
+    if direct_launch(q, k, v, do, lse, delta):
+        return _launch_dkv(q, k, v, do, lse, delta, causal, window, scale)
+    return torch.ops.tadnn.flash_dkv.default(q, k, v, do, lse, delta, causal,
+                                             window, scale)
+
+
+flash_dkv.launches = 0
+
+
+def flash_dq(q, k, v, do, lse, delta, *, causal=False, window=None,
+             scale=None):
+    """K3: dq in q's type.  The op ``tadnn::flash_dq``: the plain version
+    on the CPU; on a CUDA tensor the kernel (``flash_dq.launches``),
+    directly where :func:`direct_launch` allows."""
+    _device_kind(q, "flash_dq", k, v, do)
+    scale = _scale_of(q, scale)
+    if direct_launch(q, k, v, do, lse, delta):
+        return _launch_dq(q, k, v, do, lse, delta, causal, window, scale)
+    return torch.ops.tadnn.flash_dq.default(q, k, v, do, lse, delta, causal,
+                                            window, scale)
 
 
 flash_dq.launches = 0

@@ -21,9 +21,15 @@ Shape of the problem (one decode token per slot):
 
 :func:`paged_attention_reference` is the plain version beside it: the
 dense ``gather_blocks`` + ``xla_attention`` path the engine's
-``attention_impl="dense"`` runs.  :func:`paged_attention` uses it only
-for tensors on the CPU; on a CUDA tensor it launches the kernel or
-raises.  :func:`paged_attention_split_reference` is a plain model of the
+``attention_impl="dense"`` runs.  :func:`paged_attention` calls the
+dispatcher op ``tadnn::paged_attention``, whose CPU implementation is the
+plain version and whose CUDA implementation launches the kernel or
+raises; its fake implementation makes an empty output of q's shape and
+type, so a traced decode step (``analysis.serve_trace``) holds the
+launch as one node.  On plain CUDA tensors with no dispatch mode active
+the wrapper calls the CUDA implementation itself
+(``flash_attention.direct_launch``).
+:func:`paged_attention_split_reference` is a plain model of the
 kernel's split-and-merge arithmetic, for the tests.
 
 Under tensor parallelism (``mesh=`` with a ``tensor`` axis of degree t)
@@ -46,6 +52,7 @@ import torch
 from ..inference.quant import kv_leaf_parts
 from .attention import xla_attention
 from .build import load
+from .flash_attention import direct_launch
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -151,7 +158,8 @@ def paged_attention(q: torch.Tensor, k_pool, v_pool, tables: torch.Tensor,
 
     Returns [S, Hq, hd] in ``q.dtype``.  On the CPU this is the plain
     version; on a CUDA tensor it launches the kernel (and counts the
-    launch in ``paged_attention.launches``).  With ``mesh`` of ``axis``
+    launch in ``paged_attention.launches``), past the dispatcher where
+    ``flash_attention.direct_launch`` allows.  With ``mesh`` of ``axis``
     degree t > 1 the operands are this rank's whole-head shard (q [S,
     Hq/t, hd], pools [NB, bs, kvH/t, hd], as :func:`local_heads` cuts
     them), tables and context lengths the full ones, and the result is
@@ -161,24 +169,45 @@ def paged_attention(q: torch.Tensor, k_pool, v_pool, tables: torch.Tensor,
                          for p in (k_pool, v_pool)):
         raise ValueError("a rank's pool shard must be an allocation of "
                          "its own (local_heads), not a strided view")
-    if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pool, v_pool, tables,
-                                         ctx_lens, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    return _paged_attention_cuda(q, k_pool, v_pool, tables, ctx_lens,
-                                 window=window)
+    k_arr, k_scale = kv_leaf_parts(k_pool)
+    v_arr, v_scale = kv_leaf_parts(v_pool)
+    if direct_launch(q, k_arr, v_arr, tables, ctx_lens):
+        return _launch(q, k_arr, v_arr, k_scale, v_scale, tables, ctx_lens,
+                       window)
+    return torch.ops.tadnn.paged_attention.default(
+        q, k_arr, v_arr, k_scale, v_scale, tables, ctx_lens, window)
 
 
 paged_attention.launches = 0
 
 
+def _pool(arr, scale):
+    """A pool leaf from its parts: the dense tensor, or int8's
+    ``{"q", "scale"}``."""
+    return arr if scale is None else {"q": arr, "scale": scale}
+
+
+def _op_cpu(q, k, v, k_scale, v_scale, tables, ctx_lens, window):
+    return paged_attention_reference(q, _pool(k, k_scale), _pool(v, v_scale),
+                                     tables, ctx_lens, window=window)
+
+
 def _paged_attention_cuda(q, k_pool, v_pool, tables, ctx_lens, *, window,
                           splits=None):
-    """The kernel launch; ``splits`` overrides :func:`split_count` (a
-    sweep of the split count)."""
+    """The kernel launch on pool leaves; ``splits`` overrides
+    :func:`split_count` (a sweep of the split count)."""
     k_arr, k_scale = kv_leaf_parts(k_pool)
     v_arr, v_scale = kv_leaf_parts(v_pool)
+    return _launch(q, k_arr, v_arr, k_scale, v_scale, tables, ctx_lens,
+                   window, splits)
+
+
+def _launch(q, k_arr, v_arr, k_scale, v_scale, tables, ctx_lens, window,
+            splits=None):
+    """The kernel launch on the pools' parts (int8's payload and scales
+    apart): the op's CUDA implementation."""
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("k and v pools must both be int8 or both dense")
@@ -255,6 +284,21 @@ def _paged_attention_cuda(q, k_pool, v_pool, tables, ctx_lens, *, window,
             f"{lib.tadnn_cuda_error_string(err).decode()} (cudaError {err})")
     paged_attention.launches += 1
     return out
+
+
+# the dispatcher op: CPU -> the plain version, CUDA -> the launch, fake ->
+# an empty output (a traced decode step's node)
+_LIB = torch.library.Library("tadnn", "FRAGMENT")
+_LIB.define("paged_attention(Tensor q, Tensor k, Tensor v, Tensor? k_scale, "
+            "Tensor? v_scale, Tensor tables, Tensor ctx_lens, int? window) "
+            "-> Tensor")
+_LIB.impl("paged_attention", _op_cpu, "CPU")
+_LIB.impl("paged_attention", _launch, "CUDA")
+
+
+@torch.library.register_fake("tadnn::paged_attention", lib=_LIB)
+def _op_fake(q, k, v, k_scale, v_scale, tables, ctx_lens, window):
+    return torch.empty_like(q)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool, v_pool,

@@ -32,11 +32,13 @@ Guards:
   journaled as ``trace.step``; its wall time goes to goodput's ``trace``
   bucket.  A failed capture journals ``trace.error`` and keeps the
   step's result, as in the JAX package.
-
-Not ported yet (ROADMAP Queue 1 item 7): the static preflight lint
-(``preflight=True`` journals ``lint.skipped`` naming the item, as the
-JAX package does when its analyzer fails; ``preflight_action="raise"``
-raises).
+- preflight: before step 0 the static plan + graph + memory + dtype
+  lint (``analysis.preflight``: the step traced on fake tensors, nothing
+  runs) journals its findings and memory estimate;
+  ``preflight_action="raise"`` turns an error finding (a predicted OOM
+  against ``preflight_budget``) into :class:`analysis.PreflightError`,
+  and an analyzer crash journals ``lint.skipped`` and never blocks
+  training.
 """
 
 from __future__ import annotations
@@ -80,10 +82,6 @@ if TYPE_CHECKING:  # runtime import would be circular (core -> training)
     from ..core import AutoDistribute, TrainState
     from ..obs import Journal
 
-_LINT_ITEM = ("the static preflight lint is not ported to the PyTorch "
-              "package yet (ROADMAP Queue 1 item 7)")
-
-
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 1000
@@ -114,10 +112,17 @@ class TrainerConfig:
     # Drain latency is then up to N step times, which must fit the
     # preemptor's grace window.  One process checks its flag every step.
     preempt_check_every: int = 8
-    # static lint before step 0: not ported yet (module docstring);
-    # True journals lint.skipped, preflight_action='raise' raises
+    # static plan/graph/mem/dtype lint (analysis.preflight) before
+    # step 0: trace-only, nothing runs
     preflight: bool = True
     preflight_action: str = "warn"  # 'warn' | 'raise'
+    # memory budget for the preflight's memory layer (bytes or '16GiB');
+    # None = the detected chip's ChipSpec.  With preflight_action='raise',
+    # a predicted OOM (ML001) aborts before step 0.
+    preflight_budget: "int | str | None" = None
+    # lint codes the preflight suppresses (e.g. ('PL005',)); unknown
+    # codes raise, as in `tadnn check --ignore`
+    preflight_ignore: "tuple[str, ...]" = ()
     # profile every Nth steady-state step with obs/trace (0 = off).  The
     # traced step is fenced under a torch.profiler capture, so its wall
     # time lands in the 'trace' goodput bucket, never 'step'.  Defaults
@@ -243,16 +248,34 @@ class Trainer:
                     # logging, never crashes)
                     self.metrics.close()
 
-    def _preflight(self) -> None:
-        """The static lint before step 0 is not ported: journal what the
-        JAX package journals when its analyzer fails, or raise when the
-        caller asked for findings to be fatal."""
-        if self.cfg.preflight_action == "raise":
-            raise NotImplementedError(
-                f"preflight_action='raise': {_LINT_ITEM}")
-        obs_journal.event("lint.skipped", phase="preflight",
-                          layer="preflight",
-                          error=f"NotImplementedError: {_LINT_ITEM}")
+    def _preflight(self, batch: Any, rng=None) -> None:
+        """Static plan + graph + memory + dtype lint against the built
+        plan and a trace of the step on fake tensors
+        (``analysis.preflight``) — nothing is allocated or executed.
+        ``preflight_action='warn'`` prints findings and continues;
+        ``'raise'`` escalates error-severity findings (including a
+        predicted OOM against ``preflight_budget``) to
+        :class:`analysis.PreflightError`.  A crash in the analyzer
+        itself never blocks training."""
+        from .. import analysis
+
+        try:
+            findings = analysis.preflight(
+                self.ad, batch, rng=rng,
+                budget=self.cfg.preflight_budget,
+                ignore=self.cfg.preflight_ignore,
+            )
+        except Exception as e:
+            obs_journal.event("lint.skipped", phase="preflight",
+                              layer="preflight",
+                              error=f"{type(e).__name__}: {e}")
+            return
+        if findings and process_index() == 0:
+            for f in findings:
+                print(f"preflight: {f.format()}", file=sys.stderr)
+        if self.cfg.preflight_action == "raise" and any(
+                f.severity == analysis.ERROR for f in findings):
+            raise analysis.PreflightError(findings)
 
     def _fit(
         self,
@@ -295,7 +318,16 @@ class Trainer:
         else:
             start = int(state.step)
         if cfg.preflight:
-            self._preflight()
+            pf_batch = first
+            if pf_batch is None and indexed:
+                try:
+                    pf_batch = data.batch(start + self._batch_offset)
+                except Exception:
+                    pf_batch = None
+            if pf_batch is not None:
+                # shares the compile bucket: trace-time work before step 0
+                with meter.measure("compile"):
+                    self._preflight(pf_batch, rng)
         from ..core import mesh_degrees
 
         plan = self.ad.plan

@@ -14,9 +14,9 @@ The PyTorch package's port of the JAX package's ``tune/measure.py``:
 ``time_step`` fences with ``torch.cuda.synchronize`` on the state's
 device (nothing to fence on the CPU), and the candidates' weights come
 from one seed (an int, or a ``torch.Generator``'s initial seed), drawn
-anew on each candidate's device.  The compiled step's FLOPs are not
-read: the port compiles no step whose cost it could ask for
-(``_compiled_flops``, ROADMAP Queue 1 item 7d).
+anew on each candidate's device.  A trial's ``compiled_flops`` come
+from ``AutoDistribute.compile_report`` (the step's FLOPs counted on fake
+tensors: the port compiles no step whose cost it could ask for).
 """
 
 from __future__ import annotations
@@ -108,10 +108,12 @@ def measure_candidates(
 
 
 def _compiled_flops(ad, state, batch) -> float | None:
-    """FLOPs of the compiled step.  The port's step is eager PyTorch with
-    no compiled cost to read (``utils/profiling.compiled_cost`` counts
-    FLOPs by running a call, which here would take one more step): the
-    step's cost comes with ``compile_report``, ROADMAP Queue 1 item 7d,
-    and until then the trial carries no ``compiled_flops`` — the JAX
-    package's answer when its backend gives none."""
-    return None
+    """FLOPs of the step from ``AutoDistribute.compile_report`` (the step
+    run once on fake tensors under ``FlopCounterMode``'s formulas; K1-K3
+    by their registered ones) — None when the report has none, as the
+    JAX package answers when its backend gives no cost analysis."""
+    try:
+        report = ad.compile_report(None, batch)
+    except Exception:  # noqa: BLE001 — a cost, never a veto
+        return None
+    return (report or {}).get("flops")

@@ -296,9 +296,8 @@ def _profiled_activation_bytes(
     batch-proportional term rescales linearly to this candidate's
     items/device, param-shaped transients (grads, optimizer
     temporaries) scale with the candidate's average param shard
-    fraction, the remainder is charged in full.  (The port takes no
-    liveness profile until ``AutoDistribute.activation_profile`` is
-    ported, ROADMAP Queue 1 item 7d; a caller may still pass one.)"""
+    fraction, the remainder is charged in full
+    (``AutoDistribute.activation_profile`` makes the profile)."""
     key = "remat" if (remat and act_profile.get("remat")) else "noremat"
     prof = act_profile.get(key) or act_profile.get("noremat") or {}
     n0 = max(1, int(act_profile.get("batch_items") or 1))

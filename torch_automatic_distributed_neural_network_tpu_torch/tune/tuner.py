@@ -56,9 +56,9 @@ class TunePolicy:
     # Liveness activation profile of the real traced step — swaps the
     # coarse activation heuristic for measured liveness intervals in
     # memory pruning and ranking.  A plain JSON-able dict, so it hashes
-    # into the cache key like every other knob.  The port takes none
-    # until AutoDistribute.activation_profile is ported (ROADMAP Queue
-    # 1 item 7d); AutoDistribute passes None.
+    # into the cache key like every other knob
+    # (AutoDistribute.activation_profile: the step traced on fake
+    # tensors, no device needed).
     act_profile: Any = None
 
 

@@ -10,7 +10,11 @@ analysis these replace).
   (``torch.utils.flop_counter.FlopCounterMode``) and, on CUDA, the peak
   memory the call allocated.  PyTorch compiles no program ahead of
   time, so "compiled" keeps the JAX name only: the call executes.  The
-  JAX package's on-disk cost cache waits for ROADMAP Queue 1 item 4.
+  JAX package's on-disk cost cache waits for ROADMAP Queue 1 item 4;
+- :class:`LiveBytes` counts the bytes of the storages alive during a
+  call, fake tensors' too, and :class:`Flops` its FLOPs: run under
+  ``FakeTensorMode`` they measure a step with nothing allocated
+  (``AutoDistribute.compile_report``).
 """
 
 from __future__ import annotations
@@ -18,7 +22,12 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
+import weakref
 from typing import Any
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 @contextlib.contextmanager
 def trace(logdir: str, device: Any = None):
@@ -142,3 +151,75 @@ def memory_stats(device: Any | None = None) -> dict | None:
         return dict(torch.cuda.memory_stats(dev))
     except Exception:  # noqa: BLE001 — no allocator statistics
         return None
+
+
+
+class LiveBytes(TorchDispatchMode):
+    """A dispatch mode that tracks the bytes of live storages: each
+    storage an op makes is counted from the op until the storage is
+    freed (a weak reference's callback), a view or an in-place result of
+    a storage it knows is not counted again.  ``track`` registers
+    storages made before the mode (a call's arguments).  ``current`` and
+    ``peak`` are bytes; under ``FakeTensorMode`` the fake storages are
+    counted as the real ones would be and nothing is allocated."""
+
+    def __init__(self):
+        super().__init__()
+        self.live: dict[int, int] = {}
+        self.current = 0
+        self.peak = 0
+
+    def _add(self, t) -> int:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return key
+        n = int(st.nbytes())
+        self.live[key] = n
+        self.current += n
+        self.peak = max(self.peak, self.current)
+        weakref.finalize(st, self._drop, key)
+        return key
+
+    def _drop(self, key: int) -> None:
+        self.current -= self.live.pop(key, 0)
+
+    def track(self, tree) -> set[int]:
+        """Count the storages of ``tree``'s tensors; returns their keys."""
+        return {self._add(t) for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+
+    @staticmethod
+    def keys(tree) -> set[int]:
+        """The storage keys of ``tree``'s tensors."""
+        return {t.untyped_storage()._cdata for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._add(t)
+        return out
+
+
+class Flops(TorchDispatchMode):
+    """FLOPs of the ops run under it, by ``FlopCounterMode``'s own formula
+    table (``torch.utils.flop_counter.flop_registry``, K1-K3 registered
+    there by ``ops/flash_attention.py``).  The mode itself is not used:
+    its module tracker hooks every module's gradients, which
+    ``torch.autograd.grad`` through a checkpointed layer refuses."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.total += int(formula(*args, **kwargs, out_val=out))
+        return out
