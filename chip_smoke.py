@@ -378,7 +378,31 @@ card, in phases, one JSON line each; any failure exits non-zero:
    whose decode trace holds K4 once a layer and no GL001; and
    ``Trainer.fit`` of 3 steps with ``preflight_action="raise"``
    journaling ``lint.mem_estimate`` and no ``lint.skipped``, K1-K3
-   launching 24/12/12 a step.
+   launching 24/12/12 a step;
+32. the collectives benchmarks (``bench``) in a world of one NCCL
+   rank: ``collectives.bench_sweep`` (all-reduce, all-gather,
+   reduce-scatter at 1, 16 and 128 MiB a rank) and ``bench_overlap`` at
+   JAX's defaults, one line each; each collective's result equals its
+   input, one device, every CUDA-event total above 1 us, and the
+   overlap's ``both`` no faster than half its matmuls.  A world of one
+   rank moves nothing between cards: ``bus_bw_gbps`` is 0 by the
+   NCCL-tests factor, and no interconnect is measured;
+33. the export cache (``export``): two fresh processes, each building
+   into an empty directory of its own (``topology.
+   enable_compilation_cache``) and sharing one export cache, train GPT-2
+   small (12 layers, B 8 x S 1024, ``adamw``) 3 steps under
+   ``AutoDistribute`` while a GPT-2 small ``ServeEngine`` is made on a
+   second thread (a cold start's two builds run together), which then
+   serves 4 requests (128 + 16 tokens).  The cold one journals
+   ``export.miss`` and ``export.store`` for the train step and both
+   serving kinds, and ``nvcc`` builds the kernels; the warm one only
+   ``export.hit``, no ``nvcc`` (counted on ``ops/build``), its
+   ``deserialize_s`` below the cold ``compile_s``; both launch K1-K3
+   24/12/12 a step and K4, with losses bitwise and tokens identical.
+   The warm process then rewrites the train step's entry as another
+   torch's: exporting it again journals ``export.stale`` and rebuilds
+   K1-K3's sources (``nvcc``) and stores them.  The cache then holds
+   each library once, however many entries point at it.
 
 Every ``Trainer`` of phases 1-30 is given ``preflight=False``
 (``run.preflight=False``, ``--no-preflight`` in the examples' argv):
@@ -409,6 +433,7 @@ import subprocess
 import sys
 import time
 
+_T0 = time.monotonic()  # this process's clock at the script's import
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # the depth of three host-bound paths, `generate`, `serve_lora` and `moe`
 # (each at its model's full width): with every phase at full depth the
@@ -6511,6 +6536,314 @@ def phase_fit(torch) -> dict[str, int]:
     return {n: step_launches[n] + fit_launches[n] for n in per_step}
 
 
+# -- phase 32: the collectives benchmarks ------------------------------------
+
+BENCH_SIZES = (2**20, 2**24, 2**27)  # 1, 16, 128 MiB
+BENCH_OPS = ("allreduce", "allgather", "reduce_scatter")
+BENCH_ITERS, OVERLAP_ITERS = 10, 5  # bench_collective's, bench_overlap's
+BENCH_NOTE = ("a world of one NCCL rank measures no interconnect: nothing "
+              "crosses cards, and bus_bw_gbps is 0 by the NCCL-tests factor "
+              "(2(n-1)/n, (n-1)/n at n = 1)")
+
+
+def phase_bench(torch) -> None:
+    """``collectives.bench_sweep`` (all-reduce, all-gather, reduce-scatter
+    at 1, 16 and 128 MiB a rank) and ``bench_overlap`` at JAX's defaults
+    in a world of one NCCL rank: each collective's result equals its
+    input, one device, every CUDA-event total above 1 us, and the
+    overlap's ``both`` no faster than half its matmuls alone.  No
+    interconnect is measured (``BENCH_NOTE``)."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch_automatic_distributed_neural_network_tpu_torch import topology
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel import \
+        collectives as C
+
+    pg_dir = tempfile.mkdtemp()
+    topology.initialize_distributed(
+        backend="nccl", init_method=f"file://{os.path.join(pg_dir, 'pg')}",
+        world_size=1, rank=0)
+    try:
+        mesh = topology.build_mesh(data=-1)
+        gen = torch.Generator(device="cuda").manual_seed(32)
+        x = torch.randn(BENCH_SIZES[0] // 4, device="cuda", generator=gen)
+        for op in BENCH_OPS:
+            y = C._bench_op(op, mesh, "data")(x)
+            torch.cuda.synchronize()
+            require(torch.equal(y, x),
+                    f"bench: {op} over one rank changed its input")
+        t0 = time.monotonic()
+        rows = C.bench_sweep(sizes=BENCH_SIZES, ops=BENCH_OPS, mesh=mesh,
+                             iters=BENCH_ITERS)
+        # a time is the CUDA-event total over the iterations; the gates
+        # hold that total above 1 us, which the 1e-9 s floor of
+        # ``_timed_s`` cannot pass
+        for r in rows:
+            emit({"phase": "bench", **r.to_json(), "note": BENCH_NOTE})
+            require(r.n_devices == 1 and r.time_s * BENCH_ITERS > 1e-6,
+                    f"bench: {r.to_json()}")
+            require(r.bus_bw_gbps == 0.0, f"bench: one rank's bus "
+                                          f"bandwidth {r.bus_bw_gbps}")
+        ov = C.bench_overlap(mesh=mesh, iters=OVERLAP_ITERS)
+        tc, tm, tb = ov.t_compute_s, ov.t_comm_s, ov.t_both_s
+        emit({"phase": "bench_overlap", **ov.to_json(),
+              "overlap_frac_unclamped": (tc + tm - tb) / min(tc, tm),
+              "sweep_seconds": time.monotonic() - t0, "note": BENCH_NOTE})
+        # ``both`` runs the matmul chain of ``compute_only`` and more
+        require(ov.n_devices == 1 and min(tc, tm, tb) * OVERLAP_ITERS > 1e-6
+                and tb >= 0.5 * tc, f"bench_overlap: {ov.to_json()}")
+    finally:
+        dist.destroy_process_group()
+
+
+# -- phase 33: the export cache ---------------------------------------------
+
+EXPORT_STEPS = 3
+EXPORT_SERVE = dict(n_slots=4, max_len=1024, block_size=16)
+EXPORT_REQUESTS = (4, 128, 16)  # requests, prompt tokens, new tokens
+EXPORT_KINDS = ("train_step", "serve_decode", "serve_prefill")
+
+
+def _export_events(records) -> list[dict]:
+    return [{k: r[k] for k in ("name", "kind", "key", "compile_s",
+                               "deserialize_s", "payload_bytes", "reason")
+             if k in r} for r in records
+            if r.get("name", "").startswith("export.")]
+
+
+def _export_engine(torch, cache_dir, seed=1):
+    """GPT-2 small (fp32, weights from ``seed``) in a ``ServeEngine`` with
+    the export cache (its construction installs or builds K4's library),
+    and ``EXPORT_REQUESTS``'s seeded prompts."""
+    from torch_automatic_distributed_neural_network_tpu_torch.inference \
+        .serve import ServeEngine
+    from torch_automatic_distributed_neural_network_tpu_torch.models import (
+        DecoderLM, gpt2_config)
+
+    with torch.device("cuda"):
+        model = DecoderLM(gpt2_config("small", max_seq_len=1024,
+                                      dtype=torch.float32))
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    n, plen, _ = EXPORT_REQUESTS
+    gen = torch.Generator().manual_seed(seed)
+    prompts = torch.randint(0, model.cfg.vocab_size, (n, plen),
+                            generator=gen).tolist()
+    return ServeEngine(model, device="cuda", export_cache=cache_dir,
+                       **EXPORT_SERVE), prompts
+
+
+def _export_child(out_path: str, build_dir: str, cache_dir: str,
+                  stale: bool) -> int:
+    """One of phase ``export``'s fresh processes: the kernels build into
+    an empty ``build_dir`` (``topology.enable_compilation_cache``), the
+    export cache is ``cache_dir``.  GPT-2 small trains ``EXPORT_STEPS``
+    steps under ``AutoDistribute`` (``adamw``) while, on a second thread,
+    a GPT-2 small ``ServeEngine`` is made (a cold start's two kernel
+    builds run together), which then serves ``EXPORT_REQUESTS``; journals
+    validated.  With ``stale``, the train step's entry is then rewritten
+    as if made by another torch and exported again (``export_step`` of
+    the model on the meta device).  Writes a JSON record."""
+    import os
+    import threading
+
+    import torch
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2, AutoDistribute, SyntheticLM, adamw, next_token_loss, topology)
+    from torch_automatic_distributed_neural_network_tpu_torch.export import \
+        env_fingerprint
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.journal \
+        import Journal, as_default
+    from torch_automatic_distributed_neural_network_tpu_torch.ops import (
+        build, flash_attention as fa)
+    from torch_automatic_distributed_neural_network_tpu_torch.ops \
+        .paged_attention import paged_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    require(topology.enable_compilation_cache(build_dir) == build_dir
+            and not os.listdir(build_dir), "export: build dir not empty")
+    out = {"marks": {"entry": time.monotonic() - _T0}}
+    jnl = Journal(host0_only=False, validate=True)
+    wrappers = (fa.flash_forward, fa.flash_dkv, fa.flash_dq)
+    made: dict = {}
+
+    def make_engine():
+        t0 = time.monotonic()
+        try:
+            made["engine"] = _export_engine(torch, cache_dir)
+        except BaseException as e:  # re-raised on the main thread
+            made["error"] = e
+        made["seconds"] = time.monotonic() - t0
+
+    with as_default(jnl):
+        serve_thread = threading.Thread(target=make_engine)
+        serve_thread.start()
+        t0 = time.monotonic()
+        ad = AutoDistribute(GPT2("small"), optimizer=adamw(1e-3),
+                            loss_fn=next_token_loss, export_cache=cache_dir)
+        batch = SyntheticLM(vocab_size=50257, seq_len=1025,
+                            batch_size=8).batch(0)
+        state = ad.init(torch.Generator(device="cuda").manual_seed(0), batch)
+        out["init_s"] = time.monotonic() - t0
+        for w in wrappers:
+            w.launches = 0
+        losses = []
+        for _ in range(EXPORT_STEPS):
+            state, metrics = ad.step(state, batch)
+            losses.append(float(metrics["loss"]))
+        out["losses"] = losses
+        out["marks"]["trained"] = time.monotonic() - _T0
+        out["train_launches"] = {w.__name__: w.launches for w in wrappers}
+        del ad, state
+        serve_thread.join()
+        if "error" in made:
+            raise made["error"]
+        out["marks"]["engine"] = time.monotonic() - _T0
+        eng, prompts = made.pop("engine")
+        paged_attention.launches = 0
+        reqs = [eng.submit(p, max_new_tokens=EXPORT_REQUESTS[2],
+                           eos_id=None) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        out.update(engine_s=made["seconds"],
+                   tokens=[r.out_tokens for r in reqs],
+                   serve_launches=paged_attention.launches)
+        out["marks"]["served"] = time.monotonic() - _T0
+        del eng
+        out["nvcc"] = build.nvcc_invocations
+        out["events"] = _export_events(jnl.records)
+        out["env"] = env_fingerprint()
+        if stale:
+            index = os.path.join(cache_dir, "index.jsonl")
+            lines = []
+            with open(index) as f:
+                for line in f:
+                    rec = json.loads(line)
+                    if rec["record"].get("kind") == "train_step":
+                        rec["record"]["env"]["torch"] = "0.0.0-elsewhere"
+                    lines.append(json.dumps(rec))
+            with open(index, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            n = len(jnl.records)
+            with torch.device("meta"):
+                model = GPT2("small")
+            info = AutoDistribute(
+                model, optimizer=adamw(1e-3), loss_fn=next_token_loss,
+                export_cache=cache_dir).export_step(None, batch)
+            out["stale"] = {"events": _export_events(jnl.records[n:]),
+                            "nvcc": build.nvcc_invocations - out["nvcc"],
+                            "info": info}
+    out["marks"]["end"] = time.monotonic() - _T0
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_export(torch) -> dict[str, int]:
+    """The export cache across processes: a cold and a warm fresh process
+    (``_export_child``), each building into an empty directory of its
+    own, share one export cache.  Cold: ``export.miss`` then
+    ``export.store`` for the train step and both serving kinds, ``nvcc``
+    ran.  Warm: only ``export.hit``, no ``nvcc``, ``deserialize_s`` below
+    the cold ``compile_s``; K1-K3 24/12/12 a step and K4 launched from
+    the installed libraries, losses bitwise and tokens identical to the
+    cold run's.  Then the train step's entry rewritten as another
+    torch's: ``export.stale``, K1-K3's sources rebuilt (``nvcc`` ran)
+    and stored again.  Returns the kernels' launches in the two runs."""
+    import os
+    import tempfile
+
+    from torch_automatic_distributed_neural_network_tpu_torch.export import \
+        ExecutableCache
+
+    root = tempfile.mkdtemp(prefix="tadnn_export_")
+    cache_dir = os.path.join(root, "cache")
+    runs = {}
+    for name in ("cold", "warm"):
+        build_dir = os.path.join(root, f"build_{name}")
+        os.makedirs(build_dir)
+        path = os.path.join(root, f"{name}.json")
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--export-child",
+             path, "--export-build", build_dir, "--export-cache",
+             cache_dir] + (["--export-stale"] if name == "warm" else []),
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "OMP_NUM_THREADS": "4"})
+        require(proc.returncode == 0, f"export: the {name} child failed "
+                                      f"(rc {proc.returncode})\n"
+                                      f"{proc.stderr[-3000:]}")
+        with open(path) as f:
+            runs[name] = json.load(f)
+        runs[name]["process_s"] = time.monotonic() - t0
+    cold, warm = runs["cold"], runs["warm"]
+    # every library is kept once, however many entries point at it
+    # (K4's for both serving kinds)
+    exe = ExecutableCache(cache_dir)
+    pointed = sorted({f for rec in exe.entries().values()
+                      for f in exe.payload_files(rec)})
+    stored = sorted(os.path.relpath(os.path.join(d, n), cache_dir)
+                    for d, _, names in os.walk(os.path.join(cache_dir,
+                                                            "libs"))
+                    for n in names)
+    require(stored == pointed and len(stored) == len(
+        {os.path.basename(f) for f in stored}),
+        f"export: library files {stored} against the records' {pointed}")
+    by = {name: {e["kind"]: e for e in runs[name]["events"]
+                 if e["name"] in ("export.store", "export.hit")}
+          for name in runs}
+    compile_s = by["cold"]["train_step"]["compile_s"]
+    deserialize_s = by["warm"]["train_step"]["deserialize_s"]
+    keep = ("init_s", "engine_s", "process_s", "marks", "nvcc", "losses",
+            "train_launches", "serve_launches", "events")
+    emit({"phase": "export",
+          "cold": {k: cold[k] for k in keep},
+          "warm": {k: warm[k] for k in keep},
+          "stale": {k: warm["stale"][k] for k in ("events", "nvcc")},
+          "env": warm["env"], "library_files": stored,
+          "compile_s": compile_s, "deserialize_s": deserialize_s,
+          "payload_bytes": {k: e.get("payload_bytes")
+                            for k, e in by["cold"].items()}})
+    # the engine's kinds are exported on their own thread: each kind's
+    # events in order, the kinds in any order
+    for kind in EXPORT_KINDS:
+        names = [e["name"] for e in cold["events"] if e["kind"] == kind]
+        require(names == ["export.miss", "export.store"],
+                f"export: cold {kind} events {names}")
+    require(len(cold["events"]) == 2 * len(EXPORT_KINDS),
+            f"export: cold events {cold['events']}")
+    require(cold["nvcc"] >= 3, f"export: cold nvcc runs {cold['nvcc']}")
+    warm_names = sorted((e["name"], e["kind"]) for e in warm["events"])
+    require(warm_names == sorted(("export.hit", k) for k in EXPORT_KINDS),
+            f"export: warm events {warm_names}")
+    require(warm["nvcc"] == 0, f"export: warm nvcc runs {warm['nvcc']}")
+    require(deserialize_s < compile_s,
+            f"export: deserialize {deserialize_s} s >= compile {compile_s} s")
+    require(cold["losses"] == warm["losses"]
+            and all(math.isfinite(x) for x in cold["losses"]),
+            f"export: losses {cold['losses']} vs {warm['losses']}")
+    per_step = {"flash_forward": 24, "flash_dkv": 12, "flash_dq": 12}
+    for run in (cold, warm):
+        require(run["train_launches"] == {
+            k: v * EXPORT_STEPS for k, v in per_step.items()},
+            f"export: K1-K3 launches {run['train_launches']}")
+        require(run["serve_launches"] > 0, "export: K4 never launched")
+    require(cold["tokens"] == warm["tokens"], "export: tokens differ")
+    stale = warm["stale"]
+    stale_names = [(e["name"], e["kind"]) for e in stale["events"]]
+    require(stale_names == [("export.stale", "train_step"),
+                            ("export.store", "train_step")]
+            and "0.0.0-elsewhere" in stale["events"][0]["reason"],
+            f"export: stale events {stale_names}")
+    require(stale["nvcc"] >= 1, "export: the stale entry was not rebuilt")
+    return {**{k: cold["train_launches"][k] + warm["train_launches"][k]
+               for k in per_step},
+            "paged_attention": (cold["serve_launches"]
+                                + warm["serve_launches"])}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -6534,6 +6867,12 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-rank", type=int, default=0,
                     help=argparse.SUPPRESS)
     ap.add_argument("--sharded-init", default=None, help=argparse.SUPPRESS)
+    # phase export's fresh processes
+    ap.add_argument("--export-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--export-build", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--export-cache", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--export-stale", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     only = None if args.phases is None else set(args.phases.split(","))
     if only is not None and not only <= set(PHASES):
@@ -6564,6 +6903,9 @@ def main(argv=None) -> int:
     if args.sharded_child:
         return _sharded_serve_child(args.sharded_child, args.sharded_rank,
                                     args.sharded_init)
+    if args.export_child:
+        return _export_child(args.export_child, args.export_build,
+                             args.export_cache, args.export_stale)
     from torch_automatic_distributed_neural_network_tpu_torch.models import (
         gpt2_config, llama_config)
     from torch_automatic_distributed_neural_network_tpu_torch.models \
@@ -6710,6 +7052,11 @@ def main(argv=None) -> int:
     if run("fit"):
         fit_launches = phase_fit(torch)
         torch.cuda.empty_cache()
+    if run("bench"):
+        phase_bench(torch)
+        torch.cuda.empty_cache()
+    if run("export"):
+        export_launches = phase_export(torch)
     seconds = time.monotonic() - t_start
     order = sorted(starts, key=starts.get)
     emit({"phase": "done", "seconds": seconds, "phase_start_s": starts,
@@ -6725,7 +7072,8 @@ def main(argv=None) -> int:
         "launches": (paged_launches + lora_k4_launches + moe_k4_launches
                      + bridges_launches["paged_attention"]
                      + sharded_serve_launches["paged_attention"]
-                     + gateway_launches + ingress_launches),
+                     + gateway_launches + ingress_launches
+                     + export_launches["paged_attention"]),
         "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": None}]
@@ -6740,7 +7088,7 @@ def main(argv=None) -> int:
                          + bridges_launches[name]
                          + sharded_serve_launches[name]
                          + tune_launches[name] + trace_launches[name]
-                         + fit_launches[name]),
+                         + fit_launches[name] + export_launches[name]),
             **{key: rec[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},
@@ -6766,7 +7114,7 @@ PHASES = ("build", "kernel_cases", "timing", "tile_check",
           "serve_prefix", "serve_spec", "head_dim_96", "lora_train",
           "serve_lora", "zoo", "resnet", "llama_fsdp", "moe", "pipeline_cp",
           "bridges", "sharded_serve", "gateway", "ingress", "tune",
-          "trace", "fit")
+          "trace", "fit", "bench", "export")
 
 
 if __name__ == "__main__":

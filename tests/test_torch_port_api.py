@@ -32,9 +32,9 @@ from torch_automatic_distributed_neural_network_tpu_torch import (
 )
 from torch_automatic_distributed_neural_network_tpu_torch.models import gpt2_config
 
-# JAX's names the port leaves to later slices: the export cache (ROADMAP
-# Queue 1 item 4) and the obs / tune subpackages (item 7)
-LATER = {"enable_compilation_cache", "obs", "tune"}
+# JAX's names the port leaves out of its top level: the obs / tune
+# subpackages (imported by their own path)
+LATER = {"obs", "tune"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -125,7 +125,7 @@ def test_autodistribute_is_the_functional_alias():
 
 def test_top_level_names_hold_jax_all():
     """Every name of JAX's ``__all__`` imports from the port and is in its
-    ``__all__``, but the three later ones; each is the port's own
+    ``__all__``, but the two subpackages; each is the port's own
     counterpart (the planner's and the topology's)."""
     missing = set(jtad.__all__) - set(tad.__all__)
     assert missing == LATER

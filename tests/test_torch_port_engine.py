@@ -162,8 +162,10 @@ def test_engine_checks_and_later_slices():
         eng.submit([], max_new_tokens=2)
     with pytest.raises(ValueError, match="learned positions"):
         ServeEngine(tm, device="cpu", max_len=128)
-    with pytest.raises(NotImplementedError, match="later slice .*item 4"):
-        ServeEngine(tm, device="cpu", export_cache="dir")
+    # the export cache is ported (tests/test_torch_port_export.py): off
+    # with export_cache=False, nothing recorded
+    assert ServeEngine(tm, device="cpu", max_len=64,
+                       export_cache=False).export_info == []
     # disaggregated and tensor-parallel serving are ported
     # (tests/test_torch_port_serve_tp.py); a mesh with another axis above
     # 1 is refused

@@ -346,8 +346,10 @@ def test_autodistribute_precision_storage(precision):
 
 def test_autodistribute_refuses_what_is_not_ported(monkeypatch, tmp_path):
     """What the port cannot run raises ``NotImplementedError`` naming its
-    ROADMAP item, never a quiet fall to another strategy: the export
-    cache (item 4).  The measured search is ported
+    ROADMAP item, never a quiet fall to another strategy.  The export
+    cache is ported (``tests/test_torch_port_export.py``): off with
+    ``export_cache=False``, where ``export_step`` is JAX's ValueError.
+    The measured search is ported
     (``tests/test_torch_port_search.py``): on one device it is JAX's
     no-op to ``dp`` with an empty ``search_report``.  The tuned strategy
     is ported: on one device the tuner falls back to the ``auto``
@@ -381,9 +383,10 @@ def test_autodistribute_refuses_what_is_not_ported(monkeypatch, tmp_path):
     check_executable(make_plan(
         abstract_params(MoE("test", vocab_size=256)),
         mesh={"expert": 2, "tensor": 2}, strategy="ep_tp"))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="disabled"):
         AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
-                       export_cache=True)
+                       export_cache=False).export_step(None, None,
+                                                       cache=False)
     ad = AutoDistribute(model, loss_fn=next_token_loss, device="cpu",
                         strategy="search")
     assert ad.build_plan().strategy == "dp" and ad.search_report == []

@@ -64,6 +64,16 @@ profiler capture), recording the attribution records, the measured
 collective bytes of the traced steps, ``comms.comm_profile``'s
 per-device estimate and the crosscheck of the two.
 
+A job may also hold ``bench``: each collective of
+``collectives.bench_collective`` on this rank's row of the job's seeded
+inputs (``_bench_op``), then ``bench_collective`` at the job's sizes and
+``bench_overlap``, recording every rank's results; and ``export``: an
+``AutoDistribute`` with the job's export cache for the ``tadnn export
+--worlds`` config and for the launcher worker's (their export events and
+keys), ``compiled_step_text`` under fsdp with ``graph_lint``'s
+collective inventory of the same trace, and ``state_shardings`` under
+fsdp, tp and ZeRO-1 against the placements of the tensors ``init`` made.
+
 A job may also hold ``bridge_tp``: a bridged ``nn.Transformer``
 (``from_torch``'s graph, layout and weights) trained under ``tp`` on the
 MT loss, recording the losses, each parameter's local shape, the plan's
@@ -73,6 +83,7 @@ specs and the trained parameters gathered.
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -1167,6 +1178,142 @@ def _lint_runs(lj, rank, world):
     return out
 
 
+def _bench_runs(bj, rank, world):
+    import torch.distributed as dist
+
+    from torch_automatic_distributed_neural_network_tpu_torch import topology
+    from torch_automatic_distributed_neural_network_tpu_torch.parallel import (
+        collectives as C,
+    )
+
+    mesh = topology.build_mesh(data=world)
+    out = {"results": {op: C._bench_op(op, mesh, "data")(
+        torch.from_numpy(x[rank])) for op, x in bj["inputs"].items()},
+        "bench": [r.to_json() for r in C.bench_sweep(
+            sizes=bj["sizes"], ops=tuple(bj["inputs"]), mesh=mesh, iters=2,
+            warmup=1)],
+        "overlap": C.bench_overlap(mesh=mesh, d=128, layers=3,
+                                   bucket_bytes=2**16, iters=2,
+                                   warmup=1).to_json()}
+    gathered = [None] * world
+    dist.all_gather_object(gathered, out)
+    return gathered
+
+
+def _full_placements(t, axes):
+    """``t``'s placements over every mesh axis (a plain tensor is
+    replicated; a DTensor's mesh may be a sub-mesh)."""
+    from torch.distributed.tensor import Replicate
+
+    from torch_automatic_distributed_neural_network_tpu_torch.utils.device import (
+        is_dtensor,
+    )
+
+    if not is_dtensor(t):
+        return tuple(Replicate() for _ in axes)
+    own = dict(zip(t.device_mesh.mesh_dim_names, t.placements))
+    return tuple(own.get(ax, Replicate()) for ax in axes)
+
+
+def _shardings_vs_init(ad, state):
+    """(tensors checked, mismatches) of ``state_shardings`` against the
+    placements of the tensors ``init`` made, on the live axes."""
+    sh = ad.state_shardings(state)
+    degrees = ad.plan.degrees
+    axes = tuple(degrees)
+    live = [i for i, ax in enumerate(axes) if degrees[ax] > 1]
+    pairs = [(f"params/{n}", t, sh.params[n]) for n, t in state.params.items()]
+
+    def walk(tree, spec_tree, path):
+        if isinstance(tree, dict):
+            for k in tree:
+                walk(tree[k], spec_tree[k], f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, (a, b) in enumerate(zip(tree, spec_tree)):
+                walk(a, b, f"{path}/{i}")
+        elif isinstance(tree, torch.Tensor):
+            pairs.append((path, tree, spec_tree))
+
+    walk(state.opt_state, sh.opt_state, "opt_state")
+    bad = []
+    for path, t, ns in pairs:
+        got = [ns.placements[i] for i in live]
+        want = [_full_placements(t, axes)[i] for i in live]
+        if got != want:
+            bad.append((path, str(got), str(want)))
+    return len(pairs), bad
+
+
+def _export_runs(ej, rank, world):
+    from torch_automatic_distributed_neural_network_tpu_torch import (
+        GPT2,
+        AutoDistribute,
+        SyntheticLM,
+        adamw,
+        next_token_loss,
+        sgd,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.analysis import (
+        graph_lint,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.obs import (
+        journal as J,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.obs.trace import (
+        hlo_collective_bytes,
+    )
+    from torch_automatic_distributed_neural_network_tpu_torch.training import (
+        launch,
+    )
+
+    torch.manual_seed(0)
+    cli_batch = {"tokens": np.zeros((ej["batch"], ej["seq"] + 1), np.int32)}
+
+    def gpt2():
+        return GPT2("test", max_seq_len=ej["seq"])
+
+    def looked_up(make, batch_of):
+        j = J.Journal()
+        with J.as_default(j):
+            ad = make()
+            ad.init(torch.Generator().manual_seed(0), batch_of(ad))
+        return {"events": [r["name"] for r in j.records
+                           if r["name"].startswith("export.")],
+                "key": ad._export_info["key"]}
+
+    out = {"cli": looked_up(lambda: AutoDistribute(
+        gpt2(), optimizer=adamw(1e-4), loss_fn=next_token_loss,
+        strategy="dp", device="cpu", export_cache=ej["cache"]),
+        lambda ad: cli_batch)}
+    lw = ej["launch"]
+    out["launch"] = looked_up(lambda: AutoDistribute(
+        GPT2("test", vocab_size=lw["vocab_size"],
+             max_seq_len=lw["seq_len"] - 1),
+        optimizer=sgd(lw["lr"]), loss_fn=next_token_loss, strategy="auto",
+        device="cpu", export_cache=ej["cache"]),
+        lambda ad: launch._HostSliced(SyntheticLM(
+            vocab_size=lw["vocab_size"], seq_len=lw["seq_len"],
+            batch_size=lw["batch_size"]), ad).batch(0))
+    ad = AutoDistribute(gpt2(), optimizer=adamw(1e-3),
+                        loss_fn=next_token_loss, strategy="fsdp",
+                        device="cpu")
+    text = ad.compiled_step_text(None, cli_batch)
+    gm = graph_lint.trace_step(ad.traceable_step(),
+                               *ad.abstract_state(cli_batch),
+                               torch.Generator())
+    out["text_bytes"] = hlo_collective_bytes(text)
+    out["inventory"] = graph_lint.collective_inventory(gm, ad.plan.mesh)
+    out["shardings"] = {}
+    for name, kw in (("fsdp", dict(strategy="fsdp")),
+                     ("tp", dict(strategy="tp")),
+                     ("dp_zero1", dict(strategy="dp", zero1=True))):
+        ad = AutoDistribute(gpt2(), optimizer=adamw(1e-3),
+                            loss_fn=next_token_loss, device="cpu", **kw)
+        state = ad.init(None, cli_batch)
+        out["shardings"][name] = _shardings_vs_init(ad, state)
+    return out
+
+
 def main(rank, world, init_file, job_path, out_path):
     import torch.distributed as dist
 
@@ -1211,6 +1358,10 @@ def main(rank, world, init_file, job_path, out_path):
                                    str(Path(out_path).parent))
     if job.get("lint"):
         out["lint"] = _lint_runs(job["lint"], rank, world)
+    if job.get("bench"):
+        out["bench"] = _bench_runs(job["bench"], rank, world)
+    if job.get("export"):
+        out["export"] = _export_runs(job["export"], rank, world)
     if job.get("only_lm"):
         dist.barrier()
         dist.destroy_process_group()

@@ -47,9 +47,9 @@ Its slices:
   Megatron-SP (``parallel.context``).
 
 The top-level names are the JAX package's (``AutoDistribute``,
-``autodistribute``, the planner's and the topology's), but for
-``enable_compilation_cache`` and the ``obs``/``tune`` subpackages,
-which are later slices.
+``autodistribute``, the planner's and the topology's, with
+``enable_compilation_cache``), but for the ``obs``/``tune``
+subpackages, which are imported by their own path.
 
 The kernels are CUDA C++ for Hopper (sources in ``csrc/``).  The package
 imports torch and numpy, never jax.  Entry points run on the card unless
@@ -71,6 +71,7 @@ from .topology import (
     Topology,
     build_mesh,
     detect,
+    enable_compilation_cache,
     initialize_distributed,
     single_device_mesh,
 )
@@ -116,7 +117,8 @@ __all__ = [
     # the JAX package's names
     "AutoDistribute", "TrainState", "autodistribute", "Rule", "ShardPlan",
     "TRANSFORMER_RULES", "make_plan", "param_spec_tree", "MESH_AXES",
-    "Topology", "build_mesh", "detect", "initialize_distributed",
+    "Topology", "build_mesh", "detect", "enable_compilation_cache",
+    "initialize_distributed",
     "mesh_degrees", "single_device_mesh", "__version__",
     # the port's shortcuts to its models, data and losses
     "GPT2", "MLP", "Bert", "DecoderLM", "Llama", "MoE", "ResNet18Thin",

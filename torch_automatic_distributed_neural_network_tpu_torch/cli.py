@@ -1,7 +1,7 @@
 """Command line for the PyTorch port: the ``serve``, ``doctor``,
 ``devices``, ``run``, ``launch``, ``tokenize``, ``tune``, ``simulate``,
-``monitor``, ``gateway``, ``report``, ``check``, ``fit``, ``trace``
-and ``profile`` subcommands.
+``monitor``, ``gateway``, ``report``, ``check``, ``fit``, ``trace``,
+``profile``, ``bench`` and ``export`` subcommands.
 
     python -m torch_automatic_distributed_neural_network_tpu_torch serve \\
         --family gpt2 --size small --streams 16 --slots 8 --max-len 1024
@@ -77,6 +77,24 @@ package's.
         --memory --no-source --family gpt2 --size small --batch 8
     python -m torch_automatic_distributed_neural_network_tpu_torch fit \
         --family llama --size 8b --batch 1 --strategy dp
+
+``bench`` times the collectives over a mesh axis (``parallel.
+collectives.bench_sweep``; one JSON line a result): alone it brings up a
+world of one rank (NCCL on the card, gloo with ``--device cpu``), under
+``torchrun`` or ``launch`` it runs over the world.  ``export`` fills the
+export cache (``export/``) with the kernel libraries a zoo config's
+train step (and, with ``--serve``, its serving engine) launches, so a
+later start installs them instead of running ``nvcc``; ``--worlds N,M``
+exports for other world sizes in child processes, ``--verify`` audits
+the entries and ``--gc`` drops those not hit within ``--max-age-days``.
+``run`` keeps the built kernels across processes
+(``topology.enable_compilation_cache``) unless
+``TADNN_NO_COMPILE_CACHE=1``.
+
+    python -m torch_automatic_distributed_neural_network_tpu_torch bench \
+        --ops allreduce,allgather --sizes 1048576,134217728
+    python -m torch_automatic_distributed_neural_network_tpu_torch export \
+        --family gpt2 --size small --seq 1024 --batch 8 --serve --json
 """
 
 from __future__ import annotations
@@ -351,6 +369,8 @@ def cmd_run(args: argparse.Namespace) -> int:
     from . import topology
     from .utils.device import process_count, process_index
 
+    if not os.environ.get("TADNN_NO_COMPILE_CACHE"):
+        topology.enable_compilation_cache()
     topology.initialize_distributed()
     if process_count() > 1 and process_index() == 0:
         print(f"distributed: {process_count()} processes, backend "
@@ -439,6 +459,231 @@ def cmd_launch(args: argparse.Namespace) -> int:
         else:
             print(f"launch FAILED: {result.get('error')}", file=sys.stderr)
     return 0 if result["ok"] else 1
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    """Collectives microbenchmark (the JAX package's BASELINE metric is
+    the all-reduce bus bandwidth): one JSON line per (op, size) over the
+    ``--axis`` group of a ``build_mesh(<axis>=-1)`` mesh.  Without a
+    process group (and without ``torchrun``'s environment) it brings up
+    a world of one rank: NCCL on the card, gloo with ``--device cpu`` —
+    which moves nothing between devices (``bus_bw_gbps`` 0 by the
+    NCCL-tests factor)."""
+    import torch
+
+    from . import topology
+    from .parallel.collectives import bench_sweep
+    from .training.launch import _free_port
+    from .utils.device import group_up, process_index
+
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    own = not group_up()
+    if own:
+        if "WORLD_SIZE" in os.environ:
+            topology.initialize_distributed(backend=backend)
+        else:
+            if backend == "nccl" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "bench on --device cuda needs a card; pass --device cpu "
+                    "for gloo on the CPU")
+            topology.initialize_distributed(
+                backend=backend, world_size=1, rank=0,
+                init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        mesh = topology.build_mesh(**{args.axis: -1})
+        ops = args.ops.split(",")
+        sizes = [int(x) for x in args.sizes.split(",")]
+        for r in bench_sweep(sizes=sizes, ops=ops, axis=args.axis,
+                             mesh=mesh):
+            if process_index() == 0:
+                print(json.dumps(r.to_json()), flush=True)
+    finally:
+        if own:
+            torch.distributed.destroy_process_group()
+    return 0
+
+
+def cmd_export(args: argparse.Namespace) -> int:
+    """The export cache (``export/``): build the kernel libraries a zoo
+    config's train step launches — and, with ``--serve``, those of the
+    serving engine's decode and prefill — store them in the cache, and
+    print one result line per kind.  Any later ``Trainer`` /
+    ``ServeEngine`` start on the same fingerprint (the same shapes,
+    plan, topology, torch, CUDA and ``nvcc``) then installs them in
+    milliseconds instead of running ``nvcc``.  ``--worlds N,M`` exports
+    the train step for N-process worlds of this kind in child processes
+    (the elastic launcher's shrink candidates); ``--verify`` audits
+    which entries would load here/now and which are stale; ``--gc``
+    drops entries not hit within ``--max-age-days``."""
+    from .export import cache as export_cache_mod
+    from .obs import journal as obs_journal_mod
+    from .obs.journal import Journal
+
+    cache = export_cache_mod.resolve(args.cache or True)
+
+    if args.gc:
+        days = 30.0 if args.max_age_days is None else float(args.max_age_days)
+        with Journal(args.journal, host0_only=False,
+                     meta={"tool": "export"}) as jnl:
+            with obs_journal_mod.as_default(jnl):
+                stats = cache.gc(days * 86400.0)
+        if args.json:
+            print(json.dumps({"cache": cache.root, **stats}))
+        else:
+            kb = stats["payload_bytes_freed"] // 1024
+            print(f"export cache: {cache.root}")
+            print(f"  gc: dropped {stats['dropped']}/{stats['scanned']} "
+                  f"entries not hit in {days:g} day(s) "
+                  f"({kb} KiB of payloads freed, {stats['kept']} kept)")
+        return 0
+
+    if args.verify:
+        report = cache.verify()
+        if args.json:
+            print(json.dumps({"cache": cache.root, "entries": report}))
+        else:
+            print(f"export cache: {cache.root}")
+            if not report:
+                print("  (empty)")
+            for e in report:
+                mark = "live " if e["live"] else "STALE"
+                kb = (e.get("payload_bytes") or 0) // 1024
+                line = (f"  [{mark}] {e.get('kind') or '?':<14} "
+                        f"{e['key'][:16]}  {kb} KiB")
+                if e.get("reason"):
+                    line += f"  ({e['reason']})"
+                print(line)
+        return 0
+
+    if args.worlds:
+        # one child a world size: each plans for an N-process world of
+        # this kind without joining one and stores the entry under the
+        # key such a world looks up
+        import subprocess
+
+        worlds = [int(w) for w in args.worlds.split(",") if w.strip()]
+        base = [sys.executable, "-m", __package__, "export",
+                "--family", args.family, "--batch", str(args.batch),
+                "--strategy", args.strategy, "--precision", args.precision,
+                "--grad-accum", str(args.grad_accum),
+                "--device", args.device, "--cache", cache.root, "--json"]
+        for flag, value in (("--size", args.size), ("--seq", args.seq),
+                            ("--preflight", args.preflight)):
+            if value:
+                base += [flag, str(value)]
+        if args.zero1:
+            base.append("--zero1")
+        ok = True
+        for w in worlds:
+            env = {**os.environ, "TADNN_EXPORT_CACHE": cache.root}
+            proc = subprocess.run([*base, "--world", str(w)], env=env,
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                ok = False
+                print(json.dumps({"world": w, "error": "export failed",
+                                  "rc": proc.returncode,
+                                  "stderr": proc.stderr[-500:]}))
+                continue
+            for line in proc.stdout.splitlines():
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                rec["world"] = w
+                print(json.dumps(rec))
+        return 0 if ok else 1
+
+    from . import AutoDistribute
+    from .training import adamw
+
+    results: list[dict] = []
+    with Journal(args.journal, host0_only=False,
+                 meta={"tool": "export"}) as jnl:
+        with obs_journal_mod.as_default(jnl):
+            if args.preflight:
+                # user-authored spec: the file's tadnn_export() returns
+                # {model, loss_fn, sample_batch[, optimizer, **ad_kwargs]}
+                # — export the REAL training program, not a zoo preset
+                import importlib.util
+
+                spec = importlib.util.spec_from_file_location(
+                    "_tadnn_export_target", args.preflight)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                hook = getattr(mod, "tadnn_export", None)
+                if hook is None:
+                    print(f"{args.preflight} does not define "
+                          f"tadnn_export()", file=sys.stderr)
+                    return 2
+                d = dict(hook())
+                model = d.pop("model")
+                loss = d.pop("loss_fn")
+                sample = d.pop("sample_batch")
+                optimizer = d.pop("optimizer", None) or adamw(1e-4)
+                kwargs = {"strategy": args.strategy,
+                          "precision": args.precision,
+                          "device": args.device}
+                kwargs.update(d)
+            else:
+                model, loss, sample = _family_setup(args)
+                optimizer = adamw(1e-4)
+                kwargs = {"strategy": args.strategy,
+                          "precision": args.precision,
+                          "device": args.device}
+            ad = AutoDistribute(model, optimizer=optimizer, loss_fn=loss,
+                                grad_accum=args.grad_accum,
+                                zero1=args.zero1, **kwargs)
+            results.append(ad.export_step(None, sample, cache=cache,
+                                          world=args.world))
+            if args.serve:
+                if args.family not in ("gpt2", "llama", "moe"):
+                    print("export --serve needs a decoder family "
+                          "(--family gpt2|llama|moe)", file=sys.stderr)
+                    return 2
+                results.extend(_export_serve(args, cache, jnl))
+    rc = 0
+    for r in results:
+        if r.get("source") == "error":
+            rc = 1
+        if args.json:
+            print(json.dumps(r))
+        else:
+            wall = (f"installed in {r['deserialize_s'] * 1e3:.1f} ms"
+                    if r.get("source") == "hit"
+                    else f"built in {r.get('compile_s', 0.0):.2f} s"
+                    if r.get("source") == "compile" else "FAILED")
+            kb = (r.get("payload_bytes") or 0) // 1024
+            print(f"{r.get('kind', '?'):<14} {r.get('source', '?'):<8} "
+                  f"{wall}  ({kb} KiB, key {r.get('key', '?')[:16]})")
+    if not args.json:
+        print(f"export cache: {cache.root}")
+    return rc
+
+
+def _export_serve(args, cache, journal) -> list[dict]:
+    """The serving engine's entries for ``export --serve``: the family
+    at ``--size`` (``test`` by default) in fp32 on ``--device``, with
+    uninitialized weights (only the shapes and the kernels matter)."""
+    import torch
+
+    from .inference.serve import ServeEngine
+    from .models import GPT2, Llama, MoE
+
+    family = {"gpt2": GPT2, "llama": Llama, "moe": MoE}[args.family]
+    size = args.size or "test"
+    max_len = args.max_len or 64
+    vocab = args.vocab or (128 if size == "test" else None)
+    overrides = {"max_seq_len": max_len, "dtype": torch.float32,
+                 "remat": False}
+    if vocab:
+        overrides["vocab_size"] = vocab
+    with torch.device(args.device):
+        model = family(size, **overrides)
+    eng = ServeEngine(
+        model, n_slots=args.slots or 4, max_len=max_len,
+        block_size=args.block_size or 8, prefill_chunk=args.prefill_chunk,
+        journal=journal, export_cache=cache, device=args.device)
+    return eng.export_info
 
 
 def cmd_tokenize(args: argparse.Namespace) -> int:
@@ -1609,12 +1854,85 @@ def build_parser() -> argparse.ArgumentParser:
                    help="workers on the CPU over gloo (default: NCCL, "
                         "the card LOCAL_RANK names a worker)")
     p.add_argument("--export-cache", default=None, dest="export_cache",
-                   help="not ported yet (ROADMAP Queue 1 item 4)")
+                   help="the cohort's export cache dir (export/): workers "
+                        "go cache-first on their kernels' build; with "
+                        "--elastic the shrink worlds are prewarmed")
     p.add_argument("--smoke", action="store_true",
                    help="clean + one-SIGKILL chaos pair; exit nonzero "
                         "unless resumed losses match bitwise")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_launch)
+
+    p = sub.add_parser("bench", help="collectives microbenchmark "
+                                     "(parallel.collectives.bench_sweep)")
+    p.add_argument("--ops", default="allreduce,allgather,reduce_scatter")
+    p.add_argument("--sizes", default=str(64 * 2**20))
+    p.add_argument("--axis", default="data")
+    p.add_argument("--device", default="cuda",
+                   help="cuda: NCCL, a card a rank; cpu: gloo")
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser(
+        "export",
+        help="build the kernel libraries a config's train step (and "
+             "--serve engine) launches and store them in the export "
+             "cache, so later starts install them instead of running "
+             "nvcc; --verify audits live vs stale entries",
+    )
+    p.add_argument("--family", default="gpt2",
+                   choices=("mlp", "gpt2", "llama", "moe", "bert", "vit"))
+    p.add_argument("--size", default=None,
+                   help="model size preset (default per family)")
+    p.add_argument("--seq", type=int, default=None)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--strategy", default="auto")
+    p.add_argument("--precision", default="fp32")
+    p.add_argument("--grad-accum", type=int, default=1, dest="grad_accum")
+    p.add_argument("--zero1", action="store_true")
+    p.add_argument("--loss", default="full", choices=("full", "blockwise"))
+    p.add_argument("--preflight", default=None, metavar="FILE",
+                   help="export the file's tadnn_export() spec "
+                        "({model, loss_fn, sample_batch[, optimizer, "
+                        "ad kwargs]}) instead of a --family preset")
+    p.add_argument("--serve", action="store_true",
+                   help="also export the serving decode + prefill-chunk "
+                        "entries (decoder families only)")
+    p.add_argument("--worlds", default=None, metavar="N,M,...",
+                   help="export the train step for N-process worlds of "
+                        "this kind in child processes (the elastic "
+                        "launcher's shrink candidates)")
+    p.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--cache", default=None,
+                   help="export cache dir (default: TADNN_EXPORT_CACHE "
+                        "or ~/.cache/tadnn/torch_kernels)")
+    p.add_argument("--verify", action="store_true",
+                   help="report which cache entries would load on this "
+                        "host/version (live) and which are stale")
+    p.add_argument("--gc", action="store_true",
+                   help="garbage-collect by last-hit age: drop entries "
+                        "not hit within --max-age-days, delete their "
+                        "payloads and rewrite the index (every cache hit "
+                        "refreshes an entry's age)")
+    p.add_argument("--max-age-days", type=float, default=30.0,
+                   dest="max_age_days", metavar="N",
+                   help="--gc retention window in days (default 30)")
+    p.add_argument("--slots", type=int, default=None,
+                   help="--serve: decode slots")
+    p.add_argument("--max-len", type=int, default=None, dest="max_len",
+                   help="--serve: max tokens per request")
+    p.add_argument("--block-size", type=int, default=None,
+                   dest="block_size", help="--serve: KV block size")
+    p.add_argument("--prefill-chunk", type=int, default=32,
+                   dest="prefill_chunk")
+    p.add_argument("--vocab", type=int, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="where the step and the engine run (cpu: the "
+                        "plain versions, no kernel libraries)")
+    p.add_argument("--journal", default=None,
+                   help="journal path for export.* events "
+                        "(tadnn report renders them)")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_export)
 
     p = sub.add_parser(
         "fit",

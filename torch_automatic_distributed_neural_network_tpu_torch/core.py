@@ -46,8 +46,15 @@ precision's state factor and the liveness profile of the traced step,
 :meth:`AutoDistribute.activation_profile`).  ``strategy='search'``
 walks JAX's escalation ladder and takes the first rung whose measured
 per-device peak (:meth:`AutoDistribute.compile_report`) fits
-:meth:`AutoDistribute.hbm_fit_budget`.  The export cache raises
-``NotImplementedError`` naming its ROADMAP item.
+:meth:`AutoDistribute.hbm_fit_budget`.
+
+The export cache (``export_cache=``, ``export/``): ``init`` goes
+cache-first on what the step's cold start compiles — the ``nvcc`` build
+of the kernels it launches on the card (K1-K3's libraries).  A warm
+entry installs the cached libraries (no ``nvcc`` runs); a miss builds
+and stores them for the next start; :meth:`AutoDistribute.export_step`
+fills the cache ahead of a run (``tadnn export``, the launcher's
+prewarm).
 
 Nothing-materialized views of the step (the JAX package's
 ``jax.eval_shape`` / ``make_jaxpr`` / AOT compile):
@@ -129,8 +136,8 @@ from .utils.device import (
 LossFn = Callable[[nn.Module, dict, "torch.Generator | None"],
                   "tuple[torch.Tensor, dict]"]
 
-__all__ = ["AutoDistribute", "ShardPlan", "TrainState", "autodistribute",
-           "mesh_degrees"]
+__all__ = ["AutoDistribute", "NamedSharding", "ShardPlan", "TrainState",
+           "autodistribute", "mesh_degrees"]
 
 
 @dataclasses.dataclass
@@ -150,10 +157,26 @@ class TrainState:
         default_factory=dict)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP Queue 1 "
-        f"item {item})")
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """Where a state tensor lives under a plan (JAX's ``NamedSharding``):
+    the plan's mesh, the tensor's ``PartitionSpec`` and its
+    ``torch.distributed.tensor`` placements, one per mesh axis."""
+
+    mesh: Any
+    spec: Any
+    placements: tuple
+
+
+def _placements(spec, axes: tuple[str, ...]) -> tuple:
+    """Per mesh axis: ``Shard(d)`` where ``spec`` puts the axis on dim
+    ``d``, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {ax: d for d, entry in enumerate(spec or ())
+            for ax in _entry_axes(entry)}
+    return tuple(Shard(dims[ax]) if ax in dims else Replicate()
+                 for ax in axes)
 
 
 class AutoDistribute:
@@ -175,7 +198,10 @@ class AutoDistribute:
     ``tokens``/``items``/``*_count`` aux summed and the rest averaged)
     and ``remat`` (None: the planner's rule).  ``init_fn(model,
     generator)``: called once, before the plan, in place of drawing the
-    weights (``training/lora.py::lora_init_fn``).  ``device``: where this
+    weights (``training/lora.py::lora_init_fn``).  ``export_cache`` and
+    ``export_tags``: the export cache (module docstring; a path or True
+    enables, False disables, None defers to ``TADNN_EXPORT_CACHE``; the
+    tags join the key).  ``device``: where this
     process runs, ``cuda`` (``cuda:LOCAL_RANK`` under a process group)
     unless the caller asks for the CPU; ``devices``: one a process, in
     rank order."""
@@ -202,6 +228,7 @@ class AutoDistribute:
         grad_accum: int = 1,
         zero1: bool = False,
         export_cache: Any = None,
+        export_tags: Mapping | None = None,
         init_fn: Callable | None = None,
         device=None,
     ):
@@ -225,8 +252,6 @@ class AutoDistribute:
                 "per-stage activation memory the same way CP would) or "
                 "drop the pipeline and use seq_parallel with fsdp/tensor. "
                 "See the strategy-composition matrix in README.md.")
-        if export_cache:
-            raise _not_ported("export_cache", "4")
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         if devices is not None:
@@ -272,6 +297,16 @@ class AutoDistribute:
         self._trainable: frozenset[str] = frozenset()
         self.search_report: list = []  # strategy='search' measurements
         self.last_compile_error: str | None = None
+        # the export cache (export/): a path/True enables, False
+        # disables, None defers to TADNN_EXPORT_CACHE in the environment,
+        # so launcher workers inherit cache-first starts through their env
+        self._export_cache_spec = export_cache
+        self._export_tags = dict(export_tags or {})
+        self._export_info: dict | None = None  # last export outcome
+        self._params_sig: str | None = None  # the planner's input, keyed
+        # a prewarm's world (export_step(world=)): the topology planned
+        # for in place of this process's
+        self._topology: topo_mod.Topology | None = None
 
     # -- planning -------------------------------------------------------------
 
@@ -290,9 +325,12 @@ class AutoDistribute:
         (:meth:`_search_plan`)."""
         if self._strategy == "search":
             return self._search_plan(rng, sample_batch)
+        from .tune import cache as tune_cache
+
         self._prepare(rng)
         prec = self.precision
         abstract = planner_mod.abstract_params(self.model, prec.param_dtype)
+        self._params_sig = tune_cache.params_signature(abstract)
         state_factor = prec.bytes_per_param / prec.param_dtype.itemsize
         tune_policy = None
         if self._strategy == "tuned":
@@ -304,7 +342,9 @@ class AutoDistribute:
 
             act_profile = None
             n = (math.prod(mesh_degrees(self._mesh_arg).values())
-                 if self._mesh_arg is not None else process_count())
+                 if self._mesh_arg is not None
+                 else self._topology.num_devices if self._topology
+                 else process_count())
             # one device: the tuner falls back to 'auto' and reads no
             # profile, so none is traced
             if n // (self._seq_parallel * self._pipeline_stages) > 1:
@@ -325,7 +365,7 @@ class AutoDistribute:
             abstract, mesh=self._mesh_arg, strategy=self._strategy,
             rules=self._rules, remat=self._remat_arg,
             state_factor=state_factor, tune_policy=tune_policy,
-            zero1=self._zero1,
+            zero1=self._zero1, topology=self._topology,
             heads=_heads(self.model), seq=self._seq_parallel,
             pipe=self._pipeline_stages,
             pipe_virtual=(self._pipeline_virtual if self._pipeline_schedule
@@ -337,7 +377,7 @@ class AutoDistribute:
             if isinstance(plan.mesh, Mapping):
                 plan.mesh = topo_mod.build_mesh(device_type=self.device.type,
                                                 **plan.degrees)
-        elif math.prod(plan.degrees.values()) > 1:
+        elif math.prod(plan.degrees.values()) > 1 and self._topology is None:
             raise RuntimeError(
                 f"the plan's mesh {plan.degrees} spans several devices but "
                 f"no process group is up: run one process a device "
@@ -854,6 +894,190 @@ class AutoDistribute:
                 gm, abstract, args[3])
         return profile
 
+    # -- the export cache (export/) --------------------------------------------
+
+    def _export_libraries(self) -> list[str]:
+        """The kernel sources the step launches on the card: K1-K3's two
+        libraries (``ops.flash_attention`` loads both) for a model with
+        attention; none on the CPU, where the plain versions run."""
+        if self.device.type != "cuda" or _heads(self.model) is None:
+            return []
+        return ["flash_attention", "flash_attention_sm90"]
+
+    def _batch_signature(self, sample_batch) -> str | None:
+        """The global batch's shapes and dtypes, JAX's ``_signature_str``
+        (a ``HostBatch``'s rows scaled back to the global batch)."""
+        if sample_batch is None:
+            return None
+        dp = math.prod(self.plan.degrees.get(a, 1)
+                       for a in planner_mod.spec_axes(self.plan.batch_spec))
+        sig = []
+        for key in sorted(sample_batch):
+            v = sample_batch[key]
+            shape = list(np.shape(v))
+            if shape and isinstance(sample_batch, HostBatch):
+                shape[0] *= dp
+            sig.append(f"{shape}:{str(_torch_dtype(v)).split('.')[-1]}")
+        return ",".join(sig)
+
+    def _export_key(self, sample_batch) -> str:
+        """The entry's key: params signature x topology fingerprint x
+        everything that shapes the step (the plan, the batch signature,
+        accumulation, precision, pipeline and sequence settings)."""
+        from .export import cache as export_cache_mod
+        from .tune import cache as tune_cache
+
+        plan = self.plan
+        assert plan is not None
+        prec = self.precision
+        program = {
+            "plan": export_cache_mod.plan_blob(plan),
+            "batch": self._batch_signature(sample_batch),
+            "grad_accum": self._grad_accum,
+            "precision": [str(prec.param_dtype).split(".")[-1],
+                          str(prec.compute_dtype).split(".")[-1],
+                          float(prec.bytes_per_param)],
+            "pipeline": [self._pipeline_stages, self._microbatches,
+                         self._pipeline_schedule, self._pipeline_virtual],
+            "seq": [self._seq_parallel, self._seq_impl],
+        }
+        return export_cache_mod.executable_key(
+            "train_step", self._params_sig,
+            tune_cache.topology_fingerprint(self._topology
+                                            or topo_mod.detect()),
+            program, tags=self._export_tags)
+
+    def _maybe_export_step(self, sample_batch) -> dict | None:
+        """Cache-first kernel build when the export cache is enabled
+        (constructor spec or ``TADNN_EXPORT_CACHE``); a silent no-op
+        otherwise — the kernels build at their first launch."""
+        from .export import cache as export_cache_mod
+
+        cache = export_cache_mod.resolve(self._export_cache_spec)
+        if cache is None:
+            return None
+        return self._export_attach(cache, sample_batch)
+
+    def _export_attach(self, cache, sample_batch) -> dict:
+        """Install-or-build the step's kernel libraries and record the
+        outcome in ``_export_info``.  A fresh build is journaled as the
+        step's ``compile`` event (its kernels' ``nvcc`` wall), so goodput
+        accounting sees what a cold start paid."""
+        from .export import aot as aot_mod
+
+        key = self._export_key(sample_batch)
+        res = aot_mod.cached_compile(self._export_libraries(), cache=cache,
+                                     kind="train_step", key=key)
+        if res is None:  # the build failed: the kernels build at launch
+            self._export_info = {"key": key, "kind": "train_step",
+                                 "source": "error"}
+            return self._export_info
+        if res.source == "compile":
+            obs_journal.event("compile", fn="train_step",
+                              dur_s=res.compile_s,
+                              signature=self._batch_signature(sample_batch)
+                              or "")
+        self._export_info = {"kind": "train_step", **res.to_json()}
+        return self._export_info
+
+    def export_step(self, rng, sample_batch: dict, *, cache: Any = None,
+                    world: int | None = None) -> dict:
+        """Build the step's kernel libraries and store them in the export
+        cache (a warm key just validates and installs them).
+
+        The ``tadnn export`` / launcher-prewarm entry point: every later
+        ``init()`` with the same config on the same fingerprint then
+        starts with no ``nvcc`` build.  ``world``: plan and key for a
+        world of that many processes of this kind (this process's card,
+        or gloo on the CPU for ``device="cpu"``) without being in one —
+        the key a real run of that world looks up.  Returns the export
+        info dict (key, source, build/install wall, payload bytes)."""
+        from .export import cache as export_cache_mod
+
+        spec = cache if cache is not None else self._export_cache_spec
+        resolved = export_cache_mod.resolve(True if spec is None else spec)
+        if resolved is None:
+            raise ValueError(
+                "export cache disabled (export_cache=False) — pass a "
+                "cache path or set TADNN_EXPORT_CACHE")
+        if world is not None and not group_up():
+            self._topology = topo_mod.detect(
+                world=world,
+                backend="nccl" if self.device.type == "cuda" else "gloo")
+            self.plan = None
+        if self.plan is None:
+            self.build_plan(rng, sample_batch)
+        self._check_batch(sample_batch)
+        return self._export_attach(resolved, sample_batch)
+
+    def _abstract_step_args(self, rng, sample_batch: dict) -> tuple:
+        """Fake ``(params, opt_state, model_state, batch)`` of the traced
+        step at the plan's local shapes (:meth:`abstract_state`): the
+        inputs shared by :meth:`compiled_step_text` and the lints.
+        Builds the plan first if none has been built."""
+        if self.plan is None:
+            self.build_plan(rng, sample_batch)
+        self._check_batch(sample_batch)
+        return self.abstract_state(sample_batch)
+
+    def compiled_step_text(self, rng, sample_batch: dict) -> str | None:
+        """The text of the traced train step: the fx graph that
+        ``analysis.graph_lint.trace_step`` makes of
+        :meth:`traceable_step` at the plan's local shapes, each node
+        annotated with its result's dtype and shape
+        (``GraphModule.print_readable``).  The JAX package returns the
+        compiled per-device HLO here; the port compiles no program, so
+        this is what ``obs.trace.hlo_collective_bytes`` reads: the
+        plan's collectives as they appear in the step.  Nothing is
+        materialized.  None when the trace fails (an axis the traced
+        step does not model yet)."""
+        from .analysis import graph_lint
+
+        try:
+            args = self._abstract_step_args(rng, sample_batch)
+            gm = graph_lint.trace_step(self.traceable_step(), *args,
+                                       torch.Generator())
+            return gm.print_readable(print_output=False)
+        except Exception:
+            return None
+
+    def state_shardings(self, state: TrainState) -> TrainState:
+        """A :class:`NamedSharding` for each tensor of ``state`` by the
+        plan's specs: its mesh and, per mesh axis, ``Shard(dim)`` where
+        the spec puts the axis on ``dim``, else ``Replicate()``.  The
+        optimizer state's follow :func:`training.optim.
+        opt_state_spec_tree` (ZeRO-1's specs under ``zero1``); the step,
+        the seed and ``model_state`` are replicated."""
+        plan = self.plan
+        assert plan is not None, "call init() or build_plan() first"
+        mesh = plan.mesh
+        axes = tuple(plan.degrees)
+
+        def ns(spec):
+            return NamedSharding(mesh, spec, _placements(spec, axes))
+
+        def tree_ns(tree):  # a PartitionSpec is a tuple: a leaf here
+            if isinstance(tree, planner_mod.P):
+                return ns(tree)
+            if isinstance(tree, dict):
+                return {k: tree_ns(v) for k, v in tree.items()}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(tree_ns(v) for v in tree)
+            return tree
+
+        opt_specs = optim_mod.opt_state_spec_tree(
+            state.opt_state, state.params,
+            plan.opt_spec_tree if plan.opt_spec_tree is not None
+            else plan.param_specs)
+        replicated = ns(planner_mod.P())
+        return TrainState(
+            step=replicated,
+            params={n: ns(plan.param_specs.get(n, planner_mod.P()))
+                    for n in state.params},
+            opt_state=tree_ns(opt_specs),
+            seed=replicated,
+            model_state={n: replicated for n in state.model_state})
+
     # -- init -----------------------------------------------------------------
 
     @torch.no_grad()
@@ -922,6 +1146,7 @@ class AutoDistribute:
                            opt_state=self.optimizer.init(opt_params),
                            seed=seed, model_state=dict(model.named_buffers()))
         self._mark_writers(state)
+        self._maybe_export_step(sample_batch)
         return state
 
     def _mark_writers(self, state: TrainState) -> None:

@@ -107,8 +107,13 @@ Telemetry: the same ``serve.engine`` / ``serve.prefill_chunk`` /
 ``serve.adapter`` / ``serve.step`` / ``serve.request_done`` journal
 records as the JAX engine, so its ``tadnn report`` renders them.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the AOT export cache.
+The export cache (``export_cache=``, ``export_tags=``; ``export/``): a
+replica's cold start pays the ``nvcc`` build of K4, the paged-attention
+kernel its decode and prefill launch, so construction goes cache-first
+on K4's library under two keys, ``serve_decode`` and ``serve_prefill``
+(JAX's two serve traces), each over the parameters, the topology and
+everything the engine's steps close over; ``export_info`` holds each
+outcome (a warm replica installs the library and runs no ``nvcc``).
 """
 
 from __future__ import annotations
@@ -144,7 +149,6 @@ from .kv_pool import PagedKVPool, blocks_for_tokens, gather_blocks, write_token
 from .prefix_cache import PrefixCache
 from .scheduler import Request, Scheduler
 
-_LATER = "is a later slice of the PyTorch port (ROADMAP Queue 1 item {})"
 
 # the tp plan's rules with the token table and the head left whole: a
 # decode step reads them every token, and an all-gather each time would
@@ -391,6 +395,7 @@ class ServeEngine:
                  disaggregate: bool = False,
                  mesh: Any = None,
                  export_cache: Any = None,
+                 export_tags: Any = None,
                  generator: torch.Generator | None = None,
                  journal: Any = None,
                  device=None):
@@ -398,8 +403,6 @@ class ServeEngine:
             raise ValueError(
                 f"unknown attention_impl {attention_impl!r} "
                 f"(expected 'paged' or 'dense')")
-        if export_cache:
-            raise NotImplementedError(f"export_cache {_LATER.format('4')}")
         check_moe_decode(moe_decode)
         self.moe_decode = moe_decode
         self.device = resolve_device(device)
@@ -503,6 +506,19 @@ class ServeEngine:
         self.tokens_emitted = 0
         self.finished: list[Request] = []
         self._prefill: dict[int, _PrefillState] = {}
+        # the export cache (export/): replica spin-up goes cache-first on
+        # K4's library, so a warm replica builds nothing before its first
+        # token
+        self.export_info: list[dict] = []
+        from ...export import cache as _export_cache_mod
+
+        _cache = _export_cache_mod.resolve(export_cache)
+        if _cache is not None:
+            self._export_compiled(
+                _cache, dict(export_tags or {}), num_blocks=num_blocks,
+                block_size=block_size, quant_kv=bool(quant_kv),
+                cache_dtype=cache_dtype, n_adapters=n_adapters,
+                quant_adapters=bool(quant_adapters))
         if self.journal is not None:
             self.journal.event(
                 "serve.engine", attention_impl=self.attention_impl,
@@ -515,6 +531,51 @@ class ServeEngine:
                 speculative=self.speculative,
                 prefix_cache=self._prefix_cache is not None,
                 disaggregate=self.disaggregate, tp=self.tp)
+
+    def _export_compiled(self, cache, tags: dict, *, num_blocks: int,
+                         block_size: int, quant_kv: bool, cache_dtype,
+                         n_adapters: int, quant_adapters: bool) -> None:
+        """Cache-first build of what the decode step and the prefill
+        chunk launch on the card (K4's library; nothing on the CPU or
+        under ``attention_impl='dense'``), under JAX's two keys: the
+        parameters' signature, the topology and everything the steps
+        close over."""
+        from ...export import aot as aot_mod
+        from ...export import cache as export_cache_mod
+        from ...planner import abstract_params
+        from ...topology import detect
+        from ...tune import cache as tune_cache
+
+        topo_fp = tune_cache.topology_fingerprint(detect())
+        sig = tune_cache.params_signature(abstract_params(self.model))
+        # everything the serve steps close over: two engines that differ
+        # in any of these keep separate entries
+        program = {
+            "n_slots": self.n_slots, "max_len": self.max_len,
+            "block_size": block_size, "num_blocks": num_blocks,
+            "attention_impl": self.attention_impl,
+            "speculative": self.speculative,
+            "moe_decode": self.moe_decode,
+            "quant_kv": quant_kv,
+            "cache_dtype": str(cache_dtype).split(".")[-1],
+            "sample": dataclasses.asdict(self.sample),
+            "prefill_chunk": self.prefill_chunk,
+            **({"prefill_q_commit": True} if quant_kv else {}),
+            "lora": ([self.lora_spec.rank, self.lora_spec.scaling,
+                      n_adapters, quant_adapters]
+                     if self.lora_spec is not None else None),
+        }
+        libraries = (["paged_attention"] if self.device.type == "cuda"
+                     and self.attention_impl == "paged" else [])
+        kinds = ["serve_decode"] + (["serve_prefill"] if self.prefill_chunk
+                                    else [])
+        for kind in kinds:
+            res = aot_mod.cached_compile(
+                libraries, cache=cache, kind=kind,
+                key=export_cache_mod.executable_key(kind, sig, topo_fp,
+                                                    program, tags))
+            if res is not None:
+                self.export_info.append(res.to_json())
 
     def _shard_model(self) -> None:
         """Wrap the model by the ``tp`` plan on ``mesh["tensor"]`` (the

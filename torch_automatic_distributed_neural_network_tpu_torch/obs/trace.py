@@ -22,7 +22,10 @@ package's ``obs/trace.py`` does on ``jax.profiler``:
   payload bytes by family (the profiler's ``Input Dims``/``Input type``
   of each ``c10d::*`` op: the JAX package reads the compiled HLO text
   instead), and :func:`crosscheck_collectives` journals the measured vs
-  modeled ratio per category as ``trace.collective``.
+  modeled ratio per category as ``trace.collective``;
+  :func:`hlo_collective_bytes` (JAX's name) reads the same families'
+  counts and bytes from the text of the traced step
+  (``AutoDistribute.compiled_step_text``: an fx graph, not HLO).
 
 Everything below the capture layer is pure stdlib (gzip/json/re), so
 ``tadnn report`` can re-attribute a saved trace on a machine with no
@@ -498,6 +501,47 @@ def measured_collective_bytes(parsed: dict) -> dict[str, dict]:
     return {fam: {"count": round(r["count"] / n),
                   "payload_bytes": int(r["payload_bytes"] / n)}
             for fam, r in sorted(out.items())}
+
+
+# ``name: "bf16[4, 3]" = torch.ops._c10d_functional.all_reduce.default(``
+# — a collective node of a traced step's readable fx text, with its
+# result's dtype and shape (a list result: several ``dtype[dims]``)
+_FX_COLL_RE = re.compile(
+    r':\s*"(?P<shape>[^"]*)"\s*=\s*torch\.ops\.'
+    r'(?P<ns>_c10d_functional|c10d)\.(?P<op>\w+)\.')
+_FX_SHAPE_RE = re.compile(r"([a-z]+[0-9]*)\[([0-9, ]*)\]")
+_FX_DTYPE_BYTES = {"f64": 8, "f32": 4, "f16": 2, "bf16": 2, "i64": 8,
+                   "i32": 4, "i16": 2, "i8": 1, "u8": 1, "b8": 1,
+                   "f8e4m3fn": 1, "f8e5m2": 1, "c64": 8, "c128": 16}
+
+
+def hlo_collective_bytes(compiled_text: str) -> dict[str, dict]:
+    """Per-family collective payload bytes parsed from the text of a
+    traced step (``AutoDistribute.compiled_step_text``): every
+    collective node's result shape, summed per family — JAX's
+    convention, which parses the compiled HLO.  The port's text is the
+    fx graph of the step traced on fake tensors at the plan's local
+    shapes (one rank's program), so the numbers are per device and
+    comparable to ``expected_collective_bytes()['per_device'][cat]
+    ['payload_bytes']``.  Waits and unknown dtypes (counted at 4 bytes,
+    as JAX counts an unknown HLO dtype) aside, each node is one
+    collective."""
+    out: dict[str, dict] = {}
+    for m in _FX_COLL_RE.finditer(compiled_text or ""):
+        fam = collective_family(f"c10d::{m.group('op')}")
+        if fam is None:
+            continue
+        b = 0
+        for dtype, dims in _FX_SHAPE_RE.findall(m.group("shape")):
+            n = 1
+            for d in dims.split(","):
+                if d.strip():
+                    n *= int(d)
+            b += n * _FX_DTYPE_BYTES.get(dtype, 4)
+        rec = out.setdefault(fam, {"count": 0, "payload_bytes": 0})
+        rec["count"] += 1
+        rec["payload_bytes"] += b
+    return out
 
 
 def crosscheck_collectives(

@@ -32,9 +32,28 @@ exchanges (``"all_to_all"``).
 active, by kind, whoever issues them (a tensor-parallel wrapper's
 ``DTensor`` redistribution, FSDP2, or a direct ``torch.distributed``
 call): the count a decode step or a training step makes.
+
+Beside them, the JAX package's microbenchmarks (its BASELINE metric is
+the all-reduce bus bandwidth): :func:`bench_collective` and
+:func:`bench_sweep` time one collective over a mesh axis's group and
+report its algorithm and bus bandwidth (the NCCL-tests convention:
+``bus = factor * bytes / time``, :func:`_bus_factor`);
+:func:`bench_overlap` measures how much of a bucketed gradient
+all-reduce hides behind a chain of matmuls.  Where JAX fences a chain of
+``iters`` collectives inside one program with a host readback, these
+time ``iters`` launches after ``warmup``: between CUDA events on the
+card under NCCL, by the host clock on gloo (each call waits).  JAX's
+``LATENCY_HIDING_XLA_FLAGS`` steer XLA's scheduler on a TPU and have no
+counterpart: here the overlap is the bucket's all-reduce issued
+asynchronously (``async_op=True``) on NCCL's stream while the next
+layer's matmul runs on the compute stream.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -374,3 +393,217 @@ def reduce_scatter_slices(x: torch.Tensor, group,
     """Each rank's partial sums, reduce-scattered along ``dim``;
     differentiable (the gradient all-gathered)."""
     return _ReduceScatter.apply(x, group, dim)
+
+
+# -- microbenchmarks (the JAX package's BASELINE metric: all-reduce bus
+# bandwidth) ------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CollectiveBenchResult:
+    op: str
+    n_devices: int
+    size_bytes: int
+    time_s: float
+    alg_bw_gbps: float  # bytes / time
+    bus_bw_gbps: float  # NCCL-tests bus-bandwidth convention
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _bus_factor(op: str, n: int) -> float:
+    if op == "allreduce":
+        return 2 * (n - 1) / n
+    if op in ("allgather", "reduce_scatter"):
+        return (n - 1) / n
+    if op == "all_to_all":
+        return (n - 1) / n
+    return 1.0
+
+
+def _default_mesh(mesh):
+    if mesh is not None:
+        return mesh
+    from .. import topology
+
+    return topology.build_mesh(data=-1)
+
+
+def _group_device(group) -> torch.device:
+    """Where a group's tensors live: this rank's card under NCCL, else
+    the CPU."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _bench_op(op: str, mesh, axis: str) -> Callable[[torch.Tensor],
+                                                    torch.Tensor]:
+    """The collective ``bench_collective`` times, as a function of this
+    rank's buffer: JAX's ``psum``, tiled ``all_gather`` and
+    ``psum_scatter``, ``all_to_all`` (split and concat dim 0) and the
+    ring's ``ppermute`` (shift 1)."""
+    ops: dict[str, Callable] = {
+        "allreduce": lambda x: allreduce(x, axis, mesh=mesh),
+        "allgather": lambda x: allgather(x, axis, mesh=mesh),
+        "reduce_scatter": lambda x: reduce_scatter(x, axis, mesh=mesh),
+        "all_to_all": lambda x: all_to_all(x, axis, mesh=mesh, split_dim=0,
+                                           concat_dim=0),
+        "ppermute": lambda x: _permute(x, mesh.get_group(axis), 1),
+    }
+    if op not in ops:
+        raise ValueError(f"unknown collective {op!r}; expected one of "
+                         f"{sorted(ops)}")
+    return ops[op]
+
+
+def _timed_s(fn: Callable[[], object], iters: int, warmup: int,
+             device: torch.device) -> float:
+    """Seconds of one call of ``fn``: ``iters`` calls after ``warmup``,
+    between CUDA events on a card, by the host clock on the CPU."""
+    for _ in range(warmup):
+        fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        total = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        total = time.perf_counter() - t0
+    return max(total, 1e-9) / iters
+
+
+def bench_collective(
+    op: str = "allreduce",
+    size_bytes: int = 64 * 2**20,
+    *,
+    mesh=None,
+    axis: str = "data",
+    iters: int = 10,
+    warmup: int = 3,
+    dtype=torch.float32,
+) -> CollectiveBenchResult:
+    """Time one collective over one mesh axis (``mesh.get_group(axis)``;
+    by default ``topology.build_mesh(data=-1)`` over the world); report
+    its algorithm and bus bandwidth from the per-rank buffer's bytes.
+    Every rank of the group calls it."""
+    mesh = _default_mesh(mesh)
+    group = mesh.get_group(axis)
+    n = group.size()
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    per_dev = max(size_bytes // itemsize, n)
+    per_dev -= per_dev % n  # divisible for scatter ops
+    device = _group_device(group)
+    x = torch.ones(per_dev, dtype=dtype, device=device)
+    fn = _bench_op(op, mesh, axis)
+    t = _timed_s(lambda: fn(x), iters, warmup, device)
+    # NCCL-tests convention: bandwidth from the PER-RANK buffer size
+    nbytes = per_dev * itemsize
+    alg = nbytes / t / 1e9
+    return CollectiveBenchResult(
+        op=op, n_devices=n, size_bytes=nbytes, time_s=t, alg_bw_gbps=alg,
+        bus_bw_gbps=alg * _bus_factor(op, n))
+
+
+def bench_sweep(
+    sizes: Sequence[int] = (2**20, 2**24, 2**27),
+    ops: Sequence[str] = ("allreduce", "allgather", "reduce_scatter"),
+    **kwargs,
+) -> list[CollectiveBenchResult]:
+    return [bench_collective(op, s, **kwargs) for op in ops for s in sizes]
+
+
+# -- comm/compute overlap (the bucketed-DDP shape) ------------------------------
+#
+#   overlap_frac = (t_compute + t_comm - t_both) / min(t_compute, t_comm)
+#
+# 1.0 = the cheaper phase fully hidden; 0.0 = fully serialized.
+
+
+@dataclasses.dataclass
+class OverlapBenchResult:
+    n_devices: int
+    layers: int
+    t_compute_s: float
+    t_comm_s: float
+    t_both_s: float
+    overlap_frac: float
+    bucket_bytes: int
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def bench_overlap(
+    *,
+    mesh=None,
+    axis: str = "data",
+    d: int = 512,
+    layers: int = 8,
+    bucket_bytes: int = 2**22,
+    iters: int = 5,
+    warmup: int = 2,
+) -> OverlapBenchResult:
+    """How much of a gradient bucket's all-reduce hides behind a chain of
+    ``layers`` ``d x d`` matmuls (JAX's three programs: the matmuls
+    alone, the bucket all-reduces alone, and both, bucket ``i``
+    depending on layer ``i`` only).  The buckets' all-reduces are issued
+    asynchronously and waited for at the end, so under NCCL bucket
+    ``i``'s runs on NCCL's stream while layer ``i + 1``'s matmul runs."""
+    mesh = _default_mesh(mesh)
+    group = mesh.get_group(axis)
+    n = group.size()
+    device = _group_device(group)
+    m = max(bucket_bytes // 4, 128)
+    gen = torch.Generator().manual_seed(0)
+    w = (torch.randn(d, d, generator=gen) / d ** 0.5).to(device)
+    x0 = torch.randn(d, d, generator=gen).to(device)
+    buf = torch.ones(m, device=device)
+
+    def compute_only():
+        y, acc = x0, torch.zeros((), device=device)
+        for _ in range(layers):
+            y = y @ w
+            acc = acc + y[0, 0]
+        return acc
+
+    def reduce_buckets(buckets):
+        works, outs = [], []
+        for g in buckets():
+            works.append(dist.all_reduce(g, group=group, async_op=True))
+            outs.append(g)
+        acc = torch.zeros((), device=device)
+        for work, g in zip(works, outs):
+            work.wait()
+            acc = acc + g[0]
+        return acc
+
+    def comm_only():
+        # each bucket's payload differs; no matmul feeds it
+        return reduce_buckets(lambda: (buf + float(i) for i in range(layers)))
+
+    def both():
+        def buckets():
+            y = x0
+            for _ in range(layers):
+                y = y @ w
+                yield buf + y[0, 0]  # bucket i depends on layer i only
+        return reduce_buckets(buckets)
+
+    tc = _timed_s(compute_only, iters, warmup, device)
+    tm = _timed_s(comm_only, iters, warmup, device)
+    tb = _timed_s(both, iters, warmup, device)
+    frac = (tc + tm - tb) / max(min(tc, tm), 1e-9)
+    return OverlapBenchResult(
+        n_devices=n, layers=layers, t_compute_s=tc, t_comm_s=tm,
+        t_both_s=tb, overlap_frac=max(min(frac, 1.0), -1.0),
+        bucket_bytes=m * 4)

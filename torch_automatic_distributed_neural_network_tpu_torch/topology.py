@@ -207,16 +207,23 @@ def parse_size(s: str | int | float) -> int:
     return int(float(num) * _SIZE_UNITS[unit])
 
 
-def detect() -> Topology:
+def detect(world: int | None = None, backend: str | None = None
+           ) -> Topology:
     """The devices of this run: the process group's world (one device a
     process), else this process's one device.  A live card's kind is
     its name (``torch.cuda.get_device_name``) and its memory its own
     (``total_memory``, in ``chip_override``); a gloo group, or no CUDA,
-    is the CPU platform."""
+    is the CPU platform.  ``world`` (outside a group): what ``world``
+    processes of this kind would detect under ``backend`` (``nccl``, a
+    card a process, by default when there is a card) — the topology a
+    prewarm exports for (``AutoDistribute.export_step(world=)``)."""
     dist = torch.distributed
     if group_up():
         world = dist.get_world_size()
         on_gpu = dist.get_backend() == "nccl"
+    elif world is not None:
+        on_gpu = (backend or ("nccl" if torch.cuda.is_available()
+                              else "gloo")) == "nccl"
     else:
         world, on_gpu = 1, torch.cuda.is_available()
     local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
@@ -379,6 +386,24 @@ def mesh_degrees(mesh) -> dict[str, int]:
     if isinstance(mesh, Mapping):
         return {ax: int(n) for ax, n in mesh.items()}
     return {ax: int(n) for ax, n in zip(mesh.mesh_dim_names, mesh.shape)}
+
+
+def enable_compilation_cache(cache_dir: str | None = None) -> str:
+    """Keep the built kernel libraries across processes: point this
+    process's kernel builds (``ops/build.py``) at a persistent directory,
+    ``~/.cache/tadnn_kernels`` by default, and return it.
+
+    The JAX package turns on XLA's persistent compilation cache here;
+    the port compiles no program, and its cold start pays the ``nvcc``
+    build of the kernels it launches, so their libraries are what is
+    kept (each keyed by its sources and flags).  Safe to call more than
+    once; the directory is made at the first build.  ``tadnn run``
+    calls it unless ``TADNN_NO_COMPILE_CACHE=1``; a checkout's default
+    stays its own ``build/torch_kernels/``."""
+    from .ops import build
+
+    return str(build.set_build_dir(
+        cache_dir or os.path.expanduser("~/.cache/tadnn_kernels")))
 
 
 def initialize_distributed(*, backend: str | None = None,

@@ -43,9 +43,18 @@ Per-host journals land as ``journal_host<i>.jsonl`` in the launch dir
 and are merged (``obs.aggregate``) at the end; the launcher's own events
 (``launch.*``) go to ``journal_launcher.jsonl``.  ``launch_doctor``
 reads the heartbeats and the persisted ``launch_state.json`` for
-``doctor --launch-dir``.  The export cache (and the elastic prewarm it
-feeds) raises, naming ROADMAP Queue 1 item 4, as
-``AutoDistribute(export_cache=)`` does.
+``doctor --launch-dir``.
+
+**The export cache** (``export_cache``, ``export/``): the cohort shares
+one cache directory (``TADNN_EXPORT_CACHE`` in the workers' environment,
+``--export-cache`` on their command line), so every worker's
+``AutoDistribute.init`` goes cache-first on the kernel libraries its
+step launches, and a restarted cohort installs them instead of running
+``nvcc``.  With ``elastic=True`` the launcher also prewarms the nearest
+shrink worlds in the background (a ``--prewarm`` process per world:
+``AutoDistribute.export_step(world=N)`` stores the entry under the key
+an N-worker cohort looks up), so a scale-down restart opens on
+``export.hit``.
 """
 
 from __future__ import annotations
@@ -71,9 +80,6 @@ HEARTBEAT_DIRNAME = "heartbeats"
 CKPT_DIRNAME = "ckpt"
 STATE_FILE = "launch_state.json"
 
-_EXPORT_ITEM = ("the export cache is not ported to the PyTorch package "
-                "yet (ROADMAP Queue 1 item 4)")
-
 
 @dataclasses.dataclass
 class LaunchConfig:
@@ -96,7 +102,10 @@ class LaunchConfig:
     worker_restarts: int = 0  # in-process run_with_recovery budget
     chaos: ChaosPlan | None = None
     simulate: bool = False  # NCCL, a card a worker; True: gloo on the CPU
-    export_cache: str | None = None  # raises (ROADMAP Queue 1 item 4)
+    # the cohort's export cache dir (export/): workers go cache-first on
+    # their kernels' build, restarted cohorts hit instead of rebuilding,
+    # and with elastic=True the likely shrink worlds are prewarmed
+    export_cache: str | None = None
     # worker model/data (the launcher workload; small on purpose)
     vocab_size: int = 512
     seq_len: int = 33
@@ -127,6 +136,8 @@ def _worker_env(cfg: LaunchConfig, rank: int) -> dict:
     env["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "1"
     if cfg.simulate:
         env["OMP_NUM_THREADS"] = "1"
+    if cfg.export_cache:
+        env["TADNN_EXPORT_CACHE"] = os.path.expanduser(cfg.export_cache)
     return env
 
 
@@ -154,8 +165,6 @@ class Launcher:
     """Spawn and supervise a worker cohort (module docstring)."""
 
     def __init__(self, cfg: LaunchConfig):
-        if cfg.export_cache:
-            raise NotImplementedError(f"export_cache: {_EXPORT_ITEM}")
         if not cfg.simulate:
             import torch
 
@@ -174,6 +183,8 @@ class Launcher:
             os.path.join(self.launch_dir, "journal_launcher.jsonl"),
             host0_only=False, meta={"role": "launcher"})
         self._chaos_fired: set[tuple[str, int]] = set()
+        self._prewarm_procs: list[subprocess.Popen] = []
+        self._prewarmed: set[int] = set()
         self._state: dict = {
             "max_restarts": cfg.max_restarts,
             "restarts_used": 0,
@@ -293,6 +304,9 @@ class Launcher:
                 cmd.append("--zero1")
             if cfg.simulate:
                 cmd.append("--simulate")
+            if cfg.export_cache:
+                cmd += ["--export-cache",
+                        os.path.expanduser(cfg.export_cache)]
             if (cfg.chaos is not None
                     and i == int(cfg.chaos.chaos_host)):
                 for s in self._sigkill_schedule():
@@ -307,6 +321,57 @@ class Launcher:
                            coordinator=init, logical=False,
                            pids=[p.pid for p in procs])
         return procs
+
+    def _prewarm(self, world: int) -> None:
+        """Background cache-fill for a world size the elastic policy
+        may shrink to: a detached ``--prewarm`` process plans the worker
+        model at that world and runs the cache-first export
+        (``AutoDistribute.export_step(world=)``), so a scale-down restart
+        opens on ``export.hit`` instead of an ``nvcc`` build.
+        Fire-and-forget — a prewarm failure costs nothing but the warm
+        start."""
+        cfg = self.cfg
+        if not cfg.export_cache or world < 1 or world in self._prewarmed:
+            return
+        self._prewarmed.add(world)
+        cmd = [
+            sys.executable, "-m", f"{_PKG}.training.launch", "--worker",
+            "--prewarm",
+            "--launch-dir", self.launch_dir,
+            "--process-id", "0", "--num-processes", str(world),
+            "--strategy", cfg.strategy,
+            "--vocab-size", str(cfg.vocab_size),
+            "--seq-len", str(cfg.seq_len),
+            "--batch-size", str(cfg.batch_size),
+            "--lr", str(cfg.lr),
+            "--export-cache", os.path.expanduser(cfg.export_cache),
+        ]
+        if cfg.zero1:
+            cmd.append("--zero1")
+        if cfg.simulate:
+            cmd.append("--simulate")
+        log = open(os.path.join(self.launch_dir,
+                                f"prewarm_w{world}.log"), "ab")
+        proc = subprocess.Popen(cmd, env=_worker_env(cfg, 0), stdout=log,
+                                stderr=subprocess.STDOUT,
+                                cwd=self.launch_dir)
+        log.close()
+        self._prewarm_procs.append(proc)
+        self.journal.event("export.prewarm", world=world, pid=proc.pid)
+
+    def _reap_prewarms(self) -> None:
+        """Wait briefly for in-flight prewarms (so no process outlives
+        the launcher), then kill stragglers."""
+        for p in self._prewarm_procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                try:
+                    p.kill()
+                    p.wait(timeout=5)
+                except (OSError, subprocess.TimeoutExpired):
+                    pass
+        self._prewarm_procs = []
 
     def _kill_cohort(self, procs: list[subprocess.Popen]) -> None:
         for p in procs:
@@ -392,6 +457,12 @@ class Launcher:
         restarts = 0
         failed_at = None
         with obs_journal.as_default(self.journal):
+            if cfg.elastic and cfg.export_cache:
+                # prewarm the nearest shrink worlds while round 0 runs;
+                # each world has its own topology fingerprint, so its
+                # own key
+                for w in list(range(world - 1, cfg.min_hosts - 1, -1))[:2]:
+                    self._prewarm(w)
             while True:
                 self._state["world_history"].append(world)
                 for i in range(world):  # stale results must not satisfy
@@ -418,6 +489,7 @@ class Launcher:
                     "first_beat_s": verdict["first_beat_s"],
                 })
                 if verdict["ok"]:
+                    self._reap_prewarms()
                     results = self._collect(world)
                     self._state.update(done=True, ok=True)
                     self._save_state()
@@ -465,6 +537,7 @@ class Launcher:
                     reason=verdict["reason"], restarts=restarts,
                     max_restarts=cfg.max_restarts, gave_up=gave_up)
                 if gave_up:
+                    self._reap_prewarms()
                     self._state.update(done=True, ok=False)
                     self._save_state()
                     self._merge_journals()
@@ -487,6 +560,9 @@ class Launcher:
                         world_to=new_world, strategy=cfg.strategy,
                         reason=verdict["reason"])
                     world = new_world
+                    # keep one prewarm ahead of the shrink frontier
+                    if new_world - 1 >= cfg.min_hosts:
+                        self._prewarm(new_world - 1)
                 self._save_state()
                 self.policy.sleep(self.policy.delay_s(restarts))
                 round_idx += 1
@@ -585,6 +661,7 @@ def _worker_main(args) -> int:
         strategy=args.strategy,
         zero1=args.zero1,
         device=device,
+        export_cache=args.export_cache or None,
     )
     data = _HostSliced(SyntheticLM(
         vocab_size=args.vocab_size, seq_len=args.seq_len,
@@ -644,6 +721,46 @@ def _worker_main(args) -> int:
     os.replace(tmp, path)
     journal.close()
     torch.distributed.destroy_process_group()
+    return 0
+
+
+def _prewarm_main(args) -> int:
+    """``--prewarm`` entry: plan the exact worker model at the target
+    world size (``--num-processes``) without joining a cohort, run the
+    cache-first export (:meth:`AutoDistribute.export_step` with
+    ``world=``), then exit.  Spawned in the background by an elastic
+    launcher so the shrink cohort's kernels are already in the cache
+    when a host dies."""
+    from ..core import AutoDistribute
+    from ..data.synthetic import SyntheticLM
+    from ..models import GPT2
+    from .losses import next_token_loss
+    from .optim import sgd
+
+    journal = obs_journal.Journal(
+        os.path.join(args.launch_dir,
+                     f"journal_prewarm_w{args.num_processes}.jsonl"),
+        host0_only=False,
+        meta={"role": "prewarm", "world": args.num_processes,
+              "pid": os.getpid()})
+    ad = AutoDistribute(
+        GPT2("test", vocab_size=args.vocab_size,
+             max_seq_len=args.seq_len - 1),
+        optimizer=sgd(args.lr),
+        loss_fn=next_token_loss,
+        strategy=args.strategy,
+        zero1=args.zero1,
+        device="cpu" if args.simulate else None,
+    )
+    # the global batch: a worker's rows scale back to it in the key
+    batch = SyntheticLM(vocab_size=args.vocab_size, seq_len=args.seq_len,
+                        batch_size=args.batch_size).batch(0)
+    with obs_journal.as_default(journal):
+        info = ad.export_step(None, batch, cache=args.export_cache or True,
+                              world=args.num_processes)
+        journal.event("export.prewarm_done", world=args.num_processes,
+                      key=info.get("key") or "", source=info.get("source"))
+    journal.close()
     return 0
 
 
@@ -762,9 +879,12 @@ def _worker_argparser():
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--export-cache", default="",
-                   help="not ported yet (ROADMAP Queue 1 item 4)")
+                   help="the export cache dir (export/): cache-first on "
+                        "the step's kernel build")
     p.add_argument("--prewarm", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 4)")
+                   help="plan for --num-processes, export the step's "
+                        "kernel libraries into --export-cache, and exit "
+                        "(the elastic launcher's background prewarm)")
     p.add_argument("--sigkill-at", type=int, action="append",
                    help="chaos: SIGKILL self right after this step "
                         "(once per launch, latched in the launch dir)")
@@ -777,10 +897,8 @@ def main(argv: list[str] | None = None) -> int:
         print("this entry point is worker-only; use `launch`",
               file=sys.stderr)
         return 2
-    if args.prewarm or args.export_cache:
-        raise NotImplementedError(
-            f"{'--prewarm' if args.prewarm else '--export-cache'}: "
-            f"{_EXPORT_ITEM}")
+    if args.prewarm:
+        return _prewarm_main(args)
     return _worker_main(args)
 
 

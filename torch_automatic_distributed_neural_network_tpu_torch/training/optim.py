@@ -238,6 +238,37 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
+def opt_state_spec_tree(opt_state: Any, params: Params,
+                        param_specs: dict) -> Any:
+    """The optimizer state's ``PartitionSpec``s, inherited from the
+    parameters' (the JAX package's ``training/optim.py``): the same
+    nested structure with each tensor leaf's spec.  A leaf takes the
+    spec of the parameter whose name ends its path (the port's states
+    key their tensors by parameter name) when the shapes match, else of
+    the first parameter of its shape; scalars, counters and unmatched
+    leaves are ``P()`` (replicated)."""
+    from ..planner import P
+
+    shapes = {n: tuple(p.shape) for n, p in params.items()}
+    by_shape: dict[tuple, Any] = {}
+    for n, shape in shapes.items():
+        by_shape.setdefault(shape, param_specs.get(n, P()))
+
+    def walk(tree, name):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, name) for v in tree)
+        shape = tuple(getattr(tree, "shape", ()))
+        if not shape:
+            return P()
+        if shapes.get(name) == shape:
+            return param_specs.get(name, P())
+        return by_shape.get(shape, P())
+
+    return walk(opt_state, None)
+
+
 def _zero1_dim(opt_spec, param_spec) -> int | None:
     """The dim ZeRO-1 shards over ``data`` (the optimizer spec's, where
     the parameter's has none), or None."""
